@@ -3,7 +3,6 @@
 NVIDIA H100.
 
     python3 chip_smoke.py                    # every phase, one card
-    python3 chip_smoke.py --phases kernels   # build + kernel checks only
 
 Phases, each timed; any failure raises and the script exits non-zero
 without a result line:
@@ -33,7 +32,6 @@ beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import re
@@ -43,7 +41,6 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-PHASES = ("kernels", "engine", "cut")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -180,35 +177,46 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
         "detail": detail,
     })
 
-    # ---- B3 quant_matmul_t: the unembedding at decode M=8
+    # ---- B3 quant_matmul_t: the unembedding, decode M=8, prefill M=128
     emb = qp["embed"]
-    x = torch.randn((8, D), generator=gen, device=dev).to(torch.bfloat16)
-    got = qm.quant_matmul_t(x, emb.q, emb.s)
-    want = qm.quant_matmul_t_ref(x, emb.q, emb.s)
-    e = _err(torch, got, want)
-    tol = 2e-5 * float(want.abs().max()) + 1e-6
-    check(e <= tol, f"B3: err {e} > {tol}")
     eb = emb.dequantize(torch.bfloat16)
-    ms = graph_ms(torch, lambda i: qm.quant_matmul_t(x, emb.q, emb.s), 16)
-    plain = graph_ms(torch, lambda i: qm.quant_matmul_t_ref(
-        x, emb.q, emb.s), 4, replays=2)
-    lib = graph_ms(torch, lambda i: torch.matmul(x, eb.t()), 16)
+    detail = []
+    err_max = 0.0
+    for M in (8, 128):
+        x = torch.randn((M, D), generator=gen, device=dev).to(torch.bfloat16)
+        got = qm.quant_matmul_t(x, emb.q, emb.s)
+        want = qm.quant_matmul_t_ref(x, emb.q, emb.s)
+        e = _err(torch, got, want)
+        tol = 2e-5 * float(want.abs().max()) + 1e-6
+        check(e <= tol, f"B3 M={M}: err {e} > {tol}")
+        err_max = max(err_max, e)
+        ms = graph_ms(torch, lambda i: qm.quant_matmul_t(x, emb.q, emb.s), 16)
+        plain = graph_ms(torch, lambda i: qm.quant_matmul_t_ref(
+            x, emb.q, emb.s), 4, replays=2)
+        lib = graph_ms(torch, lambda i: torch.matmul(x, eb.t()), 16)
+        b_ms, b_by = bound(V * D + 2 * V + 2 * M * D + 4 * M * V,
+                           2 * M * D * V)
+        detail.append({"M": M, "K": D, "N": V, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                       "max_abs_err": e})
+        log(f"kernels: B3 unembed M={M:3d}: {ms * 1e3:.1f} us (bound "
+            f"{b_ms * 1e3:.1f} us, plain {plain * 1e3:.1f}, library "
+            f"{lib * 1e3:.1f})")
     del eb
-    b_ms, b_by = bound(V * D + 2 * V + 2 * 8 * D + 4 * 8 * V, 2 * 8 * D * V)
-    log(f"kernels: B3 unembed M=8: {ms * 1e3:.1f} us (bound "
-        f"{b_ms * 1e3:.1f} us, plain {plain * 1e3:.1f}, library "
-        f"{lib * 1e3:.1f})")
+    dec = detail[0]
     out.append({
         "name": "quant_matmul_t", "route": "cuda",
         "source": "instaslice_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "instaslice_tpu/ops/quant_matmul.py:89",
         "work": "the unembedding (32000 x 4096 int8) at decode M=8",
-        "max_abs_err": e, "tol": "2e-5 x max|plain|", "ms": ms,
-        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib,
+        "max_abs_err": err_max, "tol": "2e-5 x max|plain|",
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"], "detail": detail,
     })
 
     # ---- B4 quant_matmul: the same kernel on an unstacked (K, N) weight
+    x = torch.randn((8, D), generator=gen, device=dev).to(torch.bfloat16)
     wq = qp["blocks"]["wq"]
     K, N = wq.q.shape[1:]
     got = qm.quant_matmul(x, wq.q[3], wq.s[3])
@@ -313,29 +321,25 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
     return out
 
 
-def phase_engine(torch, cfg, qp, ops, device="cuda") -> dict:
+def phase_engine(torch, cfg, qp, ops) -> dict:
     """The main path: generate on the 7B int8 engine, launches counted
     across exactly that call."""
     from instaslice_tpu_torch.models.lm import TpuLM
     from instaslice_tpu_torch.serving import ServingEngine
 
-    def sync():
-        if device != "cpu":
-            torch.cuda.synchronize()
-
     eng = ServingEngine(TpuLM(cfg), qp, max_batch=8, max_len=1024,
-                        prefill_len=128, kv_quant=True, device=device)
+                        prefill_len=128, kv_quant=True, device="cuda")
     gen = torch.Generator().manual_seed(11)
     plens = [300, 200, 129, 100, 64, 33, 17, 5]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
                .tolist() for n in plens]
     max_new = 32
-    sync()
+    torch.cuda.synchronize()
     ops.reset_launch_counts()
     eng.decode_steps = eng.prefill_dispatches = 0
     t0 = time.perf_counter()
     results = eng.generate(prompts, max_new_tokens=max_new, block_size=16)
-    sync()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     steps, chunks = eng.decode_steps, eng.prefill_dispatches
@@ -364,13 +368,13 @@ def phase_engine(torch, cfg, qp, ops, device="cuda") -> dict:
     # warm path TTFT: one 128-token prompt through first sampled token
     t0 = time.perf_counter()
     eng.add_request(list(range(2, 130)))
-    sync()
+    torch.cuda.synchronize()
     ttft = time.perf_counter() - t0
     tok_s = eng.throughput(n_steps=64)
     step_ms = 8 / tok_s * 1e3
     log(f"engine: TTFT {ttft * 1e3:.1f} ms (128-token prompt), decode "
         f"{tok_s:.1f} tok/s at batch 8 ({step_ms:.2f} ms/step)")
-    busy = device_busy(torch, eng, 8) if device != "cpu" else None
+    busy = device_busy(torch, eng, 8)
     if busy is not None:
         log(f"engine: device busy {busy['ms_per_step']:.2f} ms per decode "
             f"step = {busy['ms_per_step'] / step_ms:.1%} of the step; by "
@@ -406,7 +410,7 @@ def device_busy(torch, eng, n_steps: int):
     return {"ms_per_step": total, "top": top}
 
 
-def phase_cut(torch, cfg, qp, device="cuda") -> dict:
+def phase_cut(torch, cfg, qp) -> dict:
     """2 layers of the same weights: CPU plain versions vs card kernels,
     one prefill and 4 greedy decode steps (the CPU's tokens fed to
     both)."""
@@ -421,7 +425,7 @@ def phase_cut(torch, cfg, qp, device="cuda") -> dict:
         return leaf[:2].to(dev)
 
     trees = {}
-    for dev in ("cpu", device):
+    for dev in ("cpu", "cuda"):
         trees[dev] = {
             "embed": qp["embed"].to(dev),
             "ln_f": {"scale": qp["ln_f"]["scale"].to(dev)},
@@ -434,46 +438,32 @@ def phase_cut(torch, cfg, qp, device="cuda") -> dict:
     lens = torch.zeros(2, dtype=torch.int32)
     caches = {d: init_cache(cut, 2, 64, quant=True, device=d)
               for d in trees}
-    worst, ties = 0.0, []
+    worst = 0.0
     for step in range(5):
         lg = {}
         for d in trees:
             out, _ = apply_with_cache(cut, trees[d], toks.to(d), caches[d],
                                       lens.to(d))
             lg[d] = out[:, -1].float().cpu()
-        ref, got = lg["cpu"], lg[device]
+        ref, got = lg["cpu"], lg["cuda"]
         check(bool(torch.isfinite(got).all()), "finite logits")
-        # bf16 activations: an element rounding the other way moves the
-        # logits by ~1% of their range; 2% of max|logit| holds that
-        tol = 0.02 * float(ref.abs().max())
+        # bf16 activations, fp32 sums in another order on each side: the
+        # measured gap is ~5e-4 of max|logit| (H100); 5e-3 leaves 10x
+        tol = 5e-3 * float(ref.abs().max())
         err = float((got - ref).abs().max())
         check(err <= tol, f"cut step {step}: logits err {err} > {tol}")
         worst = max(worst, err / float(ref.abs().max()))
         want_tok, got_tok = ref.argmax(-1), got.argmax(-1)
-        for b in range(2):
-            if int(want_tok[b]) != int(got_tok[b]):
-                top2 = ref[b].topk(2).values
-                gap = float(top2[0] - top2[1])
-                check(gap <= tol, f"cut step {step} row {b}: greedy "
-                      f"{int(got_tok[b])} != {int(want_tok[b])}, gap {gap}")
-                ties.append((step, b, gap))
+        check(bool((want_tok == got_tok).all()), f"cut step {step}: greedy "
+              f"tokens {got_tok.tolist()} != {want_tok.tolist()}")
         lens = lens + toks.shape[1]
         toks = want_tok[:, None]
     log(f"cut: 2 layers, prefill 16 + 4 decode steps: max logit error "
-        f"{worst:.2e} of max|logit|, greedy ties within tolerance: {ties}")
-    return {"max_rel_err": worst, "ties": ties}
+        f"{worst:.2e} of max|logit|, greedy tokens equal")
+    return {"max_rel_err": worst}
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
-    args = ap.parse_args()
-    phases = [p for p in args.phases.split(",") if p]
-    bad = set(phases) - set(PHASES)
-    if bad:
-        ap.error(f"unknown phases {sorted(bad)}")
-
     import torch
 
     if not torch.cuda.is_available():
@@ -517,40 +507,31 @@ def main() -> int:
     log(f"init: 7B int8 weights in {timings['init']:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
 
-    kernels, result = [], {}
-    if "kernels" in phases:
-        t0 = time.perf_counter()
-        kernels = phase_kernels(torch, cfg, qp, ops)
-        timings["kernels"] = time.perf_counter() - t0
-    if "engine" in phases:
-        t0 = time.perf_counter()
-        result["engine"] = phase_engine(torch, cfg, qp, ops)
-        timings["engine"] = time.perf_counter() - t0
-        for k in kernels:
-            k["launches"] = result["engine"]["counts"][k["name"]]
+    t0 = time.perf_counter()
+    kernels = phase_kernels(torch, cfg, qp, ops)
+    timings["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = phase_engine(torch, cfg, qp, ops)
+    timings["engine"] = time.perf_counter() - t0
     for k in kernels:
-        k.setdefault("launches", None)
+        k["launches"] = eng["counts"][k["name"]]
         log(f"kernel {k['name']} ({k['work']}): launches {k['launches']}, "
             f"{k['ms'] * 1e3:.1f} us, bound {k['bound_ms'] * 1e3:.1f} us "
             f"({k['bound_by']}), plain {k['plain_ms'] * 1e3:.1f} us, "
             f"library {k['library_ms'] * 1e3:.1f} us, max abs err "
             f"{k['max_abs_err']:.2e} (tol {k['tol']})")
-    if "cut" in phases:
-        t0 = time.perf_counter()
-        result["cut"] = phase_cut(torch, cfg, qp)
-        timings["cut"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_cut(torch, cfg, qp)
+    timings["cut"] = time.perf_counter() - t0
     timings["total"] = time.perf_counter() - t_all
     log("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items()))
-    if "engine" in result:
-        e = result["engine"]
-        busy = e["device_busy"]
-        log(json.dumps({"card": card, "decode_tok_s_b8": e["decode_tok_s"],
-                        "step_ms": e["step_ms"], "ttft_ms": e["ttft_ms"],
-                        "device_ms_per_step": busy and busy["ms_per_step"],
-                        "decode_steps": e["decode_steps"],
-                        "prefill_chunks": e["prefill_chunks"]}))
-    if kernels:
-        print(json.dumps({"card": card, "kernels": kernels}), flush=True)
+    busy = eng["device_busy"]
+    log(json.dumps({"card": card, "decode_tok_s_b8": eng["decode_tok_s"],
+                    "step_ms": eng["step_ms"], "ttft_ms": eng["ttft_ms"],
+                    "device_ms_per_step": busy and busy["ms_per_step"],
+                    "decode_steps": eng["decode_steps"],
+                    "prefill_chunks": eng["prefill_chunks"]}))
+    print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
