@@ -23,7 +23,30 @@ without a result line:
    tokens/s;
 4. cut: the same weights cut to 2 layers run one prefill and 4 decode
    steps on the CPU (plain versions) and on the card (kernels); logits
-   within the stated tolerance, greedy tokens equal.
+   within the stated tolerance, greedy tokens equal;
+5. train kernels: the flash-attention forward (B5) and backward (B6 dq,
+   B7 dk/dv) against their plain versions in bf16 at (B*H 128, S 1024,
+   hd 128) causal, at S 1025 (the training CLI's row width) and
+   non-causal, by the largest difference and by relative L2 error over
+   each output and over its worst 64-row tile; timed like phase 2,
+   beside SDPA (forward, and forward + backward) as the library
+   yardstick;
+   then the bf16 cut: the 871M configuration cut to 2 layers at its
+   training precision, batch 2 x 1024: loss and grads through B5-B7
+   against the same with their plain versions in the kernels' place;
+6. train (the second main path): the 871M configuration (``vocab 32000,
+   d_model 2048, 16 heads, 16 layers, d_ff 8192``, seeded random fp32
+   master weights, bf16 compute) through ``make_train_step`` at batch 8 x
+   1024 tokens: 1 warm-up and 4 timed steps on one batch, loss finite and
+   falling, B5/B6/B7 launches exactly 16 per step; step ms, tokens/s,
+   MFU, device busy share and peak memory;
+7. CLI: ``instaslice_tpu_torch.cli.train_main`` on a synthetic corpus at
+   the 871M defaults, 3 steps at ``--seq-len 1024`` (rows of 1025
+   tokens: the ragged path), its JSON line checked;
+8. train cut: the 871M configuration cut to 2 layers in fp32 at batch 2 x
+   256: loss, grads, and the params and each leaf's update after 3 AdamW
+   steps (clip, warmup) on the CPU (plain versions) and on the card
+   (kernels), within the stated tolerances.
 
 Then the ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
@@ -34,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -46,7 +70,45 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
+#: CPU-vs-card tolerances of the fp32 train cut (phase 8): relative loss
+#: error, the relative L2 error of the grads (each leaf's worst), the
+#: largest absolute difference of the params after 3 AdamW steps (which
+#: move them by ~1e-3) and the relative L2 error of each leaf's update
+#: over the 3 steps (the worst). fp32 on both sides, sums in another
+#: order; measured on an H100 at 700 W: 8.5e-8, 2.1e-6, 2.3e-6 and
+#: 1.2e-5; each tolerance is about 10x its measurement
+CUT_TOL = {"loss": 1e-6, "grads": 2.5e-5, "params": 2.5e-5,
+           "update": 1.2e-4}
+
+#: B5-B7 in bf16 against their plain versions (phase 5): relative L2
+#: error of each output tensor, and of its worst 64-row tile; measured
+#: on an H100 at 700 W: at most 2.7e-3 and 5.0e-3; a kernel dropping one
+#: key or query tile reads 0.3-0.9 on its worst tile
+FLASH_TOL = {"rel_l2": 1e-2, "tile_rel_l2": 2e-2}
+FLASH_TOL_TEXT = ("bf16 outputs: max abs <= 2**-7 x max|plain|, rel L2 <= "
+                  f"{FLASH_TOL['rel_l2']:g}, worst 64-row tile rel L2 <= "
+                  f"{FLASH_TOL['tile_rel_l2']:g}; lse: 1e-5 x max|plain|")
+
+#: the bf16 2-layer cut on the card (phase 6): loss and grads through the
+#: kernels against the same step through the plain versions; relative
+#: loss error and each grad leaf's relative L2 error (the worst); the
+#: kernels round p and ds to bf16, which bf16 activations carry through
+#: both layers. Measured on an H100 at 700 W: 1.9e-6 and 8.5e-3
+BF16_CUT_TOL = {"loss": 2e-5, "grads": 5e-2}
+
 BIG = ("wq", "wk", "wv", "wo", "w_in", "w_out")
+
+#: device-time classes of a profiled step: the first class whose pattern
+#: occurs in a kernel's (lower-cased) name takes it
+KERNEL_CLASSES = (
+    ("flash attention B5-B7", ("fa_fwd", "fa_bwd", "tc::")),
+    ("w8a16 and decode kernels B1-B4", ("qmm_", "fd_kernel")),
+    ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("optimizer", ("adam", "multi_tensor")),
+    ("elementwise", ("elementwise",)),
+    ("reductions", ("reduce",)),
+)
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -364,6 +426,7 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
     check(counts["quant_matmul_t"] == forwards > 0,
           "B3 launches = forwards")
     check(counts["quant_matmul"] == 0, "B4 is not on this path")
+    check(all(counts[n] == 0 for n in FLASH), "B5-B7 are not on this path")
 
     # warm path TTFT: one 128-token prompt through first sampled token
     t0 = time.perf_counter()
@@ -374,7 +437,10 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
     step_ms = 8 / tok_s * 1e3
     log(f"engine: TTFT {ttft * 1e3:.1f} ms (128-token prompt), decode "
         f"{tok_s:.1f} tok/s at batch 8 ({step_ms:.2f} ms/step)")
-    busy = device_busy(torch, eng, 8)
+    for _ in range(8 - len(eng.slots)):
+        eng.add_request([1, 2, 3])
+    eng.decode_block(1)
+    busy = device_busy(torch, lambda: eng.decode_block(8), 8)
     if busy is not None:
         log(f"engine: device busy {busy['ms_per_step']:.2f} ms per decode "
             f"step = {busy['ms_per_step'] / step_ms:.1%} of the step; by "
@@ -384,30 +450,36 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
             "step_ms": step_ms, "device_busy": busy}
 
 
-def device_busy(torch, eng, n_steps: int):
-    """Device time per decode step, by kernel, from a torch.profiler
-    window over one decode block (None when the profiler reports no
+def device_busy(torch, run, n_steps: int):
+    """Device time per step, by kernel, from a torch.profiler window over
+    ``run()`` (``n_steps`` steps; None when the profiler reports no
     device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(8 - len(eng.slots)):
-        eng.add_request([1, 2, 3])
-    eng.decode_block(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.decode_block(n_steps)
+        run()
         torch.cuda.synchronize()
+    # kernels only: a user annotation (the optimizer's record_function
+    # range) spans kernels that are counted on their own
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and not getattr(e, "is_user_annotation", False)]
     if not rows:
         return None
     rows.sort(key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in rows) / 1e3 / n_steps
     top = {e.key[:48]: round(e.self_device_time_total / 1e3 / n_steps, 3)
-           for e in rows[:6]}
-    return {"ms_per_step": total, "top": top}
+           for e in rows[:8]}
+    by_class = {}
+    for e in rows:
+        name = next((c for c, pats in KERNEL_CLASSES
+                     if any(p in e.key.lower() for p in pats)), "other")
+        by_class[name] = round(by_class.get(name, 0.0)
+                               + e.self_device_time_total / 1e3 / n_steps, 3)
+    return {"ms_per_step": total, "top": top, "by_class": by_class}
 
 
 def phase_cut(torch, cfg, qp) -> dict:
@@ -463,6 +535,410 @@ def phase_cut(torch, cfg, qp) -> dict:
     return {"max_rel_err": worst}
 
 
+def param_count(cfg) -> int:
+    """Matmul parameters of a dense TpuLM (the embedding once, tied
+    unembedding; norms left out): ``instaslice_tpu/bench_tpu.py:355``."""
+    attn = (2 * cfg.d_model * cfg.n_heads * cfg.head_dim
+            + 2 * cfg.d_model * cfg.kv_heads * cfg.head_dim)
+    return (cfg.vocab_size * cfg.d_model
+            + cfg.n_layers * (attn + 2 * cfg.d_model * cfg.d_ff))
+
+
+def train_config(torch, n_layers: int = 16, **kw):
+    """The repo's headline training configuration, 871M
+    (``README.md:323``, ``instaslice_tpu/bench_tpu.py:694-791``)."""
+    from instaslice_tpu_torch.models.lm import ModelConfig
+
+    base = dict(vocab_size=32000, d_model=2048, n_heads=16,
+                n_layers=n_layers, d_ff=8192, max_seq_len=2048,
+                dtype=torch.bfloat16, param_dtype=torch.float32,
+                remat=False)
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def events_ms(torch, fn, n: int) -> float:
+    """Device time per call of ``fn()`` between CUDA events, n calls after
+    two warm-ups (for work that is not captured in a graph)."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def flash_errors(torch, got, want) -> dict:
+    """How far a flash kernel's output lies from its plain version: the
+    largest absolute difference (also over max|plain|), the relative L2
+    error of the whole tensor, and the worst relative L2 error of one
+    64-row tile of one (batch, head) (the unit a kernel block writes).
+    Causal rows fall off roughly as 1/sqrt(position), so only the tile
+    reading sees a fault confined to the small late rows."""
+    got, want = got.float(), want.float()
+    diff = got - want
+    e = float(diff.abs().max())
+    scale = float(want.abs().max())
+    rel = float(diff.norm() / want.norm().clamp_min(1e-30))
+    if got.dim() == 3:                   # (BH, S, hd): 64-row tiles
+        BH, S, hd = got.shape
+        pad = -S % 64
+        d_t = torch.nn.functional.pad(diff, (0, 0, 0, pad)).reshape(
+            BH, -1, 64 * hd)
+        w_t = torch.nn.functional.pad(want, (0, 0, 0, pad)).reshape(
+            BH, -1, 64 * hd)
+        tile = float((d_t.norm(dim=-1)
+                      / w_t.norm(dim=-1).clamp_min(1e-30)).max())
+    else:
+        tile = rel
+    return {"max_abs": e, "max_rel": e / max(scale, 1e-30), "rel_l2": rel,
+            "tile_rel_l2": tile}
+
+
+def check_flash(r: dict, fp32: bool, what: str) -> None:
+    """bf16 outputs (o, dq, dk, dv): at most about one bf16 rounding from
+    the plain version at the largest element, and within FLASH_TOL in
+    relative L2 over the tensor and over every 64-row tile (the kernels
+    round p and ds to bf16 before their products, the plain versions
+    keep fp32); fp32 lse: 1e-5 of its largest value."""
+    if fp32:
+        check(r["max_rel"] <= 1e-5, f"{what}: max abs err {r['max_abs']} "
+              f"> 1e-5 of max|plain|")
+        return
+    check(r["max_rel"] <= 2 ** -7, f"{what}: max abs err {r['max_abs']} "
+          f"> 2**-7 of max|plain|")
+    for key in ("rel_l2", "tile_rel_l2"):
+        check(r[key] <= FLASH_TOL[key], f"{what}: {key} err {r[key]} > "
+              f"{FLASH_TOL[key]}")
+
+
+def phase_train_kernels(torch, fa) -> list:
+    """B5, B6 and B7 against their plain versions on the card, bf16, at the
+    871M train step's per-layer shape (B*H 128, S 1024, hd 128) causal,
+    plus S 1025 and non-causal; times at the main shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    BH, hd = 128, 128
+    errs = {name: 0.0 for name in FLASH}
+    worst = {name: {"rel_l2": 0.0, "tile_rel_l2": 0.0} for name in FLASH}
+    main = None
+    for S, causal in ((1024, True), (1025, True), (1024, False)):
+        q, k, v, do = (torch.randn((BH, S, hd), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        ro, rlse = fa.flash_fwd_ref(q, k, v, causal)
+        delta = (do.float() * ro.float()).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, do, rlse, delta, causal)
+        rdq = fa.flash_bwd_dq_ref(q, k, v, do, rlse, delta, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
+        rdk, rdv = fa.flash_bwd_dkv_ref(q, k, v, do, rlse, delta, causal)
+        for name, pairs in (("flash_fwd", (("o", o, ro), ("lse", lse, rlse))),
+                            ("flash_bwd_dq", (("dq", dq, rdq),)),
+                            ("flash_bwd_dkv", (("dk", dk, rdk),
+                                               ("dv", dv, rdv)))):
+            for what, got, want in pairs:
+                r = flash_errors(torch, got, want)
+                log(f"train kernels: {name} {what} S={S} causal={causal}: "
+                    f"max abs {r['max_abs']:.3e} = {r['max_rel']:.3e} of "
+                    f"max|plain|, rel L2 {r['rel_l2']:.3e}, worst 64-row "
+                    f"tile rel L2 {r['tile_rel_l2']:.3e}")
+                check_flash(r, got.dtype == torch.float32,
+                            f"{name} {what} S={S} causal={causal}")
+                errs[name] = max(errs[name], r["max_abs"])
+                if got.dtype == torch.bfloat16:
+                    for key in worst[name]:
+                        worst[name][key] = max(worst[name][key], r[key])
+        if S == 1024 and causal:
+            main = (q, k, v, do, rlse, delta)
+        del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv
+    q, k, v, do, lse, delta = main
+    S = 1024
+    pairs = S * (S + 1) // 2                  # causal (query, key) pairs
+    row = BH * S * hd * 2                     # one bf16 (BH, S, hd) tensor
+    stats = BH * S * 4                        # one fp32 (BH, S) row vector
+    # (bytes, flops): inputs read once, outputs written once; 2 flops per
+    # multiply-add over the causal pairs, 2 / 3 / 4 products per kernel
+    work = {"flash_fwd": (3 * row + row + stats, 4 * pairs * hd * BH),
+            "flash_bwd_dq": (4 * row + 2 * stats + row,
+                             6 * pairs * hd * BH),
+            "flash_bwd_dkv": (4 * row + 2 * stats + 2 * row,
+                              8 * pairs * hd * BH)}
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True),
+                      lambda: fa.flash_fwd_ref(q, k, v, True)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, True)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, True)),
+    }
+    # library yardstick: SDPA (B, H, S, hd) with is_causal, forward alone
+    # (graph replays) and forward + backward (events); timed, never used
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shp = (8, 16, S, hd)
+    qs, ks, vs = (t.reshape(shp).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dos = do.reshape(shp)
+    lib_fwd = graph_ms(torch, lambda i: sdpa(qs.detach(), ks.detach(),
+                                             vs.detach(), is_causal=True), 8)
+    lib_fb = events_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), dos), 32)
+    out = []
+    line = {"flash_fwd": "73", "flash_bwd_dq": "130", "flash_bwd_dkv": "183"}
+    for name, (kern, plain) in calls.items():
+        ms = graph_ms(torch, lambda i: kern(), 8)
+        plain_ms = graph_ms(torch, lambda i: plain(), 2, replays=2)
+        b_ms, b_by = bound(*work[name])
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "instaslice_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"instaslice_tpu/ops/flash_attention.py:{line[name]}",
+            "work": "one layer of the 871M train step: B*H 128, S 1024, "
+                    "hd 128, bf16, causal",
+            "max_abs_err": errs[name],
+            "rel_l2_err": worst[name]["rel_l2"],
+            "tile_rel_l2_err": worst[name]["tile_rel_l2"],
+            "tol": FLASH_TOL_TEXT,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_fwd if name == "flash_fwd" else None,
+        }
+        if name != "flash_fwd":
+            entry["library_note"] = (
+                "no PyTorch call computes this alone; SDPA's backward "
+                f"(dq, dk, dv together) = {lib_fb - lib_fwd:.4f} ms, SDPA "
+                f"forward + backward = {lib_fb:.4f} ms")
+        out.append(entry)
+        log(f"train kernels: {name} S=1024 causal: {ms * 1e3:.1f} us "
+            f"(bound {b_ms * 1e3:.1f} us, {b_by}; plain "
+            f"{plain_ms * 1e3:.1f} us)")
+    log(f"train kernels: SDPA is_causal forward {lib_fwd * 1e3:.1f} us, "
+        f"forward + backward {lib_fb * 1e3:.1f} us")
+    del main, q, k, v, do, lse, delta, qs, ks, vs, dos
+    torch.cuda.empty_cache()
+    return out
+
+
+class plain_flash:
+    """Within the block, the flash-attention autograd path takes the
+    plain versions of B5-B7 (on the same card tensors) in place of the
+    kernels; for the bf16 cut's reference only."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.kernels = {name: getattr(fa, name) for name in FLASH}
+
+    def __enter__(self):
+        for name in FLASH:
+            setattr(self.fa, name, getattr(self.fa, f"{name}_ref"))
+
+    def __exit__(self, *exc):
+        for name, fn in self.kernels.items():
+            setattr(self.fa, name, fn)
+
+
+def phase_bf16_cut(torch, ops) -> dict:
+    """The 871M configuration cut to 2 layers at its training precision
+    (bf16 compute over fp32 masters) and batch 2 x 1024, on the card:
+    loss and grads through B5-B7 against the same loss and grads with
+    the plain versions of B5-B7 in their place."""
+    from instaslice_tpu_torch.models.lm import TpuLM, init_params
+    from instaslice_tpu_torch.models.train import leaves, loss_fn
+
+    fa = ops.flash_attention
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = train_config(torch, n_layers=2)
+    model = TpuLM(cfg)
+    params = init_params(cfg, 23, device="cuda")
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                           device="cuda")
+
+    def loss_grads():
+        loss = loss_fn(model, params, tokens)
+        return float(loss), torch.autograd.grad(loss, ps)
+
+    before = [getattr(fa, n).launches for n in FLASH]
+    l_k, g_k = loss_grads()
+    launched = [getattr(fa, n).launches - b for n, b in zip(FLASH, before)]
+    check(launched == [cfg.n_layers] * 3, f"bf16 cut: launches {launched}")
+    with plain_flash(fa):
+        l_p, g_p = loss_grads()
+    check(launched == [getattr(fa, n).launches - b
+                       for n, b in zip(FLASH, before)],
+          "bf16 cut: the plain run launched no kernel")
+    check(math.isfinite(l_k), "bf16 cut: finite loss")
+    loss_err = abs(l_k - l_p) / abs(l_p)
+    grad_errs = [float((a.float() - b.float()).norm()
+                       / b.float().norm().clamp_min(1e-30))
+                 for a, b in zip(g_k, g_p)]
+    grad_err = max(grad_errs)
+    log(f"bf16 cut: 2 layers B=2 S=1024, loss kernels {l_k} plain {l_p} "
+        f"(rel err {loss_err:.2e}); grads rel L2 err by leaf "
+        f"{[f'{e:.2e}' for e in grad_errs]}")
+    check(loss_err <= BF16_CUT_TOL["loss"], f"bf16 cut loss err {loss_err}")
+    check(grad_err <= BF16_CUT_TOL["grads"], f"bf16 cut grads err {grad_err}")
+    del params, ps, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "grad_rel_l2_err": grad_err}
+
+
+def phase_train(torch, ops) -> dict:
+    """The training main path: the 871M train step at batch 8 x 1024,
+    launch counters zeroed just before and read just after."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.models.train import make_train_step
+
+    cfg = train_config(torch)
+    B, S, n_timed = 8, 1024, 4
+    # as the training CLI: the fp32-output unembedding in TF32 (exact on
+    # the forward's bf16 operands; its backward rounds dlogits to TF32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    init_fn, step_fn = make_train_step(TpuLM(cfg), learning_rate=3e-4,
+                                       grad_clip=1.0, device="cuda")
+    state = init_fn(0)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses = []
+    state, loss = step_fn(state, tokens)          # warm-up
+    losses.append(float(loss))
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, loss = step_fn(state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = [float(x) for x in losses]
+    steps = 1 + n_timed
+    log(f"train: 871M B={B} S={S}, {steps} steps, losses {losses}, "
+        f"launches {counts}")
+    check(all(math.isfinite(x) for x in losses), "finite losses")
+    check(losses[-1] < losses[0], "the loss falls over the steps")
+    for name in FLASH:
+        check(counts[name] == cfg.n_layers * steps,
+              f"{name} launches = layers x steps")
+    check(all(counts[n] == 0 for n in counts if n not in FLASH),
+          "no serving kernel on the train path")
+    step_s = wall / n_timed
+    n_params = param_count(cfg)
+    mfu = 6 * n_params * B * S / step_s / BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy = device_busy(torch, lambda: step_fn(state, tokens), 1)
+    log(f"train: {step_s * 1e3:.1f} ms/step, {B * S / step_s:.0f} tokens/s, "
+        f"MFU {mfu:.4f} (6 x {n_params / 1e6:.1f}M x {B * S} tokens over "
+        f"989 TFLOP/s), peak memory {peak:.2f} GiB")
+    if busy is not None:
+        log(f"train: device busy {busy['ms_per_step']:.1f} ms per step = "
+            f"{busy['ms_per_step'] / (step_s * 1e3):.1%}; by class "
+            f"(ms/step): {busy['by_class']}; by kernel: {busy['top']}")
+    del state
+    torch.cuda.empty_cache()
+    return {"counts": counts, "steps": steps, "losses": losses,
+            "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
+            "mfu": mfu, "params_m": n_params / 1e6, "peak_gib": peak,
+            "device_busy": busy}
+
+
+def phase_cli(torch, ops) -> dict:
+    """``train_main`` on the card at the 871M defaults: 3 steps of rows of
+    1025 tokens (--seq-len 1024), its JSON line read back."""
+    import contextlib
+    import io
+
+    from instaslice_tpu_torch.cli import train_main
+
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_main.main(["--synthetic", "100000", "--seq-len", "1024",
+                              "--global-batch", "8", "--steps", "3",
+                              "--log-every", "1", "--seed", "1"])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"cli: rc {rc} in {wall:.1f} s: {json.dumps(line)}; launches "
+        f"{counts}")
+    check(rc == 0, "train_main exits 0")
+    check(line["steps"] == 3 and line["backend"] == "cuda", "cli JSON line")
+    check(line["final_loss"] is not None
+          and math.isfinite(line["final_loss"]), "cli final loss finite")
+    for name in FLASH:
+        check(counts[name] == 16 * 3, f"cli: {name} launches = 16 x 3")
+    torch.cuda.empty_cache()
+    return {"line": line, "counts": counts}
+
+
+def phase_train_cut(torch) -> dict:
+    """2 layers of the 871M configuration in fp32 at batch 2 x 256: loss
+    and grads at the initial weights, then params after 3 AdamW steps
+    (clip 1.0, warmup 2, decay 3), CPU plain versions vs card kernels."""
+    from instaslice_tpu_torch.models.lm import TpuLM, init_params
+    from instaslice_tpu_torch.models.train import (
+        leaves,
+        loss_fn,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(torch, n_layers=2, dtype=torch.float32,
+                       param_dtype=None)
+    model = TpuLM(cfg)
+    params = init_params(cfg, 3, device="cpu")
+    gen = torch.Generator().manual_seed(19)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+               for _ in range(3)]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        init_fn, step_fn = make_train_step(
+            model, learning_rate=1e-3, grad_clip=1.0, warmup_steps=2,
+            decay_steps=3, device=dev)
+        state = init_fn(params=params)
+        ps = leaves(state.params)
+        loss0 = loss_fn(model, state.params, batches[0].to(dev))
+        grads = [g.cpu() for g in torch.autograd.grad(loss0, ps)]
+        losses = []
+        for toks in batches:
+            state, loss = step_fn(state, toks)
+            losses.append(float(loss))
+        res[dev] = (float(loss0.detach()), grads, losses,
+                    [p.detach().cpu() for p in leaves(state.params)])
+    (l_c, g_c, ls_c, p_c), (l_g, g_g, ls_g, p_g) = res["cpu"], res["cuda"]
+    p0 = leaves(params)
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip([l_g] + ls_g, [l_c] + ls_c))
+    grad_err = max(rel_l2(a, b) for a, b in zip(g_g, g_c))
+    upd_err = max(rel_l2(a - w, b - w) for a, b, w in zip(p_g, p_c, p0))
+    par_err = max(float((a - b).abs().max()) for a, b in zip(p_g, p_c))
+    log(f"train cut: losses cpu {ls_c} card {ls_g}; loss rel err "
+        f"{loss_err:.2e}, grads rel L2 err {grad_err:.2e}, param update "
+        f"rel L2 err {upd_err:.2e}, param max abs err {par_err:.2e}")
+    check(loss_err <= CUT_TOL["loss"], f"train cut loss err {loss_err}")
+    check(grad_err <= CUT_TOL["grads"], f"train cut grads err {grad_err}")
+    check(upd_err <= CUT_TOL["update"], f"train cut update err {upd_err}")
+    check(par_err <= CUT_TOL["params"], f"train cut params err {par_err}")
+    return {"loss_rel_err": loss_err, "grad_rel_l2_err": grad_err,
+            "update_rel_l2_err": upd_err, "param_max_abs_err": par_err}
+
+
 def main() -> int:
     import torch
 
@@ -513,17 +989,43 @@ def main() -> int:
     t0 = time.perf_counter()
     eng = phase_engine(torch, cfg, qp, ops)
     timings["engine"] = time.perf_counter() - t0
-    for k in kernels:
-        k["launches"] = eng["counts"][k["name"]]
-        log(f"kernel {k['name']} ({k['work']}): launches {k['launches']}, "
-            f"{k['ms'] * 1e3:.1f} us, bound {k['bound_ms'] * 1e3:.1f} us "
-            f"({k['bound_by']}), plain {k['plain_ms'] * 1e3:.1f} us, "
-            f"library {k['library_ms'] * 1e3:.1f} us, max abs err "
-            f"{k['max_abs_err']:.2e} (tol {k['tol']})")
     t0 = time.perf_counter()
     phase_cut(torch, cfg, qp)
     timings["cut"] = time.perf_counter() - t0
+    del qp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train_kernels = phase_train_kernels(torch, ops.flash_attention)
+    timings["train_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf16_cut = phase_bf16_cut(torch, ops)
+    timings["bf16_cut"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = phase_train(torch, ops)
+    timings["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = phase_cli(torch, ops)
+    timings["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cut = phase_train_cut(torch)
+    timings["train_cut"] = time.perf_counter() - t0
     timings["total"] = time.perf_counter() - t_all
+
+    # launches: each kernel's count from the main path that runs it (the
+    # engine's generate for B1-B4, the 871M train steps for B5-B7)
+    for k in kernels:
+        k["launches"] = eng["counts"][k["name"]]
+    for k in train_kernels:
+        k["launches"] = train["counts"][k["name"]]
+    kernels += train_kernels
+    for k in kernels:
+        lib = k["library_ms"]
+        log(f"kernel {k['name']} ({k['work']}): launches {k['launches']}, "
+            f"{k['ms'] * 1e3:.1f} us, bound {k['bound_ms'] * 1e3:.1f} us "
+            f"({k['bound_by']}), plain {k['plain_ms'] * 1e3:.1f} us, "
+            f"library {'-' if lib is None else f'{lib * 1e3:.1f} us'}, "
+            f"max abs err {k['max_abs_err']:.2e} (tol {k['tol']})")
     log("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items()))
     busy = eng["device_busy"]
     log(json.dumps({"card": card, "decode_tok_s_b8": eng["decode_tok_s"],
@@ -531,6 +1033,18 @@ def main() -> int:
                     "device_ms_per_step": busy and busy["ms_per_step"],
                     "decode_steps": eng["decode_steps"],
                     "prefill_chunks": eng["prefill_chunks"]}))
+    tbusy = train["device_busy"]
+    log(json.dumps({"card": card, "train_step_ms": train["step_ms"],
+                    "train_tokens_per_s": train["tokens_per_s"],
+                    "train_mfu": train["mfu"],
+                    "train_params_m": train["params_m"],
+                    "train_peak_gib": train["peak_gib"],
+                    "train_device_ms_per_step":
+                        tbusy and tbusy["ms_per_step"],
+                    "train_device_ms_by_class": tbusy and tbusy["by_class"],
+                    "train_losses": train["losses"],
+                    "cli": cli["line"], "bf16_cut": bf16_cut,
+                    "train_cut": cut}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

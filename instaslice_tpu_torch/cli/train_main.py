@@ -1,0 +1,230 @@
+"""The training entry point on one card (port of
+``instaslice_tpu/cli/train_main.py``, ``tpuslice-train``).
+
+    python -m instaslice_tpu_torch.cli.train_main --synthetic 200000 \\
+        --seq-len 1024 --global-batch 8 --steps 20
+
+Streams batches from a memory-mapped token file (or a seeded synthetic
+corpus), runs :func:`~instaslice_tpu_torch.models.train.make_train_step`
+and checkpoints through
+:class:`~instaslice_tpu_torch.models.checkpoint.TrainCheckpointer` with
+bit-identical resume. On the card (``--device cuda``, the default) it
+computes in bf16 over fp32 master weights (``--param-dtype same`` keeps
+the weights in bf16); with ``--device cpu`` in fp32, as the reference
+does off the TPU. It ends with the reference's JSON line, with
+``"backend"`` naming the device.
+
+Flags of the reference that the port does not run yet exit non-zero
+and name their ROADMAP queue-A item: ``--ring``, ``--tp``/``--sp`` > 1,
+``--from-env``, ``--lora-rank`` (and the LoRA options), ``--zero1``,
+``--n-experts`` > 0, ``--remat dots``. Dataset rows are ``seq_len + 1``
+tokens wide, so the model runs at S = seq_len + 1, which the flash
+kernels take as it is.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import tempfile
+import time
+
+log = logging.getLogger("instaslice_tpu_torch.train")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="instaslice_tpu_torch.cli.train_main")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--data", default="",
+                     help="token file (.npy / .u16 / .u32 flat stream)")
+    src.add_argument("--synthetic", type=int, default=0, metavar="N",
+                     help="train on N random tokens (no dataset needed)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="micro-batches per optimizer update")
+    ap.add_argument("--grad-clip", type=float, default=1.0,
+                    help="global L2 gradient-norm clip (0 disables)")
+    ap.add_argument("--warmup-steps", type=int, default=0,
+                    help=">0: linear warmup then cosine decay to 10%% "
+                         "over --steps")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--d-model", type=int, default=2048)
+    ap.add_argument("--n-heads", type=int, default=16)
+    ap.add_argument("--n-kv-heads", type=int, default=0)
+    ap.add_argument("--n-layers", type=int, default=16)
+    ap.add_argument("--d-ff", type=int, default=8192)
+    ap.add_argument("--vocab-size", type=int, default=32000)
+    ap.add_argument("--n-experts", type=int, default=0)
+    ap.add_argument("--window", type=int, default=0,
+                    help="sliding-window attention (0 = full causal)")
+    ap.add_argument("--remat", default="none",
+                    choices=("none", "dots", "full"))
+    ap.add_argument("--ring", action="store_true")
+    ap.add_argument("--from-env", action="store_true")
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--sp", type=int, default=1)
+    ap.add_argument("--param-dtype", default="float32",
+                    choices=["float32", "same"],
+                    help="weight storage dtype on the card (float32 = "
+                         "master weights; same = the bf16 compute dtype)")
+    ap.add_argument("--lora-rank", type=int, default=0)
+    ap.add_argument("--lora-alpha", type=float, default=16.0)
+    ap.add_argument("--lora-targets", default="wq,wv")
+    ap.add_argument("--base-checkpoint", default="")
+    ap.add_argument("--quantize-base", action="store_true")
+    ap.add_argument("--zero1", action="store_true")
+    ap.add_argument("--checkpoint", default="",
+                    help="checkpoint dir (resume if it has one)")
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--max-keep", type=int, default=3)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    return ap
+
+
+def _refuse_unported(args) -> None:
+    """Exit non-zero on a flag whose path is not ported yet."""
+    unported = [
+        (args.ring, "--ring", "ring attention"),
+        (args.tp > 1 or args.sp > 1, "--tp/--sp > 1", "the parallel layer"),
+        (args.from_env, "--from-env", "multi-host training"),
+        (args.lora_rank > 0 or args.base_checkpoint or args.quantize_base,
+         "--lora-rank/--base-checkpoint/--quantize-base", "LoRA training"),
+        (args.zero1, "--zero1", "the parallel layer"),
+        (args.n_experts > 0, "--n-experts", "MoE training"),
+        (args.remat == "dots", "--remat dots", "remat policy 'dots'"),
+    ]
+    for hit, flag, item in unported:
+        if hit:
+            raise SystemExit(f"{flag} is not ported yet ({item}: ROADMAP "
+                             "queue A, training)")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    _refuse_unported(args)
+
+    import numpy as np
+    import torch
+
+    from instaslice_tpu_torch import resolve_device
+    from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
+    from instaslice_tpu_torch.models.data import (
+        Prefetcher,
+        TokenDataset,
+        batch_for_step,
+        write_token_file,
+    )
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    from instaslice_tpu_torch.models.train import leaves, make_train_step
+
+    dev = resolve_device(args.device)
+    on_card = dev.type == "cuda"
+    cfg = ModelConfig(
+        vocab_size=args.vocab_size, d_model=args.d_model,
+        n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff,
+        max_seq_len=args.seq_len + 1,
+        dtype=torch.bfloat16 if on_card else torch.float32,
+        # mixed precision on the card: bf16 compute, fp32 master weights
+        param_dtype=(torch.float32 if on_card
+                     and args.param_dtype == "float32" else None),
+        window=args.window, remat=args.remat != "none",
+        remat_policy="full",
+    )
+    # the fp32-output products (the unembedding) run on the tensor cores
+    # in TF32: exact on the forward's bf16 operands; the backward rounds
+    # the fp32 dlogits to TF32, at least as precise as the TPU's
+    # default-precision fp32 matmul
+    torch.backends.cuda.matmul.allow_tf32 = on_card
+    model = TpuLM(cfg)
+    init_fn, step_fn = make_train_step(
+        model, learning_rate=args.lr, grad_accum=args.grad_accum,
+        grad_clip=args.grad_clip, warmup_steps=args.warmup_steps,
+        decay_steps=args.steps if args.warmup_steps else 0, device=dev,
+    )
+
+    data_path = args.data
+    synthetic = bool(args.synthetic)
+    if synthetic:
+        # per-process file: two concurrent synthetic runs must not
+        # rewrite a corpus the other has mapped
+        data_path = os.path.join(
+            tempfile.gettempdir(),
+            f"isl-torch-synthetic-{args.seed}-{os.getpid()}.u16")
+        rng = np.random.default_rng(args.seed)
+        write_token_file(data_path, rng.integers(
+            1, min(cfg.vocab_size, 65535), size=args.synthetic))
+        log.info("synthetic corpus: %d tokens at %s", args.synthetic,
+                 data_path)
+    ckpt = None
+    prefetch = None
+    try:
+        ds = TokenDataset(data_path, args.seq_len, seed=args.seed)
+        state = init_fn(args.seed)
+        if args.checkpoint:
+            ckpt = TrainCheckpointer(args.checkpoint,
+                                     max_to_keep=args.max_keep)
+            if ckpt.restore(state) is not None:
+                log.info("resumed from step %d", state.step)
+        prefetch = Prefetcher(
+            lambda step: batch_for_step(ds, step, args.global_batch, dev),
+            start_step=state.step)
+        t0 = time.monotonic()
+        tokens_done = 0
+        last_loss = float("nan")
+        try:
+            for step, batch in prefetch:
+                if step >= args.steps:
+                    break
+                state, loss = step_fn(state, batch)
+                tokens_done += args.global_batch * args.seq_len
+                if (step + 1) % args.log_every == 0 or \
+                        step + 1 == args.steps:
+                    last_loss = float(loss)   # sync point
+                    log.info("step %d loss %.4f  %.0f tok/s", step + 1,
+                             last_loss, tokens_done / max(
+                                 time.monotonic() - t0, 1e-9))
+                if ckpt is not None and (step + 1) % args.save_every == 0:
+                    ckpt.save(state)
+        except KeyboardInterrupt:
+            log.info("interrupted at step %d; saving", state.step)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        wall = time.monotonic() - t0
+        if ckpt is not None:
+            ckpt.save(state)
+    finally:
+        if prefetch is not None:
+            prefetch.close()
+        if ckpt is not None:
+            ckpt.close()
+        if synthetic and os.path.exists(data_path):
+            os.unlink(data_path)
+    print(json.dumps({
+        "metric": "train_tokens_per_sec",
+        "value": round(tokens_done / max(wall, 1e-9), 1),
+        "unit": "tokens/s",
+        "steps": int(state.step),
+        # None (JSON null), not NaN: a resumed run already at --steps
+        # does no work, and bare NaN is invalid JSON
+        "final_loss": (round(last_loss, 4)
+                       if last_loss == last_loss else None),
+        "params_m": round(sum(p.numel() for p in leaves(state.params))
+                          / 1e6, 1),
+        "mesh": {"data": 1, "seq": 1, "model": 1},
+        "backend": dev.type,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,1 +1,2 @@
-"""The TpuLM model family (inference core) and int8 weight quantization."""
+"""The TpuLM model family, its training step, data and checkpoints, and
+int8 weight quantization."""

@@ -1,0 +1,112 @@
+"""Checkpoint / resume for the training loop (port of
+``instaslice_tpu/models/checkpoint.py``).
+
+The reference's interface (``save``, ``latest_step``, ``restore``,
+``close``, a context manager, ``max_to_keep``, ``save_interval_steps``)
+over ``torch.save`` of ``{step, params, optimizer state}``, one file per
+step, written to a temporary name and renamed into place (a crash mid-save
+leaves the previous checkpoint as the latest). The format is the port's
+own; orbax checkpoints are not read. Restoring into a freshly
+initialized :class:`~instaslice_tpu_torch.models.train.TrainState`
+reproduces the uninterrupted run bit for bit: batches are a pure function
+of the step (:mod:`instaslice_tpu_torch.models.data`), so the step is the
+loader state.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+from instaslice_tpu_torch.models.train import TrainState, leaves
+
+_NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+class TrainCheckpointer:
+    """Keeps the newest ``max_to_keep`` checkpoints of a run in
+    ``directory``; saves only steps that are multiples of
+    ``save_interval_steps`` and newer than the latest."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 save_interval_steps: int = 1) -> None:
+        self.directory = Path(directory).resolve()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self.save_interval_steps = max(save_interval_steps, 1)
+
+    def _steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for p in self.directory.iterdir()
+                      if (m := _NAME.match(p.name)))
+
+    def _path(self, step: int) -> Path:
+        return self.directory / f"step_{step:09d}.pt"
+
+    def save(self, state: TrainState, step: Optional[int] = None) -> bool:
+        """Persist ``state``; False when skipped (by the interval, or
+        because a checkpoint at or past ``step`` exists). ``step``
+        defaults to the state's own counter."""
+        step = state.step if step is None else int(step)
+        latest = self.latest_step()
+        if (latest is not None and latest >= step) or \
+                step % self.save_interval_steps:
+            return False
+        payload = {
+            "step": state.step,
+            "params": [p.detach() for p in leaves(state.params)],
+            "opt": state.opt_state.state_dict(),
+        }
+        dst = self._path(step)
+        tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, dst)
+        if self.max_to_keep:
+            for old in self._steps()[:-self.max_to_keep]:
+                self._path(old).unlink(missing_ok=True)
+        return True
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state: TrainState,
+                step: Optional[int] = None) -> Optional[TrainState]:
+        """Load checkpoint ``step`` (default: the latest) INTO ``state``
+        (a fresh ``init_fn()`` result of the same model and optimizer
+        settings: its leaves keep their device and ``requires_grad``);
+        None when the directory holds no checkpoint."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        payload = torch.load(self._path(step), map_location="cpu",
+                             weights_only=True)
+        dst = leaves(state.params)
+        if len(dst) != len(payload["params"]):
+            raise ValueError(f"checkpoint has {len(payload['params'])} "
+                             f"tensors, the state {len(dst)}")
+        with torch.no_grad():
+            for p, saved in zip(dst, payload["params"]):
+                if p.shape != saved.shape or p.dtype != saved.dtype:
+                    raise ValueError(
+                        f"checkpoint tensor {tuple(saved.shape)} "
+                        f"{saved.dtype} does not fit {tuple(p.shape)} "
+                        f"{p.dtype}")
+                p.copy_(saved)
+        state.opt_state.load_state_dict(payload["opt"])
+        state.step = int(payload["step"])
+        return state
+
+    def close(self) -> None:
+        """Nothing is held open between saves; kept for the reference's
+        interface."""
+
+    def __enter__(self) -> "TrainCheckpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,15 +1,19 @@
-"""The TpuLM model family's inference core in PyTorch (port of
+"""The TpuLM model family in PyTorch (port of
 ``instaslice_tpu/models/lm.py``).
 
 Parameters are plain dicts of tensors in the JAX package's layout
 (per-layer leaves stacked ``(L, ...)``, projections ``(in, out)``, the
 ``(vocab, d)`` embedding doubling as the unembedding, fp32 norm scales),
 so :mod:`instaslice_tpu_torch.bridge` moves weights across with no
-transpose. Ported here: :class:`ModelConfig`, :func:`init_params`,
-:func:`init_cache` and :func:`apply_with_cache` (dense MLP, bf16 or int8
-KV cache). Not yet ported, and raising ``NotImplementedError``:
-sliding windows, mixture-of-experts, LoRA, int4 and the full forward
-:meth:`TpuLM.apply` (it comes with the flash-attention kernel).
+transpose. Ported here: :class:`ModelConfig`, :func:`init_params`, the
+full forward :func:`apply` (:meth:`TpuLM.apply`: dense MLP, GQA, causal
+attention through the flash-attention kernels, block remat "full" as
+``torch.utils.checkpoint``), :func:`init_cache` and
+:func:`apply_with_cache` (dense MLP, bf16 or int8 KV cache). Not yet
+ported, and raising ``NotImplementedError``: mixture-of-experts, ring
+and pipeline attention, remat "dots", LoRA, int4, and sliding windows in
+the cache forward (the full forward takes windows through the plain
+grouped formulation, as the reference routes them).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from instaslice_tpu_torch import resolve_device
 from instaslice_tpu_torch.models.quant import (
@@ -26,7 +31,9 @@ from instaslice_tpu_torch.models.quant import (
     embed_lookup,
     qdot,
     qdot_stacked,
+    weight,
 )
+from instaslice_tpu_torch.ops.flash_attention import flash_attention
 from instaslice_tpu_torch.ops.flash_decode import (
     merge_local,
     quant_decode_attention,
@@ -35,9 +42,9 @@ from instaslice_tpu_torch.ops.flash_decode import (
 Params = Dict[str, Any]
 
 #: block-level rematerialization policies (a copy of
-#: ``instaslice_tpu/parallel/pipeline.py: REMAT_POLICIES``; the
-#: inference path never rematerializes, the field is kept so configs
-#: carry over unchanged)
+#: ``instaslice_tpu/parallel/pipeline.py: REMAT_POLICIES``); :func:`apply`
+#: runs "full" and raises on "dots", the cache forward never
+#: rematerializes
 REMAT_POLICIES = ("full", "dots")
 
 #: per-layer projections the stacked w8a16 kernel serves
@@ -78,6 +85,15 @@ class ModelConfig:
         if self.window < 0:
             raise ValueError(f"window={self.window} must be 0 (full "
                              "causal) or positive")
+        if self.window and self.ring_attention:
+            raise ValueError(
+                "sliding-window attention cannot combine with ring "
+                "attention (the ring's flash inner loop is full-causal)")
+        if self.window and self.attention_impl == "flash":
+            raise ValueError(
+                "attention_impl='flash' cannot honor window="
+                f"{self.window} (the flash kernels are full-causal); use "
+                "'auto' or 'xla' for windowed models")
 
     @property
     def head_dim(self) -> int:
@@ -180,6 +196,133 @@ def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Rotary embeddings (half-split, base 10000); x: (B, S, H, hd),
     positions: (S,) shared or (B, S) per row."""
     return _apply_rope(x, *_rope_tables(positions, x.shape[-1]))
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool = True, impl: str = "auto",
+               window: int = 0) -> torch.Tensor:
+    """Softmax attention (``lm.py:292-345``); q: (B, S, H, hd), k/v:
+    (B, S, Hkv, hd) with Hkv dividing H.
+
+    ``impl`` "auto" or "flash" takes the flash-attention kernels (B5 on
+    the forward, B6 and B7 on the backward) after repeating K/V up to H
+    (``jnp.repeat`` semantics: each KV head serves G consecutive query
+    heads); "xla", or any ``window`` > 0, takes the grouped plain
+    formulation with its -1e9 mask, as the reference routes them."""
+    if window:
+        impl = "xla"
+    H, Hkv = q.shape[2], k.shape[2]
+    if impl in ("auto", "flash"):
+        if Hkv != H:
+            k = k.repeat_interleave(H // Hkv, dim=2)
+            v = v.repeat_interleave(H // Hkv, dim=2)
+        return flash_attention(q, k, v, causal=causal)
+    if impl != "xla":
+        raise ValueError(f"unknown attention_impl {impl!r}")
+    B, S, _, hd = q.shape
+    G = H // Hkv
+    q5 = q.reshape(B, S, Hkv, G, hd)
+    # fp32 products of the compute-dtype values, fp32 sums
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k.float()) * (
+        hd ** -0.5)
+    if causal or window:
+        i = torch.arange(S, device=q.device)
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= i[None, :] <= i[:, None]
+        if window:
+            mask &= i[:, None] - i[None, :] < window
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
+    return out.to(v.dtype).reshape(B, S, H, hd)
+
+
+def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """One pre-norm dense block (``lm.py:348-391``); x: (B, S, D).
+
+    Weights are cast to ``cfg.dtype`` at each use, so fp32 master weights
+    get fp32 grads through autograd. A ``cfg.dtype`` matmul returns its
+    fp32 sums rounded once to ``cfg.dtype``: exactly the reference's
+    ``preferred_element_type=float32`` product followed by
+    ``.astype(cfg.dtype)``, which is how q, k, v, the attention output
+    projection and the MLP down projection come out there too. The MLP up
+    projection differs by one rounding in bf16: the reference applies the
+    GELU to its fp32 sums, here they are rounded to ``cfg.dtype`` first."""
+    dt = cfg.dtype
+    B, S = x.shape[:2]
+    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    h = _rmsnorm(x, layer["ln1"]["scale"])
+    q = torch.matmul(h, weight(layer["wq"], dt)).reshape(B, S, H, hd)
+    k = torch.matmul(h, weight(layer["wk"], dt)).reshape(B, S, Hkv, hd)
+    v = torch.matmul(h, weight(layer["wv"], dt)).reshape(B, S, Hkv, hd)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+    attn = _attention(q, k, v, impl=cfg.attention_impl, window=cfg.window)
+    attn = attn.reshape(B, S, H * hd)
+    x = x + torch.matmul(attn, weight(layer["wo"], dt))
+    h = _rmsnorm(x, layer["ln2"]["scale"])
+    # jax.nn.gelu defaults to the tanh form
+    y = F.gelu(torch.matmul(h, weight(layer["w_in"], dt)).float(),
+               approximate="tanh").to(dt)
+    return x + torch.matmul(y, weight(layer["w_out"], dt))
+
+
+def unembed(x: torch.Tensor, embed_leaf, dtype) -> torch.Tensor:
+    """fp32 logits (..., vocab) from hidden states x (..., D) in ``dtype``
+    against the ``(vocab, D)`` embedding cast to ``dtype``.
+    ``torch.matmul`` of the fp32 upcasts: every product of two ``dtype``
+    values is exact in fp32 and the sums are fp32, the reference's
+    ``preferred_element_type=float32`` (a bf16 matmul would return bf16
+    logits). With TF32 allowed the forward stays exact (TF32 holds a
+    bf16 mantissa) and runs on the tensor cores; the backward's two
+    products then round the fp32 cotangent (dlogits) to TF32's 10-bit
+    mantissa. The training CLI allows it for bf16 compute on purpose:
+    that is at least as precise as the TPU's default-precision fp32
+    matmul."""
+    return torch.matmul(x.float(), weight(embed_leaf, dtype).float().t())
+
+
+def _layers(blocks: Params, n_layers: int):
+    """The stacked ``(L, ...)`` leaves as L per-layer dicts of views.
+    ``unbind`` has one backward node that stacks the L grads, where
+    indexing would scatter each layer's grad into a zeroed copy of the
+    whole stack."""
+    def split(node):
+        if isinstance(node, dict):
+            parts = {k: split(v) for k, v in node.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
+        return node.unbind(0)
+
+    return split(blocks)
+
+
+def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+          unembed_out: bool = True):
+    """The full forward (``lm.py:484-568``): logits (B, S, vocab) fp32
+    for ``tokens`` (B, S), or with ``unembed_out=False`` the final hidden
+    states (B, S, D) in ``cfg.dtype`` (the hook of the chunked loss)."""
+    if cfg.n_experts:
+        raise NotImplementedError("mixture-of-experts is not ported")
+    if cfg.ring_attention:
+        raise NotImplementedError("ring attention is not ported")
+    if cfg.remat and cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat policy 'dots' is not ported (ROADMAP queue A); use "
+            "'full' or remat=False")
+    B, S = tokens.shape
+    x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    cos, sin = _rope_tables(positions, cfg.head_dim)
+    for layer in _layers(params["blocks"], cfg.n_layers):
+        if cfg.remat:
+            x = checkpoint(_transformer_block, cfg, layer, x, cos, sin,
+                           use_reentrant=False)
+        else:
+            x = _transformer_block(cfg, layer, x, cos, sin)
+    x = _rmsnorm(x, params["ln_f"]["scale"])
+    return unembed(x, params["embed"], cfg.dtype) if unembed_out else x
 
 
 def _kv_quantize(t: torch.Tensor):
@@ -359,8 +502,8 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 class TpuLM:
-    """The model bundle the serving engine holds: config plus the
-    parameter, cache and forward functions."""
+    """The model bundle the serving engine and the trainer hold: config
+    plus the parameter, cache and forward functions."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -383,8 +526,20 @@ class TpuLM:
         return apply_with_cache(self.cfg, params, tokens, cache, lengths,
                                 attend_len)
 
-    def apply(self, params: Params, tokens: torch.Tensor, **kwargs):
-        raise NotImplementedError(
-            "TpuLM.apply (the full forward) is not ported yet: it comes "
-            "with the flash-attention kernel"
-        )
+    def apply(self, params: Params, tokens: torch.Tensor, *, mesh=None,
+              unembed: bool = True, return_aux: bool = False):
+        """Logits (B, S, vocab) fp32, or the final hidden states with
+        ``unembed=False``; ``return_aux`` adds the MoE load-balance term
+        (0.0: only dense models are ported)."""
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is not ported: the "
+                                      "forward runs on one card")
+        out = apply(self.cfg, params, tokens, unembed_out=unembed)
+        if return_aux:
+            return out, torch.zeros((), dtype=torch.float32,
+                                    device=out.device)
+        return out
+
+    def apply_pipelined(self, *args, **kwargs):
+        raise NotImplementedError("pipeline parallelism is not ported: "
+                                  "the forward runs on one card")

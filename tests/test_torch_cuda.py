@@ -10,6 +10,7 @@ never do. Tolerances: fp32 sums of exact products in another order.
 import pytest
 import torch
 
+from instaslice_tpu_torch.ops import flash_attention as fa
 from instaslice_tpu_torch.ops import flash_decode as fd
 from instaslice_tpu_torch.ops import quant_matmul as qm
 
@@ -96,3 +97,101 @@ def test_wrappers_raise_on_bad_inputs(dev):
     before = qm.quant_matmul.launches
     qm.quant_matmul(x, q, torch.ones(32, device=dev))
     assert qm.quant_matmul.launches == before + 1
+
+
+def _attn_inputs(dev, BH, S, KV, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((BH, S, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((BH, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((BH, KV, hd), generator=g, device=dev).to(dtype)
+    do = torch.randn((BH, S, hd), generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+#: bf16 outputs: relative L2 error of the tensor and of its worst 64-row
+#: tile of one (batch, head), as chip_smoke.py holds them at full size
+BF16_REL_L2, BF16_TILE_REL_L2 = 1e-2, 2e-2
+
+
+def _close_attn(got, want, dtype):
+    """fp32 (CUDA cores): the same fp32 products summed in another order
+    (1e-4 of the output scale); bf16 (tensor cores): one bf16 rounding of
+    the output, and of p or ds where they feed a product (2**-7 of the
+    scale), and within the relative L2 bounds over the tensor and over
+    every 64-row tile (causal rows shrink with their position, so the
+    largest element alone says little of the late rows)."""
+    torch.cuda.synchronize()
+    rel = 1e-4 if dtype == torch.float32 else 2 ** -7
+    got, want = got.detach().float(), want.detach().float()
+    tol = rel * float(want.abs().max()) + 1e-6
+    err = float((got - want).abs().max())
+    assert err <= tol, (err, tol)
+    if dtype != torch.bfloat16:
+        return
+    diff = got - want
+    assert float(diff.norm() / want.norm()) <= BF16_REL_L2
+    rows = got.reshape(-1, got.shape[-2], got.shape[-1])
+    pad = -rows.shape[1] % 64
+    tiles = [torch.nn.functional.pad(t.reshape(rows.shape), (0, 0, 0, pad))
+             .reshape(rows.shape[0], -1, 64 * rows.shape[2])
+             for t in (diff, want)]
+    worst = float((tiles[0].norm(dim=-1)
+                   / tiles[1].norm(dim=-1).clamp_min(1e-30)).max())
+    assert worst <= BF16_TILE_REL_L2, worst
+
+
+@pytest.mark.parametrize("BH,S,KV,hd,causal,dtype", [
+    (3, 1, 1, 128, True, torch.float32),        # S below one tile
+    (2, 100, 100, 128, True, torch.float32),    # ragged S
+    (2, 129, 129, 128, False, torch.bfloat16),  # one row past a tile
+    (2, 200, 77, 128, False, torch.float32),    # S != kv_len, full
+    (4, 256, 256, 128, True, torch.bfloat16),   # several tiles, causal
+])
+def test_flash_kernels_match_plain(dev, BH, S, KV, hd, causal, dtype):
+    """B5, B6 and B7 against their plain versions at ragged shapes, fp32
+    and bf16: o, lse, dq, dk, dv."""
+    q, k, v, do = _attn_inputs(dev, BH, S, KV, hd, dtype, S * 7 + KV)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, causal)
+    _close_attn(o, ro, dtype)
+    _close_attn(lse, rlse, torch.float32)
+    delta = (do.float() * ro.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, rlse, delta, causal)
+    _close_attn(dq, fa.flash_bwd_dq_ref(q, k, v, do, rlse, delta, causal),
+                dtype)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
+    rdk, rdv = fa.flash_bwd_dkv_ref(q, k, v, do, rlse, delta, causal)
+    _close_attn(dk, rdk, dtype)
+    _close_attn(dv, rdv, dtype)
+
+
+def test_flash_attention_grads_on_the_card(dev):
+    """The autograd path (B5 forward, B6 + B7 backward) against autograd
+    through the plain formulation, fp32, GQA-free (B, S, H, hd)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 130, 3, 128), generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    before = [fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+    ref = fa._xla_attention(q, k, v, True)
+    rgrads = torch.autograd.grad((ref ** 2).sum(), (q, k, v))
+    _close_attn(out, ref, torch.float32)
+    for a, b in zip(grads, rgrads):
+        _close_attn(a, b, torch.float32)
+    assert [fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches] == [n + 1 for n in before]
+
+
+def test_flash_wrappers_raise_on_bad_inputs(dev):
+    q, k, v, do = _attn_inputs(dev, 2, 64, 64, 128, torch.float32, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                     v[..., :32].contiguous())
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_fwd(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="S == kv_len"):
+        fa.flash_fwd(q[:, :10].contiguous(), k, v, causal=True)

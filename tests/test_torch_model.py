@@ -137,4 +137,4 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError):
             tlm.apply_with_cache(bad, {"blocks": {}}, toks, cache, lens)
     with pytest.raises(NotImplementedError):
-        tlm.TpuLM(tcfg).apply({}, toks)
+        tlm.TpuLM(dataclasses.replace(tcfg, n_experts=2)).apply({}, toks)

@@ -28,10 +28,10 @@ SMALL = dict(vocab_size=256, d_model=256, n_heads=4, n_kv_heads=2,
 
 def configs(dtype: str = "fp32", **overrides):
     """(JAX config, port config) of the same small model."""
-    kw = dict(SMALL, **overrides)
+    kw = dict(SMALL, remat=False)
+    kw.update(overrides)
     jdt, tdt = DTYPES[dtype]
-    return (JaxConfig(dtype=jdt, remat=False, **kw),
-            TorchConfig(dtype=tdt, remat=False, **kw))
+    return JaxConfig(dtype=jdt, **kw), TorchConfig(dtype=tdt, **kw)
 
 
 def numpy_params(cfg, seed: int = 0, embed_scale: float = 0.1) -> dict:
