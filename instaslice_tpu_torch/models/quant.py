@@ -5,9 +5,11 @@ Routing follows the JAX package with its kernel opt-in on
 (``TPUSLICE_QUANT_KERNEL=1``): a quantized leaf contracted at
 ``M <= 256`` rows (``_QDOT_MAX_M``) goes to the w8a16 kernel wrappers of
 :mod:`instaslice_tpu_torch.ops.quant_matmul`, so only int8 bytes cross
-device memory; larger M (batched prefill) dequantizes and runs
-``torch.matmul``, as XLA does at ``quant.py:356-366``. That split is by
-shape, not a fallback. Group-wise int4 is not ported yet.
+device memory (bf16 activations on 16-byte-aligned rows take the
+tensor-core kernel there, fp32 activations the CUDA-core one); larger M
+(batched prefill) dequantizes and runs ``torch.matmul``, as XLA does at
+``quant.py:356-366``. That split is by shape, not a fallback. Group-wise
+int4 is not ported yet.
 """
 
 from __future__ import annotations

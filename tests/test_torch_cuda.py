@@ -30,6 +30,25 @@ def _close(got, want, rel=2e-5):
     assert float((got - want).abs().max()) <= tol
 
 
+def _close_tiles(got, want, cols, rel=1.5e-5):
+    """Relative L2 error over the output and over its worst tile of
+    ``cols`` channels (one block's channel tile): a dropped k tile, ring
+    stage or channel tile shows there whatever the largest element is."""
+    torch.cuda.synchronize()
+    diff = (got - want).float()
+    assert float(diff.norm() / want.norm()) <= rel
+    pad = (0, -want.shape[1] % cols)
+    d_t, w_t = (torch.nn.functional.pad(t, pad).reshape(
+        t.shape[0], -1, cols).permute(1, 0, 2).reshape(-1, t.shape[0] * cols)
+        for t in (diff, want.float()))
+    worst = float((d_t.norm(dim=-1) / w_t.norm(dim=-1).clamp_min(1e-30)).max())
+    assert worst <= rel, worst
+
+
+#: row counts around every tile boundary of the tensor-core kernel
+TC_MS = [1, 7, 8, 9, 100, 128, 255, 256]
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 128, 256), (8, 4096, 1024),
                                    (13, 300, 264), (40, 256, 100),
                                    (129, 512, 384)])
@@ -49,6 +68,34 @@ def test_w8a16_kn_kernels(dev, M, K, N, xdt):
            qm.quant_matmul_ref(x, q3[1], s3[1]))
 
 
+@pytest.mark.parametrize("K,N", [(4096, 1024),     # a 7B shape, K split
+                                 (1000, 528),      # K tail, ragged tile
+                                 (72, 16),         # one short stage
+                                 (2048, 4112)])    # last channel tile of 16
+@pytest.mark.parametrize("M", TC_MS)
+def test_w8a16_kn_tensor_core_kernel(dev, M, K, N):
+    """B2 and B4 with bf16 x on aligned rows (the tensor-core kernel):
+    every row count around its tile boundaries, a K that is no multiple
+    of the k tile, layers 0 / middle / last of a stack read in place,
+    and two runs bit-equal (the K split sums in a fixed order)."""
+    assert qm.route(torch.bfloat16, M, K, N, False) == "tc"
+    g = torch.Generator(device=dev).manual_seed(M * K + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    q3 = torch.randint(-127, 128, (5, K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    s3 = torch.rand((5, 1, N), generator=g, device=dev).to(torch.bfloat16)
+    cols = qm.tc_tile(M, False).ct
+    for li in (0, 2, 4):
+        got = qm.quant_matmul_stacked(x, q3, s3, li)
+        want = qm.quant_matmul_stacked_ref(x, q3, s3, li)
+        _close(got, want)
+        _close_tiles(got, want, cols)
+        assert torch.equal(got, qm.quant_matmul_stacked(x, q3, s3, li))
+    got = qm.quant_matmul(x, q3[3], s3[3].float())
+    _close(got, qm.quant_matmul_ref(x, q3[3], s3[3].float()))
+    assert torch.equal(got, qm.quant_matmul(x, q3[3], s3[3].float()))
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 4096, 1000), (3, 130, 77),
                                    (17, 1500, 64)])
 def test_w8a16_nk_kernel(dev, M, K, N):
@@ -59,6 +106,47 @@ def test_w8a16_nk_kernel(dev, M, K, N):
                       dtype=torch.int8)
     s = torch.rand((N, 1), generator=g, device=dev)
     _close(qm.quant_matmul_t(x, q, s), qm.quant_matmul_t_ref(x, q, s))
+
+
+@pytest.mark.parametrize("K,N", [(4096, 1000),     # K split, ragged rows
+                                 (208, 77),        # K tail under a stage
+                                 (4112, 300)])     # K tail past the stages
+@pytest.mark.parametrize("M", TC_MS)
+def test_w8a16_nk_tensor_core_kernel(dev, M, K, N):
+    """B3 with bf16 x and K % 16 == 0 (the tensor-core kernel) at every
+    row count around its tile boundaries; fp32 x on the same weights
+    takes the CUDA-core kernel; two runs bit-equal."""
+    assert qm.route(torch.bfloat16, M, K, N, True) == "tc"
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((N, 1), generator=g, device=dev)
+    got = qm.quant_matmul_t(x, q, s)
+    want = qm.quant_matmul_t_ref(x, q, s)
+    _close(got, want)
+    _close_tiles(got, want, qm.tc_tile(M, True).ct)
+    assert torch.equal(got, qm.quant_matmul_t(x, q, s))
+    _close(qm.quant_matmul_t(x.float(), q, s),
+           qm.quant_matmul_t_ref(x.float(), q, s))
+
+
+def test_planner_mirrors_the_kernel_tile_table(dev):
+    """``tc_tile`` in Python and the tile table of the CUDA source agree
+    at every row count."""
+    import ctypes
+
+    from instaslice_tpu_torch.ops import build
+    lib = build.library("quant_matmul", qm._SIGNATURES)
+    vals = [ctypes.c_int() for _ in range(6)]
+    for transposed in (False, True):
+        for M in range(1, 257):
+            rc = lib.isl_qmm_tc_tile(int(transposed), M,
+                                     *[ctypes.byref(v) for v in vals])
+            assert rc == 0
+            t = qm.tc_tile(M, transposed)
+            assert [v.value for v in vals] == [t.ct, t.mpad, t.threads,
+                                               t.smem, t.kt, t.stages]
 
 
 @pytest.mark.parametrize("hd,G", [(64, 1), (64, 4), (128, 2), (128, 8)])
