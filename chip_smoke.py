@@ -8,7 +8,10 @@ Phases, each timed; any failure raises and the script exits non-zero
 without a result line:
 
 1. build every kernel from ``instaslice_tpu_torch/csrc`` with ``nvcc``
-   for ``sm_90a`` (one compiler per source, started together);
+   for ``sm_90a`` (one compiler per source, started together); the
+   registers and spills of each warp-specialised kernel (B5, B7) are
+   logged, and none may spill, have its ``setmaxnreg`` ignored or its
+   ``wgmma`` serialised by ptxas;
 2. kernels: each wrapper on the card at the shapes the 7B int8 serving
    path gives it, held against its plain PyTorch version with a stated
    tolerance; B2 and B3 at M = 1, 8, 100, 128 and 256 rows with bf16 x
@@ -32,9 +35,10 @@ without a result line:
    B7 dk/dv) against their plain versions in bf16 at (B*H 128, S 1024,
    hd 128) causal, at S 1025 (the training CLI's row width) and
    non-causal, by the largest difference and by relative L2 error over
-   each output and over its worst 64-row tile; timed like phase 2,
-   beside SDPA (forward, and forward + backward) as the library
-   yardstick;
+   each output and over its worst 64-row tile, B5 and B7 also run twice
+   bit-equal; timed like phase 2, beside SDPA as the library yardstick
+   (its forward, and its backward as forward + backward less forward,
+   all by graph replay);
    then the bf16 cut: the 871M configuration cut to 2 layers at its
    training precision, batch 2 x 1024: loss and grads through B5-B7
    against the same with their plain versions in the kernels' place;
@@ -119,7 +123,7 @@ BIG = ("wq", "wk", "wv", "wo", "w_in", "w_out")
 #: device-time classes of a profiled step: the first class whose pattern
 #: occurs in a kernel's (lower-cased) name takes it
 KERNEL_CLASSES = (
-    ("flash attention B5-B7", ("fa_fwd", "fa_bwd", "tc::")),
+    ("flash attention B5-B7", ("fa_fwd", "fa_bwd", "tc::", "wg::")),
     ("w8a16 and decode kernels B1-B4", ("qmm_", "fd_kernel")),
     ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
     ("optimizer", ("adam", "multi_tensor")),
@@ -178,6 +182,23 @@ def graph_ms(torch, fn, n: int, replays: int = 3) -> float:
 # ---------------------------------------------------------------- phases
 
 
+def ptxas_kernels(text: str) -> list:
+    """(kernel, registers, spill-store bytes) of every kernel in a
+    ``-Xptxas=-v`` log; the warp-specialised kernels of namespace wg by
+    readable name (``wg::fwd_kernel<causal=1>``), the others mangled."""
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        wg = re.search(r"2wg\d+(\w+?_kernel)ILb([01])E", name)
+        if wg:
+            name = f"wg::{wg.group(1)}<causal={wg.group(2)}>"
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out.append((name, int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
 def phase_build(build) -> None:
     t0 = time.perf_counter()
     paths = build.build()
@@ -185,13 +206,28 @@ def phase_build(build) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in build.BUILD_LOGS.items():
         (build.BUILD_DIR / f"{name}.ptxas.log").write_text(text)
-        regs = re.findall(r"Used (\d+) registers", text)
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                             text)]
-        log(f"build: {name}: {len(regs)} kernels, registers "
-            f"{min(map(int, regs), default=0)}-"
-            f"{max(map(int, regs), default=0)}, max spill stores "
-            f"{max(spills, default=0)} bytes")
+        kernels = ptxas_kernels(text)
+        log(f"build: {name}: {len(kernels)} kernels, registers "
+            f"{min((k[1] for k in kernels), default=0)}-"
+            f"{max((k[1] for k in kernels), default=0)}, max spill stores "
+            f"{max((k[2] for k in kernels), default=0)} bytes")
+        # the warp-specialised kernels: their consumer warpgroups hold the
+        # accumulators in registers raised by setmaxnreg; a spill or an
+        # ignored setmaxnreg undoes the design
+        for kname, regs, spill in kernels:
+            if kname.startswith("wg::"):
+                log(f"build: {kname}: {regs} registers at launch "
+                    f"(setmaxnreg: producer 40, consumers 232), spill "
+                    f"stores {spill} bytes")
+                check(spill == 0, f"{kname} spills {spill} bytes")
+        for line in text.splitlines():
+            if "setmaxnreg" in line or "wgmma" in line:
+                log(f"build: {name}: ptxas: {line.strip()}")
+        check("setmaxnreg ignored" not in text,
+              f"{name}: ptxas ignored setmaxnreg")
+        check("are serialized" not in text,
+              f"{name}: ptxas serialised wgmma (the tensor-core pipeline "
+              "waits on every product)")
 
 
 def _err(torch, got, want) -> float:
@@ -666,22 +702,6 @@ def train_config(torch, n_layers: int = 16, **kw):
     return ModelConfig(**base)
 
 
-def events_ms(torch, fn, n: int) -> float:
-    """Device time per call of ``fn()`` between CUDA events, n calls after
-    two warm-ups (for work that is not captured in a graph)."""
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def flash_errors(torch, got, want) -> dict:
     """How far a flash kernel's output lies from its plain version: the
     largest absolute difference (also over max|plain|), the relative L2
@@ -762,6 +782,14 @@ def phase_train_kernels(torch, fa) -> list:
                 if got.dtype == torch.bfloat16:
                     for key in worst[name]:
                         worst[name][key] = max(worst[name][key], r[key])
+        # B5 and B7 sum in a fixed order (no atomics): reruns bit-equal
+        o2, lse2 = fa.flash_fwd(q, k, v, causal)
+        check(bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
+              f"flash_fwd S={S} causal={causal}: two runs bit-equal")
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
+        check(bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
+              f"flash_bwd_dkv S={S} causal={causal}: two runs bit-equal")
+        del o2, lse2, dk2, dv2
         if S == 1024 and causal:
             main = (q, k, v, do, rlse, delta)
         del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv
@@ -787,17 +815,31 @@ def phase_train_kernels(torch, fa) -> list:
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
             lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, True)),
     }
-    # library yardstick: SDPA (B, H, S, hd) with is_causal, forward alone
-    # (graph replays) and forward + backward (events); timed, never used
+    # library yardstick: SDPA (B, H, S, hd) with is_causal; timed, never
+    # used. Its forward, and its backward as forward + backward (autograd
+    # captured whole in the graph) less forward, all by graph replay,
+    # twice in turns to show the spread
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shp = (8, 16, S, hd)
     qs, ks, vs = (t.reshape(shp).detach().requires_grad_(True)
                   for t in (q, k, v))
     dos = do.reshape(shp)
-    lib_fwd = graph_ms(torch, lambda i: sdpa(qs.detach(), ks.detach(),
-                                             vs.detach(), is_causal=True), 8)
-    lib_fb = events_ms(torch, lambda: torch.autograd.grad(
-        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), dos), 32)
+
+    def sdpa_fwd(i):
+        return sdpa(qs.detach(), ks.detach(), vs.detach(), is_causal=True)
+
+    def sdpa_fwd_bwd(i):
+        return torch.autograd.grad(sdpa(qs, ks, vs, is_causal=True),
+                                   (qs, ks, vs), dos)
+
+    lib_fwds, lib_bwds = [], []
+    for _ in range(2):
+        f_ms = graph_ms(torch, sdpa_fwd, 8)
+        fb_ms = graph_ms(torch, sdpa_fwd_bwd, 8)
+        lib_fwds.append(f_ms)
+        lib_bwds.append(fb_ms - f_ms)
+    lib_fwd = sum(lib_fwds) / 2
+    lib_bwd = sum(lib_bwds) / 2
     out = []
     line = {"flash_fwd": "73", "flash_bwd_dq": "130", "flash_bwd_dkv": "183"}
     for name, (kern, plain) in calls.items():
@@ -821,14 +863,17 @@ def phase_train_kernels(torch, fa) -> list:
         if name != "flash_fwd":
             entry["library_note"] = (
                 "no PyTorch call computes this alone; SDPA's backward "
-                f"(dq, dk, dv together) = {lib_fb - lib_fwd:.4f} ms, SDPA "
-                f"forward + backward = {lib_fb:.4f} ms")
+                f"(dq, dk and dv in one call) = {lib_bwd:.4f} ms (graph "
+                "replay of forward + backward less the forward; two "
+                f"readings {lib_bwds[0]:.4f}, {lib_bwds[1]:.4f})")
         out.append(entry)
-        log(f"train kernels: {name} S=1024 causal: {ms * 1e3:.1f} us "
-            f"(bound {b_ms * 1e3:.1f} us, {b_by}; plain "
-            f"{plain_ms * 1e3:.1f} us)")
-    log(f"train kernels: SDPA is_causal forward {lib_fwd * 1e3:.1f} us, "
-        f"forward + backward {lib_fb * 1e3:.1f} us")
+        log(f"train kernels: {name} S=1024 causal: {ms * 1e3:.1f} us = "
+            f"{work[name][1] / ms / 1e9:.0f} TFLOP/s (bound "
+            f"{b_ms * 1e3:.1f} us, {b_by}; plain {plain_ms * 1e3:.1f} us)")
+    log(f"train kernels: SDPA is_causal forward {lib_fwd * 1e3:.1f} us "
+        f"({lib_fwds[0] * 1e3:.1f}, {lib_fwds[1] * 1e3:.1f}), backward "
+        f"{lib_bwd * 1e3:.1f} us ({lib_bwds[0] * 1e3:.1f}, "
+        f"{lib_bwds[1] * 1e3:.1f})")
     del main, q, k, v, do, lse, delta, qs, ks, vs, dos
     torch.cuda.empty_cache()
     return out

@@ -1,7 +1,7 @@
 """Builds the port's CUDA sources with ``nvcc`` and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles, with ``common.cuh``, into one shared
-library with a plain C interface for ``sm_90a``. The library lands in
+Each ``csrc/<name>.cu`` compiles, with the headers ``csrc/*.cuh``, into
+one shared library with a plain C interface for ``sm_90a``. The library lands in
 ``build/kernels/`` at the root of the checkout under a name keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is. Nothing is built when a module is
@@ -53,7 +53,7 @@ def _nvcc() -> str:
 def target(name: str) -> Path:
     """The shared library ``name`` builds into (keyed by content)."""
     h = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -24,10 +24,15 @@ causal attention with S != kv_len raises (the reference routes that
 cropped-query case to :func:`_xla_attention`; the model never makes it).
 
 Bound on the H100: operations (hundreds of flops per byte at S = 1024).
-bf16 inputs run the products on the tensor cores (``mma.sync``, fp32
-sums; p and ds rounded to bf16 where they feed a product, as in
-FlashAttention-2), fp32 inputs on the CUDA cores in fp32; see the CUDA
-source.
+bf16 inputs run the products on the tensor cores with fp32 sums, p and
+ds rounded to bf16 where they feed a product (as in FlashAttention-2):
+B5 and B7 as warp-specialised ``wgmma`` kernels fed by TMA (one producer
+warpgroup, two consumer warpgroups of 64 rows each), B6 on ``mma.sync``;
+fp32 inputs run on the CUDA cores in fp32; see the CUDA source. The
+tiles each block of B5 and B7 visits are described here in plain Python
+(:func:`fwd_tiles`, :func:`dkv_tiles`), mirroring the kernels' schedule
+functions (``isl_flash_tiles``), so the CPU tests can hold the schedule
+to covering every unmasked (query, key) pair once.
 """
 
 from __future__ import annotations
@@ -46,9 +51,80 @@ _SIGNATURES = {
                          _I, ctypes.c_float, _P],
     "isl_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, ctypes.c_float, _P],
+    # the bf16 kernels' tile constants and schedule (for the tests)
+    "isl_flash_tile_consts": [_P],
+    "isl_flash_tiles": [_I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 _HEAD_DIMS = (128,)
 _NEG = -1e30
+
+
+# ------------------------------------------ tile schedules of the bf16 path
+# Mirror of namespace wg of csrc/flash_attention.cu (held against it by
+# tests/test_torch_cuda.py). A block has two consumer warpgroups, each
+# owning half of the block's query rows (B5) or keys (B7); a warpgroup
+# computes one tile product for each tile it visits.
+
+#: B5: query rows per block, per consumer warpgroup, keys per tile
+FWD_BLOCK_Q, FWD_WG_Q, FWD_TILE_K = 128, 64, 128
+#: B7: keys per block, per consumer warpgroup, query rows per tile
+DKV_BLOCK_K, DKV_WG_K, DKV_TILE_Q = 128, 64, 64
+#: depth of each kernel's shared-memory ring of tiles
+FWD_STAGES, DKV_STAGES = 3, 3
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fwd_wg_tiles(S: int, KV: int, causal: bool, y: int, w: int):
+    """B5 block ``y``, consumer warpgroup ``w``: ``(query tile, first key
+    tile, number of key tiles)`` it computes on; causal blocks take the
+    longest query tiles first and stop at the diagonal tile; a
+    warpgroup whose rows all lie past S computes nothing."""
+    nq, nk = _cdiv(S, FWD_BLOCK_Q), _cdiv(KV, FWD_TILE_K)
+    qi = nq - 1 - y if causal else y
+    count = min(nk, qi + 1) if causal else nk
+    live = qi * FWD_BLOCK_Q + w * FWD_WG_Q < S
+    return qi, 0, count if live else 0
+
+
+def dkv_wg_tiles(S: int, KV: int, causal: bool, kj: int, w: int):
+    """B7 key block ``kj``, consumer warpgroup ``w``: ``(first query tile,
+    number of query tiles)`` it computes on: from its diagonal tile when
+    causal (earlier tiles see none of its keys), none when its keys all
+    lie past KV."""
+    nq = _cdiv(S, DKV_TILE_Q)
+    first = (kj * DKV_BLOCK_K + w * DKV_WG_K) // DKV_TILE_Q if causal else 0
+    live = kj * DKV_BLOCK_K + w * DKV_WG_K < KV
+    return first, nq - first if live else 0
+
+
+def fwd_tiles(S: int, KV: int, causal: bool):
+    """Every product B5 computes, as ``((q_lo, q_hi), (k_lo, k_hi))``
+    row and key ranges (before clipping to S and KV)."""
+    out = []
+    for y in range(_cdiv(S, FWD_BLOCK_Q)):
+        for w in range(FWD_BLOCK_Q // FWD_WG_Q):
+            qi, first, count = fwd_wg_tiles(S, KV, causal, y, w)
+            q_lo = qi * FWD_BLOCK_Q + w * FWD_WG_Q
+            for j in range(first, first + count):
+                out.append(((q_lo, q_lo + FWD_WG_Q),
+                            (j * FWD_TILE_K, (j + 1) * FWD_TILE_K)))
+    return out
+
+
+def dkv_tiles(S: int, KV: int, causal: bool):
+    """Every product B7 computes, as ``((q_lo, q_hi), (k_lo, k_hi))``."""
+    out = []
+    for kj in range(_cdiv(KV, DKV_BLOCK_K)):
+        for w in range(DKV_BLOCK_K // DKV_WG_K):
+            first, count = dkv_wg_tiles(S, KV, causal, kj, w)
+            k_lo = kj * DKV_BLOCK_K + w * DKV_WG_K
+            for i in range(first, first + count):
+                out.append(((i * DKV_TILE_Q, (i + 1) * DKV_TILE_Q),
+                            (k_lo, k_lo + DKV_WG_K)))
+    return out
 
 
 # ----------------------------------------------------------- plain versions

@@ -283,3 +283,139 @@ def test_flash_wrappers_raise_on_bad_inputs(dev):
         fa.flash_fwd(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="S == kv_len"):
         fa.flash_fwd(q[:, :10].contiguous(), k, v, causal=True)
+
+
+# ---- B5 and B7 on the warp-specialised wgmma path (bf16, hd 128)
+
+#: around every tile edge of both kernels (64 and 128 rows), and the
+#: training CLI's ragged row width
+WG_SEQ = [1, 63, 64, 65, 127, 128, 129, 1025]
+
+
+def _close_single_key_dk(dk, rdk, q, v, do):
+    """With one key (kv_len 1, or causal S 1) p = 1 and o = v, so ds = p
+    (dp - delta) = do.v - do.o is zero in exact arithmetic: dk on either
+    side is nothing but the fp32 rounding of two hd-term dot products
+    summed in different orders, and no relative bound of a zero tensor
+    means anything. Both are held to the standard error bound of those
+    sums, 2 hd 2**-24 sum|do v|, times sm max|q|."""
+    torch.cuda.synchronize()
+    hd = q.shape[-1]
+    dot = (do.float().abs() * v.float().abs()[:, :1]).sum(-1).max()
+    bound = float(hd ** -0.5 * q.float().abs().max() * 2 * hd * 2 ** -24
+                  * dot)
+    assert float(dk.float().abs().max()) <= bound
+    assert float(rdk.float().abs().max()) <= bound
+
+
+def _b5_b7(q, k, v, do, causal):
+    """B5 and B7 on the card and their plain versions: (got, want) pairs
+    of o, lse, dk, dv (B7 fed the plain forward's lse and delta)."""
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, causal)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
+    rdk, rdv = fa.flash_bwd_dkv_ref(q, k, v, do, rlse, delta, causal)
+    return (o, ro), (lse, rlse), (dk, rdk), (dv, rdv)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", WG_SEQ)
+def test_wgmma_flash_kernels_at_tile_edges(dev, S, causal):
+    """B5 (o, lse) and B7 (dk, dv) against their plain versions, bf16,
+    B*H = 3, at every row count around the kernels' tile edges."""
+    q, k, v, do = _attn_inputs(dev, 3, S, S, 128, torch.bfloat16, S + 11)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
+    (o, ro), (lse, rlse), (dk, rdk), (dv, rdv) = _b5_b7(q, k, v, do, causal)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close_attn(o, ro, torch.bfloat16)
+    _close_attn(lse, rlse, torch.float32)
+    if S == 1:
+        _close_single_key_dk(dk, rdk, q, v, do)
+    else:
+        _close_attn(dk, rdk, torch.bfloat16)
+    _close_attn(dv, rdv, torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,KV", [(200, 77), (64, 300), (1, 129), (129, 1),
+                                  (1025, 130)])
+def test_wgmma_flash_kernels_s_differs_from_kv(dev, S, KV):
+    """Non-causal B5 and B7 with S != kv_len: ragged key tiles in B5,
+    ragged query tiles and key blocks in B7."""
+    q, k, v, do = _attn_inputs(dev, 2, S, KV, 128, torch.bfloat16, S * KV)
+    (o, ro), (lse, rlse), (dk, rdk), (dv, rdv) = _b5_b7(q, k, v, do, False)
+    _close_attn(o, ro, torch.bfloat16)
+    _close_attn(lse, rlse, torch.float32)
+    if KV == 1:
+        _close_single_key_dk(dk, rdk, q, v, do)
+    else:
+        _close_attn(dk, rdk, torch.bfloat16)
+    _close_attn(dv, rdv, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_flash_kernels_rerun_bit_equal(dev, causal):
+    """No atomics and a fixed order of sums: two runs are bit-equal."""
+    q, k, v, do = _attn_inputs(dev, 4, 1025, 1025, 128, torch.bfloat16, 5)
+    o1, lse1 = fa.flash_fwd(q, k, v, causal)
+    o2, lse2 = fa.flash_fwd(q, k, v, causal)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    delta = (do.float() * o1.float()).sum(-1)
+    dk1, dv1 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, causal)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, causal)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+def test_wgmma_flash_wrappers_raise_on_bad_bf16_inputs(dev):
+    """The bf16 kernels read through tensor maps: an input that is not
+    contiguous or not 16-byte aligned raises, with no launch counted."""
+    q, k, v, do = _attn_inputs(dev, 2, 64, 64, 128, torch.bfloat16, 2)
+    lse = torch.zeros((2, 64), device=dev)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(q.shape)                    # 2 bytes off
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(shifted, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dkv(q, k, v, shifted, lse, lse)
+    strided = k.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q, strided, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_bwd_dkv(q, strided, v, do, lse, lse)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == before
+
+
+def test_flash_tile_schedule_mirrors_the_kernels(dev):
+    """``fwd_wg_tiles`` / ``dkv_wg_tiles`` in Python and the schedule
+    functions the CUDA kernels run agree on every block and warpgroup,
+    and so do the tile constants."""
+    import ctypes
+
+    from instaslice_tpu_torch.ops import build
+    lib = build.library("flash_attention", fa._SIGNATURES)
+    consts = (ctypes.c_int * 8)()
+    assert lib.isl_flash_tile_consts(consts) == 0
+    assert list(consts) == [fa.FWD_BLOCK_Q, fa.FWD_WG_Q, fa.FWD_TILE_K,
+                            fa.FWD_STAGES, fa.DKV_BLOCK_K, fa.DKV_WG_K,
+                            fa.DKV_TILE_Q, fa.DKV_STAGES]
+    out = [ctypes.c_int() for _ in range(3)]
+    refs = [ctypes.byref(x) for x in out]
+    shapes = [(S, S, c) for S in [*range(1, 301), 1024, 1025]
+              for c in (True, False)]
+    shapes += [(S, KV, False) for S in (1, 65, 200) for KV in (1, 77, 300)]
+    for S, KV, causal in shapes:
+        for y in range(-(-S // fa.FWD_BLOCK_Q)):
+            for w in range(2):
+                assert lib.isl_flash_tiles(0, S, KV, int(causal), y, w,
+                                           *refs) == 0
+                assert tuple(x.value for x in out) == fa.fwd_wg_tiles(
+                    S, KV, causal, y, w), (S, KV, causal, y, w)
+        for kj in range(-(-KV // fa.DKV_BLOCK_K)):
+            for w in range(2):
+                assert lib.isl_flash_tiles(2, S, KV, int(causal), kj, w,
+                                           *refs) == 0
+                assert (out[1].value, out[2].value) == fa.dkv_wg_tiles(
+                    S, KV, causal, kj, w), (S, KV, causal, kj, w)
