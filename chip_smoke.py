@@ -9,7 +9,7 @@ without a result line:
 
 1. build every kernel from ``instaslice_tpu_torch/csrc`` with ``nvcc``
    for ``sm_90a`` (one compiler per source, started together); the
-   registers and spills of each warp-specialised kernel (B5, B7) are
+   registers and spills of each warp-specialised kernel (B5-B7) are
    logged, and none may spill, have its ``setmaxnreg`` ignored or its
    ``wgmma`` serialised by ptxas;
 2. kernels: each wrapper on the card at the shapes the 7B int8 serving
@@ -20,7 +20,10 @@ without a result line:
    its worst block tile; per-launch device time (CUDA graph replay, CUDA
    events), the plain version's and one PyTorch library call's time,
    achieved GB/s, and the bound (bytes over 3.35 TB/s or operations over
-   989 TFLOP/s, from this run's inputs);
+   989 TFLOP/s, from this run's inputs); B1 (split across the cache)
+   at three batch-8 shapes: staggered lengths and full depth at s_attn
+   1024, the engine's prompt lengths at s_attn 256, the empty row
+   bit-exact and two runs bit-equal at each;
 3. engine (the main path): the full-width 7B int8 W+KV engine
    (``vocab 32000, d_model 4096, 32 heads / 8 KV heads, 32 layers,
    d_ff 20480``, seeded random weights) serves 8 prompts through
@@ -35,7 +38,7 @@ without a result line:
    B7 dk/dv) against their plain versions in bf16 at (B*H 128, S 1024,
    hd 128) causal, at S 1025 (the training CLI's row width) and
    non-causal, by the largest difference and by relative L2 error over
-   each output and over its worst 64-row tile, B5 and B7 also run twice
+   each output and over its worst 64-row tile, each also run twice
    bit-equal; timed like phase 2, beside SDPA as the library yardstick
    (its forward, and its backward as forward + backward less forward,
    all by graph replay);
@@ -123,8 +126,9 @@ BIG = ("wq", "wk", "wv", "wo", "w_in", "w_out")
 #: device-time classes of a profiled step: the first class whose pattern
 #: occurs in a kernel's (lower-cased) name takes it
 KERNEL_CLASSES = (
-    ("flash attention B5-B7", ("fa_fwd", "fa_bwd", "tc::", "wg::")),
-    ("w8a16 and decode kernels B1-B4", ("qmm_", "fd_kernel")),
+    ("flash attention B5-B7", ("fa_fwd", "fa_bwd", "wg::")),
+    ("w8a16 and decode kernels B1-B4", ("qmm_", "fd_kernel",
+                                         "fd_combine_kernel")),
     ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
     ("optimizer", ("adam", "multi_tensor")),
     ("elementwise", ("elementwise",)),
@@ -147,6 +151,11 @@ def bound(nbytes: float, flops: float):
     operations over the bf16 tensor rate."""
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def gbs(nbytes: float, ms: float) -> float:
+    """GB/s of ``nbytes`` moved in ``ms`` milliseconds."""
+    return nbytes / ms / 1e6
 
 
 def graph_ms(torch, fn, n: int, replays: int = 3) -> float:
@@ -279,8 +288,6 @@ def check_qmm(torch, qm, got, want, what, x_dtype, M, K, N,
 def phase_kernels(torch, cfg, qp, ops) -> list:
     """Each kernel against its plain version at the main path's shapes;
     returns the kernels' entries (launches filled in later)."""
-    from instaslice_tpu_torch.models.lm import init_cache
-
     fd, qm = ops.flash_decode, ops.quant_matmul
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -290,9 +297,6 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
     def worse(acc: dict, r: dict) -> None:
         for key in ("max_abs", "rel_l2", "tile_rel_l2"):
             acc[key] = max(acc.get(key, 0.0), r[key])
-
-    def gbs(nbytes: float, ms: float) -> float:
-        return nbytes / ms / 1e6
 
     # ---- B2 quant_matmul_stacked: the six projections at M = 1 ... 256
     detail = []
@@ -446,7 +450,19 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
         "library_ms": lib, "gb_per_s": gbs(nbytes, ms),
     })
 
-    # ---- B1 quant_decode_attention: batch 8, s_attn 1024, staggered depths
+    out.insert(0, check_b1(torch, cfg, fd, gen, L))
+    return out
+
+
+def check_b1(torch, cfg, fd, gen, L: int) -> dict:
+    """B1 against its plain version at batch 8 over a 1024-position cache
+    at three shapes (the first, timed since B1 was first ported, stays
+    the entry's top level): staggered depths, full depth, and the engine's
+    prompt lengths (the longest cut to its bucket) at the engine's
+    s_attn 256; timed at each; returns its ``kernels`` entry."""
+    from instaslice_tpu_torch.models.lm import init_cache
+
+    dev = torch.device("cuda")
     B, S, Hkv, hd = 8, 1024, cfg.kv_heads, cfg.head_dim
     G = cfg.n_heads // Hkv
     cache = init_cache(cfg, B, S, quant=True, device=dev)
@@ -456,39 +472,11 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
                                        dtype=torch.int8))
     for key in ("k_s", "v_s"):
         cache[key].uniform_(0.005, 0.02, generator=gen)
-    lens_l = [0, 1, 17, 128, 300, 511, 777, 1000]
-    lengths = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     q4 = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(
         torch.bfloat16)
-    args = (cache["k"], cache["k_s"], cache["v"], cache["v_s"], lengths)
-    e_max = 0.0
-    for li in (0, L - 1):
-        o, m, l_ = fd.quant_decode_attention(q4, *args, li, S)
-        ro, rm, rl = fd.quant_decode_attention_ref(q4, *args, li, S)
-        # fp32 both: softmax order and tiling differ; 1e-5 of the scale
-        # on the rows with a prefix, exact conventions on the empty row
-        for got, want, what in ((o, ro, "acc"), (m, rm, "m"), (l_, rl, "l")):
-            e = _err(torch, got[1:], want[1:])
-            tol = 1e-5 * float(want[1:].abs().max()) + 1e-5
-            check(e <= tol, f"B1 layer {li} {what}: err {e} > {tol}")
-            check(bool((got[0] == want[0]).all()),
-                  f"B1 layer {li} {what}: empty-row convention")
-        k_loc = torch.randn((B, Hkv, hd), generator=gen, device=dev)
-        v_loc = torch.randn((B, Hkv, hd), generator=gen, device=dev)
-        lg = torch.einsum("bkgd,bkd->bkg", q4.float() * hd ** -0.5, k_loc)
-        e = _err(torch, fd.merge_local(o, m, l_, lg, v_loc),
-                 fd.merge_local(ro, rm, rl, lg, v_loc))
-        check(e <= 1e-5, f"B1 layer {li} merged: err {e} > 1e-5")
-        e_max = max(e_max, e)
-    ms = graph_ms(torch, lambda i: fd.quant_decode_attention(
-        q4, *args, i % L, S), L)
-    plain = graph_ms(torch, lambda i: fd.quant_decode_attention_ref(
-        q4, *args, i % L, S), 8, replays=2)
+    args = (cache["k"], cache["k_s"], cache["v"], cache["v_s"])
     # library yardstick: SDPA over the bf16-dequantized prefix, K/V
     # repeated to the query heads outside the timing
-    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]) | (
-        torch.arange(S, device=dev)[None, :] == 0)
-    mask = mask[:, None, None, :]
     qs = q4.reshape(B, Hkv * G, 1, hd)
     kv_deq = []
     for li in range(8):
@@ -498,27 +486,88 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
             torch.bfloat16).repeat_interleave(G, dim=1)
         kv_deq.append((k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = graph_ms(torch, lambda i: sdpa(qs, *kv_deq[i % 8],
-                                         attn_mask=mask), 8)
+    shapes = (("staggered", [0, 1, 17, 128, 300, 511, 777, 1000], S),
+              ("full depth", [S] * B, S),
+              ("engine", [256, 200, 129, 100, 64, 33, 17, 5], 256))
+    detail = []
+    e_max = 0.0
+    for label, lens_l, s_attn in shapes:
+        lengths = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        empty = [b for b, n in enumerate(lens_l) if n == 0]
+        rows = [b for b in range(B) if b not in empty]
+        worst = 0.0                 # largest error over max|plain|
+        for li in (0, L - 1):
+            o, m, l_ = fd.quant_decode_attention(q4, *args, lengths, li,
+                                                 s_attn)
+            ro, rm, rl = fd.quant_decode_attention_ref(q4, *args, lengths,
+                                                       li, s_attn)
+            # fp32 both: softmax order and splits differ; 1e-5 of the
+            # scale on the rows with a prefix, exact conventions on the
+            # empty row
+            for got, want, what in ((o, ro, "acc"), (m, rm, "m"),
+                                    (l_, rl, "l")):
+                e = _err(torch, got[rows], want[rows])
+                scale = float(want[rows].abs().max())
+                worst = max(worst, e / scale)
+                tol = 1e-5 * scale + 1e-5
+                check(e <= tol, f"B1 {label} layer {li} {what}: err {e} > "
+                      f"{tol}")
+                for b in empty:
+                    check(bool(torch.equal(got[b], want[b])),
+                          f"B1 {label} layer {li} {what}: empty-row "
+                          "convention")
+            k_loc = torch.randn((B, Hkv, hd), generator=gen, device=dev)
+            v_loc = torch.randn((B, Hkv, hd), generator=gen, device=dev)
+            lg = torch.einsum("bkgd,bkd->bkg", q4.float() * hd ** -0.5,
+                              k_loc)
+            e = _err(torch, fd.merge_local(o, m, l_, lg, v_loc),
+                     fd.merge_local(ro, rm, rl, lg, v_loc))
+            check(e <= 1e-5, f"B1 {label} layer {li} merged: err {e} > 1e-5")
+            e_max = max(e_max, e)
+            # the splits combine in a fixed order: reruns bit-equal
+            o2, m2, l2 = fd.quant_decode_attention(q4, *args, lengths, li,
+                                                   s_attn)
+            check(bool(torch.equal(o, o2) and torch.equal(m, m2)
+                       and torch.equal(l_, l2)),
+                  f"B1 {label} layer {li}: two runs bit-equal")
+        ms = graph_ms(torch, lambda i: fd.quant_decode_attention(
+            q4, *args, lengths, i % L, s_attn), L)
+        plain = graph_ms(torch, lambda i: fd.quant_decode_attention_ref(
+            q4, *args, lengths, i % L, s_attn), 8, replays=2)
+        pos = torch.arange(s_attn, device=dev)[None, :]
+        mask = ((pos < lengths[:, None]) | (pos == 0))[:, None, None, :]
+        lib = graph_ms(torch, lambda i: sdpa(
+            qs, kv_deq[i % 8][0][:, :, :s_attn],
+            kv_deq[i % 8][1][:, :, :s_attn], attn_mask=mask), 8)
+        live = sum(min(n, s_attn) for n in lens_l)
+        nbytes = (live * Hkv * (2 * hd + 2 * 4) + B * Hkv * G * hd * 2
+                  + 4 * B + B * Hkv * G * (hd + 2) * 4)
+        b_ms, b_by = bound(nbytes, live * Hkv * G * 4 * hd)
+        P, n_split = fd.split_plan(B, Hkv, s_attn)
+        detail.append({"shape": label, "lengths": lens_l, "s_attn": s_attn,
+                       "P": P, "n_split": n_split, "ms": ms,
+                       "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "gb_per_s": gbs(nbytes, ms)})
+        log(f"kernels: B1 decode attention B=8 {label} s_attn={s_attn} "
+            f"lengths {lens_l} (P {P}, {n_split} splits): {ms * 1e3:.1f} us"
+            f" = {gbs(nbytes, ms):.0f} GB/s (bound {b_ms * 1e3:.1f} us, "
+            f"plain {plain * 1e3:.1f}, library {lib * 1e3:.1f}); worst "
+            f"error {worst:.2e} of max|plain|, merged {e_max:.2e}")
     del kv_deq, cache
     torch.cuda.empty_cache()
-    live = sum(min(n, S) for n in lens_l)
-    nbytes = (live * Hkv * (2 * hd + 2 * 4) + B * Hkv * G * hd * 2 + 4 * B
-              + B * Hkv * G * (hd + 2) * 4)
-    b_ms, b_by = bound(nbytes, live * Hkv * G * 4 * hd)
-    log(f"kernels: B1 decode attention B=8 s_attn=1024 lengths {lens_l}: "
-        f"{ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, plain "
-        f"{plain * 1e3:.1f}, library {lib * 1e3:.1f})")
-    out.insert(0, {
+    top = detail[0]
+    return {
         "name": "quant_decode_attention", "route": "cuda",
         "source": "instaslice_tpu_torch/csrc/flash_decode.cu",
         "replaces": "instaslice_tpu/ops/flash_decode.py:59",
-        "work": f"one layer, B=8 Hkv=8 G=4 hd=128, lengths {lens_l}",
-        "max_abs_err": e_max, "tol": "1e-5 (merged output)", "ms": ms,
-        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib,
-    })
-    return out
+        "work": f"one layer, B=8 Hkv=8 G=4 hd=128, lengths "
+                f"{top['lengths']}, s_attn {top['s_attn']}",
+        "max_abs_err": e_max, "tol": "1e-5 (merged output)",
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "detail": detail,
+    }
 
 
 def phase_engine(torch, cfg, qp, ops) -> dict:
@@ -782,14 +831,17 @@ def phase_train_kernels(torch, fa) -> list:
                 if got.dtype == torch.bfloat16:
                     for key in worst[name]:
                         worst[name][key] = max(worst[name][key], r[key])
-        # B5 and B7 sum in a fixed order (no atomics): reruns bit-equal
+        # B5-B7 sum in a fixed order (no atomics): reruns bit-equal
         o2, lse2 = fa.flash_fwd(q, k, v, causal)
         check(bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
               f"flash_fwd S={S} causal={causal}: two runs bit-equal")
+        dq2 = fa.flash_bwd_dq(q, k, v, do, rlse, delta, causal)
+        check(bool(torch.equal(dq, dq2)),
+              f"flash_bwd_dq S={S} causal={causal}: two runs bit-equal")
         dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
         check(bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
               f"flash_bwd_dkv S={S} causal={causal}: two runs bit-equal")
-        del o2, lse2, dk2, dv2
+        del o2, lse2, dq2, dk2, dv2
         if S == 1024 and causal:
             main = (q, k, v, do, rlse, delta)
         del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv

@@ -17,10 +17,9 @@
 // do 4, 6 and 8 flops per (q, k, d) triple on the causal half, against
 // ~1 KB of q/k/v/o per row: hundreds of flops per byte. So the products
 // belong on the tensor cores: bf16 inputs (the training path) take them
-// with fp32 sums, B5 and B7 as warp-specialised wgmma kernels fed by TMA
-// (namespace wg, helpers in hopper.cuh), B6 on mma.sync m16n8k16
-// (namespace tc); fp32 inputs keep fp32 products on the CUDA cores (67
-// TFLOP/s peak), exact to fp32 sums.
+// with fp32 sums, all three as warp-specialised wgmma kernels fed by TMA
+// (namespace wg, helpers in hopper.cuh); fp32 inputs keep fp32 products
+// on the CUDA cores (67 TFLOP/s peak), exact to fp32 sums.
 //
 // Every body loops over its own key or query tiles (no state carried
 // between blocks), with causal block skipping (B5 and B6 stop at the
@@ -29,8 +28,8 @@
 // masked (p = 0), and nothing past the end is written, so any S and
 // kv_len run (causal attention requires S == kv_len, the wrapper checks);
 // the softmax state and the accumulators stay in registers.
-// The fp32 and mma.sync bodies use tiles of 64 query rows x 64 keys, row
-// reductions by warp shuffles.
+// The fp32 bodies use tiles of 64 query rows x 64 keys, row reductions
+// by warp shuffles.
 // CUDA-core path (fp32): 256 threads as a 16 x 16 grid; a thread owns a
 // 4 x 4 patch of every 64 x 64 score tile and 4 rows x hd/16 columns of
 // every 64 x hd accumulator; both operands of every product are read
@@ -387,208 +386,7 @@ __global__ void __launch_bounds__(FA_THREADS)
   store_rows<HD>(dv + koff, k0, KV, dv_acc, one, ty, tx);
 }
 
-// ------------------------------------------ tensor-core path (bf16 inputs)
-// B6 (dq) for bf16 inputs: mma.sync m16n8k16 (bf16 operands, fp32 sums)
-// with the tiles (64 query rows x 64 keys), masking and causal skipping of
-// the CUDA-core bodies above, which fp32 inputs keep. Four warps per
-// block, each owning 16 rows of every product; tiles stay bf16 in shared
-// memory (row stride hd + 8: the fragment loads below hit 32 distinct
-// banks); scores and the accumulators live in registers in the mma C
-// layout. As in FlashAttention-2, p and ds are rounded to bf16 where they
-// feed a product (o = p v, dq = ds k, dv = p^T do, dk = ds^T q, here and
-// in namespace wg): one bf16 rounding of each term, below the rounding of
-// the bf16 output itself. B5 and B7 for bf16 are namespace wg below.
-namespace tc {
-
-constexpr int THREADS = 128;
-using bf16 = __nv_bfloat16;
-
-template <int HD>
-__host__ __device__ constexpr int ld() { return HD + 8; }
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &h, 4);
-  return u;
-}
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  const __nv_bfloat162 h = __halves2bfloat162(lo, hi);
-  uint32_t u;
-  memcpy(&u, &h, 4);
-  return u;
-}
-
-// A fragment: rows [r0, r0 + 16) x columns [c0, c0 + 16) of X
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* X,
-                                       int ldx, int r0, int c0, int g,
-                                       int t) {
-  const bf16* p = X + (r0 + g) * ldx + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ldx);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ldx + 8);
-}
-// B fragment of B[k][n] = Y[n0 + n][k0 + k] (Y's rows are the n index)
-__device__ __forceinline__ void frag_bt(uint32_t& b0, uint32_t& b1,
-                                        const bf16* Y, int ldy, int n0,
-                                        int k0, int g, int t) {
-  const bf16* p = Y + (n0 + g) * ldy + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-// B fragment of B[k][n] = Z[k0 + k][n0 + n] (Z's rows are the k index)
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* Z, int ldz, int k0,
-                                       int n0, int g, int t) {
-  const bf16* p = Z + (k0 + 2 * t) * ldz + n0 + g;
-  b0 = pack(p[0], p[ldz]);
-  b1 = pack(p[8 * ldz], p[9 * ldz]);
-}
-// the A fragment of columns [16j, 16j + 16) of a C-layout score tile
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack(lo[0], lo[1]);
-  a[1] = pack(lo[2], lo[3]);
-  a[2] = pack(hi[0], hi[1]);
-  a[3] = pack(hi[2], hi[3]);
-}
-
-// rows [row0, row0 + 64) of a row-major (n_rows, HD) bf16 matrix into a
-// tile of stride ld<HD>() (zeros past the end), 16 bytes per thread
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int n_rows) {
-  constexpr int VPR = HD / 8;
-  for (int i = threadIdx.x; i < FA_T * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(dst + r * ld<HD>() + c) = v;
-  }
-}
-
-// store rows g and g + 8 of a warp's 16 x HD accumulator, times scale[]
-template <int HD>
-__device__ __forceinline__ void store16(bf16* dst, int row, int n_rows,
-                                        const float (&acc)[HD / 8][4],
-                                        const float (&scale)[2], int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row + 8 * h >= n_rows) continue;
-    bf16* p = dst + (size_t)(row + 8 * h) * HD + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(p + nt * 8) =
-          pack(acc[nt][2 * h] * scale[h], acc[nt][2 * h + 1] * scale[h]);
-  }
-}
-
-// ---- B6 on tensor cores
-template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS)
-    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int S, int KV, float sm_scale) {
-  constexpr int L = ld<HD>();
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem);
-  bf16* dos = qs + FA_T * L;
-  bf16* ks = dos + FA_T * L;
-  bf16* vs = ks + FA_T * L;
-  const int nq = (S + FA_T - 1) / FA_T;
-  const int qi = CAUSAL ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int bh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
-  const int q0 = qi * FA_T;
-  const int qp[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const size_t qoff = (size_t)bh * S * HD, koff = (size_t)bh * KV * HD;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse_r[h] = qp[h] < S ? lse[(size_t)bh * S + qp[h]] : 0.f;
-    delta_r[h] = qp[h] < S ? delta[(size_t)bh * S + qp[h]] : 0.f;
-  }
-  load_tile<HD>(qs, q + qoff, q0, S);
-  load_tile<HD>(dos, dout + qoff, q0, S);
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  const int nk = (KV + FA_T - 1) / FA_T;
-  const int n_live = CAUSAL ? min(nk, qi + 1) : nk;
-  for (int j = 0; j < n_live; ++j) {
-    const int k0 = j * FA_T;
-    __syncthreads();
-    load_tile<HD>(ks, k + koff, k0, KV);
-    load_tile<HD>(vs, v + koff, k0, KV);
-    __syncthreads();
-    float s[FA_T / 8][4], dp[FA_T / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < FA_T / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4], ad[4];
-      frag_a(a, qs, L, r0, kk * 16, g, t);
-      frag_a(ad, dos, L, r0, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < FA_T / 8; ++nt) {
-        uint32_t b0, b1;
-        frag_bt(b0, b1, ks, L, nt * 8, kk * 16, g, t);
-        mma(s[nt], a, b0, b1);
-        frag_bt(b0, b1, vs, L, nt * 8, kk * 16, g, t);
-        mma(dp[nt], ad, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < FA_T / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + nt * 8 + 2 * t + (e & 1), h = e >> 1;
-        const bool ok = qp[h] < S && kp < KV && (!CAUSAL || kp <= qp[h]);
-        const float p = ok ? expf(sm_scale * s[nt][e] - lse_r[h]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - delta_r[h]);      // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < FA_T / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, ks, L, kk * 16, nt * 8, g, t);
-        mma(acc[nt], a, b0, b1);
-      }
-    }
-  }
-  const float sc[2] = {sm_scale, sm_scale};
-  store16<HD>(dq + qoff, qp[0], S, acc, sc, t);
-}
-
-template <int HD>
-constexpr size_t dq_smem() { return sizeof(bf16) * 4 * FA_T * ld<HD>(); }
-
-}  // namespace tc
-
-// ----------------------------- warp-specialised path (bf16, hd 128): B5, B7
+// ------------------------- warp-specialised path (bf16, hd 128): B5-B7
 // One block = one producer warpgroup and two consumer warpgroups (384
 // threads, one block per SM). The producer (registers lowered to 40 by
 // setmaxnreg) loads tiles by TMA into a ring of shared-memory stages, one
@@ -596,11 +394,15 @@ constexpr size_t dq_smem() { return sizeof(bf16) * 4 * FA_T * ld<HD>(); }
 // run wgmma m64nNk16 on them, 64 rows each, accumulators in registers.
 // Tiles are rows of hd = 128 bf16 stored as two 64-column boxes with
 // 128-byte swizzle (csrc/hopper.cuh), read by wgmma straight from shared
-// memory: K-major where hd is the contracted index (q k^T, k q^T, v do^T),
-// MN-major through the descriptor's transpose bit where the tile's rows
-// are contracted (p v, p^T do, ds^T q), so no tile is ever transposed by
-// a copy. p and ds are rounded to bf16 in registers as the A operand of
-// their products. Exponentials are exp2 with log2(e) folded into the
+// memory: K-major where hd is the contracted index (q k^T, do v^T,
+// k q^T, v do^T), MN-major through the descriptor's transpose bit where
+// the tile's rows are contracted (p v, ds k, p^T do, ds^T q), so no tile
+// is ever transposed by a copy. As in FlashAttention-2, p and ds are
+// rounded to bf16 in registers where they feed a product (the A operand
+// of o = p v, dq = ds k, dv = p^T do, dk = ds^T q): one bf16 rounding of
+// each term, below the rounding of the bf16 output itself. No kernel
+// uses atomics: each block owns its rows (B5, B6) or keys (B7), so two
+// runs are bit-equal. Exponentials are exp2 with log2(e) folded into the
 // scale; only the tiles that cut the causal diagonal or the ragged end
 // are masked. Rows past S and keys past kv_len load as zero (3-D tensor
 // maps over (BH, rows, hd) never reach the next head) and are not written.
@@ -615,6 +417,8 @@ constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 // B5: query rows per block and per consumer warpgroup, keys per tile
 constexpr int FWD_BQ = 128, FWD_WQ = 64, FWD_TK = 128, FWD_STAGES = 3;
+// B6: query rows per block and per consumer warpgroup, keys per tile
+constexpr int DQ_BQ = 128, DQ_WQ = 64, DQ_TK = 64, DQ_STAGES = 4;
 // B7: keys per block and per consumer warpgroup, query rows per tile
 // and per score product (half a tile)
 constexpr int DKV_BK = 128, DKV_WK = 64, DKV_TQ = 64, DKV_STAGES = 3;
@@ -646,6 +450,30 @@ __host__ __device__ inline Span fwd_keys(int KV, bool causal, int qi) {
 // consumer warpgroup w of query tile qi has rows below S
 __host__ __device__ inline bool fwd_live(int S, int qi, int w) {
   return qi * FWD_BQ + w * FWD_WQ < S;
+}
+// B6 block y: its query tile, longest first when causal
+__host__ __device__ inline int dq_query_tile(int S, bool causal, int y) {
+  const int nq = (S + DQ_BQ - 1) / DQ_BQ;
+  return causal ? nq - 1 - y : y;
+}
+// the key tiles (from tile 0) that query rows up to `row_end` need: all,
+// or up to the tile holding row_end - 1 when causal (S == KV)
+__host__ __device__ inline int dq_key_count(int KV, bool causal,
+                                            int row_end) {
+  const int nk = (KV + DQ_TK - 1) / DQ_TK;
+  const int diag = (row_end + DQ_TK - 1) / DQ_TK;
+  return causal && diag < nk ? diag : nk;
+}
+// the key tiles block qi streams through its ring (its last warpgroup's)
+__host__ __device__ inline int dq_block_keys(int KV, bool causal, int qi) {
+  return dq_key_count(KV, causal, (qi + 1) * DQ_BQ);
+}
+// the key tiles consumer warpgroup w of query tile qi computes on (its
+// diagonal tile last when causal); 0 when its rows all lie past S
+__host__ __device__ inline int dq_keys(int S, int KV, bool causal, int qi,
+                                       int w) {
+  const int row0 = qi * DQ_BQ + w * DQ_WQ;
+  return row0 < S ? dq_key_count(KV, causal, row0 + DQ_WQ) : 0;
 }
 // B7 block kj: its query tiles, from the first that reaches its keys
 __host__ __device__ inline Span dkv_queries(int S, bool causal, int kj) {
@@ -681,6 +509,12 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &h, 4);
+  return u;
+}
 // the A fragments (k16 steps) of an m64nN fp32 accumulator, as bf16
 template <int N>
 __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
@@ -689,7 +523,7 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = tc::pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 // the K-major descriptor of k16 step kk of a (rows, hd) tile at `tile`,
 // from its row `row0`
@@ -714,7 +548,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, int r0, int n_rows,
 #pragma unroll
     for (int nb = 0; nb < 16; ++nb)
       *reinterpret_cast<uint32_t*>(row + 8 * nb) =
-          tc::pack(d[4 * nb + 2 * h] * scale[h],
+          pack(d[4 * nb + 2 * h] * scale[h],
                    d[4 * nb + 2 * h + 1] * scale[h]);
   }
 }
@@ -926,6 +760,162 @@ __global__ void __launch_bounds__(THREADS, 1)
         lse[(size_t)bh * S + row] = m[h] * LN2 + logf(lq);
     }
     store_rows(o + (size_t)bh * S * HD, r0, S, acc, inv, t);
+  }
+}
+
+// ---- B6
+// shared memory from a 1024-byte boundary: Q and dO (the block's 128
+// rows), then K and V per stage, then the barriers (q/do full; full and
+// empty per stage)
+struct DqSmem {
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t DO = Q + tile_bytes(DQ_BQ);
+  static constexpr uint32_t K = DO + tile_bytes(DQ_BQ);
+  static constexpr uint32_t V = K + DQ_STAGES * tile_bytes(DQ_TK);
+  static constexpr uint32_t BAR = V + DQ_STAGES * tile_bytes(DQ_TK);
+  static constexpr uint32_t BYTES = BAR + 8 * (1 + 2 * DQ_STAGES) + 1024;
+};
+static_assert(DqSmem::BYTES <= 232448, "B6 stages do not fit");
+
+// dq = sm ds k with ds = p (dp - delta), p = exp(s sm - lse) recomputed,
+// s = q k^T and dp = do v^T, over the 128 query rows of block (bh, y):
+// per key tile of DQ_TK keys each consumer warpgroup issues s and dp
+// (two m64n64 products over hd, all four operands K-major) under one
+// commit, turns them into ds in registers (masked only on the tile that
+// cuts its diagonal or the ragged end), rounds ds to bf16 as the A
+// operand of dq += ds k (m64n128 over the tile's keys, k MN-major) and
+// releases the stage once that product has read it
+template <bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              const __grid_constant__ CUtensorMap do_map,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int S, int KV, float sm_scale) {
+  extern __shared__ uint8_t dq_smem_raw[];
+  uint8_t* sm = align1024(dq_smem_raw);
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(sm + DqSmem::BAR);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
+  const int bh = blockIdx.x;
+  const int qi = dq_query_tile(S, CAUSAL, blockIdx.y);
+  const int n_tiles = dq_block_keys(KV, CAUSAL, qi);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qd_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int role = threadIdx.x / 128;
+  if (role == 0) {
+    // ---- producer: Q and dO once, then K and V tiles through the ring
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x % 128 == 0) {
+      hopper::mbar_arrive_expect_tx(qd_full, 2 * tile_bytes(DQ_BQ));
+      for (int c = 0; c < 2; ++c) {
+        hopper::tma_load_3d(sm + DqSmem::Q + box_off(DQ_BQ, c), &q_map,
+                            qd_full, 64 * c, qi * DQ_BQ, bh);
+        hopper::tma_load_3d(sm + DqSmem::DO + box_off(DQ_BQ, c), &do_map,
+                            qd_full, 64 * c, qi * DQ_BQ, bh);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % DQ_STAGES;
+        hopper::mbar_wait(empty + s, ((n / DQ_STAGES) & 1) ^ 1);
+        uint8_t* kt = sm + DqSmem::K + s * tile_bytes(DQ_TK);
+        uint8_t* vt = sm + DqSmem::V + s * tile_bytes(DQ_TK);
+        hopper::mbar_arrive_expect_tx(full + s, 2 * tile_bytes(DQ_TK));
+        for (int c = 0; c < 2; ++c) {
+          hopper::tma_load_3d(kt + box_off(DQ_TK, c), &k_map, full + s,
+                              64 * c, n * DQ_TK, bh);
+          hopper::tma_load_3d(vt + box_off(DQ_TK, c), &v_map, full + s,
+                              64 * c, n * DQ_TK, bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup w: query rows [q0 + 64 w, q0 + 64 w + 64)
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int w = role - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = qi * DQ_BQ + w * DQ_WQ;
+    const int r0 = row0 + warp * 16 + g;  // and r0 + 8
+    const int count = dq_keys(S, KV, CAUSAL, qi, w);
+    const uint32_t base = hopper::smem_u32(sm);
+    const float sc = sm_scale * LOG2E;
+    // lse (log2 domain) and delta of this thread's two rows; rows past S
+    // have q = do = 0 (zero-filled tiles), so their ds is 0
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      lse2[h] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
+      dl[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+    }
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    if (count > 0) hopper::mbar_wait(qd_full, 0);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % DQ_STAGES;
+      hopper::mbar_wait(full + st, (n / DQ_STAGES) & 1);
+      if (n < count) {
+        const uint32_t sb = hopper::opaque(base);
+        const uint32_t kt = sb + DqSmem::K + st * tile_bytes(DQ_TK);
+        const uint32_t vt = sb + DqSmem::V + st * tile_bytes(DQ_TK);
+        float s[32], dp[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          hopper::wgmma_m64n64_ss(s, k_step(sb + DqSmem::Q, DQ_BQ, w * DQ_WQ,
+                                            kk),
+                                  k_step(kt, DQ_TK, 0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          hopper::wgmma_m64n64_ss(dp, k_step(sb + DqSmem::DO, DQ_BQ,
+                                             w * DQ_WQ, kk),
+                                  k_step(vt, DQ_TK, 0, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        // element e: row r0 + 8 ((e >> 1) & 1), key k0 + 8 (e >> 2) +
+        // 2 t + (e & 1); ds in place of s
+        const int k0 = n * DQ_TK;
+        const bool edge =
+            (CAUSAL && k0 + DQ_TK - 1 > row0) || k0 + DQ_TK > KV;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int h = (e >> 1) & 1;
+          float p = ex2(fmaf(s[e], sc, -lse2[h]));
+          if (edge) {
+            const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            if (key >= KV || (CAUSAL && key > r0 + 8 * h)) p = 0.f;
+          }
+          s[e] = p * (dp[e] - dl[h]);
+        }
+        uint32_t da[DQ_TK / 16][4];
+        to_a<DQ_TK>(da, s);
+        // dq += ds k: k16 steps over the tile's keys, k MN-major
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_TK / 16; ++kk)
+          hopper::wgmma_m64n128_rs_t(acc, da[kk], mn_step(kt, DQ_TK, kk), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        hopper::fence_regs(da);
+      }
+      hopper::mbar_arrive(empty + st);  // after dq's product read k
+    }
+    if (count > 0) {
+      const float sc_q[2] = {sm_scale, sm_scale};
+      store_rows(dq + (size_t)bh * S * HD, r0, S, acc, sc_q, t);
+    }
   }
 }
 
@@ -1192,30 +1182,19 @@ int launch_f32(int which, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// bf16 inputs at hd 128: B5 and B7 warp-specialised (namespace wg), B6 on
-// mma.sync (namespace tc). Tensor maps are encoded on every launch.
+// bf16 inputs at hd 128: the warp-specialised kernels of namespace wg.
+// Tensor maps are encoded on every launch.
 template <bool CAUSAL>
 int launch_bf16(int which, const Args& a) {
   using bf16 = __nv_bfloat16;
   constexpr int HD = wg::HD;
   static bool smem_ok[3] = {false, false, false};
   cudaError_t err = cudaSuccess;
-  if (which == 1) {
-    auto* fn = tc::dq_kernel<HD, CAUSAL>;
-    const size_t smem = tc::dq_smem<HD>();
-    if ((err = allow_smem(fn, smem, smem_ok[1])) != cudaSuccess)
-      return (int)err;
-    const dim3 grid((a.S + FA_T - 1) / FA_T, a.BH);
-    fn<<<grid, tc::THREADS, smem, a.st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dq), a.S, a.KV, a.sm_scale);
-    return (int)cudaGetLastError();
-  }
   CUtensorMap q_map, k_map, v_map, do_map;
-  const int q_box = which == 0 ? wg::FWD_BQ : wg::DKV_TQ;
-  const int k_box = which == 0 ? wg::FWD_TK : wg::DKV_BK;
+  const int q_box = which == 0 ? wg::FWD_BQ
+                               : (which == 1 ? wg::DQ_BQ : wg::DKV_TQ);
+  const int k_box = which == 0 ? wg::FWD_TK
+                               : (which == 1 ? wg::DQ_TK : wg::DKV_BK);
   if (!hopper::tma_map_bf16(&q_map, a.q, a.BH, a.S, HD, q_box) ||
       !hopper::tma_map_bf16(&k_map, a.k, a.BH, a.KV, HD, k_box) ||
       !hopper::tma_map_bf16(&v_map, a.v, a.BH, a.KV, HD, k_box))
@@ -1230,8 +1209,19 @@ int launch_bf16(int which, const Args& a) {
         static_cast<float*>(a.lse_out), a.S, a.KV, a.sm_scale);
     return (int)cudaGetLastError();
   }
-  if (!hopper::tma_map_bf16(&do_map, a.dout, a.BH, a.S, HD, wg::DKV_TQ))
+  if (!hopper::tma_map_bf16(&do_map, a.dout, a.BH, a.S, HD, q_box))
     return (int)cudaErrorInvalidValue;
+  if (which == 1) {
+    auto* fn = wg::dq_kernel<CAUSAL>;
+    if ((err = allow_smem(fn, wg::DqSmem::BYTES, smem_ok[1])) != cudaSuccess)
+      return (int)err;
+    const dim3 grid(a.BH, (a.S + wg::DQ_BQ - 1) / wg::DQ_BQ);
+    fn<<<grid, wg::THREADS, wg::DqSmem::BYTES, a.st>>>(
+        q_map, k_map, v_map, do_map, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.S,
+        a.KV, a.sm_scale);
+    return (int)cudaGetLastError();
+  }
   auto* fn = wg::dkv_kernel<CAUSAL>;
   if ((err = allow_smem(fn, wg::DkvSmem::BYTES, smem_ok[2])) != cudaSuccess)
     return (int)err;
@@ -1293,15 +1283,16 @@ int isl_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // The bf16 kernels' tile schedule, for the tests to hold
 // ops/flash_attention.py's mirror against: the tile constants, and the
-// tiles one consumer warpgroup visits. B5 (kernel 0): block y, warpgroup
-// w -> its query tile and the first and number of key tiles it computes
-// on (0 when its rows all lie past S). B7 (kernel 2): key block y,
-// warpgroup w -> its first query tile and their number (0 when its keys
-// all lie past KV).
+// tiles one consumer warpgroup visits. B5 (kernel 0) and B6 (kernel 1):
+// block y, warpgroup w -> its query tile and the first and number of key
+// tiles it computes on (0 when its rows all lie past S). B7 (kernel 2):
+// key block y, warpgroup w -> its first query tile and their number (0
+// when its keys all lie past KV).
 int isl_flash_tile_consts(int* out) {
-  const int v[8] = {wg::FWD_BQ, wg::FWD_WQ, wg::FWD_TK, wg::FWD_STAGES,
-                    wg::DKV_BK, wg::DKV_WK, wg::DKV_TQ, wg::DKV_STAGES};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const int v[12] = {wg::FWD_BQ, wg::FWD_WQ, wg::FWD_TK, wg::FWD_STAGES,
+                     wg::DQ_BQ,  wg::DQ_WQ,  wg::DQ_TK,  wg::DQ_STAGES,
+                     wg::DKV_BK, wg::DKV_WK, wg::DKV_TQ, wg::DKV_STAGES};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -1313,6 +1304,12 @@ int isl_flash_tiles(int which, int S, int KV, int causal, int y, int w,
     const bool live = wg::fwd_live(S, *tile, w);
     *first = keys.first;
     *count = live ? keys.count : 0;
+    return 0;
+  }
+  if (which == 1) {
+    *tile = wg::dq_query_tile(S, causal, y);
+    *first = 0;
+    *count = wg::dq_keys(S, KV, causal, *tile, w);
     return 0;
   }
   if (which == 2) {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
 // mbarriers, TMA tile loads through a tensor map, wgmma on shared-memory
 // and register operands (its descriptor, fence, commit and wait), and
-// setmaxnreg. Used by csrc/flash_attention.cu (B5, B7).
+// setmaxnreg. Used by csrc/flash_attention.cu (B5, B6, B7).
 //
 // Layout convention: every shared-memory operand is a tile of rows of 64
 // bf16 (128 bytes) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, so the
@@ -154,6 +154,16 @@ __device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" ISL_R16
       "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : ISL_D8(d, 0), ISL_D8(d, 8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+// d (64 x 64) += A B with A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" ISL_R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ISL_D32(d)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 // d (64 x 128) += A B with A and B K-major in shared memory

@@ -26,13 +26,13 @@ cropped-query case to :func:`_xla_attention`; the model never makes it).
 Bound on the H100: operations (hundreds of flops per byte at S = 1024).
 bf16 inputs run the products on the tensor cores with fp32 sums, p and
 ds rounded to bf16 where they feed a product (as in FlashAttention-2):
-B5 and B7 as warp-specialised ``wgmma`` kernels fed by TMA (one producer
-warpgroup, two consumer warpgroups of 64 rows each), B6 on ``mma.sync``;
-fp32 inputs run on the CUDA cores in fp32; see the CUDA source. The
-tiles each block of B5 and B7 visits are described here in plain Python
-(:func:`fwd_tiles`, :func:`dkv_tiles`), mirroring the kernels' schedule
-functions (``isl_flash_tiles``), so the CPU tests can hold the schedule
-to covering every unmasked (query, key) pair once.
+B5, B6 and B7 as warp-specialised ``wgmma`` kernels fed by TMA (one
+producer warpgroup, two consumer warpgroups of 64 rows each); fp32
+inputs run on the CUDA cores in fp32; see the CUDA source. The tiles
+each block of B5, B6 and B7 visits are described here in plain Python
+(:func:`fwd_tiles`, :func:`dq_tiles`, :func:`dkv_tiles`), mirroring the
+kernels' schedule functions (``isl_flash_tiles``), so the CPU tests can
+hold the schedule to covering every unmasked (query, key) pair once.
 """
 
 from __future__ import annotations
@@ -62,15 +62,17 @@ _NEG = -1e30
 # ------------------------------------------ tile schedules of the bf16 path
 # Mirror of namespace wg of csrc/flash_attention.cu (held against it by
 # tests/test_torch_cuda.py). A block has two consumer warpgroups, each
-# owning half of the block's query rows (B5) or keys (B7); a warpgroup
-# computes one tile product for each tile it visits.
+# owning half of the block's query rows (B5, B6) or keys (B7); a
+# warpgroup computes one tile product for each tile it visits.
 
 #: B5: query rows per block, per consumer warpgroup, keys per tile
 FWD_BLOCK_Q, FWD_WG_Q, FWD_TILE_K = 128, 64, 128
+#: B6: query rows per block, per consumer warpgroup, keys per tile
+DQ_BLOCK_Q, DQ_WG_Q, DQ_TILE_K = 128, 64, 64
 #: B7: keys per block, per consumer warpgroup, query rows per tile
 DKV_BLOCK_K, DKV_WG_K, DKV_TILE_Q = 128, 64, 64
 #: depth of each kernel's shared-memory ring of tiles
-FWD_STAGES, DKV_STAGES = 3, 3
+FWD_STAGES, DQ_STAGES, DKV_STAGES = 3, 4, 3
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -87,6 +89,20 @@ def fwd_wg_tiles(S: int, KV: int, causal: bool, y: int, w: int):
     count = min(nk, qi + 1) if causal else nk
     live = qi * FWD_BLOCK_Q + w * FWD_WG_Q < S
     return qi, 0, count if live else 0
+
+
+def dq_wg_tiles(S: int, KV: int, causal: bool, y: int, w: int):
+    """B6 block ``y``, consumer warpgroup ``w``: ``(query tile, first key
+    tile, number of key tiles)`` it computes on. Causal blocks take the
+    longest query tiles first; each warpgroup stops at the key tile that
+    holds its own diagonal (with 64-key tiles the block's first
+    warpgroup needs one tile fewer than its second); a warpgroup whose
+    rows all lie past S computes nothing."""
+    nq, nk = _cdiv(S, DQ_BLOCK_Q), _cdiv(KV, DQ_TILE_K)
+    qi = nq - 1 - y if causal else y
+    row0 = qi * DQ_BLOCK_Q + w * DQ_WG_Q
+    count = min(nk, _cdiv(row0 + DQ_WG_Q, DQ_TILE_K)) if causal else nk
+    return qi, 0, count if row0 < S else 0
 
 
 def dkv_wg_tiles(S: int, KV: int, causal: bool, kj: int, w: int):
@@ -111,6 +127,19 @@ def fwd_tiles(S: int, KV: int, causal: bool):
             for j in range(first, first + count):
                 out.append(((q_lo, q_lo + FWD_WG_Q),
                             (j * FWD_TILE_K, (j + 1) * FWD_TILE_K)))
+    return out
+
+
+def dq_tiles(S: int, KV: int, causal: bool):
+    """Every product B6 computes, as ``((q_lo, q_hi), (k_lo, k_hi))``."""
+    out = []
+    for y in range(_cdiv(S, DQ_BLOCK_Q)):
+        for w in range(DQ_BLOCK_Q // DQ_WG_Q):
+            qi, first, count = dq_wg_tiles(S, KV, causal, y, w)
+            q_lo = qi * DQ_BLOCK_Q + w * DQ_WG_Q
+            for j in range(first, first + count):
+                out.append(((q_lo, q_lo + DQ_WG_Q),
+                            (j * DQ_TILE_K, (j + 1) * DQ_TILE_K)))
     return out
 
 

@@ -12,9 +12,13 @@ with the step's own fresh entry.
 
 Bound on the H100: the bytes of the live int8 K/V prefix and its fp32
 scales. The layer index is a pointer offset into the stacked buffer, so
-no slice of the cache is ever copied (``flash_decode.py:13-26``); the
-grid is (B, Hkv) blocks, each walking only its row's live prefix; see
-the CUDA source for the rest of the design.
+no slice of the cache is ever copied (``flash_decode.py:13-26``). The
+prefix is split across blocks: the grid is (B, Hkv, n_split), block z
+taking positions ``[z P, (z + 1) P)`` of its row's live prefix, with P
+and n_split from host-known values only (:func:`split_plan`); a second
+kernel combines the splits' partials in split order
+(:func:`combine_partials` is its plain mirror). See the CUDA source for
+the rest of the design.
 
 Conventions that differ from the TPU kernel: ``m`` and ``l`` come back
 as ``(B, Hkv, G)`` (the 8-lane broadcast is a TPU tiling rule), and a
@@ -36,13 +40,52 @@ from instaslice_tpu_torch.ops import build
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "isl_flash_decode": [
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
         _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, ctypes.c_float, _P,
     ],
+    # the split plan of the CUDA source: (P, n_split)
+    "isl_fd_plan": [_I, _I, _I, _P, _P],
 }
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 _NEG = -1e30
+
+# ------------------------------------------------- the split of the prefix
+# Plain mirrors of fd_plan and fd_combine_kernel in csrc/flash_decode.cu,
+# for the tests (the plan is held against the kernel's by
+# tests/test_torch_cuda.py); the wrapper asks the CUDA source for its plan.
+
+#: positions per block are a multiple of SPLIT_TILE, at most
+#: SPLIT_MAX_TILES of them; the grid aims at SPLIT_TARGET_BLOCKS blocks
+SPLIT_TILE, SPLIT_MAX_TILES, SPLIT_TARGET_BLOCKS = 64, 4, 512
+
+
+def split_plan(B: int, Hkv: int, s_attn: int):
+    """``(P, n_split)``: block z of each (batch row, KV head) takes the
+    positions ``[z P, (z + 1) P)`` of ``[0, s_attn)``. From host-known
+    values only (never ``lengths``): the smallest multiple of 64 that
+    keeps the grid within ``SPLIT_TARGET_BLOCKS`` blocks, at most 256."""
+    tiles = -(-s_attn // SPLIT_TILE)
+    per = -(-tiles * B * Hkv // SPLIT_TARGET_BLOCKS)
+    P = SPLIT_TILE * min(max(per, 1), SPLIT_MAX_TILES)
+    return P, -(-s_attn // P)
+
+
+def combine_partials(part):
+    """Plain mirror of the kernels' combine: the partials ``part`` (B,
+    Hkv, n_split, G, hd + 2) fp32 (acc, then m and l, per split) ->
+    ``(acc, m, l)`` with m the largest of the splits' maxima and acc and
+    l summed split by split in order, each split rescaled by
+    ``exp(m_z - m)`` (empty splits: m_z = -1e30, l_z = 0, acc_z = 0)."""
+    hd = part.shape[-1] - 2
+    m = part[..., hd].amax(dim=2)
+    acc = torch.zeros_like(part[:, :, 0, :, :hd])
+    l = torch.zeros_like(m)
+    for z in range(part.shape[2]):
+        w = torch.exp(part[:, :, z, :, hd] - m)
+        acc = acc + part[:, :, z, :, :hd] * w[..., None]
+        l = l + part[:, :, z, :, hd + 1] * w
+    return acc, m, l
 
 
 def quant_decode_attention_ref(q4, k3, ks3, v3, vs3, lengths, layer: int,
@@ -135,16 +178,24 @@ def quant_decode_attention(q4: torch.Tensor, k3: torch.Tensor,
     if not (_inner_contiguous(k3, 3) and _inner_contiguous(ks3, 2)):
         raise ValueError(f"{what}: cache (Hkv, S, hd) dims must be "
                          "contiguous")
-    if k3.data_ptr() % 16 or v3.data_ptr() % 16:
-        raise ValueError(f"{what}: cache storage must be 16-byte aligned")
+    if k3.data_ptr() % 16 or v3.data_ptr() % 16 or q4.data_ptr() % 16:
+        raise ValueError(f"{what}: cache and q4 storage must be 16-byte "
+                         "aligned")
     lib = build.library("flash_decode", _SIGNATURES)
     o = torch.empty((B, Hkv, G, hd), dtype=torch.float32, device=dev)
     m = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
     l = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
+    P, n_split = ctypes.c_int(), ctypes.c_int()
+    build.check_launch(lib.isl_fd_plan(B, Hkv, s_attn, ctypes.byref(P),
+                                       ctypes.byref(n_split)), what)
+    # the splits' partials, combined in split order by the second kernel
+    part = torch.empty((B, Hkv, n_split.value, G, hd + 2),
+                       dtype=torch.float32, device=dev)
     rc = lib.isl_flash_decode(
         q4.data_ptr(), build.dtype_code(q4, what), k3.data_ptr(),
         ks3.data_ptr(), v3.data_ptr(), vs3.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, G, S, hd,
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
+        n_split.value, B, Hkv, G, S, hd,
         k3.stride(0), k3.stride(1), ks3.stride(0), ks3.stride(1),
         layer, s_attn, hd ** -0.5, build.stream_handle(dev),
     )

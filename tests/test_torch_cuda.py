@@ -175,6 +175,106 @@ def test_decode_attention_kernel(dev, hd, G):
             assert torch.equal(got[0], want[0])       # empty-row convention
 
 
+def _decode_case(dev, hd, G, q_dtype, s_attn, lens, seed):
+    """A (3, 10, 2, S, hd) cache of which slots 1, 3, ... are passed (a
+    strided view whose batch stride is not Hkv S hd), queries and
+    lengths for those slots."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, Hkv, S = 3, 2, s_attn + 40
+    B = len(lens)
+    k3 = torch.randint(-127, 128, (L, 2 * B + 1, Hkv, S, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    v3 = torch.randint(-127, 128, k3.shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    ks3 = torch.rand(k3.shape[:-1], generator=g, device=dev) * 0.02
+    vs3 = torch.rand(k3.shape[:-1], generator=g, device=dev) * 0.02
+    view = (slice(None), slice(1, 2 * B + 1, 2))
+    args = [t[view] for t in (k3, ks3, v3, vs3)]
+    q4 = torch.randn((B, Hkv, G, hd), generator=g, device=dev).to(q_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q4, args, lengths
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(64, 2), (64, 8), (128, 1), (128, 4)])
+@pytest.mark.parametrize("s_attn", [256, 1024])
+def test_decode_attention_split_edges(dev, hd, G, q_dtype, s_attn):
+    """B1 split across the cache: lengths 0, 1, P - 1, P, P + 1, s_attn
+    and past s_attn, on a strided slot subset; the merged output within
+    1e-5, the empty row bit-exact, one launch counted per call, and two
+    runs bit-equal (the splits combine in a fixed order)."""
+    B, Hkv = 8, 2
+    P, n_split = fd.split_plan(B, Hkv, s_attn)
+    assert n_split > 1
+    lens = [0, 1, P - 1, P, P + 1, s_attn, s_attn + 30, 2 * P + 5]
+    q4, args, lengths = _decode_case(dev, hd, G, q_dtype, s_attn, lens,
+                                     hd + G + s_attn)
+    before = fd.quant_decode_attention.launches
+    o, m, l = fd.quant_decode_attention(q4, *args, lengths, 2, s_attn)
+    assert fd.quant_decode_attention.launches == before + 1
+    ro, rm, rl = fd.quant_decode_attention_ref(q4, *args, lengths, 2, s_attn)
+    for got, want in ((o, ro), (m, rm), (l, rl)):
+        _close(got[1:], want[1:], rel=1e-5)
+        assert torch.equal(got[0], want[0])          # empty-row convention
+    g = torch.Generator(device=dev).manual_seed(1)
+    lg = torch.randn(m.shape, generator=g, device=dev)
+    v_loc = torch.randn((B, Hkv, hd), generator=g, device=dev)
+    merged = fd.merge_local(o, m, l, lg, v_loc)
+    want = fd.merge_local(ro, rm, rl, lg, v_loc)
+    torch.cuda.synchronize()
+    assert float((merged - want).abs().max()) <= 1e-5
+    o2, m2, l2 = fd.quant_decode_attention(q4, *args, lengths, 2, s_attn)
+    assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+
+
+def test_decode_attention_all_rows_empty(dev):
+    """Every split of every row empty: the combine gives exactly
+    (acc 0, m -1e30, l 0)."""
+    q4, args, lengths = _decode_case(dev, 128, 4, torch.bfloat16, 512,
+                                     [0] * 8, 3)
+    o, m, l = fd.quant_decode_attention(q4, *args, lengths, 0, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(o, torch.zeros_like(o))
+    assert torch.equal(l, torch.zeros_like(l))
+    assert torch.equal(m, torch.full_like(m, -1e30))
+
+
+@pytest.mark.parametrize("B,s_attn", [(8, 64), (1024, 256)])
+def test_decode_attention_one_split(dev, B, s_attn):
+    """A plan of one split (s_attn within one tile, or B Hkv large enough
+    that P reaches s_attn): the combine passes the partial through, so
+    the result is the plain version's within 1e-5 with the empty row
+    bit-exact, and two runs are bit-equal."""
+    P, n_split = fd.split_plan(B, 2, s_attn)
+    assert n_split == 1
+    lens = [0] + ([1, P - 1, s_attn, s_attn + 30, 17] * B)[:B - 1]
+    q4, args, lengths = _decode_case(dev, 64, 4, torch.bfloat16, s_attn,
+                                     lens, B + s_attn)
+    o, m, l = fd.quant_decode_attention(q4, *args, lengths, 1, s_attn)
+    ro, rm, rl = fd.quant_decode_attention_ref(q4, *args, lengths, 1, s_attn)
+    for got, want in ((o, ro), (m, rm), (l, rl)):
+        _close(got[1:], want[1:], rel=1e-5)
+        assert torch.equal(got[0], want[0])          # empty-row convention
+    o2, m2, l2 = fd.quant_decode_attention(q4, *args, lengths, 1, s_attn)
+    assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+
+
+def test_decode_split_plan_mirrors_the_kernel(dev):
+    """``split_plan`` in Python and ``fd_plan`` of the CUDA source agree."""
+    import ctypes
+
+    from instaslice_tpu_torch.ops import build
+    lib = build.library("flash_decode", fd._SIGNATURES)
+    P, n = ctypes.c_int(), ctypes.c_int()
+    for B in (1, 2, 3, 8, 16, 64):
+        for Hkv in (1, 2, 8):
+            for s_attn in [*range(1, 300, 7), 512, 1000, 1024, 2048, 4097,
+                           8192]:
+                assert lib.isl_fd_plan(B, Hkv, s_attn, ctypes.byref(P),
+                                       ctypes.byref(n)) == 0
+                assert (P.value, n.value) == fd.split_plan(B, Hkv, s_attn)
+
+
 def test_wrappers_raise_on_bad_inputs(dev):
     x = torch.randn((4, 64), device=dev)
     q = torch.zeros((64, 32), dtype=torch.int8, device=dev)
@@ -285,73 +385,78 @@ def test_flash_wrappers_raise_on_bad_inputs(dev):
         fa.flash_fwd(q[:, :10].contiguous(), k, v, causal=True)
 
 
-# ---- B5 and B7 on the warp-specialised wgmma path (bf16, hd 128)
+# ---- B5-B7 on the warp-specialised wgmma path (bf16, hd 128)
 
 #: around every tile edge of both kernels (64 and 128 rows), and the
 #: training CLI's ragged row width
 WG_SEQ = [1, 63, 64, 65, 127, 128, 129, 1025]
 
 
-def _close_single_key_dk(dk, rdk, q, v, do):
+def _close_single_key(dx, rdx, other, v, do):
     """With one key (kv_len 1, or causal S 1) p = 1 and o = v, so ds = p
-    (dp - delta) = do.v - do.o is zero in exact arithmetic: dk on either
-    side is nothing but the fp32 rounding of two hd-term dot products
-    summed in different orders, and no relative bound of a zero tensor
-    means anything. Both are held to the standard error bound of those
-    sums, 2 hd 2**-24 sum|do v|, times sm max|q|."""
+    (dp - delta) = do.v - do.o is zero in exact arithmetic: dk (and dq)
+    on either side is nothing but the fp32 rounding of two hd-term dot
+    products summed in different orders, and no relative bound of a zero
+    tensor means anything. Both are held to the standard error bound of
+    those sums, 2 hd 2**-24 sum|do v|, times sm max|q| (for dk; max|k|
+    for dq)."""
     torch.cuda.synchronize()
-    hd = q.shape[-1]
+    hd = other.shape[-1]
     dot = (do.float().abs() * v.float().abs()[:, :1]).sum(-1).max()
-    bound = float(hd ** -0.5 * q.float().abs().max() * 2 * hd * 2 ** -24
-                  * dot)
-    assert float(dk.float().abs().max()) <= bound
-    assert float(rdk.float().abs().max()) <= bound
+    bound = float(hd ** -0.5 * other.float().abs().max() * 2 * hd
+                  * 2 ** -24 * dot)
+    assert float(dx.float().abs().max()) <= bound
+    assert float(rdx.float().abs().max()) <= bound
 
 
-def _b5_b7(q, k, v, do, causal):
-    """B5 and B7 on the card and their plain versions: (got, want) pairs
-    of o, lse, dk, dv (B7 fed the plain forward's lse and delta)."""
+def _wg_kernels(q, k, v, do, causal):
+    """B5, B6 and B7 on the card and their plain versions: (got, want)
+    pairs of o, lse, dq, dk, dv (B6 and B7 fed the plain forward's lse
+    and delta)."""
     o, lse = fa.flash_fwd(q, k, v, causal)
     ro, rlse = fa.flash_fwd_ref(q, k, v, causal)
     delta = (do.float() * ro.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, rlse, delta, causal)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, rlse, delta, causal)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal)
     rdk, rdv = fa.flash_bwd_dkv_ref(q, k, v, do, rlse, delta, causal)
-    return (o, ro), (lse, rlse), (dk, rdk), (dv, rdv)
+    return (o, ro), (lse, rlse), (dq, rdq), (dk, rdk), (dv, rdv)
+
+
+def _close_wg(q, k, v, do, single_key, pairs):
+    (o, ro), (lse, rlse), (dq, rdq), (dk, rdk), (dv, rdv) = pairs
+    _close_attn(o, ro, torch.bfloat16)
+    _close_attn(lse, rlse, torch.float32)
+    if single_key:
+        _close_single_key(dq, rdq, k, v, do)
+        _close_single_key(dk, rdk, q, v, do)
+    else:
+        _close_attn(dq, rdq, torch.bfloat16)
+        _close_attn(dk, rdk, torch.bfloat16)
+    _close_attn(dv, rdv, torch.bfloat16)
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", WG_SEQ)
 def test_wgmma_flash_kernels_at_tile_edges(dev, S, causal):
-    """B5 (o, lse) and B7 (dk, dv) against their plain versions, bf16,
-    B*H = 3, at every row count around the kernels' tile edges."""
+    """B5 (o, lse), B6 (dq) and B7 (dk, dv) against their plain
+    versions, bf16, B*H = 3, at every row count around the kernels' tile
+    edges."""
     q, k, v, do = _attn_inputs(dev, 3, S, S, 128, torch.bfloat16, S + 11)
-    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
-    (o, ro), (lse, rlse), (dk, rdk), (dv, rdv) = _b5_b7(q, k, v, do, causal)
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == (
-        before[0] + 1, before[1] + 1)
-    _close_attn(o, ro, torch.bfloat16)
-    _close_attn(lse, rlse, torch.float32)
-    if S == 1:
-        _close_single_key_dk(dk, rdk, q, v, do)
-    else:
-        _close_attn(dk, rdk, torch.bfloat16)
-    _close_attn(dv, rdv, torch.bfloat16)
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [f.launches for f in counters]
+    pairs = _wg_kernels(q, k, v, do, causal)
+    assert [f.launches for f in counters] == [n + 1 for n in before]
+    _close_wg(q, k, v, do, S == 1, pairs)
 
 
 @pytest.mark.parametrize("S,KV", [(200, 77), (64, 300), (1, 129), (129, 1),
                                   (1025, 130)])
 def test_wgmma_flash_kernels_s_differs_from_kv(dev, S, KV):
-    """Non-causal B5 and B7 with S != kv_len: ragged key tiles in B5,
+    """Non-causal B5-B7 with S != kv_len: ragged key tiles in B5 and B6,
     ragged query tiles and key blocks in B7."""
     q, k, v, do = _attn_inputs(dev, 2, S, KV, 128, torch.bfloat16, S * KV)
-    (o, ro), (lse, rlse), (dk, rdk), (dv, rdv) = _b5_b7(q, k, v, do, False)
-    _close_attn(o, ro, torch.bfloat16)
-    _close_attn(lse, rlse, torch.float32)
-    if KV == 1:
-        _close_single_key_dk(dk, rdk, q, v, do)
-    else:
-        _close_attn(dk, rdk, torch.bfloat16)
-    _close_attn(dv, rdv, torch.bfloat16)
+    _close_wg(q, k, v, do, KV == 1, _wg_kernels(q, k, v, do, False))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -362,6 +467,9 @@ def test_wgmma_flash_kernels_rerun_bit_equal(dev, causal):
     o2, lse2 = fa.flash_fwd(q, k, v, causal)
     assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
     delta = (do.float() * o1.float()).sum(-1)
+    dq1 = fa.flash_bwd_dq(q, k, v, do, lse1, delta, causal)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse1, delta, causal)
+    assert torch.equal(dq1, dq2)
     dk1, dv1 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, causal)
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta, causal)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
@@ -372,35 +480,41 @@ def test_wgmma_flash_wrappers_raise_on_bad_bf16_inputs(dev):
     contiguous or not 16-byte aligned raises, with no launch counted."""
     q, k, v, do = _attn_inputs(dev, 2, 64, 64, 128, torch.bfloat16, 2)
     lse = torch.zeros((2, 64), device=dev)
-    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [f.launches for f in counters]
     flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
     shifted = flat[1:].view(q.shape)                    # 2 bytes off
     shifted.copy_(q)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_fwd(shifted, k, v)
     with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dq(q, k, v, shifted, lse, lse)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_bwd_dkv(q, k, v, shifted, lse, lse)
     strided = k.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q, strided, v)
     with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_bwd_dq(q, strided, v, do, lse, lse)
+    with pytest.raises(ValueError, match="contiguous"):
         fa.flash_bwd_dkv(q, strided, v, do, lse, lse)
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches) == before
+    assert [f.launches for f in counters] == before
 
 
 def test_flash_tile_schedule_mirrors_the_kernels(dev):
-    """``fwd_wg_tiles`` / ``dkv_wg_tiles`` in Python and the schedule
-    functions the CUDA kernels run agree on every block and warpgroup,
-    and so do the tile constants."""
+    """``fwd_wg_tiles`` / ``dq_wg_tiles`` / ``dkv_wg_tiles`` in Python
+    and the schedule functions the CUDA kernels run agree on every block
+    and warpgroup, and so do the tile constants."""
     import ctypes
 
     from instaslice_tpu_torch.ops import build
     lib = build.library("flash_attention", fa._SIGNATURES)
-    consts = (ctypes.c_int * 8)()
+    consts = (ctypes.c_int * 12)()
     assert lib.isl_flash_tile_consts(consts) == 0
     assert list(consts) == [fa.FWD_BLOCK_Q, fa.FWD_WG_Q, fa.FWD_TILE_K,
-                            fa.FWD_STAGES, fa.DKV_BLOCK_K, fa.DKV_WG_K,
-                            fa.DKV_TILE_Q, fa.DKV_STAGES]
+                            fa.FWD_STAGES, fa.DQ_BLOCK_Q, fa.DQ_WG_Q,
+                            fa.DQ_TILE_K, fa.DQ_STAGES, fa.DKV_BLOCK_K,
+                            fa.DKV_WG_K, fa.DKV_TILE_Q, fa.DKV_STAGES]
     out = [ctypes.c_int() for _ in range(3)]
     refs = [ctypes.byref(x) for x in out]
     shapes = [(S, S, c) for S in [*range(1, 301), 1024, 1025]
@@ -412,6 +526,12 @@ def test_flash_tile_schedule_mirrors_the_kernels(dev):
                 assert lib.isl_flash_tiles(0, S, KV, int(causal), y, w,
                                            *refs) == 0
                 assert tuple(x.value for x in out) == fa.fwd_wg_tiles(
+                    S, KV, causal, y, w), (S, KV, causal, y, w)
+        for y in range(-(-S // fa.DQ_BLOCK_Q)):
+            for w in range(2):
+                assert lib.isl_flash_tiles(1, S, KV, int(causal), y, w,
+                                           *refs) == 0
+                assert tuple(x.value for x in out) == fa.dq_wg_tiles(
                     S, KV, causal, y, w), (S, KV, causal, y, w)
         for kj in range(-(-KV // fa.DKV_BLOCK_K)):
             for w in range(2):

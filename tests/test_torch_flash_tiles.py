@@ -1,11 +1,12 @@
-"""The tile schedules of the bf16 flash-attention kernels B5 and B7, on
-the CPU.
+"""The tile schedules of the bf16 flash-attention kernels B5-B7, on the
+CPU.
 
 ``ops/flash_attention.py`` describes in plain Python which tiles each
 block of the warp-specialised kernels visits (``fwd_tiles``: 128-row
 query tiles, two consumer warpgroups of 64 rows, over 128-key tiles;
-``dkv_tiles``: 128-key blocks, two warpgroups of 64 keys, over 64-row
-query tiles from the diagonal). The CUDA source's own schedule functions
+``dq_tiles``: the same query tiles over 64-key tiles, each warpgroup up
+to its own diagonal; ``dkv_tiles``: 128-key blocks, two warpgroups of
+64 keys, over 64-row query tiles from the diagonal). The CUDA source's own schedule functions
 are held against this description on the card
 (``tests/test_torch_cuda.py``); here the description itself is held to
 what attention needs: every (query, key) pair that the mask keeps is
@@ -18,7 +19,8 @@ import pytest
 
 from instaslice_tpu_torch.ops import flash_attention as fa
 
-SCHEDULES = {"fwd": fa.fwd_tiles, "dkv": fa.dkv_tiles}
+SCHEDULES = {"fwd": fa.fwd_tiles, "dq": fa.dq_tiles,
+             "dkv": fa.dkv_tiles}
 #: S = 1 ... 300 in chunks (every tile edge of both kernels several
 #: times over), and the training CLI's ragged row width
 S_CHUNKS = [range(a, a + 50) for a in range(1, 300, 50)] + [[1025]]
@@ -72,6 +74,10 @@ def test_main_shape_tile_counts():
     assert len(fa.dkv_tiles(1024, 1024, True)) == 136
     assert len(fa.fwd_tiles(1024, 1024, False)) == 2 * 8 * 8
     assert len(fa.dkv_tiles(1024, 1024, False)) == 2 * 8 * 16
+    # B6: 64-row warpgroups over 64-key tiles up to their diagonals,
+    # 1 + 2 + ... + 16 per head; all 16 x 16 when not causal
+    assert len(fa.dq_tiles(1024, 1024, True)) == 136
+    assert len(fa.dq_tiles(1024, 1024, False)) == 16 * 16
 
 
 def test_causal_b7_starts_at_the_diagonal():
@@ -91,3 +97,16 @@ def test_causal_b5_takes_the_longest_tiles_first():
     # the last query tile of S = 1025 holds one row: its second
     # warpgroup's rows all lie past S
     assert fa.fwd_wg_tiles(1025, 1025, True, 0, 1)[2] == 0
+
+
+def test_causal_b6_takes_the_longest_tiles_first():
+    """B6 query block y holds rows from (nq - 1 - y) 128: its second
+    warpgroup reaches one 64-key tile further than its first, and the
+    blocks come longest first."""
+    for y in range(8):
+        qi = 7 - y
+        assert fa.dq_wg_tiles(1024, 1024, True, y, 0) == (qi, 0, 2 * qi + 1)
+        assert fa.dq_wg_tiles(1024, 1024, True, y, 1) == (qi, 0, 2 * qi + 2)
+    # S = 1025: the last block holds one row, in its first warpgroup
+    assert fa.dq_wg_tiles(1025, 1025, True, 0, 0) == (8, 0, 17)
+    assert fa.dq_wg_tiles(1025, 1025, True, 0, 1) == (8, 0, 0)
