@@ -34,6 +34,15 @@ without a result line:
 4. cut: the same weights cut to 2 layers run one prefill and 4 decode
    steps on the CPU (plain versions) and on the card (kernels); logits
    within the stated tolerance, greedy tokens equal;
+   serve (the server's main path): the port's HTTP server, built by its
+   own CLI wiring (``api_server.build_parser`` + ``build_engine``) at
+   the same 7B int8 configuration, in process on port 0, answers 8
+   concurrent greedy completions (64-600 prompt tokens, 32 new each,
+   some streamed, one with logprobs) with B1-B3 launches counted as the
+   path implies; then a prompt repeating one's first 256 tokens is a
+   radix hit that launches B2 192 times fewer per skipped chunk than the
+   same prompt cold, with the same greedy tokens; no KV block leaks;
+   TTFT, tokens/s and the host clock per request are logged;
 5. train kernels: the flash-attention forward (B5) and backward (B6 dq,
    B7 dk/dv) against their plain versions in bf16 at (B*H 128, S 1024,
    hd 128) causal, at S 1025 (the training CLI's row width) and
@@ -59,7 +68,8 @@ without a result line:
    steps (clip, warmup) on the CPU (plain versions) and on the card
    (kernels), within the stated tolerances.
 
-Then the ``kernels`` JSON line, and last
+Then the ``kernels`` JSON line (launches: B1-B4 from the serve phase,
+B5-B7 from the train phase; ``engine_launches`` from phase 3), and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
 """
@@ -602,7 +612,10 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
         check(all(0 <= t < cfg.vocab_size for t in r.tokens),
               "tokens in range")
         check(all(lp <= 0.0 for lp in r.logprobs), "logprobs <= 0")
-    check(eng.kv.used_blocks() == 0, "no leaked KV blocks")
+    # every block still held is the radix prefix cache's (the prompts
+    # it learned from these completions); none is leaked
+    check(eng.kv.used_blocks() == eng.radix.pool_blocks(),
+          "no leaked KV blocks")
     L = cfg.n_layers
     forwards = steps + chunks              # every chunk has M=128 <= 256
     check(chunks == sum(-(-n // 128) for n in plens), "prefill chunks")
@@ -727,6 +740,329 @@ def phase_cut(torch, cfg, qp) -> dict:
     log(f"cut: 2 layers, prefill 16 + 4 decode steps: max logit error "
         f"{worst:.2e} of max|logit|, greedy tokens equal")
     return {"max_rel_err": worst}
+
+
+#: the port server's own flags for the 7B int8 configuration of phase 3
+SERVE_FLAGS = ("--quantize --vocab-size 32000 --d-model 4096 --n-heads 32 "
+               "--n-kv-heads 8 --n-layers 32 --d-ff 20480 --max-batch 8 "
+               "--max-len 1024 --prefill-len 128 --host 127.0.0.1 --port 0")
+#: prompt lengths of the 8 concurrent completions; every other one
+#: streams, all ask for logprobs
+SERVE_PLENS = (600, 512, 400, 300, 257, 200, 129, 64)
+SERVE_NEW = 32
+#: a served completion against the same prompt generated again on the
+#: same engine, one admission at a time and the radix cache emptied:
+#: the greedy tokens are equal, and each token's logprob within this
+#: (bf16 logits; the server's wide batched prefill dequantizes into
+#: torch.matmul, a lone chunk takes B2)
+SERVE_LOGPROB_TOL = 5e-2
+#: the HTTP radix hit's prefill chunk against the same chunk cold: rel L2
+#: of the chunk's logits at its real rows, at most this (its stripes come
+#: from the wide batched prefill's torch.matmul, the cold chunks' from
+#: B2, so int8 KV rounds apart: 1.3e-2 measured on the H100); the same
+#: rows prefilled with no prefix (the control, 0.84 there) must sit at
+#: least 5x above it. The engine-level hit reads stripes of the cold run
+#: itself and must give the cold chunk's logits bit for bit
+SERVE_CHUNK_TOL = 5e-2
+
+
+def http_json(url: str, body=None, timeout: float = 600.0):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def http_stream(url: str, body: dict, timeout: float = 600.0) -> dict:
+    """POST a streamed completion; its tokens, logprobs, finish reason,
+    and the host clock of the first and last token chunks."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, lps, reason, t_first, t_last = [], [], None, None, None
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                break
+            ev = json.loads(data)
+            check("error" not in ev, f"stream error {ev}")
+            ch = ev["choices"][0]
+            if ch["token_ids"]:
+                now = time.perf_counter()
+                t_first = t_first or now
+                t_last = now
+                toks += ch["token_ids"]
+                lps += ch.get("logprobs") or []
+            if ch["finish_reason"] is not None:
+                reason = ch["finish_reason"]
+    return {"token_ids": toks, "logprobs": lps, "finish_reason": reason,
+            "t_first": t_first, "t_last": t_last}
+
+
+def phase_serve(torch, ops) -> dict:
+    """The server's main path: the port's own CLI wiring
+    (``api_server.build_parser`` + ``build_engine``) at the 7B int8
+    configuration, an in-process ``ApiServer`` on port 0 (so the launch
+    counters can be read) driven over HTTP: 8 concurrent greedy
+    completions, then a prompt repeating one's first 256 tokens (a radix
+    hit). With the server stopped, the same engine answers each prompt
+    again with the radix cache emptied (cold), then the hit prompt's tail
+    alone (the control, which also overwrites the slot's first
+    positions), then the hit prompt once more as an engine-level hit:
+    tokens, logprobs and the logits of the prefill chunk after the
+    matched head are held against the cold run's; the control shows the
+    comparison can fail."""
+    import threading
+    from collections import Counter
+
+    from instaslice_tpu_torch.serving import api_server
+
+    t0 = time.perf_counter()
+    args = api_server.build_parser().parse_args(SERVE_FLAGS.split())
+    eng = api_server.build_engine(args)
+    srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
+    setup_s = time.perf_counter() - t0
+    url = srv.url
+    V, L = args.vocab_size, args.n_layers
+    # the rows of every forward the engine runs: B2 and B3 take the
+    # forwards of at most 256 rows (decode steps, single-slot chunks,
+    # 2-row batched chunks); wider batched prefills dequantize into
+    # torch.matmul, as the reference does at M > 256
+    rows = []
+    forward = eng._forward
+    #: (tokens, lengths, logits) of each prefill forward while set
+    chunks_seen = None
+
+    def counted_forward(tokens, cache, lengths, *a, **kw):
+        rows.append(tokens.numel())
+        out = forward(tokens, cache, lengths, *a, **kw)
+        if chunks_seen is not None and tokens.shape[1] > 1:
+            chunks_seen.append((tokens.cpu(), lengths.cpu(),
+                                out[0].float()))
+        return out
+
+    eng._forward = counted_forward
+    try:
+        for _ in range(100):
+            try:
+                if http_json(url + "/readyz", timeout=10)["status"] == "ok":
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        else:
+            raise RuntimeError("server never became ready")
+        gen = torch.Generator().manual_seed(17)
+        prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
+                   for n in SERVE_PLENS]
+        results, errors = [None] * len(prompts), []
+
+        def one(i):
+            body = {"prompt": prompts[i], "max_tokens": SERVE_NEW,
+                    "temperature": 0.0, "logprobs": True}
+            t_send = time.perf_counter()
+            try:
+                if i % 2 == 0:
+                    r = http_stream(url + "/v1/completions",
+                                    dict(body, stream=True))
+                else:
+                    ch = http_json(url + "/v1/completions",
+                                   body)["choices"][0]
+                    r = dict(ch, t_first=None, t_last=None)
+                r["t_send"], r["t_done"] = t_send, time.perf_counter()
+                results[i] = r
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {e!r}")
+
+        st0 = http_json(url + "/v1/stats")
+        steps0, chunks0, rows0 = (eng.decode_steps, eng.prefill_dispatches,
+                                  len(rows))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        steps = eng.decode_steps - steps0
+        chunks = eng.prefill_dispatches - chunks0
+        kernel_fw = sum(r <= 256 for r in rows[rows0:])
+        st1 = http_json(url + "/v1/stats")
+        check(not errors, f"serve: {errors}")
+        for i, r in enumerate(results):
+            toks = r["token_ids"]
+            check(len(toks) == SERVE_NEW, f"request {i}: {len(toks)} tokens")
+            check(all(0 <= t < V for t in toks), "tokens in range")
+            check(r["finish_reason"] == "max_new_tokens",
+                  f"request {i}: finish {r['finish_reason']}")
+            lps = r["logprobs"]
+            check(len(lps) == SERVE_NEW and all(lp <= 0.0 for lp in lps),
+                  f"request {i}: logprobs 1:1 with tokens, all <= 0")
+        log(f"serve: 8 concurrent completions {list(SERVE_PLENS)} x "
+            f"{SERVE_NEW} tokens over HTTP in {wall:.2f} s: {chunks} prefill "
+            f"forwards (rows: {sorted(Counter(rows[rows0:]).items())}), "
+            f"{steps} "
+            f"decode steps, launches {counts}")
+        check(counts["quant_decode_attention"] == L * steps > 0,
+              "B1 launches = layers x decode steps")
+        check(counts["quant_matmul_stacked"] == 6 * L * kernel_fw > 0,
+              "B2 launches = 6 x layers x forwards of <= 256 rows")
+        check(counts["quant_matmul_t"] == kernel_fw > 0,
+              "B3 launches = forwards of <= 256 rows")
+        check(counts["quant_matmul"] == 0, "B4 is not on this path")
+        check(all(counts[n] == 0 for n in FLASH),
+              "B5-B7 are not on this path")
+        gen_tok = st1["tokens_generated"] - st0["tokens_generated"]
+        ttft = sorted((r["t_first"] - r["t_send"]) * 1e3
+                      for r in results if r["t_first"] is not None)
+        per_req = [round((r["t_done"] - r["t_send"]) * 1e3, 1)
+                   for r in results]
+        decode_rates = [(SERVE_NEW - 1) / (r["t_last"] - r["t_first"])
+                        for r in results if r["t_first"] is not None
+                        and r["t_last"] > r["t_first"]]
+
+        # a radix hit: the first two 128-token granules of the longest
+        # prompt, then 100 new tokens
+        head = 2 * args.prefill_len
+        tail = torch.randint(1, V, (100,), generator=gen).tolist()
+        hit_prompt = prompts[0][:head] + tail
+
+        def chunk_logits(offset):
+            """Logits of the real rows of the prefill chunk that holds
+            the tail at ``offset``, from the forwards just seen."""
+            for toks, lens, lg in chunks_seen:
+                for r in range(toks.shape[0]):
+                    if (int(lens[r]) == offset
+                            and toks[r, :len(tail)].tolist() == tail):
+                        return lg[r, :len(tail)]
+            raise RuntimeError("no prefill chunk at the tail's offset")
+
+        def run(send, offset=head):
+            nonlocal chunks_seen
+            steps0, chunks0 = eng.decode_steps, eng.prefill_dispatches
+            chunks_seen = []
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = send()
+            torch.cuda.synchronize()
+            r.update(ms=(time.perf_counter() - t0) * 1e3,
+                     b2=ops.launch_counts()["quant_matmul_stacked"],
+                     chunks=eng.prefill_dispatches - chunks0,
+                     steps=eng.decode_steps - steps0,
+                     logits=chunk_logits(offset))
+            if r.get("t_first") is not None:
+                r["ttft_ms"] = (r["t_first"] - t0) * 1e3
+            chunks_seen = None
+            return r
+
+        def engine_run(prompt):
+            res = eng.generate([prompt], 16)[0]
+            return {"token_ids": res.tokens, "logprobs": res.logprobs}
+
+        before = http_json(url + "/v1/stats")["radix"]
+        hit = run(lambda: http_stream(url + "/v1/completions", {
+            "prompt": hit_prompt, "max_tokens": 16, "temperature": 0.0,
+            "logprobs": True, "stream": True}))
+        st = http_json(url + "/v1/stats")
+        hit.update(hits=st["radix"]["hits"] - before["hits"],
+                   saved=st["radix"]["tokens_saved"] - before["tokens_saved"])
+        check(st["radix"]["hits"] >= 1
+              and st["radix"]["tokens_saved"] >= head,
+              "/v1/stats shows the radix hit")
+        check(st["live_slots"] == 0 and st["parked"] == 0, "quiesced")
+        check(st["kv"]["used"] == st["radix"]["blocks"],
+              f"no leaked KV blocks: kv {st['kv']}, radix {st['radix']}")
+        route = st["engine"]["attention_route"]
+        check(route == "B1", f"decode attention route {route!r}")
+    finally:
+        srv.stop()
+
+    # the server is stopped: the engine is the main thread's now. Every
+    # served prompt again, the radix cache emptied first (the prompts
+    # share no head), one admission at a time
+    eng.radix.reclaim(eng.kv.total_blocks)
+    again = eng.generate(prompts, SERVE_NEW)
+    served_lp = 0.0
+    for i, (r, g) in enumerate(zip(results, again)):
+        check(r["token_ids"] == g.tokens, f"request {i}: served tokens "
+              f"{r['token_ids']} != engine {g.tokens}")
+        served_lp = max(served_lp, max(abs(a - b) for a, b in
+                                       zip(r["logprobs"], g.logprobs)))
+    check(served_lp <= SERVE_LOGPROB_TOL, f"served logprobs differ from "
+          f"the engine's by {served_lp} > {SERVE_LOGPROB_TOL}")
+    eng.radix.reclaim(eng.kv.total_blocks)
+    cold = run(lambda: engine_run(hit_prompt))
+    control = run(lambda: engine_run(tail), offset=0)["logits"]
+    hit_eng = run(lambda: engine_run(hit_prompt))
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    lp_diff = max(abs(a - b) for a, b in zip(hit["logprobs"],
+                                              cold["logprobs"]))
+    errs = {"hit": rel(hit.pop("logits"), cold["logits"]),
+            "engine_hit": rel(hit_eng.pop("logits"), cold["logits"]),
+            "control": rel(control, cold.pop("logits"))}
+    for r in (hit, cold, hit_eng):
+        for key in ("t_first", "t_last", "logprobs"):
+            r.pop(key, None)
+    log(f"serve: radix hit {hit}; cold {cold}; engine hit {hit_eng}; "
+        f"largest logprob difference hit vs cold {lp_diff:.3g}, served vs "
+        f"engine {served_lp:.3g}; chunk logits rel L2 vs cold {errs}")
+    check(hit["hits"] == 1 and hit["saved"] == head,
+          f"the repeated {head}-token head is a radix hit")
+    for r in (hit, cold, hit_eng):
+        check(r["b2"] == 6 * L * (r["chunks"] + r["steps"]),
+              "B2 launches = 192 per forward")
+    for r in (hit, hit_eng):
+        check(cold["chunks"] - r["chunks"] == 2,
+              "a hit skips its two matched chunks")
+        check(cold["b2"] - r["b2"]
+              == 6 * L * (2 + cold["steps"] - r["steps"]),
+              "a hit launches B2 192 fewer times per matched chunk")
+        check(r["token_ids"] == cold["token_ids"],
+              f"hit tokens {r['token_ids']} != cold {cold['token_ids']}")
+    check(lp_diff <= SERVE_LOGPROB_TOL,
+          f"hit vs cold logprobs differ by {lp_diff}")
+    check(errs["hit"] <= SERVE_CHUNK_TOL and errs["engine_hit"] == 0.0,
+          f"a hit's chunk logits differ from cold: {errs}")
+    check(errs["control"] >= 5 * SERVE_CHUNK_TOL,
+          f"the control chunk (no prefix) is as close as a hit: {errs}")
+    out = {
+        "setup_s": setup_s, "wall_s": wall, "counts": counts,
+        "decode_steps": steps, "prefill_chunks": chunks,
+        "tokens": gen_tok, "tok_s": gen_tok / wall,
+        "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms": ttft,
+        "request_ms": per_req,
+        "decode_tok_s_per_stream": [round(x, 1) for x in decode_rates],
+        "hit_http_ms": hit["ms"], "hit_http_ttft_ms": hit["ttft_ms"],
+        "hit_engine_ms": hit_eng["ms"], "cold_engine_ms": cold["ms"],
+        "hit_cold_logprob_diff": lp_diff, "served_logprob_diff": served_lp,
+        "chunk_rel_l2": errs,
+        "radix": st["radix"], "kv": st["kv"], "engine": st["engine"],
+    }
+    log(f"serve: {gen_tok} tokens in {wall:.2f} s = {out['tok_s']:.1f} "
+        f"tok/s over HTTP, one burst of 8 requests; TTFT p50 "
+        f"{out['ttft_ms_p50']:.1f} ms of {len(ttft)} streams "
+        f"{[round(t, 1) for t in ttft]}; per request {per_req} ms; radix "
+        f"hit over HTTP TTFT {hit['ttft_ms']:.1f} ms, whole 16-token "
+        f"request {hit['ms']:.1f} ms; on the engine, 16-token request hit "
+        f"{hit_eng['ms']:.1f} ms vs cold {cold['ms']:.1f} ms")
+    return out
 
 
 def param_count(cfg) -> int:
@@ -1200,6 +1536,10 @@ def main() -> int:
     timings["cut"] = time.perf_counter() - t0
     del qp
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve = phase_serve(torch, ops)
+    timings["serve"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     train_kernels = phase_train_kernels(torch, ops.flash_attention)
@@ -1219,9 +1559,11 @@ def main() -> int:
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
-    # engine's generate for B1-B4, the 871M train steps for B5-B7)
+    # server's completions for B1-B4, the 871M train steps for B5-B7);
+    # the engine's generate is the earlier serving path
     for k in kernels:
-        k["launches"] = eng["counts"][k["name"]]
+        k["launches"] = serve["counts"][k["name"]]
+        k["engine_launches"] = eng["counts"][k["name"]]
     for k in train_kernels:
         k["launches"] = train["counts"][k["name"]]
     kernels += train_kernels
@@ -1241,6 +1583,7 @@ def main() -> int:
                         eng["chunk_busy"] and eng["chunk_busy"]["ms_per_step"],
                     "decode_steps": eng["decode_steps"],
                     "prefill_chunks": eng["prefill_chunks"]}))
+    log(json.dumps({"card": card, "serve": serve}))
     tbusy = train["device_busy"]
     log(json.dumps({"card": card, "train_step_ms": train["step_ms"],
                     "train_tokens_per_s": train["tokens_per_s"],

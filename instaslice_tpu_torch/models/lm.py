@@ -7,8 +7,9 @@ Parameters are plain dicts of tensors in the JAX package's layout
 so :mod:`instaslice_tpu_torch.bridge` moves weights across with no
 transpose. Ported here: :class:`ModelConfig`, :func:`init_params`, the
 full forward :func:`apply` (:meth:`TpuLM.apply`: dense MLP, GQA, causal
-attention through the flash-attention kernels, block remat "full" as
-``torch.utils.checkpoint``), :func:`init_cache` and
+attention through the flash-attention kernels at the head dims they are
+built for and the plain grouped formulation at others, block remat
+"full" as ``torch.utils.checkpoint``), :func:`init_cache` and
 :func:`apply_with_cache` (dense MLP, bf16 or int8 KV cache). Not yet
 ported, and raising ``NotImplementedError``: mixture-of-experts, ring
 and pipeline attention, remat "dots", LoRA, int4, and sliding windows in
@@ -19,6 +20,7 @@ grouped formulation, as the reference routes them).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -33,6 +35,8 @@ from instaslice_tpu_torch.models.quant import (
     qdot_stacked,
     weight,
 )
+from instaslice_tpu_torch.ops import flash_attention as _fa
+from instaslice_tpu_torch.ops import flash_decode as _fd
 from instaslice_tpu_torch.ops.flash_attention import flash_attention
 from instaslice_tpu_torch.ops.flash_decode import (
     merge_local,
@@ -40,6 +44,20 @@ from instaslice_tpu_torch.ops.flash_decode import (
 )
 
 Params = Dict[str, Any]
+
+log = logging.getLogger("instaslice_tpu_torch.models.lm")
+
+#: (path, shape) pairs whose plain route on the card was already logged
+_plain_logged: set = set()
+
+
+def _log_plain_route(path: str, shape: Tuple) -> None:
+    """Say once per shape that a call on the card takes the plain
+    PyTorch formulation because no kernel is built for that shape."""
+    if (path, shape) not in _plain_logged:
+        _plain_logged.add((path, shape))
+        log.warning("%s %s: no kernel is built for this shape; the plain "
+                    "PyTorch formulation runs on the card", path, shape)
 
 #: block-level rematerialization policies (a copy of
 #: ``instaslice_tpu/parallel/pipeline.py: REMAT_POLICIES``); :func:`apply`
@@ -204,12 +222,19 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Softmax attention (``lm.py:292-345``); q: (B, S, H, hd), k/v:
     (B, S, Hkv, hd) with Hkv dividing H.
 
-    ``impl`` "auto" or "flash" takes the flash-attention kernels (B5 on
-    the forward, B6 and B7 on the backward) after repeating K/V up to H
+    ``impl`` "flash" takes the flash-attention kernels (B5 on the
+    forward, B6 and B7 on the backward) after repeating K/V up to H
     (``jnp.repeat`` semantics: each KV head serves G consecutive query
-    heads); "xla", or any ``window`` > 0, takes the grouped plain
-    formulation with its -1e9 mask, as the reference routes them."""
-    if window:
+    heads), and raises on the card at a head dim they are not built for;
+    "auto" does the same where they are built
+    (:func:`~instaslice_tpu_torch.ops.flash_attention.kernel_built`).
+    "xla", "auto" at any other head dim, or any ``window`` > 0 takes the
+    grouped plain formulation with its -1e9 mask, as the reference routes
+    shapes its kernel does not take."""
+    if window or (impl == "auto" and not _fa.kernel_built(q.shape[-1])):
+        if impl == "auto" and q.is_cuda:
+            _log_plain_route("attention (B5-B7)",
+                             (("hd", q.shape[-1]), ("window", window)))
         impl = "xla"
     H, Hkv = q.shape[2], k.shape[2]
     if impl in ("auto", "flash"):
@@ -377,8 +402,9 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``lengths[b] + T <= attend_len``).
 
     Decode (T = 1) over an int8 cache runs the decode-attention kernel
-    plus :func:`merge_local`; quantized projections take the w8a16
-    kernels. Unlike the JAX package's single post-scan write
+    plus :func:`merge_local` where the kernel is built for the head dim
+    and group (the plain grouped read otherwise); quantized projections
+    take the w8a16 kernels. Unlike the JAX package's single post-scan write
     (``lm.py:1044-1066``) the fresh K/V land IN PLACE, per layer, right
     after that layer has read its prefix: the results are the same,
     because reads admit only ``s < lengths[b]`` and the fresh entries
@@ -405,7 +431,12 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     t_idx = torch.arange(T, dtype=torch.int32, device=dev)
     positions = lengths[:, None] + t_idx                      # (B, T)
     cos, sin = _rope_tables(positions, hd)     # shared by every layer
-    use_fdk = quant and T == 1
+    # B1 where it is built for the shape; the grouped plain read of the
+    # cache otherwise, as the reference gates its fused branch
+    use_fdk = quant and T == 1 and _fd.kernel_built(hd, G)
+    if quant and T == 1 and not use_fdk and tokens.is_cuda:
+        _log_plain_route("int8 decode attention (B1)",
+                         (("hd", hd), ("G", G)))
     use_stacked = all(isinstance(blocks.get(nm), QuantizedTensor)
                       for nm in BIG_NAMES)
     if not use_fdk:

@@ -17,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List
 
 import torch
 
@@ -34,6 +35,9 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: callables told of every successful nvcc build, as (source name,
+#: wall seconds): the serving profiler's compile watch
+_BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 #: compiler output of the builds this process ran (register / spill
 #: reports from ``-Xptxas=-v``), by source name
 BUILD_LOGS: Dict[str, str] = {}
@@ -77,6 +81,9 @@ def build(names: Iterable[str] = SOURCES) -> List[Path]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, proc, tmp, dst))
+    # listeners get the wall time each build added (the builds run
+    # together, so these sum to the wall time of them all)
+    t_prev = time.perf_counter()
     failed = []
     for name, proc, tmp, dst in running:
         log, _ = proc.communicate()
@@ -86,6 +93,10 @@ def build(names: Iterable[str] = SOURCES) -> List[Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, dst)
+            now = time.perf_counter()
+            for fn in list(_BUILD_LISTENERS):
+                fn(name, now - t_prev)
+            t_prev = now
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out
@@ -105,6 +116,18 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def loaded() -> List[str]:
+    """Names of the kernel libraries this process has loaded."""
+    return sorted(_LIBS)
+
+
+def add_build_listener(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(source name, wall seconds)`` after each successful
+    build from now on."""
+    if fn not in _BUILD_LISTENERS:
+        _BUILD_LISTENERS.append(fn)
 
 
 def check_launch(rc: int, what: str) -> None:

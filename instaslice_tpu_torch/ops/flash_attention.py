@@ -59,6 +59,12 @@ _HEAD_DIMS = (128,)
 _NEG = -1e30
 
 
+def kernel_built(head_dim: int) -> bool:
+    """Whether B5-B7 are built for ``head_dim``: what the model's "auto"
+    routing asks before it sends a shape to :func:`flash_attention`."""
+    return head_dim in _HEAD_DIMS
+
+
 # ------------------------------------------ tile schedules of the bf16 path
 # Mirror of namespace wg of csrc/flash_attention.cu (held against it by
 # tests/test_torch_cuda.py). A block has two consumer warpgroups, each
@@ -254,7 +260,7 @@ def _check_cuda(what: str, tensors, rows) -> tuple:
     code = build.dtype_code(q, what)
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{what}: q, k, v (and do) must share one dtype")
-    if q.shape[-1] not in _HEAD_DIMS:
+    if not kernel_built(q.shape[-1]):
         raise ValueError(f"{what}: head dim {q.shape[-1]} not built "
                          f"({_HEAD_DIMS})")
     if q.shape[0] > 65535:

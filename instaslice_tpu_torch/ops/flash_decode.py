@@ -50,6 +50,14 @@ _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 _NEG = -1e30
 
+
+def kernel_built(head_dim: int, group: int) -> bool:
+    """Whether B1 is built for ``head_dim`` and ``group`` query heads per
+    KV head: what the model's decode branch asks before it sends a step
+    to :func:`quant_decode_attention`."""
+    return head_dim in _HEAD_DIMS and group in _GROUPS
+
+
 # ------------------------------------------------- the split of the prefix
 # Plain mirrors of fd_plan and fd_combine_kernel in csrc/flash_decode.cu,
 # for the tests (the plan is held against the kernel's by
@@ -162,7 +170,7 @@ def quant_decode_attention(q4: torch.Tensor, k3: torch.Tensor,
                                           layer, s_attn)
     what = "quant_decode_attention"
     dev = build.require_cuda(what, q4, k3, ks3, v3, vs3, lengths)
-    if hd not in _HEAD_DIMS or G not in _GROUPS:
+    if not kernel_built(hd, G):
         raise ValueError(f"{what}: head dim {hd} / group {G} not built "
                          f"(head dims {_HEAD_DIMS}, groups {_GROUPS})")
     if k3.dtype != torch.int8 or v3.dtype != torch.int8:

@@ -539,3 +539,119 @@ def test_flash_tile_schedule_mirrors_the_kernels(dev):
                                            *refs) == 0
                 assert (out[1].value, out[2].value) == fa.dkv_wg_tiles(
                     S, KV, causal, kj, w), (S, KV, causal, kj, w)
+
+
+# ---- routing: shapes no kernel is built for take the plain formulation
+
+def _routing_model(dev, **kw):
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    cfg = ModelConfig(vocab_size=256, n_layers=2, d_ff=256,
+                      dtype=torch.float32, remat=False, **kw)
+    return cfg, TpuLM(cfg).init(0, device="cpu")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_apply_with_grad_at_an_unbuilt_head_dim(dev, monkeypatch, caplog):
+    """``TpuLM.apply`` ("auto" attention) and its grad at hd 64, which
+    B5-B7 are not built for: the plain formulation on the card, no
+    launch, the CPU's loss and grads, and one log line for the shape."""
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models import lm
+    from instaslice_tpu_torch.models.lm import TpuLM
+    monkeypatch.setattr(lm, "_plain_logged", set())
+    caplog.set_level("WARNING", logger="instaslice_tpu_torch.models.lm")
+    cfg, params = _routing_model(dev, d_model=256, n_heads=4)
+    assert cfg.head_dim == 64 and not fa.kernel_built(64)
+    toks = torch.randint(0, 256, (2, 48), generator=torch.Generator()
+                         .manual_seed(1))
+    out = {}
+    ops.reset_launch_counts()
+    for d in ("cpu", dev):
+        p = {k: v.clone().requires_grad_(True)
+             for k, v in _flat(_to(params, d)).items()}
+        logits = TpuLM(cfg).apply(_unflat(p), toks.to(d))
+        loss = torch.logsumexp(logits, -1).mean()
+        loss.backward()
+        out[str(d)] = (loss.detach().cpu(),
+                       {k: v.grad.cpu() for k, v in p.items()})
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == 0
+    routes = [r.getMessage() for r in caplog.records
+              if "no kernel is built" in r.getMessage()]
+    assert len(routes) == 1 and "('hd', 64)" in routes[0]
+    (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(dev)]
+    assert abs(float(l_dev - l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for k in g_cpu:
+        assert float((g_dev[k] - g_cpu[k]).norm()
+                     / g_cpu[k].norm().clamp_min(1e-30)) <= 1e-4, k
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _unflat(flat):
+    tree = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+@pytest.mark.parametrize("n_heads,n_kv_heads,d_model", [
+    (16, 1, 1024),    # hd 64, G 16: no B1 group
+    (4, 2, 64),       # hd 16, G 2: no B1 head dim
+])
+def test_int8_decode_step_at_unbuilt_shapes(dev, n_heads, n_kv_heads,
+                                            d_model, monkeypatch, caplog):
+    """One int8-KV decode step (after a prefill) where B1 is not built
+    for (hd, G): the grouped plain read of the cache on the card, no
+    launch, the CPU's logits and greedy tokens, and one log line."""
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models import lm
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.ops import flash_decode as fdec
+    monkeypatch.setattr(lm, "_plain_logged", set())
+    caplog.set_level("WARNING", logger="instaslice_tpu_torch.models.lm")
+    cfg, params = _routing_model(dev, d_model=d_model, n_heads=n_heads,
+                                 n_kv_heads=n_kv_heads)
+    assert not fdec.kernel_built(cfg.head_dim, n_heads // n_kv_heads)
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, 256, (3, 20), generator=gen)
+    lens = torch.tensor([0, 5, 11], dtype=torch.int32)
+    logits = {}
+    ops.reset_launch_counts()
+    for d in ("cpu", dev):
+        model = TpuLM(cfg)
+        p = _to(params, d)
+        cache = model.init_cache(3, 64, quant=True, device=d)
+        lg, cache = model.apply_with_cache(p, prompt.to(d), cache,
+                                           lens.to(d))
+        nxt = lg[:, -1].argmax(-1)
+        lg1, _ = model.apply_with_cache(p, nxt[:, None], cache,
+                                        (lens + 20).to(d))
+        logits[str(d)] = (nxt.cpu(), lg1[:, 0].cpu())
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == 0
+    routes = [r.getMessage() for r in caplog.records
+              if "no kernel is built" in r.getMessage()]
+    assert len(routes) == 1 and f"('G', {n_heads // n_kv_heads})" in routes[0]
+    (t_cpu, l_cpu), (t_dev, l_dev) = logits["cpu"], logits[str(dev)]
+    assert torch.equal(t_cpu, t_dev)
+    assert float((l_dev - l_cpu).abs().max()) <= 1e-4 * float(
+        l_cpu.abs().max())
+    assert torch.equal(l_dev.argmax(-1), l_cpu.argmax(-1))

@@ -1,9 +1,10 @@
 """The port's ServingEngine held against the JAX package's on the CPU.
 
 Both engines serve the same bridged int8 weights with an int8 KV cache
-(fp32 compute, so greedy chains must agree token for token); the JAX
-engine runs without its radix prefix cache, which the port does not have
-yet, and with its w8a16 kernel opt-in. Sampling is held by distribution,
+(fp32 compute, so greedy chains must agree token for token), both with
+``radix_cache=False`` (the radix prefix cache is held in
+``tests/test_torch_radix.py``), the JAX engine with its w8a16 kernel
+opt-in. Sampling is held by distribution,
 never token by token (a threefry stream and a Philox stream cannot
 agree). The last test holds ``chip_smoke.py`` to its contract on a
 machine without a card.
@@ -44,7 +45,8 @@ def engines():
 
     def make():
         return (JaxEngine(JaxLM(jcfg), jtree, radix_cache=False, **ENGINE),
-                ServingEngine(TpuLM(tcfg), ttree, device="cpu", **ENGINE))
+                ServingEngine(TpuLM(tcfg), ttree, device="cpu",
+                              radix_cache=False, **ENGINE))
 
     return make
 
@@ -88,7 +90,8 @@ def test_greedy_repetition_penalty_matches_jax(monkeypatch):
     jtree, ttree = both_params(jcfg, numpy_params(jcfg, 4), quantize=True)
     kw = dict(ENGINE, repetition_penalty=1.8)
     jeng = JaxEngine(JaxLM(jcfg), jtree, radix_cache=False, **kw)
-    teng = ServingEngine(TpuLM(tcfg), ttree, device="cpu", **kw)
+    teng = ServingEngine(TpuLM(tcfg), ttree, device="cpu",
+                         radix_cache=False, **kw)
     prompts = [[5, 5, 6, 7], list(range(20, 41))]
     want = jeng.generate(prompts, max_new_tokens=9, block_size=8)
     got = teng.generate(prompts, max_new_tokens=9, block_size=8)

@@ -94,7 +94,26 @@ def _port_modules():
     )
 
 
+#: the serving plane's modules and the jax-free ones copied for it: both
+#: checks below must reach every one of them
+SERVING_PLANE = {
+    "instaslice_tpu_torch.serving.api_server",
+    "instaslice_tpu_torch.serving.scheduler",
+    "instaslice_tpu_torch.serving.engine",
+    "instaslice_tpu_torch.serving.kvcache",
+    "instaslice_tpu_torch.api.constants",
+    "instaslice_tpu_torch.faults",
+    "instaslice_tpu_torch.metrics.metrics",
+    "instaslice_tpu_torch.obs.journal",
+    "instaslice_tpu_torch.obs.profiler",
+    "instaslice_tpu_torch.utils.guards",
+    "instaslice_tpu_torch.utils.lockcheck",
+    "instaslice_tpu_torch.utils.trace",
+}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
+    assert SERVING_PLANE <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -115,6 +134,9 @@ def test_port_sources_never_name_jax_or_the_jax_package():
                      r"|instaslice_tpu\.|import instaslice_tpu(?:\s|$)",
                      re.M)
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scanned = {".".join(f.relative_to(REPO).with_suffix("").parts)
+               .removesuffix(".__init__") for f in files}
+    assert SERVING_PLANE <= scanned
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
     assert len(files) > 10 and not hits, hits
@@ -270,6 +292,74 @@ def test_wrappers_count_no_launch_on_cpu_tensors():
     tqm.quant_matmul_t(x, q, s)
     tqm.quant_matmul_stacked(x, q[None], s[None], 0)
     assert set(launch_counts().values()) == {0}
+
+
+def test_routing_predicates_and_the_plain_routes(monkeypatch):
+    """Which shapes each kernel family is built for, and that the model's
+    "auto" attention and int8 decode branch take the plain formulation
+    where no kernel is built (the wrappers themselves still raise there
+    on the card: tests/test_torch_cuda.py)."""
+    from instaslice_tpu_torch.ops import flash_attention as tfa
+    assert [tfa.kernel_built(hd) for hd in (16, 64, 128, 256)] == [
+        False, False, True, False]
+    assert [tfd.kernel_built(hd, g) for hd, g in [
+        (64, 1), (128, 8), (128, 4), (16, 2), (256, 4), (128, 16),
+        (64, 3)]] == [True, True, True, False, False, False, False]
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("routed to a kernel that is not built")
+
+    monkeypatch.setattr(tlm, "flash_attention", no_kernel)
+    monkeypatch.setattr(tlm, "quant_decode_attention", no_kernel)
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.standard_normal((1, 5, 4, 64)), dtype=torch.float32)
+    kv = torch.tensor(rng.standard_normal((1, 5, 2, 64)), dtype=torch.float32)
+    out = tlm._attention(q, kv, kv, impl="auto")
+    torch.testing.assert_close(out, tlm._attention(q, kv, kv, impl="xla"),
+                               rtol=0, atol=0)
+    with pytest.raises(AssertionError, match="not built"):
+        tlm._attention(q, kv, kv, impl="flash")
+    cfg = tlm.ModelConfig(vocab_size=64, d_model=64, n_heads=16,
+                          n_kv_heads=1, n_layers=1, d_ff=64,
+                          dtype=torch.float32, remat=False)
+    params = tlm.init_params(cfg, 0, device="cpu")
+    cache = tlm.init_cache(cfg, 2, 16, quant=True, device="cpu")
+    logits, _ = tlm.apply_with_cache(cfg, params, torch.tensor([[3], [4]]),
+                                     cache, torch.tensor([2, 5],
+                                                         dtype=torch.int32))
+    assert logits.shape == (2, 1, 64) and bool(torch.isfinite(logits).all())
+
+
+def test_plain_routes_on_the_card_are_logged_once_and_reported(
+        monkeypatch, caplog):
+    """A call on the card at a shape no kernel is built for is logged
+    once per shape, and a serving engine names its decode attention
+    route in ``/v1/stats`` (``engine.attention_route``)."""
+    from types import SimpleNamespace
+
+    from instaslice_tpu_torch.serving.engine import ServingEngine
+    monkeypatch.setattr(tlm, "_plain_logged", set())
+    with caplog.at_level("WARNING", logger="instaslice_tpu_torch.models.lm"):
+        for shape in ((("hd", 16), ("G", 2)), (("hd", 16), ("G", 2)),
+                      (("hd", 64), ("G", 16))):
+            tlm._log_plain_route("int8 decode attention (B1)", shape)
+    msgs = [r.getMessage() for r in caplog.records]
+    assert len(msgs) == 2 and all("no kernel is built" in m for m in msgs)
+
+    def route(device, kv_quant, n_heads, n_kv_heads, d_model):
+        cfg = tlm.ModelConfig(d_model=d_model, n_heads=n_heads,
+                              n_kv_heads=n_kv_heads)
+        eng = SimpleNamespace(model=SimpleNamespace(cfg=cfg),
+                              device=torch.device(device),
+                              kv_quant=kv_quant)
+        return ServingEngine.attention_route(eng)
+
+    assert route("cuda", True, 32, 8, 4096) == "B1"
+    assert route("cuda", True, 16, 1, 1024) == (
+        "plain (no B1 built for hd 64, G 16)")
+    assert route("cuda", True, 2, 2, 32) == "plain (no B1 built for hd 16, G 1)"
+    assert route("cuda", False, 32, 8, 4096) == "plain (kv cache not int8)"
+    assert route("cpu", True, 32, 8, 4096) == "plain (cpu)"
 
 
 def test_quant_matmul_contraction_mismatch_raises():
