@@ -43,6 +43,36 @@ without a result line:
    radix hit that launches B2 192 times fewer per skipped chunk than the
    same prompt cold, with the same greedy tokens; no KV block leaks;
    TTFT, tokens/s and the host clock per request are logged;
+   spec: speculative decoding on the 871M configuration (``vocab 32000,
+   d_model 2048, 16 heads, 16 layers, d_ff 8192``, bf16, seeded random
+   weights): B2 and B3 at its int8 shapes (M = 8, 40, 128 and 256: draft
+   steps, the server's verify, prefill chunks) against their plain
+   versions, timed like phase 2; the engine (bf16 target,
+   ``quantize_params`` of the same weights as the draft, batch 8,
+   max_len 1024, prefill 128, spec_k 4, adaptive ladder) runs greedy
+   rounds from one burst admission, held against plain decode from the
+   same admission, one verify forward held against single-row forwards
+   over the same tokens (in bf16, and gated in a float32 copy beside an
+   off-by-one control) and its accepted counts recomputed on the host,
+   B2/B3 launches counted per draft forward; tokens/s and tokens per
+   round against plain decode, device ms of the draft and the verify, a
+   sampled run's acceptance; one session exported from a spec engine
+   and imported into another: the resumed target and draft cache rows,
+   the next round's first draft logits, proposals and accepted counts
+   equal; the port server from its own CLI wiring (``--quantize``
+   target, ``--draft-*`` bf16 draft restored from a port checkpoint of
+   the same weights) answers 8 concurrent completions equal to the same
+   prompts through its engine without spec rounds, B1-B3 counted per
+   target forward; then B1 at the 871M's head layout (Hkv 16, G 1) at
+   the server's single-token forwards' lengths and window;
+   migrate: two port servers at the 7B int8 configuration: a streamed
+   completion starts on A, A drains with ``{"migrate": true}``, the blob
+   of its migration terminal goes to B's ``/v1/sessions/import`` and a
+   ``{"resume": rid}`` completion finishes it on B, with the tokens and
+   logprobs of the same request unmigrated on A; blob size, drain,
+   import and resume-to-first-token times against the cold TTFT; at
+   engine level B's first decode logits after importing a parked session
+   equal A's continuation bit for bit; no KV block leaks;
 5. train kernels: the flash-attention forward (B5) and backward (B6 dq,
    B7 dk/dv) against their plain versions in bf16 at (B*H 128, S 1024,
    hd 128) causal, at S 1025 (the training CLI's row width) and
@@ -69,7 +99,9 @@ without a result line:
    (kernels), within the stated tolerances.
 
 Then the ``kernels`` JSON line (launches: B1-B4 from the serve phase,
-B5-B7 from the train phase; ``engine_launches`` from phase 3), and last
+B5-B7 from the train phase; ``engine_launches`` from phase 3,
+``spec_launches`` from the spec phase's engine; ``spec_detail`` holds
+B1-B3 at the 871M shapes), and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
 """
@@ -145,6 +177,15 @@ KERNEL_CLASSES = (
     ("reductions", ("reduce",)),
 )
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def free_memory(torch) -> None:
+    """Drop what no name holds any more and return the card's cached
+    blocks, so that a later phase starts from what earlier ones keep."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def log(msg: str) -> None:
@@ -295,73 +336,114 @@ def check_qmm(torch, qm, got, want, what, x_dtype, M, K, N,
     return r
 
 
+def worse(acc: dict, r: dict) -> None:
+    """Keep in ``acc`` the largest of each error reading of ``r``."""
+    for key in ("max_abs", "rel_l2", "tile_rel_l2"):
+        acc[key] = max(acc.get(key, 0.0), r[key])
+
+
+def b2_case(torch, qm, leaf, name: str, M: int, gen, xs, tag: str) -> dict:
+    """B2 on one stacked projection at ``M`` rows of x, drawn from
+    ``gen``: held against its plain version with each dtype of ``xs``
+    (bf16: the tensor-core kernel; fp32: the CUDA-core one) at the first,
+    middle and last layer, two runs bit-equal, then timed (bf16 x) with
+    its bound, plain version and library call; its detail entry."""
+    L, K, N = leaf.q.shape
+    x32 = torch.randn((M, K), generator=gen, device=gen.device)
+    x = x32.to(torch.bfloat16)
+    worst = {}
+    for li in (0, L // 2, L - 1):
+        for xin in (x32.to(dt) for dt in xs):
+            got = qm.quant_matmul_stacked(xin, leaf.q, leaf.s, li)
+            want = qm.quant_matmul_stacked_ref(xin, leaf.q, leaf.s, li)
+            worse(worst, check_qmm(torch, qm, got, want, f"{tag}B2 {name} "
+                                   f"M={M} layer {li} {xin.dtype}",
+                                   xin.dtype, M, K, N, False))
+    check(bool(torch.equal(qm.quant_matmul_stacked(x, leaf.q, leaf.s, L // 2),
+                           qm.quant_matmul_stacked(x, leaf.q, leaf.s,
+                                                   L // 2))),
+          f"{tag}B2 {name} M={M}: two runs bit-equal")
+    wb = [leaf.layer(li).dequantize(torch.bfloat16)
+          for li in range(min(8, L))]
+    ms = graph_ms(torch, lambda i: qm.quant_matmul_stacked(
+        x, leaf.q, leaf.s, i % L), L)
+    plain = graph_ms(torch, lambda i: qm.quant_matmul_stacked_ref(
+        x, leaf.q, leaf.s, i % L), 8, replays=2)
+    lib = graph_ms(torch, lambda i: torch.matmul(x, wb[i % len(wb)]), 8)
+    del wb
+    nbytes = K * N + 2 * N + 2 * M * K + 4 * M * N
+    b_ms, b_by = bound(nbytes, 2 * M * K * N)
+    plan = qm.plan(x.dtype, M, K, N, False)
+    log(f"{tag}kernels: B2 {name:5s} M={M:3d} K={K} N={N}: "
+        f"{ms * 1e3:.1f} us = {gbs(nbytes, ms):.0f} GB/s (bound "
+        f"{b_ms * 1e3:.1f} us by {b_by}, plain {plain * 1e3:.1f}, "
+        f"library {lib * 1e3:.1f}; {plan.splits} x k_len {plan.k_len}; rel "
+        f"L2 {worst['rel_l2']:.1e}, worst tile {worst['tile_rel_l2']:.1e})")
+    return {"proj": name, "M": M, "K": K, "N": N, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": b_by, "gb_per_s": gbs(nbytes, ms),
+            "splits": plan.splits, "k_len": plan.k_len, **worst}
+
+
+def b3_case(torch, qm, emb, M: int, gen, xs, tag: str) -> dict:
+    """B3 on the (V, D) embedding at ``M`` rows, as :func:`b2_case`."""
+    V, D = emb.q.shape
+    x32 = torch.randn((M, D), generator=gen, device=gen.device)
+    x = x32.to(torch.bfloat16)
+    worst = {}
+    for xin in (x32.to(dt) for dt in xs):
+        worse(worst, check_qmm(torch, qm, qm.quant_matmul_t(xin, emb.q, emb.s),
+                               qm.quant_matmul_t_ref(xin, emb.q, emb.s),
+                               f"{tag}B3 M={M} {xin.dtype}", xin.dtype, M, D,
+                               V, True))
+    check(bool(torch.equal(qm.quant_matmul_t(x, emb.q, emb.s),
+                           qm.quant_matmul_t(x, emb.q, emb.s))),
+          f"{tag}B3 M={M}: two runs bit-equal")
+    eb = emb.dequantize(torch.bfloat16)
+    ms = graph_ms(torch, lambda i: qm.quant_matmul_t(x, emb.q, emb.s), 16)
+    plain = graph_ms(torch, lambda i: qm.quant_matmul_t_ref(
+        x, emb.q, emb.s), 4, replays=2)
+    lib = graph_ms(torch, lambda i: torch.matmul(x, eb.t()), 16)
+    del eb
+    nbytes = V * D + 2 * V + 2 * M * D + 4 * M * V
+    b_ms, b_by = bound(nbytes, 2 * M * D * V)
+    log(f"{tag}kernels: B3 unembed M={M:3d} K={D} N={V}: {ms * 1e3:.1f} us "
+        f"= {gbs(nbytes, ms):.0f} GB/s (bound {b_ms * 1e3:.1f} us by {b_by}, "
+        f"plain {plain * 1e3:.1f}, library {lib * 1e3:.1f}; rel L2 "
+        f"{worst['rel_l2']:.1e}, worst tile {worst['tile_rel_l2']:.1e})")
+    return {"M": M, "K": D, "N": V, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+            "gb_per_s": gbs(nbytes, ms), **worst}
+
+
+def log_six(tag: str, detail: list, ms_rows) -> None:
+    """The six projections' sums at each row count."""
+    for M in ms_rows:
+        six = [d for d in detail if d["M"] == M]
+        log(f"{tag}kernels: B2 six projections M={M}: "
+            f"{sum(d['ms'] for d in six) * 1e3:.1f} us (bound "
+            f"{sum(d['bound_ms'] for d in six) * 1e3:.1f}, plain "
+            f"{sum(d['plain_ms'] for d in six) * 1e3:.1f}, library "
+            f"{sum(d['library_ms'] for d in six) * 1e3:.1f})")
+
+
 def phase_kernels(torch, cfg, qp, ops) -> list:
     """Each kernel against its plain version at the main path's shapes;
     returns the kernels' entries (launches filled in later)."""
     fd, qm = ops.flash_decode, ops.quant_matmul
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    L, D = cfg.n_layers, cfg.d_model
     out = []
 
-    def worse(acc: dict, r: dict) -> None:
-        for key in ("max_abs", "rel_l2", "tile_rel_l2"):
-            acc[key] = max(acc.get(key, 0.0), r[key])
-
+    xs = (torch.bfloat16, torch.float32)
     # ---- B2 quant_matmul_stacked: the six projections at M = 1 ... 256
-    detail = []
+    detail = [b2_case(torch, qm, qp["blocks"][name], name, M, gen, xs, "")
+              for M in QMM_MS for name in BIG]
     errs = {}
-    for M in QMM_MS:
-        for name in BIG:
-            leaf = qp["blocks"][name]
-            K, N = leaf.q.shape[1:]
-            x32 = torch.randn((M, K), generator=gen, device=dev)
-            x = x32.to(torch.bfloat16)
-            worst = {}
-            for li in (0, L // 2, L - 1):
-                for xin in (x, x32):
-                    got = qm.quant_matmul_stacked(xin, leaf.q, leaf.s, li)
-                    want = qm.quant_matmul_stacked_ref(xin, leaf.q, leaf.s,
-                                                       li)
-                    r = check_qmm(torch, qm, got, want, f"B2 {name} M={M} "
-                                  f"layer {li} {xin.dtype}", xin.dtype, M, K,
-                                  N, False)
-                    worse(worst, r)
-                    worse(errs, r)
-            check(bool(torch.equal(
-                qm.quant_matmul_stacked(x, leaf.q, leaf.s, L // 2),
-                qm.quant_matmul_stacked(x, leaf.q, leaf.s, L // 2))),
-                f"B2 {name} M={M}: two runs bit-equal")
-            wb = [leaf.layer(li).dequantize(torch.bfloat16)
-                  for li in range(8)]
-            ms = graph_ms(torch, lambda i: qm.quant_matmul_stacked(
-                x, leaf.q, leaf.s, i % L), L)
-            plain = graph_ms(torch, lambda i: qm.quant_matmul_stacked_ref(
-                x, leaf.q, leaf.s, i % L), 8, replays=2)
-            lib = graph_ms(torch, lambda i: torch.matmul(x, wb[i % 8]), 8)
-            del wb
-            nbytes = K * N + 2 * N + 2 * M * K + 4 * M * N
-            b_ms, b_by = bound(nbytes, 2 * M * K * N)
-            plan = qm.plan(x.dtype, M, K, N, False)
-            detail.append({"proj": name, "M": M, "K": K, "N": N, "ms": ms,
-                           "plain_ms": plain, "library_ms": lib,
-                           "bound_ms": b_ms, "bound_by": b_by,
-                           "gb_per_s": gbs(nbytes, ms),
-                           "splits": plan.splits, "k_len": plan.k_len,
-                           **worst})
-            log(f"kernels: B2 {name:5s} M={M:3d} K={K} N={N}: "
-                f"{ms * 1e3:.1f} us = {gbs(nbytes, ms):.0f} GB/s (bound "
-                f"{b_ms * 1e3:.1f} us by {b_by}, plain {plain * 1e3:.1f}, "
-                f"library {lib * 1e3:.1f}; {plan.splits} x k_len "
-                f"{plan.k_len}; rel L2 {worst['rel_l2']:.1e}, worst tile "
-                f"{worst['tile_rel_l2']:.1e}, bf16 and fp32 x)")
-    for M in QMM_MS:
-        six = [d for d in detail if d["M"] == M]
-        log(f"kernels: B2 six projections M={M}: "
-            f"{sum(d['ms'] for d in six) * 1e3:.1f} us (bound "
-            f"{sum(d['bound_ms'] for d in six) * 1e3:.1f}, plain "
-            f"{sum(d['plain_ms'] for d in six) * 1e3:.1f}, library "
-            f"{sum(d['library_ms'] for d in six) * 1e3:.1f})")
+    for d in detail:
+        worse(errs, d)
+    log_six("", detail, QMM_MS)
     dec = [d for d in detail if d["M"] == 8]
     out.append({
         "name": "quant_matmul_stacked", "route": "cuda",
@@ -378,39 +460,11 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
     })
 
     # ---- B3 quant_matmul_t: the unembedding at M = 1 ... 256
-    emb = qp["embed"]
-    eb = emb.dequantize(torch.bfloat16)
-    detail = []
+    detail = [b3_case(torch, qm, qp["embed"], M, gen, xs, "")
+              for M in QMM_MS]
     errs = {}
-    for M in QMM_MS:
-        x32 = torch.randn((M, D), generator=gen, device=dev)
-        x = x32.to(torch.bfloat16)
-        worst = {}
-        for xin in (x, x32):
-            got = qm.quant_matmul_t(xin, emb.q, emb.s)
-            want = qm.quant_matmul_t_ref(xin, emb.q, emb.s)
-            r = check_qmm(torch, qm, got, want, f"B3 M={M} {xin.dtype}",
-                          xin.dtype, M, D, V, True)
-            worse(worst, r)
-            worse(errs, r)
-        check(bool(torch.equal(qm.quant_matmul_t(x, emb.q, emb.s),
-                               qm.quant_matmul_t(x, emb.q, emb.s))),
-              f"B3 M={M}: two runs bit-equal")
-        ms = graph_ms(torch, lambda i: qm.quant_matmul_t(x, emb.q, emb.s), 16)
-        plain = graph_ms(torch, lambda i: qm.quant_matmul_t_ref(
-            x, emb.q, emb.s), 4, replays=2)
-        lib = graph_ms(torch, lambda i: torch.matmul(x, eb.t()), 16)
-        nbytes = V * D + 2 * V + 2 * M * D + 4 * M * V
-        b_ms, b_by = bound(nbytes, 2 * M * D * V)
-        detail.append({"M": M, "K": D, "N": V, "ms": ms, "plain_ms": plain,
-                       "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                       "gb_per_s": gbs(nbytes, ms), **worst})
-        log(f"kernels: B3 unembed M={M:3d}: {ms * 1e3:.1f} us = "
-            f"{gbs(nbytes, ms):.0f} GB/s (bound {b_ms * 1e3:.1f} us by "
-            f"{b_by}, plain {plain * 1e3:.1f}, library {lib * 1e3:.1f}; "
-            f"rel L2 {worst['rel_l2']:.1e}, worst tile "
-            f"{worst['tile_rel_l2']:.1e}, bf16 and fp32 x)")
-    del eb
+    for d in detail:
+        worse(errs, d)
     dec = next(d for d in detail if d["M"] == 8)
     out.append({
         "name": "quant_matmul_t", "route": "cuda",
@@ -460,21 +514,50 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
         "library_ms": lib, "gb_per_s": gbs(nbytes, ms),
     })
 
-    out.insert(0, check_b1(torch, cfg, fd, gen, L))
+    out.insert(0, check_b1(torch, cfg, fd, gen))
     return out
 
 
-def check_b1(torch, cfg, fd, gen, L: int) -> dict:
+def check_b1(torch, cfg, fd, gen) -> dict:
     """B1 against its plain version at batch 8 over a 1024-position cache
     at three shapes (the first, timed since B1 was first ported, stays
     the entry's top level): staggered depths, full depth, and the engine's
     prompt lengths (the longest cut to its bucket) at the engine's
     s_attn 256; timed at each; returns its ``kernels`` entry."""
+    S = 1024
+    shapes = (("staggered", [0, 1, 17, 128, 300, 511, 777, 1000], S),
+              ("full depth", [S] * 8, S),
+              ("engine", [256, 200, 129, 100, 64, 33, 17, 5], 256))
+    detail, e_max = b1_cases(torch, cfg, fd, gen, S, shapes, "")
+    top = detail[0]
+    return {
+        "name": "quant_decode_attention", "route": "cuda",
+        "source": "instaslice_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "instaslice_tpu/ops/flash_decode.py:59",
+        "work": f"one layer, B=8 Hkv={top['Hkv']} G={top['G']} "
+                f"hd={top['hd']}, lengths {top['lengths']}, s_attn "
+                f"{top['s_attn']}",
+        "max_abs_err": e_max, "tol": "1e-5 (merged output)",
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "detail": detail,
+    }
+
+
+def b1_cases(torch, cfg, fd, gen, S: int, shapes, tag: str):
+    """B1 at ``cfg``'s head layout over an int8 cache of ``S`` positions
+    drawn from ``gen``, at each (label, lengths, s_attn) of ``shapes``:
+    acc, m and l within 1e-5 of max|plain| (+ 1e-5) on the rows with a
+    prefix at the first and last layer, the empty row's conventions
+    exact, the merged output within 1e-5, two runs bit-equal; timed with
+    its bound, plain version and SDPA. Returns (detail, worst merged
+    error)."""
     from instaslice_tpu_torch.models.lm import init_cache
 
     dev = torch.device("cuda")
-    B, S, Hkv, hd = 8, 1024, cfg.kv_heads, cfg.head_dim
+    L, Hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
     G = cfg.n_heads // Hkv
+    B = len(shapes[0][1])
     cache = init_cache(cfg, B, S, quant=True, device=dev)
     for key in ("k", "v"):
         cache[key].copy_(torch.randint(-127, 128, cache[key].shape,
@@ -489,16 +572,13 @@ def check_b1(torch, cfg, fd, gen, L: int) -> dict:
     # repeated to the query heads outside the timing
     qs = q4.reshape(B, Hkv * G, 1, hd)
     kv_deq = []
-    for li in range(8):
+    for li in range(min(8, L)):
         k = (cache["k"][li].float() * cache["k_s"][li, ..., None]).to(
             torch.bfloat16).repeat_interleave(G, dim=1)
         v = (cache["v"][li].float() * cache["v_s"][li, ..., None]).to(
             torch.bfloat16).repeat_interleave(G, dim=1)
         kv_deq.append((k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    shapes = (("staggered", [0, 1, 17, 128, 300, 511, 777, 1000], S),
-              ("full depth", [S] * B, S),
-              ("engine", [256, 200, 129, 100, 64, 33, 17, 5], 256))
     detail = []
     e_max = 0.0
     for label, lens_l, s_attn in shapes:
@@ -520,11 +600,11 @@ def check_b1(torch, cfg, fd, gen, L: int) -> dict:
                 scale = float(want[rows].abs().max())
                 worst = max(worst, e / scale)
                 tol = 1e-5 * scale + 1e-5
-                check(e <= tol, f"B1 {label} layer {li} {what}: err {e} > "
-                      f"{tol}")
+                check(e <= tol, f"{tag}B1 {label} layer {li} {what}: err "
+                      f"{e} > {tol}")
                 for b in empty:
                     check(bool(torch.equal(got[b], want[b])),
-                          f"B1 {label} layer {li} {what}: empty-row "
+                          f"{tag}B1 {label} layer {li} {what}: empty-row "
                           "convention")
             k_loc = torch.randn((B, Hkv, hd), generator=gen, device=dev)
             v_loc = torch.randn((B, Hkv, hd), generator=gen, device=dev)
@@ -532,14 +612,15 @@ def check_b1(torch, cfg, fd, gen, L: int) -> dict:
                               k_loc)
             e = _err(torch, fd.merge_local(o, m, l_, lg, v_loc),
                      fd.merge_local(ro, rm, rl, lg, v_loc))
-            check(e <= 1e-5, f"B1 {label} layer {li} merged: err {e} > 1e-5")
+            check(e <= 1e-5, f"{tag}B1 {label} layer {li} merged: err {e} "
+                  "> 1e-5")
             e_max = max(e_max, e)
             # the splits combine in a fixed order: reruns bit-equal
             o2, m2, l2 = fd.quant_decode_attention(q4, *args, lengths, li,
                                                    s_attn)
             check(bool(torch.equal(o, o2) and torch.equal(m, m2)
                        and torch.equal(l_, l2)),
-                  f"B1 {label} layer {li}: two runs bit-equal")
+                  f"{tag}B1 {label} layer {li}: two runs bit-equal")
         ms = graph_ms(torch, lambda i: fd.quant_decode_attention(
             q4, *args, lengths, i % L, s_attn), L)
         plain = graph_ms(torch, lambda i: fd.quant_decode_attention_ref(
@@ -547,37 +628,28 @@ def check_b1(torch, cfg, fd, gen, L: int) -> dict:
         pos = torch.arange(s_attn, device=dev)[None, :]
         mask = ((pos < lengths[:, None]) | (pos == 0))[:, None, None, :]
         lib = graph_ms(torch, lambda i: sdpa(
-            qs, kv_deq[i % 8][0][:, :, :s_attn],
-            kv_deq[i % 8][1][:, :, :s_attn], attn_mask=mask), 8)
+            qs, kv_deq[i % len(kv_deq)][0][:, :, :s_attn],
+            kv_deq[i % len(kv_deq)][1][:, :, :s_attn], attn_mask=mask), 8)
         live = sum(min(n, s_attn) for n in lens_l)
         nbytes = (live * Hkv * (2 * hd + 2 * 4) + B * Hkv * G * hd * 2
                   + 4 * B + B * Hkv * G * (hd + 2) * 4)
         b_ms, b_by = bound(nbytes, live * Hkv * G * 4 * hd)
         P, n_split = fd.split_plan(B, Hkv, s_attn)
         detail.append({"shape": label, "lengths": lens_l, "s_attn": s_attn,
+                       "Hkv": Hkv, "G": G, "hd": hd,
                        "P": P, "n_split": n_split, "ms": ms,
                        "plain_ms": plain, "library_ms": lib,
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "gb_per_s": gbs(nbytes, ms)})
-        log(f"kernels: B1 decode attention B=8 {label} s_attn={s_attn} "
-            f"lengths {lens_l} (P {P}, {n_split} splits): {ms * 1e3:.1f} us"
-            f" = {gbs(nbytes, ms):.0f} GB/s (bound {b_ms * 1e3:.1f} us, "
-            f"plain {plain * 1e3:.1f}, library {lib * 1e3:.1f}); worst "
-            f"error {worst:.2e} of max|plain|, merged {e_max:.2e}")
+                       "gb_per_s": gbs(nbytes, ms), "max_rel_err": worst})
+        log(f"{tag}kernels: B1 decode attention B={B} Hkv={Hkv} G={G} "
+            f"{label} s_attn={s_attn} lengths {lens_l} (P {P}, {n_split} "
+            f"splits): {ms * 1e3:.1f} us = {gbs(nbytes, ms):.0f} GB/s "
+            f"(bound {b_ms * 1e3:.1f} us, plain {plain * 1e3:.1f}, library "
+            f"{lib * 1e3:.1f}); worst error {worst:.2e} of max|plain|, "
+            f"merged {e_max:.2e}")
     del kv_deq, cache
     torch.cuda.empty_cache()
-    top = detail[0]
-    return {
-        "name": "quant_decode_attention", "route": "cuda",
-        "source": "instaslice_tpu_torch/csrc/flash_decode.cu",
-        "replaces": "instaslice_tpu/ops/flash_decode.py:59",
-        "work": f"one layer, B=8 Hkv=8 G=4 hd=128, lengths "
-                f"{top['lengths']}, s_attn {top['s_attn']}",
-        "max_abs_err": e_max, "tol": "1e-5 (merged output)",
-        "ms": top["ms"], "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"], "detail": detail,
-    }
+    return detail, e_max
 
 
 def phase_engine(torch, cfg, qp, ops) -> dict:
@@ -776,14 +848,37 @@ def http_json(url: str, body=None, timeout: float = 600.0):
         return json.loads(resp.read())
 
 
-def http_stream(url: str, body: dict, timeout: float = 600.0) -> dict:
+def undrain(url: str) -> None:
+    """``DELETE /v1/drain``: the server takes traffic again."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/drain", method="DELETE")
+    urllib.request.urlopen(req, timeout=60).read()
+
+
+def wait_ready(url: str) -> None:
+    for _ in range(100):
+        try:
+            if http_json(url + "/readyz", timeout=10)["status"] == "ok":
+                return
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise RuntimeError("server never became ready")
+
+
+def http_stream(url: str, body: dict, timeout: float = 600.0,
+                progress: dict = None) -> dict:
     """POST a streamed completion; its tokens, logprobs, finish reason,
-    and the host clock of the first and last token chunks."""
+    the host clock of the first and last token chunks, and a session
+    migration terminal's blob with the host clock it arrived at.
+    ``progress["n"]``, when given, counts the tokens streamed so far."""
     import urllib.request
 
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     toks, lps, reason, t_first, t_last = [], [], None, None, None
+    session, t_session = None, None
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         for raw in resp:
             line = raw.decode().strip()
@@ -794,6 +889,9 @@ def http_stream(url: str, body: dict, timeout: float = 600.0) -> dict:
                 break
             ev = json.loads(data)
             check("error" not in ev, f"stream error {ev}")
+            if ev.get("object") == "text_completion.migration":
+                session, t_session = ev["session"], time.perf_counter()
+                continue
             ch = ev["choices"][0]
             if ch["token_ids"]:
                 now = time.perf_counter()
@@ -801,10 +899,13 @@ def http_stream(url: str, body: dict, timeout: float = 600.0) -> dict:
                 t_last = now
                 toks += ch["token_ids"]
                 lps += ch.get("logprobs") or []
+                if progress is not None:
+                    progress["n"] = len(toks)
             if ch["finish_reason"] is not None:
                 reason = ch["finish_reason"]
     return {"token_ids": toks, "logprobs": lps, "finish_reason": reason,
-            "t_first": t_first, "t_last": t_last}
+            "t_first": t_first, "t_last": t_last, "session": session,
+            "t_session": t_session}
 
 
 def phase_serve(torch, ops) -> dict:
@@ -851,15 +952,7 @@ def phase_serve(torch, ops) -> dict:
 
     eng._forward = counted_forward
     try:
-        for _ in range(100):
-            try:
-                if http_json(url + "/readyz", timeout=10)["status"] == "ok":
-                    break
-            except OSError:
-                pass
-            time.sleep(0.1)
-        else:
-            raise RuntimeError("server never became ready")
+        wait_ready(url)
         gen = torch.Generator().manual_seed(17)
         prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
                    for n in SERVE_PLENS]
@@ -1018,7 +1111,8 @@ def phase_serve(torch, ops) -> dict:
             "engine_hit": rel(hit_eng.pop("logits"), cold["logits"]),
             "control": rel(control, cold.pop("logits"))}
     for r in (hit, cold, hit_eng):
-        for key in ("t_first", "t_last", "logprobs"):
+        for key in ("t_first", "t_last", "logprobs", "session",
+                    "t_session"):
             r.pop(key, None)
     log(f"serve: radix hit {hit}; cold {cold}; engine hit {hit_eng}; "
         f"largest logprob difference hit vs cold {lp_diff:.3g}, served vs "
@@ -1062,6 +1156,725 @@ def phase_serve(torch, ops) -> dict:
         f"hit over HTTP TTFT {hit['ttft_ms']:.1f} ms, whole 16-token "
         f"request {hit['ms']:.1f} ms; on the engine, 16-token request hit "
         f"{hit_eng['ms']:.1f} ms vs cold {cold['ms']:.1f} ms")
+    return out
+
+
+# ------------------------------------------------------------- spec phase
+
+#: the draft proposes up to this many tokens a round, as the reference's
+#: speculative-decoding bench (``instaslice_tpu/bench_tpu.py:583-614``)
+SPEC_K = 4
+#: rows of the B2/B3 forwards of the spec path at the 871M configuration's
+#: shapes: a draft step (8 slots, one token), the server's int8 verify
+#: (8 slots x (k + 1) tokens), and the prefill chunks of 128 tokens of one
+#: and of two slots (the draft's on the engine, the int8 target's on the
+#: server)
+SPEC_MS = (8, 8 * (SPEC_K + 1), 128, 256)
+#: new tokens per prompt in the greedy comparison and over HTTP
+SPEC_NEW = 32
+#: the verify forward's logits (the bf16 target over k+1 rows, its fresh
+#: entries attended in one local block) against k+1 single-row decode
+#: forwards over the same tokens on a copy of the same cache (each reading
+#: the fresh entries back from the bf16 cache): relative L2 over the
+#: batch, at most this (bf16 activations round apart in the two orders)
+SPEC_VERIFY_TOL = 2e-2
+#: the same comparison on a float32 copy of the weights and the cache
+#: (summation order alone apart), at most this
+SPEC_VERIFY_TOL_FP32 = 1e-4
+#: its control (the same forward with every length one further on) must
+#: read at least this many times SPEC_VERIFY_TOL_FP32 (in bf16 the
+#: control reads under 2x SPEC_VERIFY_TOL: the random weights' logits
+#: depend on the context too little to rise above bf16 rounding)
+SPEC_VERIFY_CONTROL = 5
+#: the port server's own flags for the 871M configuration with the
+#: ``--draft-*`` draft (the checkpoint flags are added at run time)
+SPEC_SERVE_FLAGS = ("--quantize --vocab-size 32000 --d-model 2048 "
+                    "--n-heads 16 --n-layers 16 --d-ff 8192 --max-batch 8 "
+                    "--max-len 1024 --prefill-len 128 --host 127.0.0.1 "
+                    f"--port 0 --draft-n-layers 16 --spec-k {SPEC_K}")
+#: prompt lengths of the spec phase's 8 requests (engine and HTTP)
+SPEC_PLENS = (600, 512, 400, 300, 257, 200, 129, 64)
+
+
+def spec_config(torch):
+    """The 871M serving configuration (``instaslice_tpu/bench_tpu.py:
+    341-352``): vocab 32000, d_model 2048, 16 heads, 16 layers, d_ff 8192,
+    bf16."""
+    from instaslice_tpu_torch.models.lm import ModelConfig
+
+    return ModelConfig(vocab_size=32000, d_model=2048, n_heads=16,
+                       n_layers=16, d_ff=8192, max_seq_len=2048,
+                       dtype=torch.bfloat16, remat=False)
+
+
+def check_spec_kernels(torch, ops, qp) -> dict:
+    """B2 (the six projections) and B3 (the unembedding) at the 871M
+    int8 shapes and each row count of SPEC_MS, bf16 x: against their
+    plain versions within QMM_TOL, two runs bit-equal, timed like phase
+    2. Returns the details by kernel."""
+    qm = ops.quant_matmul
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(31)
+    xs = (torch.bfloat16,)
+    b2 = [b2_case(torch, qm, qp["blocks"][name], name, M, gen, xs, "spec ")
+          for M in SPEC_MS for name in BIG]
+    b3 = [b3_case(torch, qm, qp["embed"], M, gen, xs, "spec ")
+          for M in SPEC_MS]
+    log_six("spec ", b2, SPEC_MS)
+    return {"quant_matmul_stacked": b2, "quant_matmul_t": b3}
+
+
+class ForwardLog:
+    """Wraps an engine's target and draft forwards: the (rows, T) of each
+    while ``on``, the lengths and attended window of each single-token
+    target forward (B1's shape), and, once armed, a copy of the first
+    multi-row target forward's inputs and cache (taken before it writes)
+    with its logits."""
+
+    def __init__(self, eng):
+        self.eng, self.on = eng, False
+        self.target, self.draft, self.single = [], [], []
+        self.capture = None
+        fwd, dfwd = eng._forward, eng._draft_forward
+
+        def target(tokens, cache, lengths, attend_len=0):
+            cap = (self.capture is not None and not self.capture
+                   and tokens.shape[1] > 1)
+            if cap:
+                self.capture.update(
+                    tokens=tokens.clone(), lengths=lengths.clone(),
+                    attend=attend_len,
+                    cache={k: c.clone() for k, c in cache.items()})
+            out = fwd(tokens, cache, lengths, attend_len)
+            if cap:
+                self.capture["logits"] = out[0].clone()
+            if self.on:
+                self.target.append(tuple(tokens.shape))
+                if tokens.shape[1] == 1:
+                    self.single.append((lengths.clone(),
+                                        attend_len or cache["k"].shape[3]))
+            return out
+
+        def draft(tokens, cache, lengths, attend_len=0):
+            if self.on:
+                self.draft.append(tuple(tokens.shape))
+            return dfwd(tokens, cache, lengths, attend_len)
+
+        eng._forward, eng._draft_forward = target, draft
+
+    def start(self):
+        self.target, self.draft, self.single, self.on = [], [], [], True
+
+    def stop(self):
+        self.on = False
+
+
+def fp32_tree(tree):
+    """A float32 copy of a parameter or cache tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: fp32_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree.clone()
+
+
+def verify_readings(torch, model, params, cache, toks, lens, att):
+    """The (B, k+1) forward over ``toks`` on a copy of ``cache``; its
+    relative L2 distance from k+1 single-row decode forwards over the same
+    tokens (each writing its entry, the next reading it back), and from
+    the control, the same (B, k+1) forward with every row's length one
+    further on (positions and the mask one off: what a verify that wrote
+    or read its fresh entries one place away would compute)."""
+    def fresh():
+        return {n: c.clone() for n, c in cache.items()}
+
+    full, _ = model.apply_with_cache(params, toks, fresh(), lens,
+                                     attend_len=att)
+    off, _ = model.apply_with_cache(params, toks, fresh(), lens + 1,
+                                    attend_len=att)
+    c, rows = fresh(), []
+    for j in range(toks.shape[1]):
+        lg, _ = model.apply_with_cache(params, toks[:, j:j + 1], c,
+                                       lens + j, attend_len=att)
+        rows.append(lg[:, 0])
+    single = torch.stack(rows, dim=1)
+    return (full, single, float((single - full).norm() / full.norm()),
+            float((off - full).norm() / full.norm()))
+
+
+def check_verify(torch, model, params, cap: dict, accepted: list) -> dict:
+    """The captured verify forward against plain forwards on copies of
+    its cache: the same (B, k+1) forward again (a determinism check: the
+    engine's verify is this call) and k+1 single-row decode forwards
+    (within SPEC_VERIFY_TOL), with the off-by-one control read beside
+    them; then the same comparison on a float32 copy of the weights and
+    cache, where rounding no longer hides a mask or position fault: within
+    SPEC_VERIFY_TOL_FP32, its control at least SPEC_VERIFY_CONTROL times
+    that. The engine's accepted count per row against the one computed
+    here from the proposals and the plain forward's argmax."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+
+    toks, lens, att = cap["tokens"], cap["lengths"], cap["attend"]
+    k = toks.shape[1] - 1
+    again, single, rel, control = verify_readings(
+        torch, model, params, cap["cache"], toks, lens, att)
+    check(bool(torch.equal(again, cap["logits"])),
+          "spec: determinism: a plain forward over the verify's tokens and "
+          "cache equals the engine's verify forward bit for bit")
+    check(rel <= SPEC_VERIFY_TOL, f"spec: verify logits vs single-row "
+          f"decode forwards rel L2 {rel} > {SPEC_VERIFY_TOL}")
+    m32 = TpuLM(dataclasses.replace(model.cfg, dtype=torch.float32))
+    _, _, rel32, control32 = verify_readings(
+        torch, m32, fp32_tree(params), fp32_tree(cap["cache"]), toks, lens,
+        att)
+    log(f"spec: verify logits vs k+1 single-row decode forwards rel L2 "
+        f"{rel:.3e} (tolerance {SPEC_VERIFY_TOL:g}; control, lengths one "
+        f"further on: {control:.3e}); in float32 {rel32:.3e} (tolerance "
+        f"{SPEC_VERIFY_TOL_FP32:g}; control {control32:.3e}, must be >= "
+        f"{SPEC_VERIFY_CONTROL * SPEC_VERIFY_TOL_FP32:g})")
+    check(rel32 <= SPEC_VERIFY_TOL_FP32, f"spec: float32 verify logits vs "
+          f"single-row decode forwards rel L2 {rel32} > "
+          f"{SPEC_VERIFY_TOL_FP32}")
+    check(control32 >= SPEC_VERIFY_CONTROL * SPEC_VERIFY_TOL_FP32,
+          f"spec: the float32 off-by-one control reads {control32}, under "
+          f"{SPEC_VERIFY_CONTROL} x its tolerance: the check could not see "
+          "a wrong mask or position")
+    t = again.argmax(dim=-1)
+    host = torch.cumprod((toks[:, 1:] == t[:, :k]).long(), dim=1).sum(1)
+    check(host.tolist() == accepted, f"spec: accepted per row "
+          f"{accepted} != host {host.tolist()} (k {k})")
+    argmax_same = float((single.argmax(-1) == t).float().mean())
+    return {"k": k, "rel_l2_vs_single_row": rel,
+            "control_rel_l2_lengths_plus_one": control,
+            "fp32_rel_l2_vs_single_row": rel32,
+            "fp32_control_rel_l2_lengths_plus_one": control32,
+            "accepted": accepted,
+            "argmax_agreement_vs_single_row": argmax_same}
+
+
+def phase_spec(torch, ops) -> dict:
+    """Speculative decoding on the 871M configuration: B2/B3 at its int8
+    shapes and the path's row counts; the engine path (bf16 target,
+    ``quantize_params`` of the same weights as the draft, batch 8, max_len
+    1024, prefill 128, spec_k 4, adaptive ladder) with greedy rounds held
+    against plain decode from the same admission and one verify forward
+    against plain forwards and an off-by-one control; tokens/s and tokens
+    per round against plain decode, device ms of the draft and of the
+    verify, a sampled run; one engine export/import between two spec
+    engines (resumed target and draft cache rows, the next round's draft
+    logits, proposals and accepted counts); the port server from its CLI
+    wiring (int8 target verifying, bf16 draft of the same weights restored
+    from a port checkpoint) answering 8 concurrent completions; B1 at the
+    871M's head layout and the server's single-token forwards' shapes."""
+    from instaslice_tpu_torch.models.lm import TpuLM, init_params
+    from instaslice_tpu_torch.models.quant import quantize_params
+    from instaslice_tpu_torch.serving import AdmissionRequest, ServingEngine
+
+    cfg = spec_config(torch)
+    model = TpuLM(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    draft = quantize_params(params)
+    log(f"spec: 871M weights and their int8 copy in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"kernels": check_spec_kernels(torch, ops, draft)}
+    L, V = cfg.n_layers, cfg.vocab_size
+    opts = dict(max_batch=8, max_len=1024, prefill_len=128, device="cuda")
+    eng = ServingEngine(model, params, draft_model=model, draft_params=draft,
+                        spec_k=SPEC_K, **opts)
+    eng.warm_prefill_buckets()
+    eng.warm_spec_programs()
+    fl = ForwardLog(eng)
+    gen = torch.Generator().manual_seed(41)
+    prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
+               for n in SPEC_PLENS]
+
+    def admit():
+        eng.radix.reclaim(eng.kv.total_blocks)
+        eng.add_requests([AdmissionRequest(p) for p in prompts])
+
+    def chains():
+        return [eng.slots[s].generated[:SPEC_NEW] for s in range(8)]
+
+    # ---- greedy spec rounds from an admission, launches counted
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    fl.start()
+    admit()
+    rounds, ks, verify = 0, [], None
+    fl.capture = {}
+    while min(len(r.generated) for r in eng.slots.values()) < SPEC_NEW:
+        k = eng.spec_plan_k()
+        rid_slot = {r.request_id: s for s, r in eng.slots.items()}
+        emitted = eng.spec_step(k=k)
+        if verify is None and k > 0:
+            acc = [0] * 8
+            for rid, seq in emitted.items():
+                acc[rid_slot[rid]] = len(seq) - 1
+            verify = (dict(fl.capture), acc)
+        rounds += 1
+        ks.append(k)
+    torch.cuda.synchronize()
+    fl.stop()
+    counts = ops.launch_counts()
+    spec_chains = chains()
+    draft_rows = [b * t for b, t in fl.draft]
+    check(all(len(c) == SPEC_NEW for c in spec_chains), "spec chains")
+    check(counts["quant_matmul_stacked"]
+          == 6 * L * sum(r <= 256 for r in draft_rows) > 0,
+          "spec: B2 launches = 6 x layers x draft forwards of <= 256 rows")
+    check(counts["quant_matmul_t"] == sum(r <= 256 for r in draft_rows),
+          "spec: B3 launches = draft forwards of <= 256 rows")
+    check(counts["quant_decode_attention"] == 0 and counts["quant_matmul"]
+          == 0 and all(counts[n] == 0 for n in FLASH),
+          "spec: B1 and B4-B7 are not on the bf16-target path")
+    log(f"spec: {rounds} greedy rounds (k {ks}) after one burst admission "
+        f"of {list(SPEC_PLENS)}: {len(fl.target)} target forwards, "
+        f"{len(fl.draft)} draft forwards (rows "
+        f"{sorted(set(draft_rows))}), launches {counts}; accepted "
+        f"{eng.spec_accepted} of {eng.spec_proposed}")
+    cap, acc = verify
+    out["verify"] = check_verify(torch, model, params, cap, acc)
+    fl.capture = None
+    log(f"spec: verify forward check {out['verify']}")
+    # ---- the same admission through plain decode
+    for s in list(eng.slots):
+        eng.evict_slot(s)
+    admit()
+    eng.decode_block(SPEC_NEW - 1)
+    plain_chains = chains()
+    for i, (a, b) in enumerate(zip(spec_chains, plain_chains)):
+        check(a == b, f"spec: prompt {i} spec chain {a} != plain {b}")
+    distinct = len({t for c in spec_chains for t in c})
+    log(f"spec: greedy spec chains equal plain decode_block's for all 8 "
+        f"prompts ({distinct} distinct tokens across them)")
+    for s in list(eng.slots):
+        eng.evict_slot(s)
+    out.update(counts=counts, rounds=rounds, ks=ks,
+               accepted=eng.spec_accepted, proposed=eng.spec_proposed)
+
+    # ---- throughput: spec rounds vs plain decode, device ms per round
+    d = eng.spec_throughput(rounds=16, detail=True)
+    for s in list(eng.slots):
+        eng.evict_slot(s)
+    # the same engine's plain decode blocks (its draft catching up after
+    # each block), and an engine of the same weights with no draft
+    same_tok_s = eng.throughput(n_steps=32)
+    for s in list(eng.slots):
+        eng.evict_slot(s)
+    plain_eng = ServingEngine(model, params, **opts)
+    plain_tok_s = plain_eng.throughput(n_steps=32)
+    del plain_eng
+    for _ in range(eng.free_slots()):
+        eng.add_request([1, 2, 3])
+    k = eng.spec_plan_k()
+    attend = eng._spec_attend(k)
+    d_all, _ = eng._spec_draft(k + 1, True, 1e-6, attend)
+    busy_draft = device_busy(torch, lambda: eng._spec_draft(
+        k + 1, True, 1e-6, attend), 1)
+    busy_verify = device_busy(torch, lambda: eng._spec_verify(
+        d_all[:, :k], None, True, 1e-6, attend), 1)
+    for s in list(eng.slots):
+        eng.evict_slot(s)
+    round_ms = d["wall_seconds"] / 16 * 1e3
+    out["throughput"] = {
+        "spec_tok_s": d["tokens_per_sec"],
+        "spec_tokens_per_round": d["tokens_per_round"],
+        "plain_tok_s": plain_tok_s, "same_engine_plain_tok_s": same_tok_s,
+        "round_ms": round_ms, "k": k,
+        "device_ms_draft": busy_draft and busy_draft["ms_per_step"],
+        "device_ms_verify": busy_verify and busy_verify["ms_per_step"],
+        "draft_top": busy_draft and busy_draft["top"],
+        "verify_top": busy_verify and busy_verify["top"]}
+    log(f"spec: batch 8 greedy, {d['tokens_per_sec']:.1f} tok/s with spec "
+        f"({d['tokens_per_round']:.2f} tokens per slot-round, "
+        f"{round_ms:.1f} ms a round on the host clock) vs plain decode "
+        f"{plain_tok_s:.1f} tok/s without a draft, {same_tok_s:.1f} on the "
+        f"spec engine (its draft catching up); device per round at k {k}: "
+        f"draft "
+        f"{out['throughput']['device_ms_draft']} ms ({k + 1} forwards), "
+        f"verify {out['throughput']['device_ms_verify']} ms")
+    # ---- sampled rounds
+    eng.temperature = 0.8
+    a0, p0 = eng.spec_accepted, eng.spec_proposed
+    ds = eng.spec_throughput(rounds=8, detail=True)
+    for s in list(eng.slots):
+        eng.evict_slot(s)
+    eng.temperature = 0.0
+    rate = (eng.spec_accepted - a0) / max(1, eng.spec_proposed - p0)
+    out["sampled"] = {"acceptance": rate,
+                      "tokens_per_round": ds["tokens_per_round"],
+                      "tok_s": ds["tokens_per_sec"]}
+    log(f"spec: sampled (temperature 0.8) acceptance {rate:.3f}, "
+        f"{ds['tokens_per_round']:.2f} tokens per slot-round, "
+        f"{ds['tokens_per_sec']:.1f} tok/s")
+
+    # ---- one engine-level export/import between two spec engines
+    other = ServingEngine(model, params, draft_model=model,
+                          draft_params=draft, spec_k=SPEC_K, **opts)
+    rid = eng.add_request(prompts[3])
+    eng.spec_step()
+    eng.spec_step()
+    eng.preempt_slot(0)
+    blob = json.loads(json.dumps(eng.export_session(rid)))
+    check(blob["draft_stripe"]["k"]["dtype"] == "bfloat16"
+          and blob["stripe"]["k"]["dtype"] == "bfloat16",
+          "spec: the blob carries both bf16 stripes")
+    rid_b = other.import_session(blob)
+    n = blob["length"]
+    check((eng.resume_request(rid), other.resume_request(rid_b)) == (0, 0),
+          "spec migration: both resume into slot 0")
+    # the resumed rows of both caches, the draft's included: an import
+    # that dropped or mis-wrote the draft stripe differs here, where the
+    # collapsed greedy chain of random weights would not show it
+    for cname in ("cache", "draft_cache"):
+        for key, c in getattr(eng, cname).items():
+            check(bool(torch.equal(c[:, 0, :, :n],
+                                   getattr(other, cname)[key][:, 0, :, :n])),
+                  f"spec migration: resumed {cname} rows {key}[:{n}] equal")
+    seen = {}
+    for name, e in (("a", eng), ("b", other)):
+        dr, dfwd = e._spec_draft, e._draft_forward
+
+        def rec(*a, _dr=dr, _n=name):
+            d_all, q = _dr(*a)
+            seen[_n] = d_all.clone()
+            return d_all, q
+
+        def grab(tokens, cache, lengths, attend_len=0, _f=dfwd, _n=name):
+            out = _f(tokens, cache, lengths, attend_len)
+            seen.setdefault(_n + "_draft_logits", out[0][0].clone())
+            return out
+        e._spec_draft, e._draft_forward = rec, grab
+        a0 = e.spec_accepted
+        seen[name + "_out"] = (e.spec_step(), e.spec_accepted - a0)
+        e._spec_draft, e._draft_forward = dr, dfwd
+    (out_a, acc_a), (out_b, acc_b) = seen["a_out"], seen["b_out"]
+    check(bool(torch.equal(seen["a_draft_logits"], seen["b_draft_logits"])),
+          "spec migration: the next round's first draft logits are equal "
+          "bit for bit")
+    check(bool(torch.equal(seen["a"][0], seen["b"][0])),
+          "spec migration: the next round's proposals are equal")
+    check(acc_a == acc_b and out_a[rid] == out_b[rid_b],
+          "spec migration: the next round's accepted counts and tokens "
+          "are equal")
+    log(f"spec: engine export/import between two spec engines: resumed "
+        f"target and draft cache rows [0, {n}) equal, next round's first "
+        f"draft logits equal bit for bit, proposals "
+        f"{seen['a'][0].tolist()}, accepted {acc_a}, tokens equal")
+    for e in (eng, other):
+        for s in list(e.slots):
+            e.evict_slot(s)
+        e.radix.reclaim(e.kv.total_blocks)
+        check(e.kv.used_blocks() == 0, "spec: no leaked KV blocks")
+    del eng, other, fl
+    free_memory(torch)
+
+    out["serve"] = spec_serve(torch, ops, params, prompts)
+    del params, draft
+    free_memory(torch)
+    # B1 at the 871M's MHA layout (Hkv 16, G 1) and the server's own
+    # single-token forwards' lengths and window
+    shapes = [(f"spec server forward {i}", lens, att)
+              for i, (lens, att) in enumerate(out["serve"]["b1_shapes"])]
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(37)
+    out["kernels"]["quant_decode_attention"], e = b1_cases(
+        torch, cfg, ops.flash_decode, gen, out["serve"]["cache_len"], shapes,
+        "spec ")
+    out["b1_max_abs_err"] = e
+    return out
+
+
+def spec_serve(torch, ops, params, prompts) -> dict:
+    """The 871M spec server from its own CLI wiring over a port
+    checkpoint of ``params``: 8 concurrent greedy completions, B1-B3
+    counted per target forward, then (server stopped) the same prompts
+    through its engine without spec rounds."""
+    import shutil
+    import threading
+
+    from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
+    from instaslice_tpu_torch.models.train import TrainState, leaves
+    from instaslice_tpu_torch.serving import api_server
+
+    ck = HERE / "build" / "spec_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    TrainCheckpointer(str(ck)).save(TrainState(
+        step=1, params=params,
+        opt_state=torch.optim.SGD(leaves(params), lr=0.0)))
+    args = api_server.build_parser().parse_args(
+        SPEC_SERVE_FLAGS.split() + ["--checkpoint", str(ck),
+                                    "--draft-checkpoint", str(ck)])
+    eng = api_server.build_engine(args)
+    shutil.rmtree(ck, ignore_errors=True)
+    check(eng.kv_quant and eng.draft_model is not None
+          and eng.draft_cache["k"].dtype == torch.bfloat16,
+          "spec server: int8 target W+KV, bf16 draft")
+    srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
+    setup_s = time.perf_counter() - t0
+    L = args.n_layers
+    fl = ForwardLog(eng)
+    try:
+        wait_ready(srv.url)
+        results, errors = [None] * len(prompts), []
+
+        def one(i):
+            try:
+                body = {"prompt": prompts[i], "max_tokens": SPEC_NEW,
+                        "temperature": 0.0, "logprobs": True}
+                results[i] = http_json(srv.url + "/v1/completions",
+                                       body)["choices"][0]
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {e!r}")
+
+        st0 = http_json(srv.url + "/v1/stats")["spec"]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        fl.start()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fl.stop()
+        counts = ops.launch_counts()
+        st = http_json(srv.url + "/v1/stats")
+    finally:
+        srv.stop()
+    check(not errors, f"spec server: {errors}")
+    spec = st["spec"]
+    rows = [b * t for b, t in fl.target]
+    decode_fw = sum(t == 1 for _, t in fl.target)
+    kern_fw = sum(r <= 256 for r in rows)
+    log(f"spec server: 8 concurrent completions in {wall:.2f} s; target "
+        f"forwards by (rows, T) {sorted(set(fl.target))}, draft forwards "
+        f"{len(fl.draft)}, launches {counts}; /v1/stats spec {spec}")
+    check(spec["rounds"] > st0["rounds"]
+          and spec["accepted"] > st0["accepted"]
+          and spec["proposed"] >= spec["accepted"],
+          "spec server: /v1/stats shows rounds and acceptance")
+    check(counts["quant_decode_attention"] == L * decode_fw > 0,
+          "spec server: B1 launches = layers x single-token forwards")
+    check(counts["quant_matmul_stacked"] == 6 * L * kern_fw > 0,
+          "spec server: B2 launches = 6 x layers x target forwards of "
+          "<= 256 rows")
+    check(counts["quant_matmul_t"] == kern_fw, "spec server: B3 launches")
+    check(any(t > 1 and b * t <= 256 for b, t in fl.target),
+          "spec server: an int8 verify forward ran B2/B3")
+    eng.radix.reclaim(eng.kv.total_blocks)
+    again = eng.generate(prompts, SPEC_NEW)
+    lp = 0.0
+    for i, (r, g) in enumerate(zip(results, again)):
+        check(r["token_ids"] == g.tokens, f"spec server: request {i} "
+              f"tokens {r['token_ids']} != without spec {g.tokens}")
+        lp = max(lp, max(abs(a - b) for a, b in zip(r["logprobs"],
+                                                     g.logprobs)))
+    check(lp <= SERVE_LOGPROB_TOL, f"spec server: logprobs differ from "
+          f"plain decode by {lp}")
+    st_kv = eng.kv_stats()
+    check(st_kv["used"] == eng.radix.pool_blocks(),
+          "spec server: no leaked KV blocks")
+    tok = sum(len(r["token_ids"]) for r in results)
+    log(f"spec server: {tok} tokens in {wall:.2f} s = {tok / wall:.1f} tok/s "
+        f"over HTTP (prefill included); tokens equal to plain decode of the "
+        f"same engine, logprobs within {lp:.3g}; setup {setup_s:.1f} s")
+    forwards = sorted(set(fl.target))
+    # B1's shapes on this path: the first and the last single-token
+    # forward's (lengths, attended window)
+    b1 = []
+    for lens, att in (fl.single[0], fl.single[-1]):
+        shape = (lens.tolist(), att)
+        if shape not in b1:
+            b1.append(shape)
+    cache_len = eng.cache["k"].shape[3]
+    del eng, srv, fl
+    free_memory(torch)
+    return {"counts": counts, "wall_s": wall, "tok_s": tok / wall,
+            "spec": spec, "logprob_diff": lp, "setup_s": setup_s,
+            "target_forwards": forwards, "b1_shapes": b1,
+            "cache_len": cache_len}
+
+
+# ---------------------------------------------------------- migrate phase
+
+#: the migrated session: a prompt of this many tokens, this many new
+#: tokens, drained after at least MIG_AT of them have streamed
+MIG_PLEN = 560
+MIG_NEW = 64
+MIG_AT = 8
+#: the migrated stream's logprobs against the same request unmigrated on
+#: the source: the continuation decodes on another engine whose attended
+#: window (and so B1's split of the cache) may differ, which moves fp32
+#: sums, not tokens
+MIG_LOGPROB_TOL = 1e-3
+
+
+def phase_migrate(torch, ops) -> dict:
+    """Session migration between two port servers at the 7B int8
+    configuration (``SERVE_FLAGS``), in process on port 0: a streamed
+    completion starts on A, A drains with ``{"migrate": true}``, the
+    migration terminal's blob goes to B's ``/v1/sessions/import`` and a
+    ``{"resume": rid}`` completion finishes it on B; its tokens and
+    logprobs against the same request unmigrated on A; then, the servers
+    stopped, B's first decode logits after importing a parked session
+    against A's own continuation from the same parked state, bit for bit;
+    no KV block leaks on either."""
+    import threading
+
+    from instaslice_tpu_torch.serving import api_server
+
+    args = api_server.build_parser().parse_args(SERVE_FLAGS.split())
+    t0 = time.perf_counter()
+    engs = [api_server.build_engine(args) for _ in range(2)]
+    srvs = [api_server.ApiServer(e, host=args.host, port=args.port).start()
+            for e in engs]
+    log(f"migrate: two 7B int8 servers up in {time.perf_counter() - t0:.1f}"
+        " s")
+    a_url, b_url = (s.url for s in srvs)
+    V = args.vocab_size
+    gen = torch.Generator().manual_seed(43)
+    prompt = torch.randint(1, V, (MIG_PLEN,), generator=gen).tolist()
+    body = {"prompt": prompt, "max_tokens": MIG_NEW, "temperature": 0.0,
+            "logprobs": True, "stream": True}
+    out = {}
+    try:
+        for url in (a_url, b_url):
+            wait_ready(url)
+        # cold TTFT of the prompt (on B; its radix cache then holds the
+        # prompt, which a resume never reads)
+        t_send = time.perf_counter()
+        cold = http_stream(b_url + "/v1/completions",
+                           dict(body, max_tokens=2))
+        out["cold_ttft_ms"] = (cold["t_first"] - t_send) * 1e3
+        # the migrated stream
+        progress, res = {"n": 0}, {}
+
+        def stream():
+            try:
+                res.update(http_stream(a_url + "/v1/completions", body,
+                                       progress=progress))
+            except Exception as e:  # noqa: BLE001 - reported below
+                res["error"] = repr(e)
+
+        th = threading.Thread(target=stream)
+        th.start()
+        deadline = time.monotonic() + 300
+        while progress["n"] < MIG_AT and time.monotonic() < deadline \
+                and th.is_alive():
+            time.sleep(0.005)
+        t_drain = time.perf_counter()
+        drained = http_json(a_url + "/v1/drain",
+                            {"budget": 30, "migrate": True})
+        t_drained = time.perf_counter()
+        th.join(timeout=300)
+        check("error" not in res, f"migrate: stream {res.get('error')}")
+        check(drained["migrated"] == 1, f"migrate: drain {drained}")
+        blob = res["session"]
+        check(blob is not None, "migrate: the stream ended in a migration "
+              "terminal")
+        wire = json.dumps({"session": blob})
+        out["blob_mb"] = len(wire) / 1e6
+        out["drain_ms"] = (t_drained - t_drain) * 1e3
+        out["drain_to_terminal_ms"] = (res["t_session"] - t_drain) * 1e3
+        t0 = time.perf_counter()
+        imp = http_json(b_url + "/v1/sessions/import", {"session": blob})
+        out["import_ms"] = (time.perf_counter() - t0) * 1e3
+        t_send = time.perf_counter()
+        resumed = http_stream(b_url + "/v1/completions",
+                              {"resume": imp["rid"], "stream": True})
+        out["resume_first_token_ms"] = (resumed["t_first"] - t_send) * 1e3
+        toks = res["token_ids"] + resumed["token_ids"]
+        lps = res["logprobs"] + resumed["logprobs"]
+        # the same request unmigrated on A
+        undrain(a_url)
+        ref = http_stream(a_url + "/v1/completions", body)
+        out["split"] = [len(res["token_ids"]), len(resumed["token_ids"])]
+        check(toks == ref["token_ids"] and len(toks) == MIG_NEW,
+              f"migrate: stitched tokens {toks} != unmigrated "
+              f"{ref['token_ids']}")
+        lp = max(abs(x - y) for x, y in zip(lps, ref["logprobs"]))
+        out["logprob_diff"] = lp
+        check(lp <= MIG_LOGPROB_TOL, f"migrate: logprobs differ by {lp}")
+        stats = [http_json(u + "/v1/stats") for u in (a_url, b_url)]
+        for name, st in zip("AB", stats):
+            check(st["live_slots"] == 0 and st["parked"] == 0
+                  and st["sessions"]["imports_pending"] == 0,
+                  f"migrate: server {name} quiesced")
+            check(st["kv"]["used"] == st["radix"]["blocks"],
+                  f"migrate: server {name} leaked KV blocks: {st['kv']}")
+        check(stats[0]["sessions"]["exported"] == 1
+              and stats[1]["sessions"]["imported"] == 1
+              and stats[1]["sessions"]["migrated_in"] == 1,
+              "migrate: the session ledgers")
+        out["sessions"] = [st["sessions"] for st in stats]
+    finally:
+        for s in srvs:
+            s.stop()
+    log(f"migrate: over HTTP, {out['split'][0]} tokens on A then "
+        f"{out['split'][1]} on B equal the unmigrated run (logprobs within "
+        f"{out['logprob_diff']:.3g}); blob {out['blob_mb']:.1f} MB of JSON; "
+        f"drain POST {out['drain_ms']:.1f} ms, drain to migration terminal "
+        f"at the client {out['drain_to_terminal_ms']:.1f} ms, import POST "
+        f"{out['import_ms']:.1f} ms, resume to first token "
+        f"{out['resume_first_token_ms']:.1f} ms vs cold TTFT "
+        f"{out['cold_ttft_ms']:.1f} ms")
+
+    # ---- engine level, the servers stopped: A's continuation from a
+    # parked state against B's after importing it
+    eng_a, eng_b = engs
+    for e in engs:
+        e.radix.reclaim(e.kv.total_blocks)
+    prompt2 = torch.randint(1, V, (600,), generator=gen).tolist()
+    rid = eng_a.add_request(prompt2)
+    eng_a.decode_block(7)
+    eng_a.preempt_slot(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = eng_a.export_session(rid)
+    t1 = time.perf_counter()
+    wire = json.dumps(blob)
+    t2 = time.perf_counter()
+    blob2 = json.loads(wire)
+    t3 = time.perf_counter()
+    rid_b = eng_b.import_session(blob2)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    stripe = blob["stripe"]
+    length = blob["length"]
+    out["engine"] = {
+        "length": length, "stripe_shape": stripe["k"]["shape"],
+        "wire_mb": len(wire) / 1e6, "export_ms": (t1 - t0) * 1e3,
+        "json_encode_ms": (t2 - t1) * 1e3, "json_decode_ms": (t3 - t2) * 1e3,
+        "import_ms": (t4 - t3) * 1e3}
+    logits = {}
+    for name, e, r in (("a", eng_a, rid), ("b", eng_b, rid_b)):
+        fwd = e._forward
+
+        def grab(tokens, cache, lengths, attend_len=0, _f=fwd, _n=name):
+            lg = _f(tokens, cache, lengths, attend_len)
+            logits[_n] = lg[0][0].clone()
+            return lg
+        e._forward = grab
+        slot = e.resume_request(r)
+        check(slot == 0, "migrate: the session resumes into slot 0")
+        e.decode_block(1)
+        del e._forward
+    check(bool(torch.equal(logits["a"], logits["b"])),
+          "migrate: B's first decode logits after import equal A's "
+          "continuation bit for bit")
+    for name, e in zip("AB", engs):
+        for s in list(e.slots):
+            e.evict_slot(s)
+        e.radix.reclaim(e.kv.total_blocks)
+        check(e.kv.used_blocks() == 0 and not e.parked,
+              f"migrate: engine {name} leaked KV blocks")
+    log(f"migrate: engine level, a {length}-token session (stripe "
+        f"{stripe['k']['shape']} int8 + fp32 scales): {out['engine']}; B's "
+        "first decode logits equal A's continuation bit for bit")
+    del engs, eng_a, eng_b, srvs
+    free_memory(torch)
     return out
 
 
@@ -1539,7 +2352,16 @@ def main() -> int:
     t0 = time.perf_counter()
     serve = phase_serve(torch, ops)
     timings["serve"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
+    free_memory(torch)
+    t0 = time.perf_counter()
+    spec = phase_spec(torch, ops)
+    timings["spec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    migrate = phase_migrate(torch, ops)
+    timings["migrate"] = time.perf_counter() - t0
+    free_memory(torch)
+    log(f"memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        "allocated after the serving phases")
 
     t0 = time.perf_counter()
     train_kernels = phase_train_kernels(torch, ops.flash_attention)
@@ -1560,12 +2382,17 @@ def main() -> int:
 
     # launches: each kernel's count from the main path that runs it (the
     # server's completions for B1-B4, the 871M train steps for B5-B7);
-    # the engine's generate is the earlier serving path
+    # the engine's generate is the earlier serving path, spec_launches
+    # the 871M spec engine's admission and greedy rounds (its int8 draft)
     for k in kernels:
         k["launches"] = serve["counts"][k["name"]]
         k["engine_launches"] = eng["counts"][k["name"]]
+        k["spec_launches"] = spec["counts"][k["name"]]
+        if k["name"] in spec["kernels"]:
+            k["spec_detail"] = spec["kernels"][k["name"]]
     for k in train_kernels:
         k["launches"] = train["counts"][k["name"]]
+        k["spec_launches"] = spec["counts"][k["name"]]
     kernels += train_kernels
     for k in kernels:
         lib = k["library_ms"]
@@ -1584,6 +2411,9 @@ def main() -> int:
                     "decode_steps": eng["decode_steps"],
                     "prefill_chunks": eng["prefill_chunks"]}))
     log(json.dumps({"card": card, "serve": serve}))
+    log(json.dumps({"card": card, "spec": {k: v for k, v in spec.items()
+                                           if k != "kernels"}}))
+    log(json.dumps({"card": card, "migrate": migrate}))
     tbusy = train["device_busy"]
     log(json.dumps({"card": card, "train_step_ms": train["step_ms"],
                     "train_tokens_per_s": train["tokens_per_s"],

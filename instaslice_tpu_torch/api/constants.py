@@ -1,9 +1,9 @@
 """The serving plane's flight-recorder ``reason`` catalog.
 
 A copy of the serving reasons of ``instaslice_tpu/api/constants.py``
-(the ones the scheduler, the profiler and the journal of the port emit;
-the session-migration reasons are left out with the migration path):
-the port imports nothing of the JAX package. Every journal event names
+(the ones the scheduler, the profiler and the journal of the port emit,
+the session-migration reasons among them): the port imports nothing of
+the JAX package. Every journal event names
 its reason from HERE, so dashboards and validators keyed on the
 reference's catalog read the port's events unchanged.
 """
@@ -28,9 +28,16 @@ REASON_SLO_MISSED = "SLOMissed"
 # wall ms.
 REASON_COMPILE_OBSERVED = "CompileObserved"
 
+# live KV session migration: a session exported off a replica
+# (drain/rebalance) and the matching import+resume on its destination,
+# both under the request's trace id so one trace shows the whole hop.
+REASON_SESSION_EXPORTED = "SessionExported"
+REASON_SESSION_IMPORTED = "SessionImported"
+
 #: every reason the port's journal accepts without a warning
 EVENT_REASONS = frozenset({
     REASON_DRAIN_BEGIN, REASON_DRAIN_END, REASON_SHED, REASON_DRAINED,
     REASON_PREEMPTED, REASON_RESUMED, REASON_SLO_MISSED,
     REASON_COMPILE_OBSERVED,
+    REASON_SESSION_EXPORTED, REASON_SESSION_IMPORTED,
 })

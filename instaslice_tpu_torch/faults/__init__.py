@@ -6,11 +6,12 @@ exact call schedules, fire caps), :class:`InjectedCrash` (which the
 scheduler lets kill its thread), the engine hook
 (:func:`engine_fault_hook`, consulted by
 :class:`~instaslice_tpu_torch.serving.engine.ServingEngine` before every
-device dispatch) and the scheduler round hook. The port imports nothing
-of the JAX package. The crash-point plan (``TPUSLICE_CRASH_AT``) is left
-out: its one serving site is the session export, which is not ported;
-the kube and device-backend wrappers and the network nemesis stay with
-the reference, whose control plane the port does not have.
+device dispatch), the scheduler round hook, and the crash-point plan
+(:class:`CrashPlan`, ``TPUSLICE_CRASH_AT``, :func:`maybe_crash`), whose
+serving site is the session export (``serve.export``). The port imports
+nothing of the JAX package. The kube and device-backend wrappers and the
+network nemesis stay with the reference, whose control plane the port
+does not have.
 
 Plans are built in tests or parsed from ``TPUSLICE_FAULT_PLAN``::
 
@@ -55,6 +56,118 @@ class InjectedCrash(BaseException):
     def __init__(self, site: str) -> None:
         super().__init__(f"injected crash at {site}")
         self.site = site
+
+
+class CrashPlan:
+    """Deterministic process-death schedule over named crash sites.
+
+    ``sites`` maps site name → 1-based call number at which to fire
+    (each site fires at most once — a crashed component does not keep
+    crashing; its *restart* re-arms nothing). Thread-safe like
+    :class:`FaultPlan`: crash sites sit on controller workers, agent
+    reconcilers, and the serving scheduler concurrently."""
+
+    def __init__(self, sites: Optional[Dict[str, int]] = None,
+                 hard: bool = False) -> None:
+        self.sites: Dict[str, int] = dict(sites or {})
+        self.hard = hard
+        self.calls: Dict[str, int] = {}
+        self.fired: Dict[str, int] = {}
+        self._lock = named_lock("faults.crashplan")
+
+    def arm(self, site: str, nth: int = 1) -> "CrashPlan":
+        """Register/replace a crash site; returns self for chaining.
+        ``nth`` counts from THIS arming: re-arming resets the site's
+        call counter (otherwise a kill-loop re-arming a hot site after
+        its calls already passed ``nth`` could silently never fire)."""
+        with self._lock:
+            self.sites[site] = max(1, int(nth))
+            self.fired.pop(site, None)
+            self.calls.pop(site, None)
+        return self
+
+    def check(self, site: str) -> None:
+        """One call at ``site``: raises :class:`InjectedCrash` (or
+        hard-exits) when the armed call number is reached."""
+        with self._lock:
+            self.calls[site] = n = self.calls.get(site, 0) + 1
+            nth = self.sites.get(site)
+            if nth is None or site in self.fired or n != nth:
+                return
+            self.fired[site] = n
+        if self.hard or os.environ.get("TPUSLICE_CRASH_HARD") == "1":
+            os._exit(17)
+        raise InjectedCrash(site)
+
+    def stats(self) -> Dict[str, Dict[str, int]]:
+        with self._lock:
+            return {
+                name: {"calls": self.calls.get(name, 0),
+                       "fired": self.fired.get(name, 0)}
+                for name in set(self.calls) | set(self.sites)
+            }
+
+    @classmethod
+    def from_env(cls, text: Optional[str] = None) -> Optional["CrashPlan"]:
+        """Parse ``TPUSLICE_CRASH_AT`` (``site[:nth]`` comma-separated).
+        Returns None for empty/missing text."""
+        if text is None:
+            text = os.environ.get("TPUSLICE_CRASH_AT", "")
+        text = (text or "").strip()
+        if not text:
+            return None
+        plan = cls()
+        for part in text.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            site, _, nth = part.partition(":")
+            try:
+                n = int(nth) if nth else 1
+            except ValueError:
+                # fail FAST and fail CLEAR: this parses at import time
+                # in every component, and a chaos knob that silently
+                # no-oped would invalidate the whole chaos run — but
+                # the operator must see the misconfigured variable,
+                # not an int() traceback deep in an import cascade
+                raise ValueError(
+                    f"TPUSLICE_CRASH_AT: malformed entry {part!r} "
+                    f"(want site[:nth] with integer nth, e.g. "
+                    f"'agent.realize:2')"
+                ) from None
+            plan.arm(site.strip(), n)
+        return plan
+
+
+#: the process-default crash plan consulted by :func:`maybe_crash` —
+#: None (the overwhelmingly common case) costs one global read per
+#: crash-point visit
+_crash_plan: Optional[CrashPlan] = CrashPlan.from_env()
+
+
+def set_crash_plan(plan: Optional[CrashPlan]) -> None:
+    """Install the process crash plan (tests, simulated chaos runs)."""
+    global _crash_plan
+    _crash_plan = plan
+
+
+def get_crash_plan() -> Optional[CrashPlan]:
+    return _crash_plan
+
+
+def reset_crash_plan() -> None:
+    """Re-read ``TPUSLICE_CRASH_AT`` (test isolation)."""
+    global _crash_plan
+    _crash_plan = CrashPlan.from_env()
+
+
+def maybe_crash(site: str) -> None:
+    """THE crash-point hook: components call this at lifecycle edges
+    (docs/RECOVERY.md catalogs the sites); a no-op unless a plan armed
+    the site."""
+    plan = _crash_plan
+    if plan is not None:
+        plan.check(site)
 
 
 @dataclass

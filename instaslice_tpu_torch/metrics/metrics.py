@@ -4,7 +4,10 @@ A copy of ``ServingMetrics``, ``EventMetrics``, ``render``,
 ``observe_with_exemplar`` and ``start_metrics_server`` from
 ``instaslice_tpu/metrics/metrics.py`` (the operator, router and fleet
 holders stay with the reference): the port imports nothing of the JAX
-package. Without ``prometheus_client`` every metric is a no-op.
+package. A session exported off the server counts under the requests
+counter's ``migrated`` outcome; the router's migration counter
+(``RouterMetrics.migrations``) stays with the reference's router, which
+drives the port's servers from its own process. Without ``prometheus_client`` every metric is a no-op.
 """
 
 from __future__ import annotations

@@ -41,8 +41,7 @@ instead of requiring archaeology (docs/OBSERVABILITY.md "Profiling").
 A copy of ``instaslice_tpu/obs/profiler.py`` (the port imports nothing
 of the JAX package), trimmed to what the port's server uses: left out
 are the Chrome trace export (``chrome_trace``, read by the reference's
-CLI), ``reset_profiler``, ``Profiler.disarm``/``clear`` and the
-migration stages of the waterfall. The compile watch listens on the port's kernel
+CLI), ``reset_profiler`` and ``Profiler.disarm``/``clear``. The compile watch listens on the port's kernel
 builds (``instaslice_tpu_torch.ops.build``) where the reference listens
 on ``jax.monitoring``: an nvcc build or library load after the warm
 window is the port's mid-traffic compile.
@@ -59,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 from instaslice_tpu_torch.api.constants import (
     REASON_DRAINED,
+    REASON_SESSION_EXPORTED,
     REASON_SHED,
 )
 from instaslice_tpu_torch.utils.lockcheck import named_lock
@@ -465,6 +465,7 @@ def debug_profile_payload(qs: Dict[str, list],
 _TERMINAL_OUTCOMES = {
     REASON_SHED: "shed",
     REASON_DRAINED: "drained",
+    REASON_SESSION_EXPORTED: "migrated",
 }
 
 #: span name → waterfall stage label ("serve.decode_round" resolves
@@ -527,6 +528,8 @@ def waterfall_payload(rid, profiler: Optional[Profiler] = None,
             continue
         if s.name == "serve.decode_round":
             stage = "%s round" % s.attrs.get("phase", "decode")
+        elif s.name == "serve.migrate":
+            stage = "migrate-%s" % s.attrs.get("direction", "out")
         else:
             stage = _STAGE_NAMES.get(s.name, s.name)
         stages.append({

@@ -46,17 +46,12 @@ A copy of ``instaslice_tpu/serving/api_server.py`` over the port's
 engine and scheduler: the port imports nothing of the JAX package. The
 handler, the server and the flags are the reference's, plus
 ``--device`` (default the card); :func:`build_engine` makes the model
-on the device from a seeded init (or a port checkpoint) and refuses the
-flags whose paths are not ported yet (``--lora``, ``--draft-*``,
-``--from-env``, ``--window`` > 0, ``--quantize-bits 4``, an orbax
-``--checkpoint``), each with its ROADMAP item. The TPU host lock
-(``utils/tpulock.py``) is a rule of the TPU host's runtime and is not
-copied. Session migration is not ported (ROADMAP queue A), so the
-handler answers the session routes itself, in the reference's shapes
-for an engine that cannot migrate: ``/v1/sessions/export`` and a
-``/v1/drain`` with ``migrate`` move nothing (``migrated: 0``),
-``/v1/sessions/import`` fails with a 500, and a ``resume`` completion
-is a 400, as for a session that was never imported. Run via
+on the device from a seeded init (or a port checkpoint; the draft of
+``--draft-*`` likewise from ``--draft-checkpoint``) and refuses the
+flags whose paths are not ported yet (``--lora``, ``--from-env``,
+``--window`` > 0, ``--quantize-bits 4``, an orbax checkpoint), each
+with its ROADMAP item. The TPU host lock (``utils/tpulock.py``) is a
+rule of the TPU host's runtime and is not copied. Run via
 ``tpuslice-gpu-serve`` or
 ``python -m instaslice_tpu_torch.serving.api_server``.
 """
@@ -95,10 +90,6 @@ from instaslice_tpu_torch.utils.trace import (
 )
 
 log = logging.getLogger("instaslice_tpu_torch.serving.api")
-
-#: why the session routes move nothing on this server
-_NO_MIGRATION = ("session migration is not ported yet "
-                 "(ROADMAP queue A, 'Session migration')")
 
 
 def _mint_trace_id(header: Optional[str]) -> str:
@@ -346,13 +337,25 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             sched = type(self).scheduler
             sched.drain(budget)
+            migrated = 0
             if migrate:
-                log.warning("drain migrates nothing: %s", _NO_MIGRATION)
+                # drain-without-503: in-flight sessions leave through
+                # their own responses as migration terminals (the
+                # router imports them elsewhere); queued requests shed
+                # with the usual drain 503 the router retries
+                try:
+                    migrated = sched.control(sched.migrate_out)
+                except Exception as e:  # noqa: BLE001
+                    # the drain itself stands; report the partial state
+                    log.warning("drain-migrate failed: %s", e)
+                    self._send(500, {"error": f"migrate failed: {e}",
+                                     "draining": True})
+                    return
             self._send(200, {
                 "draining": True,
                 "budget": (sched.drain_budget if budget is None
                            else budget),
-                "migrated": 0,
+                "migrated": migrated,
             })
             return
         if not self.path.startswith("/v1/completions"):
@@ -365,11 +368,13 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             req = self._read_body()
             if req.get("resume") is not None:
-                # continuation of an imported session: none can be
-                # imported here, so every rid is unknown
-                raise ValueError(
-                    f"no imported session {req['resume']} awaiting "
-                    f"resume on this replica ({_NO_MIGRATION})")
+                # continuation of an imported session (fleet live
+                # migration): no prompt, no sampling config — the
+                # session blob carried all of that; the scheduler binds
+                # this pending to the parked engine state and resumes
+                # the decode with zero re-prefill
+                self._resume_completion(req, tid)
+                return
             try:
                 prompt = self._token_list(req, "prompt")
             except ValueError:
@@ -443,11 +448,34 @@ class _Handler(BaseHTTPRequestHandler):
                            stop=stop,
                            want_logprobs=bool(req.get("logprobs", False)),
                            n=n, adapter=adapter, trace_id=tid,
-                           tenant=tenant)
+                           tenant=tenant,
+                           session_key=self._session_key())
+        self._run_completion(pending)
+
+    def _session_key(self) -> str:
+        """The fleet router's per-request handle (``X-Session-Key``):
+        a targeted session export selects by it, and the export blob
+        echoes it back so the router matches blobs to streams. Opaque
+        here; bounded so a hostile client can't bloat pending state."""
+        key = self.headers.get("X-Session-Key") or ""
+        return key if len(key) <= 128 else ""
+
+    def _resume_completion(self, req: dict, tid: str) -> None:
+        try:
+            rid = int(req["resume"])
+        except (ValueError, TypeError):
+            self._send(400, {"error": "resume must be an imported "
+                                      "session rid (int)"},
+                       trace_id=tid)
+            return
+        pending = _Pending([], 0, stream=bool(req.get("stream", False)),
+                           trace_id=tid, resume_rid=rid,
+                           session_key=self._session_key())
         self._run_completion(pending)
 
     def _run_completion(self, pending: "_Pending") -> None:
-        """Submit → await → terminal response."""
+        """Submit → await → terminal response; shared by fresh
+        admissions and migrated-session resumes."""
         tid = pending.trace_id
         if not self._submit_or_shed(pending):
             return
@@ -457,6 +485,15 @@ class _Handler(BaseHTTPRequestHandler):
         if not self._await_or_timeout(pending):
             self._send(503, {"error": "request timed out in queue"},
                        trace_id=tid)
+            return
+        if pending.migrated is not None:
+            # the session left this replica mid-decode: the terminal
+            # response IS the handoff — the router imports the blob
+            # into another replica and finishes the completion there
+            self._send(200, {
+                "object": "text_completion.migration",
+                "session": pending.migrated,
+            }, trace_id=tid)
             return
         if pending.error:
             # shed/drained requests get a clean 503 (retry elsewhere);
@@ -584,6 +621,16 @@ class _Handler(BaseHTTPRequestHandler):
                     write({"error": item})
                     write("[DONE]")
                     return
+                if item["kind"] == "migrated":
+                    # mid-stream handoff: the terminal event carries
+                    # the exported session blob; the router (the only
+                    # intended consumer) imports it elsewhere and
+                    # splices the resumed stream — a plain client would
+                    # see a clean stream end
+                    write({"object": "text_completion.migration",
+                           "session": item["session"]})
+                    write("[DONE]")
+                    return
                 if item["kind"] == "final":
                     r = item["result"]
                     finals += 1
@@ -692,34 +739,60 @@ class _Handler(BaseHTTPRequestHandler):
     # --------------------------------------------- session migration
 
     def _sessions_export(self) -> None:
-        """``POST /v1/sessions/export``: the reference exports in-flight
-        sessions off the replica (``{"session_key": ...}`` targets one,
-        ``{"limit": N}`` bounds the count). Here the body is checked as
-        there (400 when malformed) and nothing moves: ``migrated: 0``,
-        the reference's answer from an engine that cannot export."""
+        """``POST /v1/sessions/export`` — trigger live migration of
+        in-flight sessions OFF this replica (drain-without-503 replica
+        removal, hot-replica rebalancing). Body: ``{"session_key":
+        "sk-..."}`` targets one proxied request, ``{"limit": N}``
+        bounds the count, ``{}`` exports everything eligible. The
+        blobs themselves ride each session's own in-flight response as
+        ``text_completion.migration`` terminals; this returns only the
+        count."""
         try:
             body = self._read_body()
-            if not isinstance(body.get("session_key", ""), str):
+            key = body.get("session_key")
+            if key is not None and not isinstance(key, str):
                 raise ValueError("session_key must be a string")
-            int(body.get("limit", 0))
+            limit = int(body.get("limit", 0))
         except (ValueError, TypeError, json.JSONDecodeError) as e:
             self._send(400, {"error": str(e)})
             return
-        log.warning("session export moves nothing: %s", _NO_MIGRATION)
-        self._send(200, {"migrated": 0})
+        sched = type(self).scheduler
+        try:
+            moved = sched.control(
+                lambda: sched.migrate_out(session_key=key, limit=limit)
+            )
+        except Exception as e:  # noqa: BLE001 - surfaced as HTTP 500
+            log.warning("session export failed: %s", e)
+            self._send(500, {"error": f"export failed: {e}"})
+            return
+        self._send(200, {"migrated": moved})
 
     def _sessions_import(self) -> None:
-        """``POST /v1/sessions/import`` with ``{"session": <blob>}``: the
-        reference parks the session for a ``resume`` completion. Here a
-        malformed body is a 400 as there, and a well-formed one fails
-        as an import the engine cannot do: 500 ``import failed``."""
+        """``POST /v1/sessions/import`` with ``{"session": <blob>}`` —
+        materialize an exported session as parked state on this
+        replica; the follow-up ``{"resume": rid}`` completion continues
+        the decode with zero re-prefill. 400 on wire-version / model-
+        signature mismatch (the versioned-format rejection contract)."""
         try:
-            if not isinstance(self._read_body().get("session"), dict):
+            body = self._read_body()
+            blob = body.get("session")
+            if not isinstance(blob, dict):
                 raise ValueError('body must carry {"session": {...}}')
         except (ValueError, TypeError, json.JSONDecodeError) as e:
             self._send(400, {"error": str(e)})
             return
-        self._send(500, {"error": f"import failed: {_NO_MIGRATION}"})
+        sched = type(self).scheduler
+        try:
+            rid = sched.import_session(blob)
+        except ValueError as e:
+            self._send(400, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 - surfaced as HTTP 500
+            log.warning("session import failed: %s", e)
+            self._send(500, {"error": f"import failed: {e}"})
+            return
+        self._send(200, {"rid": rid,
+                         "tokens": len(blob.get("generated", []))})
 
 
 class ApiServer:
@@ -921,10 +994,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-spec", action="store_true",
                     help="ignore any configured draft model and serve "
                          "plain decode rounds (the no-spec baseline "
-                         "arm of make bench-spec)")
+                         "arm)")
     ap.add_argument("--draft-checkpoint", default="",
-                    help="orbax checkpoint dir for the speculative "
-                         "DRAFT model's params (shape set by the "
+                    help="checkpoint dir of the port's own format for "
+                         "the speculative DRAFT model's params (shape "
+                         "set by the "
                          "--draft-* dims); omitted with "
                          "--draft-n-layers set = random-init draft "
                          "(testing only — acceptance will be noise)")
@@ -1031,12 +1105,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Exit non-zero on a flag whose path is not ported yet, naming its
-    ROADMAP queue A item."""
+    ROADMAP queue A item, and on a checkpoint directory that holds no
+    checkpoint of the port's own format."""
     unported = [
         (bool(args.lora), "--lora", "multi-LoRA"),
-        (bool(args.draft_n_layers or args.draft_checkpoint
-              or args.draft_d_model or args.draft_n_heads
-              or args.draft_d_ff), "--draft-*", "speculative decoding"),
         (args.from_env, "--from-env", "the parallel layer"),
         (args.window > 0, "--window", "sliding window and int4"),
         (args.quantize_bits == 4, "--quantize-bits 4",
@@ -1046,15 +1118,15 @@ def _refuse_unported(args) -> None:
         if hit:
             raise SystemExit(f"{flag} is not ported yet ({item}: ROADMAP "
                              "queue A)")
-    if args.checkpoint:
-        from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
+    from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
 
-        if TrainCheckpointer(args.checkpoint).latest_step() is None:
+    for flag, path in (("--checkpoint", args.checkpoint),
+                       ("--draft-checkpoint", args.draft_checkpoint)):
+        if path and TrainCheckpointer(path).latest_step() is None:
             raise SystemExit(
-                f"--checkpoint {args.checkpoint}: no checkpoint of the "
-                "port's own format (step_*.pt, written by "
-                "instaslice_tpu_torch.cli.train_main) there; orbax "
-                "checkpoints are not read")
+                f"{flag} {path}: no checkpoint of the port's own format "
+                "(step_*.pt, written by instaslice_tpu_torch.cli."
+                "train_main) there; orbax checkpoints are not read")
 
 
 def _restore_params(path: str, params) -> None:
@@ -1084,8 +1156,12 @@ def _restore_params(path: str, params) -> None:
 def build_engine(args) -> ServingEngine:
     """Model + params (seeded init on the device, optionally restored
     from a port checkpoint, optionally int8-quantized with an int8 KV
-    cache) -> engine, warmed before traffic. Split from :func:`main` so
-    tests and ``chip_smoke.py`` drive the exact CLI wiring."""
+    cache), plus the ``--draft-*`` draft model (bf16, seeded or restored
+    from ``--draft-checkpoint``) -> engine, warmed before traffic. Split
+    from :func:`main` so tests and ``chip_smoke.py`` drive the exact CLI
+    wiring."""
+    import dataclasses
+
     import torch
 
     from instaslice_tpu_torch import resolve_device
@@ -1109,6 +1185,19 @@ def build_engine(args) -> ServingEngine:
     if args.quantize or args.quantize_bits is not None:
         params = quantize_params(params, bits=args.quantize_bits or 8)
         kv_quant = True
+    draft_model = draft_params = None
+    if args.draft_n_layers and not args.no_spec:
+        dcfg = dataclasses.replace(
+            cfg,
+            n_layers=args.draft_n_layers,
+            d_model=args.draft_d_model or cfg.d_model,
+            n_heads=args.draft_n_heads or cfg.n_heads,
+            d_ff=args.draft_d_ff or cfg.d_ff,
+        )
+        draft_model = TpuLM(dcfg)
+        draft_params = draft_model.init(1, device=dev)
+        if args.draft_checkpoint:
+            _restore_params(args.draft_checkpoint, draft_params)
     eng = ServingEngine(
         model, params, max_batch=args.max_batch, max_len=args.max_len,
         prefill_len=args.prefill_len, kv_quant=kv_quant,
@@ -1118,11 +1207,15 @@ def build_engine(args) -> ServingEngine:
         radix_cache=not args.no_radix_cache,
         radix_decoded=not args.no_radix_decoded,
         batched_prefill=not args.no_batched_prefill,
+        draft_model=draft_model, draft_params=draft_params,
+        spec_k=args.spec_k,
         device=dev,
     )
-    # build the kernels and warm every prefill bucket at startup, not
-    # under the first admission burst
+    # build the kernels and warm every prefill bucket (and, with a
+    # draft, every spec round shape) at startup, not under the first
+    # admission burst or mid-run round
     eng.warm_prefill_buckets()
+    eng.warm_spec_programs()
     return eng
 
 

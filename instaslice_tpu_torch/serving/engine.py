@@ -32,12 +32,29 @@ As in the JAX engine:
   slots and rebuilds a zeroed cache. PyTorch donates no buffer, so this
   mark stands in for the JAX engine's consumed-donation check;
 - the ``fault_hook`` seam, consulted before each dispatch at the
-  reference's sites, and the tracer/profiler spans and events.
+  reference's sites, and the tracer/profiler spans and events;
+- **speculative decoding** (``draft_model``): :meth:`ServingEngine.
+  spec_step` drafts up to ``spec_k`` tokens per slot with the draft
+  model (k+1 draft forwards, a Python loop of device steps), verifies
+  them with ONE target forward over k+1 rows, and emits the accepted
+  prefix plus one bonus or resampled token; greedy engines emit the
+  plain greedy chain, sampled ones are rejection-sampled
+  (:func:`~instaslice_tpu_torch.serving.sampling.speculative_accept`).
+  The adaptive k ladder, the cache-end clamp and the periodic k = 1
+  probe are the reference's. The draft's own bf16 KV cache rides every
+  path the target's does: chunked and burst prefill, radix granule
+  stripes, forks, preempt/resume, recovery, and the catch-up after a
+  plain ``step``/``decode_block``;
+- **session migration**: :meth:`ServingEngine.export_session` writes a
+  parked request (both stripes, host decode state) in the reference's
+  versioned wire format (``serving/kvcache.py``) and
+  :meth:`ServingEngine.import_session` parks one on this engine; a blob
+  exported by either engine imports into the other when the model
+  signatures agree.
 
 What the JAX engine has and this port does not yet: the mesh (tensor
-parallelism), multi-LoRA, speculative decoding and session
-export/import (ROADMAP queue A). The scheduler's guards keep those off
-(``draft_model`` is None, ``n_adapters`` is 0, ``mesh`` is None).
+parallelism) and multi-LoRA (ROADMAP queue A). The scheduler's guards
+keep those off (``n_adapters`` is 0, ``mesh`` is None).
 
 Where the JAX engine compiles a ``lax.scan`` of decode steps, the port
 runs a Python loop of device steps; sampled tokens stay on the device
@@ -62,18 +79,24 @@ from instaslice_tpu_torch.obs.profiler import get_profiler
 from instaslice_tpu_torch.ops import build
 from instaslice_tpu_torch.ops import flash_decode as _fd
 from instaslice_tpu_torch.serving.kvcache import (
+    SESSION_WIRE_VERSION,
     BlockPoolExhausted,
     BlockTable,
     KVBlockPool,
     RadixIndex,
     RadixMatch,
     RadixNode,
+    array_to_wire,
     radix_granule,
+    tree_to_wire,
+    wire_to_array,
+    wire_to_tree,
 )
 from instaslice_tpu_torch.serving.sampling import (
     apply_repetition_penalty,
     filter_logits,
     sample,
+    speculative_accept,
     token_logprob,
 )
 from instaslice_tpu_torch.utils.trace import get_tracer
@@ -119,12 +142,14 @@ class _Slot:
 
 @dataclasses.dataclass
 class _Parked:
-    """A preempted request: its host state plus its KV stripe, read out
-    of the cache (an independent copy) so the slot could go back to the
-    batch. The block table stays allocated (``ServingEngine._tables``):
-    resume is one stripe write, never a re-prefill."""
+    """A preempted request: its host state plus its KV stripe(s), read
+    out of the cache(s) (independent copies) so the slot could go back to
+    the batch. The block table stays allocated
+    (``ServingEngine._tables``): resume is one stripe write per cache,
+    never a re-prefill."""
     req: _Slot
     stripe: Params
+    draft_stripe: Optional[Params]     # the draft cache's, with a draft
     length: int                        # resident cache positions
 
 
@@ -150,14 +175,24 @@ class ServingEngine:
         radix_cache: bool = True,
         radix_decoded: bool = True,
         batched_prefill: bool = True,
+        draft_model: Optional[TpuLM] = None,
+        draft_params: Optional[Params] = None,
+        spec_k: int = 4,
+        spec_adaptive: bool = True,
         device="cuda",
     ) -> None:
         """``kv_quant=True`` stores the KV cache as int8 with per-vector
         scales (decode then runs the int8 decode-attention kernel).
         ``radix_cache``/``radix_decoded``/``max_prefixes`` and
-        ``batched_prefill`` are the JAX engine's flags. ``device``
-        defaults to the card and raises without one; pass
-        ``device="cpu"`` to run the plain versions of the kernels."""
+        ``batched_prefill`` are the JAX engine's flags. ``draft_model``
+        (+ ``draft_params``, seeded init 1 when omitted) enables
+        lossless speculative decoding (:meth:`spec_step`), up to
+        ``spec_k`` draft tokens a round, the k of each round chosen by
+        the acceptance ladder unless ``spec_adaptive`` is False; the
+        draft's KV cache is the model's own dtype, never int8, as in the
+        reference. ``device`` defaults to the card and raises without
+        one; pass ``device="cpu"`` to run the plain versions of the
+        kernels."""
         self.device = resolve_device(device)
         if prefill_len > max_len:
             raise ValueError("prefill_len must be <= max_len")
@@ -171,6 +206,16 @@ class ServingEngine:
             raise ValueError(
                 f"repetition_penalty must be > 0, got {repetition_penalty}"
             )
+        if repetition_penalty != 1.0 and draft_model is not None:
+            raise ValueError(
+                "repetition_penalty cannot combine with speculative "
+                "decoding: the penalty depends on tokens sampled INSIDE "
+                "the verify window, which the one-shot verify forward "
+                "cannot see; acceptance would silently diverge from "
+                "the penalized chain"
+            )
+        if draft_model is not None and spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if not 1 <= kv_block_size <= max_len:
             raise ValueError(f"kv_block_size must be in [1, max_len], got "
                              f"{kv_block_size}")
@@ -199,9 +244,8 @@ class ServingEngine:
         self._next_id = 0
         self.kv_quant = kv_quant
         # what the JAX engine's scheduler-facing surface reads and the
-        # port does not have yet: no mesh, no draft, no adapters
+        # port does not have yet: no mesh, no adapters
         self.mesh = None
-        self.draft_model = None
         self.n_adapters = 0
         self.adapter_names: Dict[str, int] = {}
         self._multiproc = False
@@ -226,6 +270,10 @@ class ServingEngine:
         self.parked: Dict[int, _Parked] = {}
         self.preempted_total = 0
         self.resumed_total = 0
+        #: live-migration ledger: parked sessions serialized off this
+        #: engine / deserialized onto it
+        self.exported_total = 0
+        self.imported_total = 0
         # ---- radix prefix cache ----
         self.radix_granule = radix_granule(prefill_len, kv_block_size)
         self.radix = RadixIndex(self.kv, self.radix_granule)
@@ -269,9 +317,50 @@ class ServingEngine:
         #: an in-flight decode block (dispatched, tokens not yet read)
         self._pending_block: Optional[dict] = None
         #: time.monotonic() stamp of the most recent decode readback
-        #: landing (decode_block_finish / step): the scheduler splits
-        #: device-bound time from host bookkeeping there
+        #: landing (decode_block_finish / spec_step_finish / step): the
+        #: scheduler splits device-bound time from host bookkeeping there
         self.last_dispatch_landed: Optional[float] = None
+
+        # ---- speculative decoding ----
+        self.draft_model = draft_model
+        self.spec_k = spec_k
+        #: adaptive k: each round's depth from the bounded shape set
+        #: below by an acceptance-rate EMA; False pins it at spec_k
+        self.spec_adaptive = spec_adaptive
+        self.draft_params = None
+        self.draft_cache: Optional[Params] = None
+        if draft_model is not None:
+            self.draft_params = (draft_params if draft_params is not None
+                                 else draft_model.init(1,
+                                                       device=self.device))
+            self.draft_cache = draft_model.init_cache(max_batch, max_len,
+                                                      device=self.device)
+        #: the bounded k shape set: 0 (a plain, draft-cache-maintaining
+        #: step: the graceful-degradation floor), the powers of two below
+        #: spec_k, and spec_k itself; every dispatched k is a member
+        kset = {0}
+        if draft_model is not None:
+            b = 1
+            while b < spec_k:
+                kset.add(b)
+                b <<= 1
+            kset.add(spec_k)
+        self._spec_kset = sorted(kset)
+        #: ladder position into ``_spec_kset``: starts optimistic (at
+        #: spec_k); the acceptance EMA walks it one rung per crossing
+        self._spec_idx = len(self._spec_kset) - 1
+        #: acceptance-rate EMA (accepted draft tokens / proposed)
+        self.spec_accept_ema = 1.0
+        #: consecutive k = 0 rounds (drives the periodic k = 1 probe)
+        self._spec_zero_rounds = 0
+        self.spec_rounds = 0
+        self.spec_proposed = 0         # draft tokens proposed (k*batch)
+        self.spec_accepted = 0         # draft tokens accepted
+        #: per-round acceptance-rate samples, drained by the scheduler
+        self._spec_rate_samples: List[float] = []
+        #: an in-flight spec round (dispatched, outputs not yet read),
+        #: drained by _drain_pending like _pending_block
+        self._pending_spec: Optional[dict] = None
 
     @property
     def repetition_penalty(self) -> float:
@@ -301,13 +390,22 @@ class ServingEngine:
         return self.model.apply_with_cache(self.params, tokens, cache,
                                            lengths, attend_len=attend_len)
 
+    def _draft_forward(self, tokens: torch.Tensor, cache: Params,
+                       lengths: torch.Tensor, attend_len: int = 0):
+        """The draft model's incremental forward (its own params and
+        cache): prefill chunks, catch-up and proposal steps."""
+        return self.draft_model.apply_with_cache(
+            self.draft_params, tokens, cache, lengths,
+            attend_len=attend_len)
+
     def _prefill(self, tokens: List[int], slot: int,
                  offset: int) -> torch.Tensor:
         """One (1, prefill_len) chunk into slot ``slot``'s stripe at
-        ``offset``; returns the chunk's (prefill_len, vocab) logits. The
-        stripe is a view of the cache, so the chunk's K/V land in place;
-        stale data of a prior occupant is never attended (the mask
-        admits only positions below ``offset + t``)."""
+        ``offset`` (the draft cache's too, its logits dropped); returns
+        the chunk's (prefill_len, vocab) logits. The stripe is a view of
+        the cache, so the chunk's K/V land in place; stale data of a
+        prior occupant is never attended (the mask admits only positions
+        below ``offset + t``)."""
         with self._cache_write():
             stripe = {k: c[:, slot:slot + 1] for k, c in self.cache.items()}
             toks = torch.tensor([tokens], dtype=torch.int64,
@@ -315,6 +413,10 @@ class ServingEngine:
             lens = torch.full((1,), offset, dtype=torch.int32,
                               device=self.device)
             logits, _ = self._forward(toks, stripe, lens)
+            if self.draft_model is not None:
+                self._draft_forward(toks, {k: c[:, slot:slot + 1] for k, c
+                                           in self.draft_cache.items()},
+                                    lens)
         self.prefill_dispatches += 1
         return logits[0]
 
@@ -323,7 +425,9 @@ class ServingEngine:
         """P same-shaped chunks into P slots' stripes in one forward:
         gather the stripes, run the (P, prefill_len) batch (each row at
         its own offset), scatter the ``n_real`` real rows back (padding
-        rows duplicate a real row). Returns (P, prefill_len, vocab)."""
+        rows duplicate a real row). The draft cache takes the real rows
+        one chunk forward each, as the reference dispatches them.
+        Returns (P, prefill_len, vocab)."""
         with self._cache_write():
             idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
             stripes = {k: c.index_select(1, idx)
@@ -335,26 +439,38 @@ class ServingEngine:
             logits, stripes = self._forward(toks, stripes, lens)
             for k, c in self.cache.items():
                 c.index_copy_(1, idx[:n_real], stripes[k][:, :n_real])
+            if self.draft_model is not None:
+                for r in range(n_real):
+                    s = slots[r]
+                    self._draft_forward(
+                        toks[r:r + 1],
+                        {k: c[:, s:s + 1]
+                         for k, c in self.draft_cache.items()},
+                        lens[r:r + 1])
         self.prefill_dispatches += 1
         return logits
 
-    def _read_stripe(self, slot: int, start: int, length: int) -> Params:
-        """An independent copy of one slot's cache positions [start,
-        start + length): every leaf is (L, B, Hkv, S[, hd]) with the slot
-        on axis 1 and the position on axis 3. A copy, never a view: the
-        cache is written in place, so a view would change under the
-        slot's next occupant."""
+    def _read_stripe(self, slot: int, start: int, length: int,
+                     cache: Optional[Params] = None) -> Params:
+        """An independent copy of one slot's positions [start, start +
+        length) of ``cache`` (the target's by default): every leaf is (L,
+        B, Hkv, S[, hd]) with the slot on axis 1 and the position on axis
+        3. A copy, never a view: the cache is written in place, so a view
+        would change under the slot's next occupant."""
         self._check_not_poisoned()
+        cache = self.cache if cache is None else cache
         return {k: c[:, slot:slot + 1, :, start:start + length].clone()
-                for k, c in self.cache.items()}
+                for k, c in cache.items()}
 
-    def _write_stripe(self, stripe: Params, slot: int, start: int) -> None:
-        """Write a stored stripe into a slot at position ``start``.
-        Stripes are absolute-position entities (RoPE bakes positions
-        into K), so a segment only ever writes back at the offset it was
-        read from."""
+    def _write_stripe(self, stripe: Params, slot: int, start: int,
+                      cache: Optional[Params] = None) -> None:
+        """Write a stored stripe into a slot of ``cache`` (the target's by
+        default) at position ``start``. Stripes are absolute-position
+        entities (RoPE bakes positions into K), so a segment only ever
+        writes back at the offset it was read from."""
+        cache = self.cache if cache is None else cache
         with self._cache_write():
-            for k, c in self.cache.items():
+            for k, c in cache.items():
                 s = stripe[k]
                 c[:, slot:slot + 1, :, start:start + s.shape[3]].copy_(s)
 
@@ -566,9 +682,9 @@ class ServingEngine:
     # ------------------------------------------------------ preempt/resume
 
     def preempt_slot(self, slot: int) -> int:
-        """Park a live request off-batch: read its KV stripe out of the
-        cache, free the slot, KEEP its block table. Returns the parked
-        request id."""
+        """Park a live request off-batch: read its KV stripe(s) out of
+        the cache(s), free the slot, KEEP its block table. Returns the
+        parked request id."""
         self._drain_pending()
         if self.fault_hook is not None:
             self.fault_hook("prefill")
@@ -579,8 +695,11 @@ class ServingEngine:
         rounded = min(self.max_len,
                       self.kv.blocks_for(max(1, length)) * self.kv_block_size)
         stripe = self._read_stripe(slot, 0, rounded)
+        draft_stripe = (None if self.draft_cache is None else
+                        self._read_stripe(slot, 0, rounded, self.draft_cache))
         del self.slots[slot]
-        self.parked[req.request_id] = _Parked(req, stripe, length)
+        self.parked[req.request_id] = _Parked(req, stripe, draft_stripe,
+                                              length)
         self.preempted_total += 1
         return req.request_id
 
@@ -599,6 +718,9 @@ class ServingEngine:
         parked = self.parked[rid]
         req = parked.req
         self._write_stripe(parked.stripe, slot, 0)
+        if self.draft_cache is not None and parked.draft_stripe is not None:
+            self._write_stripe(parked.draft_stripe, slot, 0,
+                               self.draft_cache)
         del self.parked[rid]
         self.lengths[slot] = parked.length
         self.last_token[slot] = req.generated[-1]
@@ -622,15 +744,211 @@ class ServingEngine:
 
     # ------------------------------------------------- session migration
 
+    def model_signature(self) -> dict:
+        """What two engines must agree on for a KV session to move
+        between them, checked at :meth:`import_session`: the reference's
+        keys, so port and JAX engines of one configuration agree."""
+        cfg = self.model.cfg
+        return {
+            "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+            "n_heads": cfg.n_heads, "kv_heads": cfg.kv_heads,
+            "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+            "window": cfg.window,
+            "max_len": self.max_len, "prefill_len": self.prefill_len,
+            "kv_block_size": self.kv_block_size,
+            "kv_quant": bool(self.kv_quant),
+            "n_adapters": self.n_adapters,
+            "draft": self.draft_model is not None,
+        }
+
+    def _sampling_signature(self) -> dict:
+        """Sampling config is engine-level; a migrated continuation
+        must sample from the same distribution it started under."""
+        return {
+            "temperature": float(self.temperature),
+            "top_k": int(self.top_k), "top_p": float(self.top_p),
+            "min_p": float(self.min_p),
+            "repetition_penalty": float(self.repetition_penalty),
+        }
+
     def export_session(self, rid: int) -> dict:
-        raise NotImplementedError(
-            "session export is not ported yet (ROADMAP queue A, "
-            "'Session migration')")
+        """Serialize a PARKED request into the versioned session wire
+        format (``SESSION_WIRE_VERSION``, ``serving/kvcache.py``): the
+        block-rounded KV stripe :meth:`preempt_slot` read out, the draft
+        stripe, the host decode state, as a JSON-safe dict a peer's
+        :meth:`import_session` feeds to :meth:`resume_request` with no
+        re-prefill. The stripes cross to the host here (``.cpu()``).
+
+        Pure read: the rid STAYS parked (copy-then-delete: the caller
+        drops the source copy with :meth:`drop_parked` once the blob is
+        safe). Callers preempt live slots first.
+
+        The reference writes its JAX key under ``"rng"``; this engine
+        writes ``"rng": null`` (which the reference reads as "keep your
+        own key") and its generator's state under ``"torch_rng"``, which
+        a port engine on the same device type adopts: sampled
+        continuations replay bit for bit between like engines and stay
+        distribution-preserving otherwise. Greedy continuations are the
+        same either way."""
+        parked = self.parked.get(rid)
+        if parked is None:
+            raise ValueError(
+                f"request {rid} is not parked (export serializes parked "
+                "state; preempt_slot the live slot first)")
+        req = parked.req
+
+        def host(tree):
+            return {k: v.cpu() for k, v in tree.items()}
+
+        blob = {
+            "version": SESSION_WIRE_VERSION,
+            "model": self.model_signature(),
+            "sampling": self._sampling_signature(),
+            "prompt": [int(t) for t in req.prompt],
+            "generated": [int(t) for t in req.generated],
+            "logprobs": [float(x) for x in req.logprobs],
+            "stop": [[int(x) for x in s] for s in req.stop],
+            "stop_scanned": int(req.stop_scanned),
+            "length": int(parked.length),
+            "adapter": 0,
+            "stripe": tree_to_wire(host(parked.stripe)),
+            "draft_stripe": (tree_to_wire(host(parked.draft_stripe))
+                             if parked.draft_stripe is not None else None),
+            "rng": None,
+            "torch_rng": {"device": self.device.type,
+                          "state": array_to_wire(self._gen.get_state())},
+        }
+        self.exported_total += 1
+        return blob
+
+    def _validate_session_blob(self, blob) -> None:
+        """Reject a blob this engine cannot resume: wire version,
+        model/sampling signature, adapter range (host-side, before any
+        allocation)."""
+        ver = blob.get("version") if isinstance(blob, dict) else None
+        if ver != SESSION_WIRE_VERSION:
+            raise ValueError(
+                f"unsupported session wire version {ver!r} (this engine "
+                f"speaks v{SESSION_WIRE_VERSION}; re-export from a "
+                "matching release)")
+        sig = self.model_signature()
+        if blob.get("model") != sig:
+            raise ValueError(
+                "session blob was exported by an incompatible engine: "
+                f"theirs {blob.get('model')!r} vs ours {sig!r}")
+        if blob.get("sampling") != self._sampling_signature():
+            raise ValueError(
+                "session blob sampling config mismatch: resuming "
+                f"{blob.get('sampling')!r} under "
+                f"{self._sampling_signature()!r} would silently change "
+                "the output distribution")
+        if not 0 <= int(blob.get("adapter", 0)) <= self.n_adapters:
+            raise ValueError(
+                f"session blob adapter {blob.get('adapter')} out of range "
+                f"(engine has {self.n_adapters})")
+
+    def _stripe_from_wire(self, obj, cache: Params, length: int) -> Params:
+        """A wire stripe on this engine's device, checked against the
+        cache it will be written into: the same leaves and dtypes, one
+        slot, at least ``length`` and at most ``max_len`` positions. A
+        mismatch raises here, before registration, never later inside
+        the resume's cache write."""
+        tree = wire_to_tree(obj)
+        if not isinstance(tree, dict) or set(tree) != set(cache):
+            raise ValueError(f"stripe leaves {sorted(tree)} != cache "
+                             f"leaves {sorted(cache)}")
+        out = {}
+        for k, c in cache.items():
+            t = tree[k]
+            S = t.shape[3] if t.dim() >= 4 else -1
+            want = (c.shape[0], 1, c.shape[2], S) + tuple(c.shape[4:])
+            if (t.dtype != c.dtype or tuple(t.shape) != want
+                    or not length <= S <= self.max_len):
+                raise ValueError(
+                    f"stripe leaf {k!r}: {t.dtype} {tuple(t.shape)} does "
+                    f"not fit the cache's {c.dtype} {tuple(c.shape)} at "
+                    f"length {length}")
+            out[k] = t.to(self.device)
+        return out
 
     def import_session(self, blob: dict) -> int:
-        raise NotImplementedError(
-            "session import is not ported yet (ROADMAP queue A, "
-            "'Session migration')")
+        """Deserialize an exported session into a PARKED request on this
+        engine: allocate its block table, put the stripe(s) on the device
+        and register the parked state, so :meth:`resume_request`
+        continues the decode with no re-prefill. Returns the fresh LOCAL
+        request id.
+
+        Raises ``ValueError`` on a version / model-signature / sampling
+        mismatch or a malformed payload (the allocated table is released
+        first) and ``RuntimeError`` when the pool cannot hold the stripe
+        even after reclaiming evictable radix cache. A ``"torch_rng"``
+        state from an engine on the same device type is adopted (see
+        :meth:`export_session`); a blob with only the reference's JAX
+        key keeps this engine's generator."""
+        self._drain_pending()
+        self._validate_session_blob(blob)
+        length = int(blob["length"])
+        if not 0 < length < self.max_len:
+            raise ValueError(
+                f"session length {length} outside (0, {self.max_len})")
+        need = length + 1
+        # cached-but-unreferenced radix blocks yield to an inbound
+        # session exactly like they yield to admission
+        self._reclaim_for(self.kv.blocks_for(need))
+        try:
+            table = self.kv.allocate(need)
+        except Exception as e:
+            raise RuntimeError(
+                f"kv block pool cannot hold the inbound session: {e}"
+            ) from None
+        try:
+            stripe = self._stripe_from_wire(blob["stripe"], self.cache,
+                                            length)
+            draft_stripe = None
+            if self.draft_cache is not None:
+                draft_stripe = self._stripe_from_wire(
+                    blob["draft_stripe"], self.draft_cache, length)
+            req = _Slot(
+                0,  # rid assigned below, after nothing can fail
+                [int(t) for t in blob["prompt"]],
+                [int(t) for t in blob["generated"]],
+                stop=[[int(x) for x in s] for s in blob["stop"]],
+                stop_scanned=int(blob["stop_scanned"]),
+                logprobs=[float(x) for x in blob["logprobs"]],
+            )
+            if not req.generated:
+                raise ValueError("no generated token to resume from")
+            # parsed HERE: a truncated state must fail before
+            # registration, like every other malformed field
+            rng_state = None
+            trng = blob.get("torch_rng")
+            if trng is not None and trng.get("device") == self.device.type:
+                rng_state = wire_to_array(trng["state"])
+                if rng_state.dtype != torch.uint8:
+                    raise ValueError(f"torch_rng state dtype "
+                                     f"{rng_state.dtype}")
+        except Exception as e:  # noqa: BLE001 - re-raised as ValueError
+            # the blob passed the signature checks but its payload is
+            # missing/corrupt: the allocated table was never registered,
+            # so release it HERE; repeated malformed imports must not
+            # shrink the pool
+            self.kv.release(table)
+            raise ValueError(
+                f"malformed session blob payload: {e!r}") from None
+        if rng_state is not None:
+            try:
+                self._gen.set_state(rng_state)
+            except RuntimeError as e:
+                self.kv.release(table)
+                raise ValueError(
+                    f"malformed session blob payload: {e!r}") from None
+        rid = self._next_id
+        self._next_id += 1
+        req.request_id = rid
+        self._tables[rid] = table
+        self.parked[rid] = _Parked(req, stripe, draft_stripe, length)
+        self.imported_total += 1
+        return rid
 
     # ----------------------------------------------------------- recovery
 
@@ -650,10 +968,11 @@ class ServingEngine:
         """Rebuild device decode state after a failed device call: drop
         every live slot (their stripes may be half written), return
         their request ids so the caller can fail those requests, and
-        rebuild a zeroed cache and decode state. Delivered ``finished``
+        rebuild zeroed caches (the draft's too) and decode state. Delivered ``finished``
         results, parked requests and the radix stripes survive (they
         are independent copies, never views of the cache)."""
         self._pending_block = None
+        self._pending_spec = None
         self.last_dispatch_landed = None
         lost = [r.request_id for r in self.slots.values()]
         for rid in lost:
@@ -666,6 +985,9 @@ class ServingEngine:
         self.last_token = torch.zeros_like(self.last_token)
         if self.track_seen:
             self.seen = torch.zeros_like(self.seen)
+        if self.draft_model is not None:
+            self.draft_cache = self.draft_model.init_cache(
+                self.max_batch, self.max_len, device=self.device)
         self._poisoned = False
         return lost
 
@@ -760,9 +1082,9 @@ class ServingEngine:
 
     def _write_match_stripes(self, path: List[RadixNode], length: int,
                              slot: int) -> None:
-        """Write the matched path's per-granule KV stripes into a slot up
-        to ``length``: the radix-hit replacement for re-running that
-        prefix's prefill chunks."""
+        """Write the matched path's per-granule KV stripes (target and
+        draft) into a slot up to ``length``: the radix-hit replacement
+        for re-running that prefix's prefill chunks."""
         g = self.radix_granule
         for node in path:
             for i, stripe in enumerate(node.stripes):
@@ -770,12 +1092,21 @@ class ServingEngine:
                 if off >= length:
                     return
                 self._write_stripe(stripe, slot, off)
+                if (self.draft_cache is not None
+                        and node.draft_stripes is not None):
+                    self._write_stripe(node.draft_stripes[i], slot, off,
+                                       self.draft_cache)
 
     def _read_granule_stripes(self, slot: int, start_g: int, end_g: int):
-        """Stripes of granules [start_g, end_g) of a slot's cache rows."""
+        """(stripes, draft_stripes) of granules [start_g, end_g) of a
+        slot's cache rows (draft_stripes None without a draft)."""
         g = self.radix_granule
-        return [self._read_stripe(slot, gi * g, g)
-                for gi in range(start_g, end_g)]
+        stripes = [self._read_stripe(slot, gi * g, g)
+                   for gi in range(start_g, end_g)]
+        dstripes = (None if self.draft_cache is None else
+                    [self._read_stripe(slot, gi * g, g, self.draft_cache)
+                     for gi in range(start_g, end_g)])
+        return stripes, dstripes
 
     def _radix_insert(self, slot: int, req: _Slot) -> None:
         """Insert a finishing request's prompt (and, with
@@ -807,10 +1138,11 @@ class ServingEngine:
                     + (1 if (matched * g) % self.kv.block_size else 0))
             if cost > self.kv.free_blocks():
                 return           # full pool: cache only what fits free
-            stripes = self._read_granule_stripes(slot, matched,
-                                                 len(granules))
+            stripes, dstripes = self._read_granule_stripes(
+                slot, matched, len(granules))
             node = self.radix.add_child(parent, granules[matched:])
             node.stripes = stripes
+            node.draft_stripes = dstripes
             self.prefix_inserted += 1
         except Exception as e:  # noqa: BLE001 - cache fill is optional
             log.warning("radix insert skipped: %s", e)
@@ -846,11 +1178,12 @@ class ServingEngine:
                                           matched * g, slot)
             self._prefill_chunks(slot, list(prefix[:reg_len]),
                                  start_chunk=matched * g // self.prefill_len)
-            stripes = self._read_granule_stripes(slot, matched,
-                                                 len(granules))
+            stripes, dstripes = self._read_granule_stripes(
+                slot, matched, len(granules))
             node = self.radix.add_child(parent, granules[matched:],
                                         pinned=True)
             node.stripes = stripes
+            node.draft_stripes = dstripes
         node.registered = True
         self.radix.pin_path(node)
         self.radix.touch(node)
@@ -965,12 +1298,13 @@ class ServingEngine:
     def _fork_stripe(self, first: int, others: List[int],
                      prompt_len: int) -> None:
         """Copy slot ``first``'s prefilled (chunk-padded) stripe to the
-        fork slots."""
+        fork slots, in the target and the draft cache."""
         n = -(-prompt_len // self.prefill_len) * self.prefill_len
         with self._cache_write():
-            for c in self.cache.values():
-                for s in others:
-                    c[:, s, :, :n] = c[:, first, :, :n]
+            for cache in (self.cache, self.draft_cache or {}):
+                for c in cache.values():
+                    for s in others:
+                        c[:, s, :, :n] = c[:, first, :, :n]
 
     def _hit(self, pref: Optional[RadixMatch], slot: int) -> int:
         """Write a radix hit's stripes into ``slot`` and count it (or
@@ -1217,6 +1551,12 @@ class ServingEngine:
         if self.fault_hook is not None:
             self.fault_hook("decode")
         with self._cache_write():
+            if self.draft_model is not None:
+                # keep the draft cache position-complete: it consumes
+                # every token the target consumes, or later spec rounds
+                # would attend zero-holes
+                self._draft_forward(self.last_token[:, None],
+                                    self.draft_cache, self.lengths)
             logits = self._decode_logits(self.last_token, self.lengths, 0)
         toks, lps = self._sample(logits)
         toks_h, lps_h = toks.tolist(), lps.tolist()
@@ -1247,9 +1587,12 @@ class ServingEngine:
         return self.decode_block_finish()
 
     def _drain_pending(self) -> None:
-        """Land an in-flight decode block before any other mutation."""
+        """Land an in-flight decode block or spec round before any other
+        mutation."""
         if self._pending_block is not None:
             self.decode_block_finish()
+        if self._pending_spec is not None:
+            self.spec_step_finish()
 
     def decode_block_start(self, n_steps: int) -> bool:
         """Enqueue ``n_steps`` decode steps and start the asynchronous
@@ -1293,20 +1636,18 @@ class ServingEngine:
                 lps_steps.append(token_logprob(logits, toks))
                 toks_steps.append(toks)
                 last, lens = toks, lens + 1
+            block = torch.stack(toks_steps)
+            if self.draft_model is not None:
+                # teacher-force the block's inputs ([last, toks[:-1]])
+                # through the draft in ONE forward so its cache tracks
+                # the positions produced outside spec_step
+                consumed = torch.cat([self.last_token[:, None],
+                                      block.t()[:, :-1]], dim=1)
+                self._draft_forward(consumed, self.draft_cache,
+                                    self.lengths, attend)
         self.last_token, self.lengths = last, lens
-        block = torch.stack(toks_steps)
         block_lp = torch.stack(lps_steps)
-        if self.device.type == "cuda":
-            host_t = torch.empty(block.shape, dtype=block.dtype,
-                                 pin_memory=True)
-            host_lp = torch.empty(block_lp.shape, dtype=block_lp.dtype,
-                                  pin_memory=True)
-            host_t.copy_(block, non_blocking=True)
-            host_lp.copy_(block_lp, non_blocking=True)
-            landed = torch.cuda.Event()
-            landed.record()
-        else:
-            host_t, host_lp, landed = block, block_lp, None
+        host_t, host_lp, landed = self._to_host(block, block_lp)
         self._pending_block = {"toks": host_t, "lps": host_lp,
                                "landed": landed, "n_steps": n_steps,
                                "batch": len(self.slots),
@@ -1314,6 +1655,21 @@ class ServingEngine:
         get_profiler().event("dispatch", "decode_block", n_steps=n_steps,
                              batch=len(self.slots))
         return True
+
+    def _to_host(self, *tensors):
+        """Start the copies of ``tensors`` to (pinned) host memory without
+        waiting; returns the host tensors and the event their copies
+        complete at (None on the CPU, where they are the tensors)."""
+        if self.device.type != "cuda":
+            return (*tensors, None)
+        hosts = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            hosts.append(h)
+        landed = torch.cuda.Event()
+        landed.record()
+        return (*hosts, landed)
 
     def decode_block_finish(self) -> Dict[int, List[int]]:
         """Wait for the in-flight block's tokens and do the host
@@ -1349,6 +1705,277 @@ class ServingEngine:
             (time.perf_counter() - pending["t0"]) * 1e3,
             n_steps=pending["n_steps"], batch=pending["batch"])
         return out
+
+    # ---- adaptive k: the EMA walks the shape-set ladder one rung per
+    # crossing, with a hysteresis band so k does not thrash on
+    # round-to-round noise, and a periodic k = 1 probe so a workload
+    # that recovered its predictability climbs back out of k = 0
+    SPEC_EMA_BETA = 0.25
+    SPEC_EMA_HI = 0.7
+    SPEC_EMA_LO = 0.35
+    SPEC_PROBE_EVERY = 8
+
+    def _kset_floor(self, k: int) -> int:
+        """Largest shape-set member <= k (the set holds 0)."""
+        out = 0
+        for v in self._spec_kset:
+            if v <= k:
+                out = v
+        return out
+
+    def _spec_clamp(self, k: int) -> int:
+        """THE k clamp (shared by :meth:`spec_plan_k` and an explicit
+        ``spec_step_start(k=...)``): shrink near the cache end instead of
+        refusing (k = 0 is a plain, draft-cache-maintaining step, so a
+        slot can always be drained to max_len this way), then floor onto
+        the shape set."""
+        worst = max(len(r.prompt) + len(r.generated)
+                    for r in self.slots.values())
+        return self._kset_floor(max(0, min(k, self.max_len - 2 - worst)))
+
+    def spec_plan_k(self, budget_cap: Optional[int] = None) -> int:
+        """The k the NEXT spec round dispatches: the ladder's rung
+        (``spec_k`` flat when ``spec_adaptive`` is off), capped so at most
+        ``budget_cap`` tokens are emitted (k <= budget_cap - 1) and by
+        the cache headroom, floored onto the shape set. PURE: no state
+        changes."""
+        if self.draft_model is None or not self.slots:
+            return 0
+        if self.spec_adaptive:
+            k = self._spec_kset[self._spec_idx]
+            if (k == 0 and len(self._spec_kset) > 1
+                    and self._spec_zero_rounds % self.SPEC_PROBE_EVERY
+                    == self.SPEC_PROBE_EVERY - 1):
+                k = self._spec_kset[1]     # periodic re-measure probe
+        else:
+            k = self.spec_k
+        if budget_cap is not None:
+            k = max(0, min(k, budget_cap - 1))
+        return self._spec_clamp(k)
+
+    def spec_step(self, k: Optional[int] = None) -> Dict[int, List[int]]:
+        """One speculative round for every live slot: the draft proposes
+        ``k`` tokens (k+1 draft forwards), ONE target forward over k+1
+        rows verifies them, and the accepted prefix plus one bonus or
+        resampled token is emitted: 1 to k+1 tokens per slot. Greedy
+        engines emit the plain greedy chain; at temperature > 0 the
+        acceptance rule is rejection sampling, so the output is
+        distributed as plain sampling's. Rejected positions sit at or
+        beyond each slot's new write offset in BOTH caches, so rollback
+        costs nothing. ``k=None`` plans the round (:meth:`spec_plan_k`).
+        This is :meth:`spec_step_start` + :meth:`spec_step_finish`."""
+        self.spec_step_start(k)
+        return self.spec_step_finish()
+
+    def _spec_draft(self, k1: int, greedy: bool, temp: float,
+                    attend: int):
+        """``k1`` draft steps from each slot's last token: (B, k1)
+        proposals, and with sampling the (B, k1, V) filtered, tempered
+        draft distributions q they were drawn from (None when greedy)."""
+        last, lens = self.last_token, self.lengths
+        toks_l, q_l = [], []
+        for _ in range(k1):
+            logits, _ = self._draft_forward(last[:, None], self.draft_cache,
+                                            lens, attend)
+            logits = logits[:, 0]
+            if greedy:
+                toks = torch.argmax(logits, dim=-1)
+            else:
+                logits = filter_logits(logits / temp, self.top_k,
+                                       self.top_p, self.min_p)
+                toks = sample(logits, self._gen)
+                q_l.append(torch.softmax(logits, dim=-1))
+            toks_l.append(toks)
+            last, lens = toks, lens + 1
+        return (torch.stack(toks_l, dim=1),
+                torch.stack(q_l, dim=1) if q_l else None)
+
+    def _spec_verify(self, d: torch.Tensor, q: Optional[torch.Tensor],
+                     greedy: bool, temp: float, attend: int):
+        """One target forward over ``[last, d]`` (B, k+1) fused with the
+        acceptance rule: ``(accepted (B,), out (B, k+1), logprobs (B,
+        k+1), final (B,))``. Greedy accepts the longest draft prefix that
+        agrees with the target's argmax chain; sampling runs
+        :func:`speculative_accept`."""
+        B, k = d.shape
+        inputs = torch.cat([self.last_token[:, None], d], dim=1)
+        logits, _ = self._forward(inputs, self.cache, self.lengths, attend)
+        if greedy:
+            rows = torch.arange(B, device=self.device)
+            t = torch.argmax(logits, dim=-1)
+            matches = (d == t[:, :k]).to(torch.int64)
+            accepted = torch.cumprod(matches, dim=1).sum(dim=1)
+            final = t[rows, accepted]
+            out = torch.cat([d, torch.zeros((B, 1), dtype=d.dtype,
+                                            device=self.device)], dim=1)
+            out[rows, accepted] = final
+            # the emitted tokens ARE the target's greedy chain, so their
+            # logprobs are the verify forward's at those positions
+            return accepted, out, token_logprob(logits, t), final
+        p = torch.softmax(filter_logits(logits / temp, self.top_k,
+                                        self.top_p, self.min_p), dim=-1)
+        return speculative_accept(d, q, p, self._gen)
+
+    def _spec_attend(self, k: int) -> int:
+        """The attended window of a round of depth ``k``: the live prefix
+        plus the round's k+1 positions, bucketed to 256 (0 = the whole
+        cache), as :meth:`decode_block_start` buckets its steps."""
+        worst = max(len(r.prompt) + len(r.generated)
+                    for r in self.slots.values())
+        bucket = min(self.max_len, ((worst + k + 2 + 255) // 256) * 256)
+        return bucket if bucket < self.max_len else 0
+
+    def spec_step_start(self, k: Optional[int] = None) -> bool:
+        """Enqueue one speculative round without waiting for it: the
+        draft steps, the verify forward and the acceptance, and the
+        on-device advance of ``last_token``/``lengths``; then start the
+        asynchronous copy of (accepted, tokens, logprobs) to the host.
+        Returns False (nothing enqueued) on an empty batch. A greedy
+        round consumes no randomness."""
+        if self.draft_model is None:
+            raise RuntimeError(
+                "spec_step needs an engine built with draft_model=")
+        self._drain_pending()
+        if not self.slots:
+            return False
+        if self.fault_hook is not None:
+            self.fault_hook("spec")
+        k = self.spec_plan_k() if k is None else self._spec_clamp(k)
+        greedy = self.temperature <= 0.0
+        temp = max(self.temperature, 1e-6)
+        attend = self._spec_attend(k)
+        with self._cache_write():
+            # k+1 draft steps: step j consumes [last, d0..d_{k-1}], so on
+            # full acceptance every admitted draft-cache position is
+            # really written (a k-step loop would leave d_{k-1}'s
+            # position a permanent zero-hole)
+            d_all, q_all = self._spec_draft(k + 1, greedy, temp, attend)
+            d = d_all[:, :k]
+            q = None if greedy else q_all[:, :k]
+            accepted, out, lps, final = self._spec_verify(d, q, greedy, temp,
+                                                          attend)
+        self.last_token = final
+        self.lengths = (self.lengths + accepted + 1).to(torch.int32)
+        host_a, host_out, host_lp, landed = self._to_host(accepted, out, lps)
+        self._pending_spec = {
+            "accepted": host_a, "out": host_out, "lps": host_lp,
+            "landed": landed, "k": k, "batch": len(self.slots),
+            "t0": time.perf_counter(),
+        }
+        get_profiler().event("dispatch", "spec_round", k=k,
+                             batch=len(self.slots))
+        return True
+
+    def spec_step_finish(self) -> Dict[int, List[int]]:
+        """Wait for the in-flight spec round and do the host bookkeeping:
+        extend each slot's chain (EOS/stop cuts included), update the
+        acceptance EMA and the k ladder, grow block tables. Returns
+        request id -> new tokens ({} when no round is in flight)."""
+        pending = self._pending_spec
+        if pending is None:
+            return {}
+        self._pending_spec = None
+        if pending["landed"] is not None:
+            pending["landed"].synchronize()
+        a_h = pending["accepted"].tolist()
+        out_h = pending["out"].tolist()
+        lp_h = pending["lps"].tolist()
+        self.last_dispatch_landed = time.monotonic()
+        get_profiler().event(
+            "readback", "spec_round",
+            dur_ms=(time.perf_counter() - pending["t0"]) * 1e3,
+            k=pending["k"], batch=pending["batch"])
+        k = pending["k"]
+        out: Dict[int, List[int]] = {}
+        accepted_sum = 0
+        for slot, req in list(self.slots.items()):
+            n = int(a_h[slot])
+            accepted_sum += n
+            seq = [int(x) for x in out_h[slot][: n + 1]]
+            if self.eos_id is not None and self.eos_id in seq:
+                seq = seq[: seq.index(self.eos_id) + 1]
+            req.generated.extend(seq)
+            req.logprobs.extend(float(x) for x in lp_h[slot][: len(seq)])
+            self.tokens_generated += len(seq)
+            out[req.request_id] = seq
+            self._maybe_finish(slot)
+        self.spec_rounds += 1
+        if k > 0:
+            proposed = k * pending["batch"]
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted_sum
+            rate = accepted_sum / proposed
+            self._spec_rate_samples.append(rate)
+            self._spec_zero_rounds = 0
+            if self.spec_adaptive:
+                self.spec_accept_ema = (
+                    (1.0 - self.SPEC_EMA_BETA) * self.spec_accept_ema
+                    + self.SPEC_EMA_BETA * rate)
+                if (self.spec_accept_ema >= self.SPEC_EMA_HI
+                        and self._spec_idx < len(self._spec_kset) - 1):
+                    self._spec_idx += 1
+                elif (self.spec_accept_ema <= self.SPEC_EMA_LO
+                        and self._spec_idx > 0):
+                    self._spec_idx -= 1
+        else:
+            self._spec_zero_rounds += 1
+        self._sync_tables()
+        get_tracer().record(
+            "engine.spec_round", (time.perf_counter() - pending["t0"]) * 1e3,
+            k=k, batch=pending["batch"], accepted=accepted_sum)
+        return out
+
+    def spec_stats(self) -> dict:
+        """The speculative-decoding block of ``/v1/stats`` (``spec``):
+        shape-set and ladder gauges plus the rounds/proposed/accepted
+        ledger the scheduler delta-exports."""
+        if self.draft_model is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "k": self.spec_plan_k() if self.slots
+            else (self._spec_kset[self._spec_idx] if self.spec_adaptive
+                  else self.spec_k),
+            "k_max": self.spec_k,
+            "k_set": list(self._spec_kset),
+            "adaptive": self.spec_adaptive,
+            "acceptance_ema": round(self.spec_accept_ema, 4),
+            "rounds": self.spec_rounds,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+        }
+
+    def warm_spec_programs(self) -> None:
+        """Run one draft prefill chunk and one round of every k of the
+        shape set NOW, with zero admissions, so kernel builds, library
+        loads and the w8a16 launch plans of every round shape happen
+        before traffic (the reference compiles its draft/verify programs
+        here). The dummy rounds scribble masked positions of empty slots;
+        the generator's state and the forward counters are left as they
+        were. No-op without a draft."""
+        if self.draft_model is None:
+            return
+        if self.slots:
+            raise RuntimeError(
+                "warm_spec_programs must run before any admission "
+                "(it scribbles on empty slots' masked stripes)")
+        greedy = self.temperature <= 0.0
+        temp = max(self.temperature, 1e-6)
+        state = self._gen.get_state()
+        P = self.prefill_len
+        with self._cache_write():
+            self._draft_forward(
+                torch.zeros((1, P), dtype=torch.int64, device=self.device),
+                {k: c[:, 0:1] for k, c in self.draft_cache.items()},
+                torch.zeros(1, dtype=torch.int32, device=self.device))
+            for k in self._spec_kset:
+                d_all, q_all = self._spec_draft(k + 1, greedy, temp, 0)
+                self._spec_verify(d_all[:, :k],
+                                  None if greedy else q_all[:, :k],
+                                  greedy, temp, 0)
+        self._gen.set_state(state)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @staticmethod
     def _find_stop(generated: List[int], stops: List[List[int]],
@@ -1440,6 +2067,42 @@ class ServingEngine:
                 else:
                     self.step()
         return [results[i] for i in sorted(results)]
+
+    def spec_throughput(self, rounds: int = 32, batch: Optional[int] = None,
+                        overhead_seconds: float = 0.0,
+                        detail: bool = False):
+        """(tokens/sec, emitted tokens per slot-round) over ``rounds``
+        speculative rounds at the given concurrency, after one warm
+        round: the spec counterpart of :meth:`throughput`. Slots that
+        drain at ``max_len`` mid-run are refilled every round, so the
+        number is steady-state serving throughput (admission included).
+        ``overhead_seconds`` is subtracted once per round."""
+        if self.draft_model is None:
+            raise RuntimeError(
+                "spec_throughput needs an engine built with draft_model=")
+        batch = batch or self.max_batch
+        for _ in range(min(batch, self.free_slots())):
+            self.add_request([1, 2, 3])
+        self.spec_step()                              # warm
+        produced = slot_rounds = 0
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for _ in range(min(batch, self.max_batch) - len(self.slots)):
+                self.add_request([1, 2, 3])           # refill drained
+            slot_rounds += len(self.slots)
+            out = self.spec_step()
+            produced += sum(len(v) for v in out.values())
+        wall = time.perf_counter() - t0
+        dt = max(wall - overhead_seconds * rounds, 1e-6)
+        if detail:
+            return {
+                "tokens_per_sec": produced / dt,
+                "tokens_per_sec_raw": produced / max(wall, 1e-6),
+                "tokens_per_round": produced / max(1, slot_rounds),
+                "produced": produced,
+                "wall_seconds": round(wall, 3),
+            }
+        return produced / dt, produced / max(1, slot_rounds)
 
     def throughput(self, n_steps: int = 50, batch: Optional[int] = None,
                    overhead_seconds: float = 0.0) -> float:

@@ -2,12 +2,13 @@
 
 A copy of ``BlockPoolExhausted``, ``Block``, ``BlockTable``,
 ``KVBlockPool``, ``radix_granule``, ``RadixNode``, ``RadixMatch``,
-``RadixIndex`` and ``granule_hash`` from
+``RadixIndex``, ``granule_hash`` and the session wire format
+(``SESSION_WIRE_VERSION``, ``array_to_wire``, ``wire_to_array``,
+``tree_to_wire``, ``wire_to_tree``) from
 ``instaslice_tpu/serving/kvcache.py`` (pure host-side bookkeeping): the
 port imports nothing of the JAX package, whose serving package pulls JAX
 in on import. A radix node's stripes are opaque here; the port's engine
-hangs torch tensors on them. The session wire format is not ported yet
-(session migration, ROADMAP queue A).
+hangs torch tensors on them.
 
 The engine's physical cache stays the rectangular
 ``(L, max_batch, Hkv, max_len, hd)`` tensor; the pool is the accounting
@@ -17,9 +18,13 @@ row extents.
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import hashlib
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 
 class BlockPoolExhausted(RuntimeError):
@@ -694,3 +699,86 @@ def granule_hash(granule) -> str:
     replica advertise unmatchable chains."""
     raw = ",".join(str(int(t)) for t in granule).encode()
     return hashlib.blake2b(raw, digest_size=8).hexdigest()
+
+
+# ------------------------------------------------------ session wire format
+#
+# The live-migration primitive's serialization half: a preempted
+# request's parked KV stripe (plus host decode state) crosses between
+# replicas as JSON, versioned, model-signature-checked at import, arrays
+# carried as base64 rows. The codec is host-side: it writes numpy arrays
+# and CPU tensors and reads CPU tensors; the engine moves them to and
+# from its device at its own seam.
+#
+# numpy has no bfloat16 (the JAX package decodes one through
+# ``ml_dtypes``): a bfloat16 tensor goes on the wire as its raw 2-byte
+# words under the dtype name "bfloat16", the bytes the JAX package
+# writes, and comes back through a 16-bit integer view, so blobs move
+# between the two engines either way, byte for byte.
+
+#: bump on ANY change to the blob layout the engine emits: import
+#: REJECTS other versions outright (a half-understood session resumed
+#: from a stale field set would silently corrupt the decode chain)
+SESSION_WIRE_VERSION = 1
+
+
+def array_to_wire(arr) -> dict:
+    """One numpy array or CPU tensor -> a JSON-safe dict (dtype/shape/b64
+    data)."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            name, raw = "bfloat16", t.view(torch.int16).numpy().tobytes()
+        else:
+            a = t.numpy()
+            name, raw = str(a.dtype), a.tobytes()
+        shape = list(t.shape)
+    else:
+        a = np.ascontiguousarray(arr)
+        name, raw, shape = str(a.dtype), a.tobytes(), list(a.shape)
+    return {
+        "__nd__": True,
+        "dtype": name,
+        "shape": shape,
+        "data": base64.b64encode(raw).decode("ascii"),
+    }
+
+
+def wire_to_array(obj: dict) -> torch.Tensor:
+    """A wire dict -> a CPU tensor of its dtype and shape (bfloat16 read
+    back through an int16 view of its raw words)."""
+    raw = base64.b64decode(obj["data"])
+    name = obj["dtype"]
+    if name == "bfloat16":
+        t = torch.from_numpy(np.frombuffer(raw, dtype=np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.frombuffer(raw, dtype=np.dtype(name)).copy())
+    return t.reshape(obj["shape"])
+
+
+def tree_to_wire(tree):
+    """A tree of arrays (dict / list / tuple nesting) -> JSON-safe
+    nesting. Tuples are tagged so the reconstruction round-trips the
+    exact tree STRUCTURE."""
+    if hasattr(tree, "dtype") and hasattr(tree, "shape"):
+        return array_to_wire(tree)
+    if isinstance(tree, dict):
+        return {k: tree_to_wire(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return {"__tuple__": [tree_to_wire(v) for v in tree]}
+    if isinstance(tree, list):
+        return [tree_to_wire(v) for v in tree]
+    return tree
+
+
+def wire_to_tree(obj):
+    if isinstance(obj, dict):
+        if obj.get("__nd__"):
+            return wire_to_array(obj)
+        if "__tuple__" in obj and len(obj) == 1:
+            return tuple(wire_to_tree(v) for v in obj["__tuple__"])
+        return {k: wire_to_tree(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [wire_to_tree(v) for v in obj]
+    return obj

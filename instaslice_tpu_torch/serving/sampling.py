@@ -3,8 +3,9 @@
 
 The engine applies them in the JAX package's order
 (``engine.py:783-797``): repetition penalty, then temperature, then the
-top-k / nucleus / min-p filters. ``speculative_accept`` is not ported
-yet (speculative decoding comes in a later slice).
+top-k / nucleus / min-p filters. :func:`speculative_accept` is the
+reference's acceptance rule (``sampling.py:85-150``) with an explicit
+``torch.Generator`` in place of the JAX key.
 """
 
 from __future__ import annotations
@@ -52,6 +53,49 @@ def filter_logits(logits: torch.Tensor, top_k: int = 0, top_p: float = 1.0,
         floor = min_p * probs.amax(dim=-1, keepdim=True)
         logits = torch.where(probs < floor, neg, logits)
     return logits
+
+
+def speculative_accept(draft: torch.Tensor, q_probs: torch.Tensor,
+                       p_probs: torch.Tensor, generator: torch.Generator):
+    """Standard speculative-sampling acceptance: token i of each row's
+    draft is accepted with probability ``min(1, p_i(x_i) / q_i(x_i))``
+    (``u * q < p``, no divide); at the first rejection the replacement is
+    drawn from the normalized residual ``max(p_i - q_i, 0)`` (``p_i``
+    itself where that residual is all zero, its limit as q -> p), and a
+    fully accepted row draws its bonus token from ``p_k``. The emitted
+    tokens are distributed exactly as k+1 ancestral samples from ``p``.
+
+    ``draft`` (B, k) tokens sampled from ``q_probs`` (B, k, V);
+    ``p_probs`` (B, k+1, V) is the target distribution at every position
+    (post temperature and filters). Returns ``(accepted (B,), out (B,
+    k+1), logprobs (B, k+1), final (B,))``: ``out[:, :accepted]`` is the
+    accepted prefix, ``out[b, accepted[b]] = final[b]``, positions past it
+    are unspecified; ``logprobs`` is ``log p`` at every position of
+    ``out``. The uniforms, then the final draws, come from
+    ``generator``."""
+    B, k = draft.shape
+    dev = draft.device
+    rows = torch.arange(B, device=dev)
+    draft = draft.long()
+    u = torch.rand((B, k), generator=generator, device=dev)
+    p_at = torch.gather(p_probs[:, :k], -1, draft[..., None])[..., 0]
+    q_at = torch.gather(q_probs, -1, draft[..., None])[..., 0]
+    acc = (u * q_at < p_at).to(torch.int64)
+    accepted = torch.cumprod(acc, dim=1).sum(dim=1)            # (B,)
+    q_pad = torch.cat([q_probs, torch.zeros_like(p_probs[:, :1])], dim=1)
+    p_pos = p_probs[rows, accepted]                             # (B, V)
+    q_pos = q_pad[rows, accepted]
+    res = torch.clamp(p_pos - q_pos, min=0.0)
+    norm = res.sum(dim=-1, keepdim=True)
+    res = torch.where(norm > 0, res / torch.where(norm > 0, norm, 1.0),
+                      p_pos)
+    final = torch.multinomial(res, 1, generator=generator)[:, 0]
+    out = torch.cat([draft, torch.zeros((B, 1), dtype=torch.int64,
+                                        device=dev)], dim=1)
+    out[rows, accepted] = final
+    logprobs = torch.log(torch.clamp(
+        torch.gather(p_probs, -1, out[..., None])[..., 0], min=1e-38))
+    return accepted, out, logprobs, final
 
 
 def token_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:

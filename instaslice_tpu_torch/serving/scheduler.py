@@ -54,15 +54,11 @@ TTFT/TPOT histograms feed SLO attainment (docs/OBSERVABILITY.md).
 
 A copy of ``instaslice_tpu/serving/scheduler.py`` over the port's engine
 (``instaslice_tpu_torch.serving.engine``) and the port's copies of its
-jax-free dependencies: the port imports nothing of the JAX package. One
-change: session migration is not ported yet (ROADMAP queue A), so the
-reference's migration half is left out: the ``control`` op queue,
-``migrate_out``, ``import_session`` and the import bookkeeping
-(``_imports``, ``_bind_resumes``, ``_sweep_stale_imports``,
-``TPUSLICE_IMPORT_TTL``), and the ``session_key``/``resume_rid``/
-``migrated`` fields of a pending request. The HTTP server answers the
-``/v1/sessions/*`` routes itself, and ``/v1/stats`` keeps the
-``sessions`` ledger's keys at zero.
+jax-free dependencies: the port imports nothing of the JAX package. The
+session-migration half is the reference's: the ``control`` op queue,
+``migrate_out`` (with the ``serve.export`` crash point),
+``import_session``, ``_bind_resumes``, ``_sweep_stale_imports`` and
+``TPUSLICE_IMPORT_TTL``.
 """
 
 from __future__ import annotations
@@ -83,9 +79,12 @@ from instaslice_tpu_torch.api.constants import (
     REASON_DRAINED,
     REASON_PREEMPTED,
     REASON_RESUMED,
+    REASON_SESSION_EXPORTED,
+    REASON_SESSION_IMPORTED,
     REASON_SHED,
     REASON_SLO_MISSED,
 )
+from instaslice_tpu_torch.faults import maybe_crash
 from instaslice_tpu_torch.obs.journal import get_journal
 from instaslice_tpu_torch.obs.profiler import (
     NOOP_TIMER,
@@ -208,9 +207,23 @@ class Pending:
                  stop: Optional[List[List[int]]] = None,
                  want_logprobs: bool = False, n: int = 1,
                  adapter: int = 0, trace_id: str = "",
-                 tenant: str = ""):
+                 tenant: str = "", session_key: str = "",
+                 resume_rid: Optional[int] = None):
         self.prompt = prompt
         self.max_tokens = max_tokens
+        #: opaque caller-supplied key (``X-Session-Key``, minted by the
+        #: fleet router per proxied request): a targeted
+        #: ``/v1/sessions/export`` selects by it, and the export blob
+        #: echoes it so the router matches blobs to in-flight streams
+        self.session_key = session_key
+        #: continuation of an imported session (``"resume": rid``):
+        #: instead of admission prefill, the scheduler binds this
+        #: pending to the already-parked engine state and resumes it
+        self.resume_rid = resume_rid
+        #: set when this request's session was exported off this
+        #: replica: the terminal response carries the blob instead of
+        #: tokens (outcome "migrated", never a 503)
+        self.migrated: Optional[dict] = None
         #: the request's trace id (minted/accepted at HTTP admission);
         #: every span of this request's lifecycle carries it, and the
         #: root ``serve.request`` span uses ``span_id`` so children
@@ -308,7 +321,7 @@ class Scheduler(threading.Thread):
 
     # ---- thread model (slicecheck-verified): the run loop owns the
     # engine and ALL scheduling state below; the only cross-thread
-    # writers come through the queue (internally locked) or
+    # writers come through queue/_control (both internally locked) or
     # the serve.submit critical section. External reads (stats(),
     # tests) are racy len()/int snapshots by design.
     _seq: guarded_by("serve.submit")
@@ -317,11 +330,14 @@ class Scheduler(threading.Thread):
     _budget: unguarded("scheduler-thread owned; see _by_rid")
     _ready: unguarded("scheduler-thread owned; see _by_rid")
     _parked: unguarded("scheduler-thread owned; see _by_rid")
+    _imports: unguarded("scheduler-thread owned: written only by "
+                        "control ops drained on the run loop")
     preempted: unguarded("scheduler-thread ledger counter; external "
                          "reads are diagnostics")
     resumed: unguarded("scheduler-thread ledger counter")
     parked_shed: unguarded("scheduler-thread ledger counter")
     slo_misses: unguarded("scheduler-thread ledger counter")
+    migrated_in: unguarded("scheduler-thread ledger counter")
     drain_deadline: unguarded(
         "single float written by drain() then read by the run loop; "
         "GIL-atomic, and draining.is_set() orders the handoff"
@@ -404,14 +420,34 @@ class Scheduler(threading.Thread):
         self.resumed = 0              # metrics reconcile against these)
         self.parked_shed = 0
         self.slo_misses = 0
+        # ---- fleet tier: live session migration (docs/SERVING.md
+        # "Fleet router & session migration") ----
         #: monotonic birth — /v1/stats uptime_seconds (the router's
         #: restart detector, alongside REPLICA_ID)
         self.started_at = time.monotonic()
+        #: control ops (session export/import) run ON the scheduler
+        #: thread — it owns the engine — handed over via this queue and
+        #: drained at the top of every round, drain rounds included
+        #: (drain-with-migrate is exactly when exports must still run)
+        self._control: "queue.Queue" = queue.Queue()
+        #: imported-but-not-yet-resumed sessions: engine rid → binding
+        #: metadata (remaining budget, streamed-token watermark, tenant)
+        #: from the blob; a ``resume`` completion claims it. Swept
+        #: after ``import_ttl`` so an orphaned import cannot hold KV
+        #: blocks forever (env: TPUSLICE_IMPORT_TTL).
+        self._imports: Dict[int, dict] = {}
+        self.import_ttl = float(
+            os.environ.get("TPUSLICE_IMPORT_TTL", "") or 60.0)
         #: crash hook: called (once) when an InjectedCrash kills this
         #: scheduler thread, so the owning ApiServer can sever its
         #: client connections like a dying process would
         #: (ApiServer.kill, docs/RECOVERY.md)
         self.on_fatal = None
+        self.migrated_out = 0         # sessions exported off this
+        self.migrated_in = 0          # replica / resumed onto it
+        self.migrate_preempts = 0     # exports that parked a LIVE slot
+        #                               (ledger: engine.preempted_total
+        #                               == preempted + migrate_preempts)
         #: admission bound (0 = unbounded): past it, submit() sheds with
         #: 429 instead of queueing a request that would 503 at timeout.
         #: The lock makes bound-check + enqueue atomic across the HTTP
@@ -563,6 +599,227 @@ class Scheduler(threading.Thread):
                 )
         self.metrics.draining.set(0)
 
+    # -------------------------------------------- session migration ops
+
+    def control(self, fn, timeout: float = 30.0):
+        """Run ``fn`` ON the scheduler thread (the engine owner) and
+        return its result to the calling (HTTP) thread. The migration
+        endpoints come through here: export/import mutate engine state,
+        and the engine is single-threaded by design."""
+        res: dict = {"done": threading.Event()}
+        self._control.put((fn, res))
+        if not res["done"].wait(timeout):
+            raise TimeoutError(
+                "scheduler did not service the control op in "
+                f"{timeout:.0f}s"
+            )
+        if "error" in res:
+            raise res["error"]
+        return res.get("value")
+
+    def _run_control(self) -> None:
+        """Drain pending control ops (top of every round — drain
+        rounds included: drain-with-migrate exports exactly then)."""
+        while True:
+            try:
+                fn, res = self._control.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                res["value"] = fn()
+            except Exception as e:  # noqa: BLE001 - relayed to caller
+                log.warning("control op failed: %s", e)
+                res["error"] = e
+            res["done"].set()
+
+    def migrate_out(self, session_key: Optional[str] = None,
+                    limit: int = 0) -> int:
+        """Export in-flight sessions off this replica (the drain-
+        without-503 / rebalance primitive): preempt live slots, ship
+        each session's parked stripe through its OWN in-flight HTTP
+        response as a ``text_completion.migration`` terminal (the
+        response IS the handoff — the router thread already holding
+        both connections imports it into the destination and stitches
+        the streams), then drop the source copy.
+
+        Safety rules (docs/SERVING.md): only single-choice (n == 1)
+        completions with ≥1 token of budget left migrate — n>1 forks
+        share stripes and a spent request should just finish here;
+        timed-out requests are already dead. ``session_key`` targets
+        one session; ``limit`` bounds the count (rebalance moves one);
+        0 = everything eligible. Returns sessions exported. Callers go
+        through :meth:`control`."""
+        eng = self.engine
+        if getattr(eng, "_multiproc", False) or getattr(
+                getattr(eng, "engine", None), "_multiproc", False):
+            # check BEFORE preempting anything: export_session refuses
+            # multi-process meshes, and preempt-then-fail would strand
+            # every live request in parked state
+            log.warning("migrate_out refused: sessions cannot be "
+                        "exported off a multi-process mesh")
+            return 0
+        moved = 0
+        candidates = [
+            ("live", slot, req.request_id)
+            for slot, req in sorted(eng.slots.items())
+        ] + [("parked", None, rid) for rid in list(self._parked)]
+        for kind, slot, rid in candidates:
+            if limit and moved >= limit:
+                break
+            p = self._by_rid.get(rid)
+            if p is None or p.prefix_op or p.n != 1 or p.timed_out:
+                continue
+            if session_key is not None and p.session_key != session_key:
+                continue
+            gen = (eng.slots[slot].generated if kind == "live"
+                   else eng.parked[rid].req.generated)
+            remaining = self._budget.get(rid, 0) - len(gen)
+            if remaining < 1:
+                continue        # about to finish: cheaper to let it
+            try:
+                if kind == "live":
+                    eng.preempt_slot(slot)
+            except Exception as e:  # noqa: BLE001 - keep serving
+                log.warning("pre-export preempt of rid %d failed: %s",
+                            rid, e)
+                if eng.cache_poisoned():
+                    self._recover_engine(e)
+                continue
+            if kind == "live":
+                self.migrate_preempts += 1
+            try:
+                blob = eng.export_session(rid)
+            except Exception as e:  # noqa: BLE001 - keep serving
+                # the preempt LANDED: register the rid as ordinary
+                # parked state so _resume_parked resumes it on this
+                # replica — an export failure must degrade to "didn't
+                # migrate", never to a stranded client (the engine
+                # holds the stripe, the scheduler must keep the claim)
+                log.warning("session export of rid %d failed: %s "
+                            "(parking for normal resume)", rid, e)
+                if eng.cache_poisoned():
+                    self._recover_engine(e)
+                if kind == "live" and rid in eng.parked:
+                    self._parked[rid] = p
+                continue
+            blob["session_key"] = p.session_key
+            blob["remaining_budget"] = remaining
+            blob["sent"] = p.sent.get(rid, 0)
+            blob["tenant"] = p.tenant
+            blob["want_logprobs"] = p.want_logprobs
+            blob["trace_id"] = p.trace_id
+            # crash point (docs/RECOVERY.md): the blob exists but the
+            # source copy still holds the session — a death here loses
+            # the in-flight response; the router's migration timeout
+            # falls the client back to re-prefill on a survivor
+            maybe_crash("serve.export")
+            # copy-then-delete: the blob exists (and is about to ride
+            # the terminal response) before the source copy drops
+            eng.drop_parked(rid)
+            self._parked.pop(rid, None)
+            self._by_rid.pop(rid, None)
+            self._budget.pop(rid, None)
+            self.migrated_out += 1
+            get_journal().emit(
+                "serving", reason=REASON_SESSION_EXPORTED,
+                message=(f"session exported mid-stream "
+                         f"({len(blob['generated'])} tokens in, "
+                         f"{remaining} budget left, tenant "
+                         f"{p.tenant or 'default'!r})"),
+                trace_id=p.trace_id,
+            )
+            if p.trace_id:
+                get_tracer().record(
+                    "serve.migrate", 0.0, trace_id=p.trace_id,
+                    parent_id=p.span_id, direction="out",
+                )
+            p.migrated = blob
+            if p.stream_q is not None:
+                p.stream_q.put({"kind": "migrated", "session": blob})
+            self._maybe_complete(p)
+            moved += 1
+        return moved
+
+    def import_session(self, blob: dict) -> int:
+        """Control-op wrapper for the import endpoint: materialize the
+        inbound session as parked engine state and remember the
+        binding metadata until a ``resume`` completion claims it."""
+        def op() -> int:
+            rid = self.engine.import_session(blob)
+            self._imports[rid] = {
+                "budget": max(0, int(blob.get("remaining_budget", 0))),
+                "sent": max(0, int(blob.get("sent", 0))),
+                "tenant": str(blob.get("tenant", "") or ""),
+                "want_logprobs": bool(blob.get("want_logprobs", False)),
+                "trace_id": str(blob.get("trace_id", "") or ""),
+                "ts": time.monotonic(),
+            }
+            get_journal().emit(
+                "serving", reason=REASON_SESSION_IMPORTED,
+                message=(f"session imported as rid {rid} "
+                         f"({len(blob.get('generated', []))} tokens "
+                         "in, awaiting resume)"),
+                trace_id=str(blob.get("trace_id", "") or ""),
+            )
+            return rid
+
+        return self.control(op)
+
+    def _bind_resumes(self) -> None:
+        """Bind ``resume`` completions to their imported sessions: the
+        pending adopts the parked rid (budget, streamed-token
+        watermark, tenant from the import metadata) and joins
+        ``_parked`` — ``_resume_parked`` takes it from there with zero
+        re-prefill."""
+        for p in [p for p in self._ready if p.resume_rid is not None]:
+            self._ready.remove(p)
+            rid = p.resume_rid
+            meta = self._imports.pop(rid, None)
+            parked = self.engine.parked.get(rid)
+            if meta is None or parked is None:
+                p.error = (f"ValueError: no imported session {rid} "
+                           "awaiting resume on this replica")
+                if p.stream_q is not None:
+                    p.stream_q.put(p.error)
+                self.metrics.requests.labels(outcome="rejected").inc()
+                self._record_request_span(p, "rejected")
+                p.done.set()
+                continue
+            p.tenant = meta["tenant"]
+            self._bind_tenant(p)
+            p.want_logprobs = meta["want_logprobs"]
+            p.prompt = list(parked.req.prompt)
+            p.max_tokens = len(parked.req.generated) + meta["budget"]
+            p.rid_index[rid] = 0
+            p.sent[rid] = meta["sent"]
+            # the first token was sampled on the SOURCE replica: TTFT
+            # here is the migration gap, not a prefill wait
+            p.first_token_at = time.monotonic()
+            self._by_rid[rid] = p
+            self._budget[rid] = p.max_tokens
+            self._parked[rid] = p
+            self.migrated_in += 1
+            if p.trace_id:
+                get_tracer().record(
+                    "serve.migrate", 0.0, trace_id=p.trace_id,
+                    parent_id=p.span_id, direction="in",
+                )
+
+    def _sweep_stale_imports(self) -> None:
+        """An imported session nobody resumed holds KV blocks — drop
+        it after ``import_ttl`` (the router retries the import or falls
+        back to re-prefill; an orphan must not shrink the pool)."""
+        if not self._imports:
+            return
+        now = time.monotonic()
+        for rid, meta in list(self._imports.items()):
+            if now - meta["ts"] > self.import_ttl:
+                log.warning("dropping imported session %d: never "
+                            "resumed within %.0fs", rid,
+                            self.import_ttl)
+                self.engine.drop_parked(rid)
+                self._imports.pop(rid, None)
+
     def _fail_shed(self, p: Pending, shed: str, msg: str,
                    retry_after: Optional[float] = None) -> None:
         p.shed = shed
@@ -661,6 +918,11 @@ class Scheduler(threading.Thread):
         # time through self._round_timer
         pt = self.profiler.round_timer()
         self._round_timer = pt
+        # migration control ops first, drain rounds included: a
+        # drain-with-migrate exports exactly while draining
+        with pt.seg("host"):
+            self._run_control()
+            self._sweep_stale_imports()
         if self.draining.is_set():
             # no admission; shed the queue, enforce the drain budget.
             # Parked preemptees are IN-FLIGHT work: the drain budget is
@@ -678,6 +940,7 @@ class Scheduler(threading.Thread):
         else:
             with pt.seg("host"):
                 self._pump()
+                self._bind_resumes()
                 self._sweep_timeouts()
             if self.mode == "continuous":
                 with pt.seg("resume"):
@@ -685,6 +948,11 @@ class Scheduler(threading.Thread):
                 with pt.seg("preempt"):
                     self._relieve_block_pressure()
                     self._maybe_preempt()
+            elif self._parked:
+                # fixed mode never preempts, but migrated-in sessions
+                # park on arrival and must still resume on the baseline
+                with pt.seg("resume"):
+                    self._resume_parked()
             with pt.seg("admission"):
                 self._admit()
         with pt.seg("host"):
@@ -1634,7 +1902,8 @@ class Scheduler(threading.Thread):
         # Outcome read + done.set() are atomic under p.lock so the HTTP
         # thread's expiring wait cannot interleave (503 counted as ok).
         with p.lock:
-            outcome = ("timeout" if p.timed_out
+            outcome = ("migrated" if p.migrated is not None
+                       else "timeout" if p.timed_out
                        else "drained" if p.shed
                        else "error" if p.error else "ok")
             self.metrics.requests.labels(outcome=outcome).inc()
@@ -1848,11 +2117,15 @@ class Scheduler(threading.Thread):
             "resumed": self.resumed,
             "parked_shed": self.parked_shed,
             "slo_misses": self.slo_misses,
-            # the reference's live-migration ledger, which the router
-            # reads: all zero, since the port migrates no session
-            "sessions": dict.fromkeys(
-                ("exported", "imported", "migrated_out", "migrated_in",
-                 "migrate_preempts", "imports_pending"), 0),
+            # live-migration ledger (router + bench reconcile on it)
+            "sessions": {
+                "exported": getattr(eng, "exported_total", 0),
+                "imported": getattr(eng, "imported_total", 0),
+                "migrated_out": self.migrated_out,
+                "migrated_in": self.migrated_in,
+                "migrate_preempts": self.migrate_preempts,
+                "imports_pending": len(self._imports),
+            },
             "kv": eng.kv_stats(),
             "tenant_classes": {
                 name: s.tenant_class for name, s in self.tenants.items()

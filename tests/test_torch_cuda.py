@@ -655,3 +655,127 @@ def test_int8_decode_step_at_unbuilt_shapes(dev, n_heads, n_kv_heads,
     assert float((l_dev - l_cpu).abs().max()) <= 1e-4 * float(
         l_cpu.abs().max())
     assert torch.equal(l_dev.argmax(-1), l_cpu.argmax(-1))
+
+
+# ------------------------------------------ speculative decoding, migration
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 8192), (8192, 2048)])
+@pytest.mark.parametrize("M", [8, 40, 128, 256])
+def test_w8a16_at_the_871m_draft_shapes(dev, M, K, N):
+    """B2 at the 871M int8 projections, M = 8 (a draft step), 40 (the
+    server's verify, 8 x (k + 1)), 128 and 256 (prefill chunks of one and
+    two slots), and B3 at its unembedding (32000 x 2048): within the
+    phase-2 tolerances of the plain versions, reruns bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    q3 = torch.randint(-127, 128, (2, K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    s3 = torch.rand((2, 1, N), generator=g, device=dev).to(torch.bfloat16)
+    for li in (0, 1):
+        got = qm.quant_matmul_stacked(x, q3, s3, li)
+        want = qm.quant_matmul_stacked_ref(x, q3, s3, li)
+        _close(got, want)
+        _close_tiles(got, want, qm.tc_tile(M, False).ct)
+        assert torch.equal(got, qm.quant_matmul_stacked(x, q3, s3, li))
+    if (K, N) != (2048, 2048):
+        return
+    q = torch.randint(-127, 128, (32000, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((32000, 1), generator=g, device=dev)
+    got = qm.quant_matmul_t(x, q, s)
+    want = qm.quant_matmul_t_ref(x, q, s)
+    _close(got, want)
+    _close_tiles(got, want, qm.tc_tile(M, True).ct)
+    assert torch.equal(got, qm.quant_matmul_t(x, q, s))
+
+
+def _spec_engine(dev, **kw):
+    """An int8 W+KV target at hd 128 and G 2 (B1 built) with a bf16 draft
+    of the same weights, as the spec server builds it."""
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    from instaslice_tpu_torch.models.quant import quantize_params
+    from instaslice_tpu_torch.serving import ServingEngine
+    cfg = ModelConfig(vocab_size=1024, d_model=512, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=1024, dtype=torch.bfloat16,
+                      remat=False)
+    model = TpuLM(cfg)
+    params = model.init(0, device=dev)
+    return ServingEngine(model, quantize_params(params), kv_quant=True,
+                         draft_model=model, draft_params=params, spec_k=4,
+                         max_batch=4, max_len=256, prefill_len=32,
+                         device=dev, **kw)
+
+
+def test_spec_round_on_the_card_matches_plain_versions(dev, monkeypatch):
+    """Admission and spec rounds (k = 4, then the k = 0 round, whose
+    single-token verify runs B1) through the kernels, and the same with
+    the plain versions in the kernels' place on the same card: equal
+    tokens and accepted counts, logprobs within 5e-2 (bf16)."""
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models import lm, quant
+
+    prompts = [[(7 * i + j) % 1000 + 1 for j in range(n)]
+               for i, n in enumerate((40, 17, 64, 5))]
+
+    def run():
+        eng = _spec_engine(dev)
+        for p in prompts:
+            eng.add_request(p)
+        eng.spec_step(k=4)
+        eng.spec_step(k=0)
+        return ([(r.generated, r.logprobs) for _, r in
+                 sorted(eng.slots.items())], eng.spec_accepted)
+
+    ops.reset_launch_counts()
+    kern = run()
+    counts = ops.launch_counts()
+    assert counts["quant_matmul_stacked"] > 0 and counts["quant_matmul_t"] > 0
+    assert counts["quant_decode_attention"] == 2    # the k = 0 round, L 2
+    for mod, name in ((quant, "quant_matmul_stacked"),
+                      (quant, "quant_matmul_t"),
+                      (lm, "quant_decode_attention")):
+        monkeypatch.setattr(mod, name, getattr(
+            {"quant_matmul_stacked": qm, "quant_matmul_t": qm,
+             "quant_decode_attention": fd}[name], f"{name}_ref"))
+    ops.reset_launch_counts()
+    plain = run()
+    assert sum(ops.launch_counts().values()) == 0
+    assert kern[1] == plain[1]
+    for (gk, lk), (gp, lp) in zip(kern[0], plain[0]):
+        assert gk == gp
+        assert max(abs(a - b) for a, b in zip(lk, lp)) <= 5e-2
+
+
+def test_session_export_import_on_the_card(dev):
+    """A parked session (int8 target stripe, bf16 draft stripe) through the
+    JSON wire into a second card engine: the resumed rows of both caches,
+    the draft's included, equal the unmigrated engine's bit for bit, and
+    it resumes with that engine's tokens, logprobs and accepted counts
+    (the greedy chain alone would not see a lost draft stripe)."""
+    import json
+
+    prompt = [(5 * j) % 1000 + 1 for j in range(50)]
+    src, dst = _spec_engine(dev), _spec_engine(dev)
+    rid = src.add_request(prompt)
+    src.decode_block(6)
+    src.preempt_slot(0)
+    blob = json.loads(json.dumps(src.export_session(rid)))
+    assert blob["stripe"]["k"]["dtype"] == "int8"
+    assert blob["draft_stripe"]["k"]["dtype"] == "bfloat16"
+    assert blob["torch_rng"]["device"] == "cuda"
+    rid2 = dst.import_session(blob)
+    n = blob["length"]
+    assert (src.resume_request(rid), dst.resume_request(rid2)) == (0, 0)
+    for name in ("cache", "draft_cache"):
+        for key, c in getattr(src, name).items():
+            assert torch.equal(c[:, 0, :, :n],
+                               getattr(dst, name)[key][:, 0, :, :n]), \
+                (name, key)
+    out = []
+    for eng in (src, dst):
+        a0 = eng.spec_accepted
+        eng.decode_block(5)
+        eng.spec_step(k=4)
+        req = eng.slots[0]
+        out.append((req.generated, req.logprobs, eng.spec_accepted - a0))
+    assert out[0] == out[1]

@@ -101,6 +101,7 @@ SERVING_PLANE = {
     "instaslice_tpu_torch.serving.scheduler",
     "instaslice_tpu_torch.serving.engine",
     "instaslice_tpu_torch.serving.kvcache",
+    "instaslice_tpu_torch.serving.sampling",
     "instaslice_tpu_torch.api.constants",
     "instaslice_tpu_torch.faults",
     "instaslice_tpu_torch.metrics.metrics",
@@ -120,7 +121,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'instaslice_tpu'\n"
-        "             or m.startswith('instaslice_tpu.'))\n"
+        "             or m.startswith('instaslice_tpu.')\n"
+        "             or m.split('.')[0] == 'ml_dtypes')\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -130,7 +132,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_sources_never_name_jax_or_the_jax_package():
+    # ml_dtypes at module level: the bridge (a test tool that hands bf16
+    # trees back to the JAX package) imports it inside the one function
+    # that needs it, which the import check above never calls
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib)(?:\.|\s|$)"
+                     r"|^(?:import|from)\s+ml_dtypes(?:\.|\s|$)"
                      r"|instaslice_tpu\.|import instaslice_tpu(?:\s|$)",
                      re.M)
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]

@@ -25,7 +25,12 @@ SHAPES_7B = [("wq", 4096, 4096, False), ("wk", 4096, 1024, False),
 RAGGED = [("kn-small", 200, 48, False), ("kn-tail", 1000, 528, False),
           ("kn-wide", 136, 272, False), ("nk-rows", 208, 77, True),
           ("nk-tiny", 80, 3, True), ("nk-tail", 4112, 1000, True)]
-MS = [1, 8, 100, 128, 256]
+#: (name, K, N, transposed) of the 871M int8 self-draft of the
+#: speculative-decoding path
+SHAPES_871M = [("wq", 2048, 2048, False), ("w_in", 2048, 8192, False),
+               ("w_out", 8192, 2048, False), ("embed", 2048, 32000, True)]
+#: 40: the verify forward of 8 slots at k = 4
+MS = [1, 8, 40, 100, 128, 256]
 SMS = 132
 
 
@@ -34,7 +39,8 @@ def _blocks(p: qm.Plan, N: int):
 
 
 @pytest.mark.parametrize("M", MS)
-@pytest.mark.parametrize("name,K,N,transposed", SHAPES_7B + RAGGED)
+@pytest.mark.parametrize("name,K,N,transposed",
+                         SHAPES_7B + SHAPES_871M + RAGGED)
 def test_plan_covers_k_and_n_exactly_once(name, K, N, transposed, M):
     """Every (k, channel) of the weight belongs to exactly one block, and
     every block's corner is 16-byte aligned as the cp.async copies
