@@ -6,6 +6,9 @@ dicts of numpy arrays (``ml_dtypes.bfloat16`` included) and
 the port's tree in the SAME layout (per-layer leaves ``(L, ...)``,
 projections ``(in, out)``, embedding ``(V, D)``, fp32 norm scales), so
 no transpose hides in the bridge, and the round trip is bit-exact.
+LoRA adapter trees (``init_lora``) and multi-LoRA stacks
+(``stack_adapters``, their ``scales`` included) are plain dicts of
+arrays and cross the same way.
 
 ``torch.from_numpy`` rejects ml_dtypes' bfloat16, so bf16 arrays cross
 as their uint16 bit patterns (``.view(np.uint16)`` ->

@@ -14,12 +14,18 @@ the weights in bf16); with ``--device cpu`` in fp32, as the reference
 does off the TPU. It ends with the reference's JSON line, with
 ``"backend"`` naming the device.
 
+``--lora-rank R`` trains only LoRA adapters (``--lora-alpha``,
+``--lora-targets``) over a frozen base: the seeded init, or the params
+of a full port checkpoint (``--base-checkpoint``; its optimizer state is
+not kept), int8-quantized with ``--quantize-base`` (QLoRA). The
+checkpoint then holds the adapter tree, which the server's ``--lora``
+reads.
+
 Flags of the reference that the port does not run yet exit non-zero
 and name their ROADMAP queue-A item: ``--ring``, ``--tp``/``--sp`` > 1,
-``--from-env``, ``--lora-rank`` (and the LoRA options), ``--zero1``,
-``--n-experts`` > 0, ``--remat dots``. Dataset rows are ``seq_len + 1``
-tokens wide, so the model runs at S = seq_len + 1, which the flash
-kernels take as it is.
+``--from-env``, ``--zero1``, ``--n-experts`` > 0, ``--remat dots``.
+Dataset rows are ``seq_len + 1`` tokens wide, so the model runs at S =
+seq_len + 1, which the flash kernels take as it is.
 """
 
 from __future__ import annotations
@@ -73,11 +79,17 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["float32", "same"],
                     help="weight storage dtype on the card (float32 = "
                          "master weights; same = the bf16 compute dtype)")
-    ap.add_argument("--lora-rank", type=int, default=0)
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help=">0: train only LoRA adapters of this rank over "
+                         "a frozen base")
     ap.add_argument("--lora-alpha", type=float, default=16.0)
-    ap.add_argument("--lora-targets", default="wq,wv")
-    ap.add_argument("--base-checkpoint", default="")
-    ap.add_argument("--quantize-base", action="store_true")
+    ap.add_argument("--lora-targets", default="wq,wv",
+                    help="comma-separated block weights to adapt")
+    ap.add_argument("--base-checkpoint", default="",
+                    help="LoRA: restore the frozen base from this full "
+                         "port checkpoint dir (default: the seeded init)")
+    ap.add_argument("--quantize-base", action="store_true",
+                    help="LoRA: int8-quantize the frozen base (QLoRA)")
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--checkpoint", default="",
                     help="checkpoint dir (resume if it has one)")
@@ -95,8 +107,6 @@ def _refuse_unported(args) -> None:
         (args.ring, "--ring", "ring attention"),
         (args.tp > 1 or args.sp > 1, "--tp/--sp > 1", "the parallel layer"),
         (args.from_env, "--from-env", "multi-host training"),
-        (args.lora_rank > 0 or args.base_checkpoint or args.quantize_base,
-         "--lora-rank/--base-checkpoint/--quantize-base", "LoRA training"),
         (args.zero1, "--zero1", "the parallel layer"),
         (args.n_experts > 0, "--n-experts", "MoE training"),
         (args.remat == "dots", "--remat dots", "remat policy 'dots'"),
@@ -105,6 +115,32 @@ def _refuse_unported(args) -> None:
         if hit:
             raise SystemExit(f"{flag} is not ported yet ({item}: ROADMAP "
                              "queue A, training)")
+
+
+def _lora_step(args, model, opts):
+    """``make_lora_train_step`` over the frozen base the LoRA flags name
+    (``train_main.py:208-280``)."""
+    from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
+    from instaslice_tpu_torch.models.lora import (
+        LoraConfig,
+        make_lora_train_step,
+    )
+    from instaslice_tpu_torch.models.quant import quantize_params
+
+    lcfg = LoraConfig(rank=args.lora_rank, alpha=args.lora_alpha,
+                      targets=tuple(t for t in args.lora_targets.split(",")
+                                    if t))
+    base = model.init(args.seed, device=opts["device"])
+    if args.base_checkpoint:
+        # params only: the base run's AdamW moments (2x params) are
+        # never kept, which would undo the LoRA memory win
+        if not os.path.isdir(args.base_checkpoint) or TrainCheckpointer(
+                args.base_checkpoint).restore_params(base) is None:
+            raise SystemExit(f"--base-checkpoint {args.base_checkpoint} has "
+                             "no restorable checkpoint")
+    if args.quantize_base:
+        base = quantize_params(base)
+    return make_lora_train_step(model, base, lcfg, **opts)
 
 
 def main(argv=None) -> int:
@@ -146,11 +182,14 @@ def main(argv=None) -> int:
     # default-precision fp32 matmul
     torch.backends.cuda.matmul.allow_tf32 = on_card
     model = TpuLM(cfg)
-    init_fn, step_fn = make_train_step(
-        model, learning_rate=args.lr, grad_accum=args.grad_accum,
-        grad_clip=args.grad_clip, warmup_steps=args.warmup_steps,
-        decay_steps=args.steps if args.warmup_steps else 0, device=dev,
-    )
+    opts = dict(learning_rate=args.lr, grad_accum=args.grad_accum,
+                grad_clip=args.grad_clip, warmup_steps=args.warmup_steps,
+                decay_steps=args.steps if args.warmup_steps else 0,
+                device=dev)
+    if args.lora_rank:
+        init_fn, step_fn = _lora_step(args, model, opts)
+    else:
+        init_fn, step_fn = make_train_step(model, **opts)
 
     data_path = args.data
     synthetic = bool(args.synthetic)

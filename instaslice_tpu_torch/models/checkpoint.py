@@ -11,6 +11,13 @@ initialized :class:`~instaslice_tpu_torch.models.train.TrainState`
 reproduces the uninterrupted run bit for bit: batches are a pure function
 of the step (:mod:`instaslice_tpu_torch.models.data`), so the step is the
 loader state.
+
+Each leaf is saved with its path in the tree (``"paths"``, e.g.
+``"blocks/wq/a"``), so a tree can be rebuilt from the file alone
+(:meth:`TrainCheckpointer.load_tree`: the server reads a LoRA adapter's
+targets and rank that way). Restoring INTO a state goes by leaf order,
+as before, and checks the paths where the file has them: checkpoints
+written before paths were saved still restore.
 """
 
 from __future__ import annotations
@@ -22,7 +29,12 @@ from typing import List, Optional
 
 import torch
 
-from instaslice_tpu_torch.models.train import TrainState, leaves
+from instaslice_tpu_torch.models.train import (
+    Params,
+    TrainState,
+    leaf_paths,
+    leaves,
+)
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -58,6 +70,7 @@ class TrainCheckpointer:
         payload = {
             "step": state.step,
             "params": [p.detach() for p in leaves(state.params)],
+            "paths": leaf_paths(state.params),
             "opt": state.opt_state.state_dict(),
         }
         dst = self._path(step)
@@ -73,33 +86,79 @@ class TrainCheckpointer:
         steps = self._steps()
         return steps[-1] if steps else None
 
+    def _load(self, step: Optional[int]) -> Optional[dict]:
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        return torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)
+
+    def restore_params(self, params: Params, step: Optional[int] = None,
+                       cast: bool = False) -> Optional[dict]:
+        """Copy the params of checkpoint ``step`` (default: the latest)
+        INTO ``params`` by leaf order (paths checked where the file has
+        them); with ``cast`` each tensor takes the destination's dtype,
+        else dtypes must agree. Returns the loaded payload (its optimizer
+        state unused here), None when the directory holds no
+        checkpoint."""
+        payload = self._load(step)
+        if payload is None:
+            return None
+        dst = leaves(params)
+        if len(dst) != len(payload["params"]):
+            raise ValueError(f"checkpoint has {len(payload['params'])} "
+                             f"tensors, the state {len(dst)}")
+        paths = payload.get("paths")
+        if paths is not None and paths != leaf_paths(params):
+            raise ValueError(f"checkpoint leaves {paths} do not match the "
+                             f"state's {leaf_paths(params)}")
+        with torch.no_grad():
+            for p, saved in zip(dst, payload["params"]):
+                if p.shape != saved.shape or (
+                        p.dtype != saved.dtype and not cast):
+                    raise ValueError(
+                        f"checkpoint tensor {tuple(saved.shape)} "
+                        f"{saved.dtype} does not fit {tuple(p.shape)} "
+                        f"{p.dtype}")
+                p.copy_(saved.to(p.dtype))
+        return payload
+
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> Optional[TrainState]:
         """Load checkpoint ``step`` (default: the latest) INTO ``state``
         (a fresh ``init_fn()`` result of the same model and optimizer
         settings: its leaves keep their device and ``requires_grad``);
         None when the directory holds no checkpoint."""
-        if step is None:
-            step = self.latest_step()
-        if step is None:
+        payload = self.restore_params(state.params, step)
+        if payload is None:
             return None
-        payload = torch.load(self._path(step), map_location="cpu",
-                             weights_only=True)
-        dst = leaves(state.params)
-        if len(dst) != len(payload["params"]):
-            raise ValueError(f"checkpoint has {len(payload['params'])} "
-                             f"tensors, the state {len(dst)}")
-        with torch.no_grad():
-            for p, saved in zip(dst, payload["params"]):
-                if p.shape != saved.shape or p.dtype != saved.dtype:
-                    raise ValueError(
-                        f"checkpoint tensor {tuple(saved.shape)} "
-                        f"{saved.dtype} does not fit {tuple(p.shape)} "
-                        f"{p.dtype}")
-                p.copy_(saved)
         state.opt_state.load_state_dict(payload["opt"])
         state.step = int(payload["step"])
         return state
+
+    def load_tree(self, step: Optional[int] = None) -> Optional[Params]:
+        """The params tree of checkpoint ``step`` (default: the latest),
+        rebuilt from its leaf paths, on the CPU; None when the directory
+        holds no checkpoint. Raises ``ValueError`` for a checkpoint
+        written without paths (its structure is not in the file)."""
+        payload = self._load(step)
+        if payload is None:
+            return None
+        paths = payload.get("paths")
+        if paths is None:
+            raise ValueError(
+                f"checkpoint in {self.directory} has no leaf paths (written "
+                "before they were saved): its tree cannot be rebuilt from "
+                "the file")
+        tree: Params = {}
+        for path, t in zip(paths, payload["params"]):
+            *parents, name = path.split("/")
+            node = tree
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[name] = t
+        return tree
 
     def close(self) -> None:
         """Nothing is held open between saves; kept for the reference's

@@ -9,12 +9,13 @@ transpose. Ported here: :class:`ModelConfig`, :func:`init_params`, the
 full forward :func:`apply` (:meth:`TpuLM.apply`: dense MLP, GQA, causal
 attention through the flash-attention kernels at the head dims they are
 built for and the plain grouped formulation at others, block remat
-"full" as ``torch.utils.checkpoint``), :func:`init_cache` and
-:func:`apply_with_cache` (dense MLP, bf16 or int8 KV cache). Not yet
-ported, and raising ``NotImplementedError``: mixture-of-experts, ring
-and pipeline attention, remat "dots", LoRA, int4, and sliding windows in
-the cache forward (the full forward takes windows through the plain
-grouped formulation, as the reference routes them).
+"full" as ``torch.utils.checkpoint``; int8 leaves dequantize one layer
+at a time, the QLoRA base), :func:`init_cache` and
+:func:`apply_with_cache` (dense MLP, bf16 or int8 KV cache, multi-LoRA
+deltas per row). Not yet ported, and raising ``NotImplementedError``:
+mixture-of-experts, ring and pipeline attention, remat "dots", int4, and
+sliding windows in the cache forward (the full forward takes windows
+through the plain grouped formulation, as the reference routes them).
 """
 
 from __future__ import annotations
@@ -313,11 +314,15 @@ def _layers(blocks: Params, n_layers: int):
     """The stacked ``(L, ...)`` leaves as L per-layer dicts of views.
     ``unbind`` has one backward node that stacks the L grads, where
     indexing would scatter each layer's grad into a zeroed copy of the
-    whole stack."""
+    whole stack. An int8 leaf (a frozen QLoRA base) splits into its
+    layers' :class:`QuantizedTensor` views, each dequantized only where
+    its block uses it."""
     def split(node):
         if isinstance(node, dict):
             parts = {k: split(v) for k, v in node.items()}
             return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
+        if isinstance(node, QuantizedTensor):
+            return [node.layer(i) for i in range(n_layers)]
         return node.unbind(0)
 
     return split(blocks)
@@ -388,9 +393,64 @@ def _write_fresh(c: torch.Tensor, li: int, rows: torch.Tensor,
     c[li][rows, :, wpos] = new.to(c.dtype)
 
 
+def _lora_deltas(cfg: ModelConfig, lora: Params, adapter_idx: torch.Tensor,
+                 single: bool, B: int):
+    """Per-row adapter deltas (``lm.py:736-775``) as ``delta(h_in, name,
+    li)`` -> (B, T, out) fp32, or None for an unadapted target.
+
+    ``lora`` is a :func:`~instaslice_tpu_torch.models.lora.stack_adapters`
+    stack: ``(L, N+1, in, r)`` / ``(L, N+1, r, out)`` per target plus the
+    (N+1,) ``scales``. Gathered (``single`` False): ``pick`` is the
+    one-hot of ``adapter_idx`` (B,) over N+1 and ``sel = pick * scales``;
+    the scale rides the A gather only (the delta is linear in the
+    product). Single: every row takes adapter ``adapter_idx[0]`` and the
+    stack is indexed once. The gathered per-row pair is computed for all
+    L layers at once (one product per target and forward, not one per
+    layer); each of its elements is one product rounded once to
+    ``cfg.dtype``, the reference's value, and so is the single path's, so
+    the two paths agree bit for bit. Then ``xa = h_in @ a`` with fp32
+    sums, cast to ``cfg.dtype``, and ``xa @ b`` with fp32 sums."""
+    dt = cfg.dtype
+    aidx = adapter_idx.reshape(-1).to(torch.int64)
+    scales = lora["scales"].to(dt)
+    pairs = {}
+    if single:
+        aid = aidx[0]
+        a_scale = scales[aid]
+        for t, ab in lora["blocks"].items():
+            pairs[t] = ((ab["a"][:, aid].to(dt) * a_scale).float(),
+                        ab["b"][:, aid].to(dt).float())
+    else:
+        pick = F.one_hot(aidx, scales.shape[0]).to(dt)          # (B, N+1)
+        sel = (pick * scales[None, :]).float()
+        for t, ab in lora["blocks"].items():
+            a_b = torch.einsum("bn,lnir->lbir", sel, ab["a"].to(dt).float())
+            b_b = torch.einsum("bn,lnro->lbro", pick.float(),
+                               ab["b"].to(dt).float())
+            # rounded to the compute dtype, as the reference's einsum
+            # returns it, then held in fp32 for the fp32-sum products
+            pairs[t] = (a_b.to(dt).float(), b_b.to(dt).float())
+
+    def delta(h_in: torch.Tensor, name: str, li: int):
+        if name not in pairs:
+            return None
+        a, b = pairs[name]
+        a, b = a[li], b[li]
+        if single:
+            a = a.expand(B, -1, -1)
+            b = b.expand(B, -1, -1)
+        xa = torch.bmm(h_in.float(), a)
+        return torch.bmm(xa.to(dt).float(), b)
+
+    return delta
+
+
 def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                      cache: Params, lengths: torch.Tensor,
-                     attend_len: int = 0) -> Tuple[torch.Tensor, Params]:
+                     attend_len: int = 0, lora: Optional[Params] = None,
+                     adapter_idx: Optional[torch.Tensor] = None,
+                     single_adapter: bool = False
+                     ) -> Tuple[torch.Tensor, Params]:
     """Incremental forward: ``tokens`` (B, T) appended to each row at its
     own cache offset ``lengths`` (B,) int32. Covers prefill (T = chunk)
     and decode (T = 1). Returns (logits (B, T, vocab) fp32, cache).
@@ -410,6 +470,14 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     because reads admit only ``s < lengths[b]`` and the fresh entries
     sit at ``lengths[b]`` and beyond. The write start clamps so the T
     entries fit, as ``dynamic_update_slice`` does.
+
+    Multi-LoRA (``lm.py:736-775``, ``:896-915``): with a stacked ``lora``
+    tree and ``adapter_idx`` (B,) each row adds its adapter's delta
+    (:func:`_lora_deltas`) to the fp32 output of its adapted projections,
+    the w8a16 kernel's (B2) included, before the cast to ``cfg.dtype``;
+    index 0 is the all-zero adapter. ``single_adapter`` runs every row
+    through ``adapter_idx[0]`` (the engine's fast path when its live
+    slots agree), equal to the gathered path bit for bit.
     """
     if cfg.window:
         raise NotImplementedError("sliding-window attention is not ported")
@@ -446,6 +514,9 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     starts = torch.clamp(lengths, 0, S_cache - T)
     wpos = starts[:, None] + t_idx                            # (B, T)
     rows = torch.arange(B, device=dev)[:, None]
+    lora_delta = (_lora_deltas(cfg, lora, adapter_idx.to(dev),
+                               single_adapter, B)
+                  if lora is not None and adapter_idx is not None else None)
 
     for li in range(cfg.n_layers):
         def proj(h_in, name, out_fp32=False):
@@ -459,6 +530,10 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                               else leaf[li])
                 y = qdot(h2, layer_leaf, compute_dtype=dt)
             y = y.reshape(B, T, -1)
+            if lora_delta is not None:
+                d = lora_delta(h_in, name, li)
+                if d is not None:
+                    y = y + d
             return y if out_fp32 else y.to(dt)
 
         h = _rmsnorm(x, blocks["ln1"]["scale"][li])
@@ -551,11 +626,12 @@ class TpuLM:
                          cache: Params, lengths: torch.Tensor,
                          attend_len: int = 0,
                          lora: Optional[Params] = None,
-                         adapter_idx: Optional[torch.Tensor] = None):
-        if lora is not None or adapter_idx is not None:
-            raise NotImplementedError("multi-LoRA is not ported yet")
+                         adapter_idx: Optional[torch.Tensor] = None,
+                         single_adapter: bool = False):
         return apply_with_cache(self.cfg, params, tokens, cache, lengths,
-                                attend_len)
+                                attend_len, lora=lora,
+                                adapter_idx=adapter_idx,
+                                single_adapter=single_adapter)
 
     def apply(self, params: Params, tokens: torch.Tensor, *, mesh=None,
               unembed: bool = True, return_aux: bool = False):

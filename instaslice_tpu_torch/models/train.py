@@ -40,6 +40,15 @@ def leaves(params: Params) -> List[torch.Tensor]:
     return [params]
 
 
+def leaf_paths(params: Params, prefix: str = "") -> List[str]:
+    """Each leaf's path in the tree ("blocks/wq/a"), 1:1 with
+    :func:`leaves`."""
+    if isinstance(params, dict):
+        return [p for k, v in params.items()
+                for p in leaf_paths(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
 def _chunk_nll(embed_leaf, hc, tc, mc):
     logits = unembed(hc, embed_leaf, hc.dtype)             # fp32
     lse = torch.logsumexp(logits, dim=-1)

@@ -47,8 +47,9 @@ engine and scheduler: the port imports nothing of the JAX package. The
 handler, the server and the flags are the reference's, plus
 ``--device`` (default the card); :func:`build_engine` makes the model
 on the device from a seeded init (or a port checkpoint; the draft of
-``--draft-*`` likewise from ``--draft-checkpoint``) and refuses the
-flags whose paths are not ported yet (``--lora``, ``--from-env``,
+``--draft-*`` likewise from ``--draft-checkpoint``), merges one
+``--lora`` adapter into the weights or serves several batched, and
+refuses the flags whose paths are not ported yet (``--from-env``,
 ``--window`` > 0, ``--quantize-bits 4``, an orbax checkpoint), each
 with its ROADMAP item. The TPU host lock (``utils/tpulock.py``) is a
 rule of the TPU host's runtime and is not copied. Run via
@@ -1108,7 +1109,6 @@ def _refuse_unported(args) -> None:
     ROADMAP queue A item, and on a checkpoint directory that holds no
     checkpoint of the port's own format."""
     unported = [
-        (bool(args.lora), "--lora", "multi-LoRA"),
         (args.from_env, "--from-env", "the parallel layer"),
         (args.window > 0, "--window", "sliding window and int4"),
         (args.quantize_bits == 4, "--quantize-bits 4",
@@ -1120,45 +1120,88 @@ def _refuse_unported(args) -> None:
                              "queue A)")
     from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
 
+    def missing(path: str) -> bool:
+        # checked before the checkpointer, which would create the dir
+        return (not os.path.isdir(path)
+                or TrainCheckpointer(path).latest_step() is None)
+
     for flag, path in (("--checkpoint", args.checkpoint),
                        ("--draft-checkpoint", args.draft_checkpoint)):
-        if path and TrainCheckpointer(path).latest_step() is None:
+        if path and missing(path):
             raise SystemExit(
                 f"{flag} {path}: no checkpoint of the port's own format "
                 "(step_*.pt, written by instaslice_tpu_torch.cli."
                 "train_main) there; orbax checkpoints are not read")
+    for spec in args.lora:
+        path = _lora_spec(spec, args.lora_alpha)[0]
+        if missing(path):
+            raise SystemExit(
+                f"--lora {path}: no multi-LoRA adapter checkpoint of the "
+                "port's own format (step_*.pt, written by instaslice_tpu_"
+                "torch.cli.train_main --lora-rank) there")
 
 
 def _restore_params(path: str, params) -> None:
     """Copy the params of the latest port checkpoint under ``path`` into
     ``params`` (same model; each tensor cast to the serving dtype)."""
-    import torch
-
     from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
-    from instaslice_tpu_torch.models.train import leaves
 
-    ckpt = TrainCheckpointer(path)
-    payload = torch.load(ckpt._path(ckpt.latest_step()), map_location="cpu",
-                         weights_only=True)
-    dst = leaves(params)
-    if len(dst) != len(payload["params"]):
-        raise SystemExit(f"checkpoint {path} has {len(payload['params'])} "
-                         f"tensors, the model {len(dst)}")
-    with torch.no_grad():
-        for p, saved in zip(dst, payload["params"]):
-            if p.shape != saved.shape:
-                raise SystemExit(
-                    f"checkpoint tensor {tuple(saved.shape)} does not fit "
-                    f"the model's {tuple(p.shape)}")
-            p.copy_(saved.to(p.dtype))
+    try:
+        TrainCheckpointer(path).restore_params(params, cast=True)
+    except ValueError as e:
+        raise SystemExit(f"checkpoint {path}: {e}") from None
+
+
+def _lora_spec(spec: str, default_alpha: float):
+    """``DIR[:ALPHA]`` -> (dir, alpha)."""
+    path, _, alpha_s = spec.rpartition(":")
+    if path and alpha_s.replace(".", "", 1).isdigit():
+        return path, float(alpha_s)
+    return spec, default_alpha
+
+
+def _load_adapters(args):
+    """The ``--lora`` adapters as (trees, alphas, names): each tree
+    rebuilt from its port checkpoint's leaf paths (rank and targets are
+    the tree's own), named by its directory's basename
+    (``api_server.py:1156-1186``)."""
+    from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    adapters, alphas, names = [], [], []
+    for spec in args.lora:
+        path, alpha = _lora_spec(spec, args.lora_alpha)
+        try:
+            lora = TrainCheckpointer(path).load_tree()
+        except ValueError:
+            lora = None
+        blocks = lora.get("blocks") if isinstance(lora, dict) else None
+        if not blocks or not all(
+                isinstance(ab, dict) and set(ab) == {"a", "b"}
+                for ab in blocks.values()):
+            raise SystemExit(
+                f"{path} is not a LoRA adapter checkpoint "
+                "(expected a {'blocks': {target: {'a', 'b'}}} tree — a "
+                "full-model checkpoint belongs in --checkpoint)")
+        name = os.path.basename(os.path.normpath(path))
+        if name in names:
+            raise SystemExit(
+                f"two --lora dirs share the basename {name!r}; "
+                "adapter names must be unique")
+        names.append(name)
+        alphas.append(alpha)
+        adapters.append(lora)
+    return adapters, alphas, names
 
 
 def build_engine(args) -> ServingEngine:
     """Model + params (seeded init on the device, optionally restored
     from a port checkpoint, optionally int8-quantized with an int8 KV
     cache), plus the ``--draft-*`` draft model (bf16, seeded or restored
-    from ``--draft-checkpoint``) -> engine, warmed before traffic. Split
-    from :func:`main` so tests and ``chip_smoke.py`` drive the exact CLI
+    from ``--draft-checkpoint``) -> engine, warmed before traffic. One
+    ``--lora`` adapter merges into the bf16 weights BEFORE ``--quantize``
+    (``eng.merged_adapter`` names it); two or more serve batched as
+    runtime adapters named by their directories' basenames. Split from
+    :func:`main` so tests and ``chip_smoke.py`` drive the exact CLI
     wiring."""
     import dataclasses
 
@@ -1166,6 +1209,11 @@ def build_engine(args) -> ServingEngine:
 
     from instaslice_tpu_torch import resolve_device
     from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    from instaslice_tpu_torch.models.lora import (
+        LoraConfig,
+        frozen,
+        merge_lora,
+    )
     from instaslice_tpu_torch.models.quant import quantize_params
 
     _refuse_unported(args)
@@ -1180,6 +1228,18 @@ def build_engine(args) -> ServingEngine:
     params = model.init(0, device=dev)
     if args.checkpoint:
         _restore_params(args.checkpoint, params)
+    adapters, alphas, names = _load_adapters(args)
+    merged_name = ""
+    if len(adapters) == 1:
+        # one adapter: merged once, no per-token cost
+        blocks = adapters[0]["blocks"]
+        lcfg = LoraConfig(
+            rank=int(next(iter(blocks.values()))["a"].shape[-1]),
+            alpha=alphas[0], targets=tuple(sorted(blocks)))
+        with torch.no_grad():
+            params = merge_lora(params, frozen(adapters[0], dev), cfg, lcfg)
+        merged_name = names[0]
+        adapters, alphas, names = [], [], []
     kv_quant = False
     # ANY explicit width implies --quantize (8 included)
     if args.quantize or args.quantize_bits is not None:
@@ -1209,8 +1269,14 @@ def build_engine(args) -> ServingEngine:
         batched_prefill=not args.no_batched_prefill,
         draft_model=draft_model, draft_params=draft_params,
         spec_k=args.spec_k,
+        lora_adapters=adapters or None, lora_alphas=alphas or None,
+        lora_names=names or None,
+        adapter_fastpath=not args.no_adapter_fastpath,
         device=dev,
     )
+    #: a request naming the merged adapter gets the reference's 400 (it
+    #: is always on: omit the field)
+    eng.merged_adapter = merged_name
     # build the kernels and warm every prefill bucket (and, with a
     # draft, every spec round shape) at startup, not under the first
     # admission burst or mid-run round

@@ -50,11 +50,20 @@ As in the JAX engine:
   versioned wire format (``serving/kvcache.py``) and
   :meth:`ServingEngine.import_session` parks one on this engine; a blob
   exported by either engine imports into the other when the model
-  signatures agree.
+  signatures agree;
+- **multi-LoRA** (``lora_adapters``): every request picks an adapter
+  (``add_request(..., adapter=k)``, 1-based; 0 = the base model) and
+  every forward adds each row's adapter delta
+  (:func:`~instaslice_tpu_torch.models.lm.apply_with_cache`); decode
+  rounds whose live slots share one adapter take the single-adapter
+  path (``adapter_fastpath``), counted in ``fastpath_rounds`` against
+  ``gathered_rounds``. Adapter requests neither read nor feed the radix
+  cache, which holds base-model KV only; the adapter rides
+  preempt/resume and session export/import.
 
 What the JAX engine has and this port does not yet: the mesh (tensor
-parallelism) and multi-LoRA (ROADMAP queue A). The scheduler's guards
-keep those off (``n_adapters`` is 0, ``mesh`` is None).
+parallelism, ROADMAP queue A). The scheduler's guards keep it off
+(``mesh`` is None).
 
 Where the JAX engine compiles a ``lax.scan`` of decode steps, the port
 runs a Python loop of device steps; sampled tokens stay on the device
@@ -75,6 +84,11 @@ import torch
 
 from instaslice_tpu_torch import resolve_device
 from instaslice_tpu_torch.models.lm import Params, TpuLM
+from instaslice_tpu_torch.models.lora import (
+    _target_shapes,
+    frozen,
+    stack_adapters,
+)
 from instaslice_tpu_torch.obs.profiler import get_profiler
 from instaslice_tpu_torch.ops import build
 from instaslice_tpu_torch.ops import flash_decode as _fd
@@ -151,6 +165,7 @@ class _Parked:
     stripe: Params
     draft_stripe: Optional[Params]     # the draft cache's, with a draft
     length: int                        # resident cache positions
+    adapter: int = 0                   # LoRA adapter id (0 = base)
 
 
 class ServingEngine:
@@ -179,6 +194,10 @@ class ServingEngine:
         draft_params: Optional[Params] = None,
         spec_k: int = 4,
         spec_adaptive: bool = True,
+        lora_adapters=None,
+        lora_alphas=None,
+        lora_names=None,
+        adapter_fastpath: bool = True,
         device="cuda",
     ) -> None:
         """``kv_quant=True`` stores the KV cache as int8 with per-vector
@@ -190,9 +209,16 @@ class ServingEngine:
         ``spec_k`` draft tokens a round, the k of each round chosen by
         the acceptance ladder unless ``spec_adaptive`` is False; the
         draft's KV cache is the model's own dtype, never int8, as in the
-        reference. ``device`` defaults to the card and raises without
-        one; pass ``device="cpu"`` to run the plain versions of the
-        kernels."""
+        reference. ``lora_adapters`` (adapter trees of
+        :mod:`~instaslice_tpu_torch.models.lora`, one rank and target set)
+        enables multi-LoRA serving, stacked with ``lora_alphas`` (16.0
+        each by default) behind the all-zero adapter 0; ``lora_names``
+        names them for requests (``adapter_names``, 1-based);
+        ``adapter_fastpath`` lets decode rounds whose live slots share one
+        adapter id (0 included) take the single-adapter path. Adapters
+        cannot combine with a draft model. ``device`` defaults to the
+        card and raises without one; pass ``device="cpu"`` to run the
+        plain versions of the kernels."""
         self.device = resolve_device(device)
         if prefill_len > max_len:
             raise ValueError("prefill_len must be <= max_len")
@@ -244,14 +270,56 @@ class ServingEngine:
         self._next_id = 0
         self.kv_quant = kv_quant
         # what the JAX engine's scheduler-facing surface reads and the
-        # port does not have yet: no mesh, no adapters
+        # port does not have yet: no mesh
         self.mesh = None
-        self.n_adapters = 0
-        self.adapter_names: Dict[str, int] = {}
         self._multiproc = False
-        #: slot -> adapter id, read by the scheduler's adapter grouping;
-        #: empty (every slot serves the base model)
+        self.lora: Optional[Params] = None
+        self.n_adapters = 0
+        if lora_adapters:
+            if draft_model is not None:
+                raise ValueError(
+                    "multi-LoRA cannot combine with speculative "
+                    "decoding: the draft proposes from the UNADAPTED "
+                    "base, so acceptance would collapse for adapted "
+                    "rows — serve adapters and spec-decode separately")
+            with torch.no_grad():
+                self.lora = stack_adapters(
+                    [frozen(ad, self.device) for ad in lora_adapters],
+                    model.cfg, alphas=lora_alphas)
+            shapes = _target_shapes(model.cfg)
+            for t, ab in self.lora["blocks"].items():
+                L, fin, fout = shapes.get(t, (0, 0, 0))
+                n, r = ab["a"].shape[1], ab["a"].shape[-1]
+                if (tuple(ab["a"].shape) != (L, n, fin, r)
+                        or tuple(ab["b"].shape) != (L, n, r, fout)):
+                    raise ValueError(
+                        f"adapter target {t!r}: a {tuple(ab['a'].shape)}, "
+                        f"b {tuple(ab['b'].shape)} do not fit the model's "
+                        f"(L, in, out) = {(L, fin, fout)}")
+            self.n_adapters = len(lora_adapters)
+            if lora_names is not None and (
+                    len(lora_names) != self.n_adapters
+                    or len(set(lora_names)) != self.n_adapters):
+                raise ValueError("lora_names must be unique and match "
+                                 "lora_adapters 1:1")
+        #: request-facing name -> 1-based engine adapter id (engine state:
+        #: it must stay consistent with the stacking order)
+        self.adapter_names: Dict[str, int] = (
+            {n: i + 1 for i, n in enumerate(lora_names)}
+            if self.lora is not None and lora_names else {})
+        #: per-slot adapter id (0 = base), read by every gathered decode
+        self.slot_adapter = torch.zeros(max_batch, dtype=torch.int64,
+                                        device=self.device)
+        #: host mirror of slot_adapter (the fast-path choice, preemption
+        #: and the radix guard read it without a device sync; the
+        #: scheduler's adapter grouping reads it too)
         self._slot_adapter_host: Dict[int, int] = {}
+        #: decode rounds whose live slots share one adapter id take the
+        #: single-adapter path (no per-row gather)
+        self.adapter_fastpath = adapter_fastpath
+        self._single_aidx_cache: Dict[int, torch.Tensor] = {}
+        self.fastpath_rounds = 0       # decode rounds on the single-
+        self.gathered_rounds = 0       # adapter path vs the gather
         self.cache = model.init_cache(max_batch, max_len, quant=kv_quant,
                                       device=self.device)
         self.lengths = torch.zeros(max_batch, dtype=torch.int32,
@@ -386,9 +454,53 @@ class ServingEngine:
                                "call; recover() first")
 
     def _forward(self, tokens: torch.Tensor, cache: Params,
-                 lengths: torch.Tensor, attend_len: int = 0):
-        return self.model.apply_with_cache(self.params, tokens, cache,
-                                           lengths, attend_len=attend_len)
+                 lengths: torch.Tensor, attend_len: int = 0,
+                 aidx: Optional[torch.Tensor] = None, single: bool = False):
+        """The target's incremental forward; with adapters, ``aidx``
+        holds each row's adapter id ((1,) with ``single``)."""
+        if self.lora is None or aidx is None:
+            return self.model.apply_with_cache(self.params, tokens, cache,
+                                               lengths,
+                                               attend_len=attend_len)
+        return self.model.apply_with_cache(
+            self.params, tokens, cache, lengths, attend_len=attend_len,
+            lora=self.lora, adapter_idx=aidx, single_adapter=single)
+
+    def _single_aidx(self, aid: int) -> torch.Tensor:
+        """A memoized (1,) device tensor holding adapter id ``aid`` (no
+        host-to-device copy per dispatch)."""
+        t = self._single_aidx_cache.get(aid)
+        if t is None:
+            t = torch.full((1,), aid, dtype=torch.int64, device=self.device)
+            self._single_aidx_cache[aid] = t
+        return t
+
+    def _adapter_args(self):
+        """(aidx, single) for this round's decode dispatch
+        (``engine.py:944-960``): when every live slot shares one adapter
+        id (0 included) and the fast path is on, the single-adapter path
+        with that id; else the per-row gather over ``slot_adapter``.
+        Chosen host-side from ``_slot_adapter_host``; each call is one
+        round of ``fastpath_rounds`` or ``gathered_rounds``."""
+        if self.lora is None:
+            return None, False
+        if self.adapter_fastpath:
+            ids = {self._slot_adapter_host.get(s, 0) for s in self.slots}
+            if len(ids) == 1:
+                self.fastpath_rounds += 1
+                return self._single_aidx(ids.pop()), True
+        self.gathered_rounds += 1
+        return self.slot_adapter, False
+
+    def _set_slot_adapters(self, slots: List[int],
+                           adapters: List[int]) -> None:
+        """Record each slot's adapter id, host mirror and device copy."""
+        for s, a in zip(slots, adapters):
+            self._slot_adapter_host[s] = a
+        if self.lora is not None:
+            self.slot_adapter[torch.tensor(slots, device=self.device)] = (
+                torch.tensor(adapters, dtype=torch.int64,
+                             device=self.device))
 
     def _draft_forward(self, tokens: torch.Tensor, cache: Params,
                        lengths: torch.Tensor, attend_len: int = 0):
@@ -398,8 +510,8 @@ class ServingEngine:
             self.draft_params, tokens, cache, lengths,
             attend_len=attend_len)
 
-    def _prefill(self, tokens: List[int], slot: int,
-                 offset: int) -> torch.Tensor:
+    def _prefill(self, tokens: List[int], slot: int, offset: int,
+                 adapter: int = 0) -> torch.Tensor:
         """One (1, prefill_len) chunk into slot ``slot``'s stripe at
         ``offset`` (the draft cache's too, its logits dropped); returns
         the chunk's (prefill_len, vocab) logits. The stripe is a view of
@@ -412,7 +524,8 @@ class ServingEngine:
                                 device=self.device)
             lens = torch.full((1,), offset, dtype=torch.int32,
                               device=self.device)
-            logits, _ = self._forward(toks, stripe, lens)
+            logits, _ = self._forward(toks, stripe, lens,
+                                      aidx=self._single_aidx(adapter))
             if self.draft_model is not None:
                 self._draft_forward(toks, {k: c[:, slot:slot + 1] for k, c
                                            in self.draft_cache.items()},
@@ -421,7 +534,8 @@ class ServingEngine:
         return logits[0]
 
     def _prefill_batch(self, tokens: List[List[int]], slots: List[int],
-                       offsets: List[int], n_real: int) -> torch.Tensor:
+                       offsets: List[int], n_real: int,
+                       adapters: Optional[List[int]] = None) -> torch.Tensor:
         """P same-shaped chunks into P slots' stripes in one forward:
         gather the stripes, run the (P, prefill_len) batch (each row at
         its own offset), scatter the ``n_real`` real rows back (padding
@@ -436,7 +550,10 @@ class ServingEngine:
                                 device=self.device)
             lens = torch.tensor(offsets, dtype=torch.int32,
                                 device=self.device)
-            logits, stripes = self._forward(toks, stripes, lens)
+            aidx = (None if self.lora is None else torch.tensor(
+                adapters or [0] * len(slots), dtype=torch.int64,
+                device=self.device))
+            logits, stripes = self._forward(toks, stripes, lens, aidx=aidx)
             for k, c in self.cache.items():
                 c.index_copy_(1, idx[:n_real], stripes[k][:, :n_real])
             if self.draft_model is not None:
@@ -475,9 +592,11 @@ class ServingEngine:
                 c[:, slot:slot + 1, :, start:start + s.shape[3]].copy_(s)
 
     def _decode_logits(self, last: torch.Tensor, lens: torch.Tensor,
-                       attend_len: int) -> torch.Tensor:
+                       attend_len: int, aidx: Optional[torch.Tensor] = None,
+                       single: bool = False) -> torch.Tensor:
         logits, _ = self._forward(last[:, None], self.cache, lens,
-                                  attend_len=attend_len)
+                                  attend_len=attend_len, aidx=aidx,
+                                  single=single)
         self.decode_steps += 1
         return logits[:, 0]
 
@@ -610,7 +729,8 @@ class ServingEngine:
         self._prefill([0] * P, 0, 0)
         with self._cache_write():
             self._decode_logits(torch.zeros_like(self.last_token),
-                                torch.zeros_like(self.lengths), 0)
+                                torch.zeros_like(self.lengths), 0,
+                                aidx=self.slot_adapter)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prefill_dispatches, self.decode_steps = counts
@@ -698,8 +818,9 @@ class ServingEngine:
         draft_stripe = (None if self.draft_cache is None else
                         self._read_stripe(slot, 0, rounded, self.draft_cache))
         del self.slots[slot]
-        self.parked[req.request_id] = _Parked(req, stripe, draft_stripe,
-                                              length)
+        self.parked[req.request_id] = _Parked(
+            req, stripe, draft_stripe, length,
+            adapter=self._slot_adapter_host.get(slot, 0))
         self.preempted_total += 1
         return req.request_id
 
@@ -724,6 +845,7 @@ class ServingEngine:
         del self.parked[rid]
         self.lengths[slot] = parked.length
         self.last_token[slot] = req.generated[-1]
+        self._set_slot_adapters([slot], [parked.adapter])
         if self.track_seen:
             seen_toks = torch.tensor(list(req.prompt) + list(req.generated),
                                      dtype=torch.int64, device=self.device)
@@ -810,7 +932,7 @@ class ServingEngine:
             "stop": [[int(x) for x in s] for s in req.stop],
             "stop_scanned": int(req.stop_scanned),
             "length": int(parked.length),
-            "adapter": 0,
+            "adapter": int(parked.adapter),
             "stripe": tree_to_wire(host(parked.stripe)),
             "draft_stripe": (tree_to_wire(host(parked.draft_stripe))
                              if parked.draft_stripe is not None else None),
@@ -918,6 +1040,9 @@ class ServingEngine:
             )
             if not req.generated:
                 raise ValueError("no generated token to resume from")
+            # a missing key is the base model, as _validate_session_blob
+            # reads the same field
+            adapter = int(blob.get("adapter", 0))
             # parsed HERE: a truncated state must fail before
             # registration, like every other malformed field
             rng_state = None
@@ -946,7 +1071,8 @@ class ServingEngine:
         self._next_id += 1
         req.request_id = rid
         self._tables[rid] = table
-        self.parked[rid] = _Parked(req, stripe, draft_stripe, length)
+        self.parked[rid] = _Parked(req, stripe, draft_stripe, length,
+                                   adapter=adapter)
         self.imported_total += 1
         return rid
 
@@ -1114,6 +1240,10 @@ class ServingEngine:
         Called after the request's own table released. Best-effort:
         never evicts anything, never fails the completion path."""
         if not self.radix_cache:
+            return
+        if self._slot_adapter_host.get(slot, 0) != 0:
+            # adapter KV must never enter the base-model tree (the rule
+            # that makes adapter requests skip prefix reuse)
             return
         g = self.radix_granule
         toks = list(req.prompt)
@@ -1285,14 +1415,15 @@ class ServingEngine:
         return c + [0] * (P - len(c))
 
     def _prefill_chunks(self, slot: int, prompt: List[int],
-                        start_chunk: int = 0) -> torch.Tensor:
-        """Chunks [start_chunk, n) of ``prompt`` into a slot; the last
-        chunk's logits."""
+                        start_chunk: int = 0,
+                        adapter: int = 0) -> torch.Tensor:
+        """Chunks [start_chunk, n) of ``prompt`` into a slot, through
+        ``adapter``; the last chunk's logits."""
         n_chunks = -(-len(prompt) // self.prefill_len)
         logits = None
         for i in range(start_chunk, n_chunks):
             logits = self._prefill(self._chunk(prompt, i), slot,
-                                   i * self.prefill_len)
+                                   i * self.prefill_len, adapter)
         return logits
 
     def _fork_stripe(self, first: int, others: List[int],
@@ -1306,11 +1437,14 @@ class ServingEngine:
                     for s in others:
                         c[:, s, :, :n] = c[:, first, :, :n]
 
-    def _hit(self, pref: Optional[RadixMatch], slot: int) -> int:
+    def _hit(self, pref: Optional[RadixMatch], slot: int,
+             adapter: int = 0) -> int:
         """Write a radix hit's stripes into ``slot`` and count it (or
-        count the miss); returns the first chunk left to prefill."""
+        count a base request's miss: adapter requests never look);
+        returns the first chunk left to prefill."""
         if pref is None:
-            self.prefix_misses += 1
+            if adapter == 0:
+                self.prefix_misses += 1
             return 0
         self._write_match_stripes(pref.path, pref.length, slot)
         self.radix.touch(pref.path[-1])
@@ -1374,14 +1508,16 @@ class ServingEngine:
         self._check_prompt_fits(prompt)
         self._check_capacity(n)
         t_match = time.perf_counter()
-        pref = self._match_prefix(prompt)
+        # radix-cached stripes hold BASE-model KV: an adapter request
+        # recomputes its whole prompt through its adapter
+        pref = self._match_prefix(prompt) if adapter == 0 else None
         get_tracer().record(
             "engine.radix_match", (time.perf_counter() - t_match) * 1e3,
             matched=pref.length if pref else 0, tokens=len(prompt))
         tables = self._alloc_tables(len(prompt), n, pref)
         try:
-            rids = self._admit_with_tables(prompt, n, stop, sp, pref,
-                                           tables)
+            rids = self._admit_with_tables(prompt, n, stop, adapter, sp,
+                                           pref, tables)
         except BaseException:
             # a failed admission must not leak the blocks it reserved,
             # nor the path locks _alloc_tables took
@@ -1394,15 +1530,18 @@ class ServingEngine:
         self._adopt_radix_locks(pref, rids)
         return rids
 
-    def _admit_with_tables(self, prompt: List[int], n: int, stop, sp,
-                           pref, tables: List[BlockTable]) -> List[int]:
+    def _admit_with_tables(self, prompt: List[int], n: int, stop,
+                           adapter: int, sp, pref,
+                           tables: List[BlockTable]) -> List[int]:
         if self.fault_hook is not None:
             self.fault_hook("prefill")
         slots = self._free_slot_indices()[:n]
+        self._set_slot_adapters(slots, [adapter] * n)
         if pref is not None:
             sp.attrs["prefix_hit"] = str(pref.length)
-        start_chunk = self._hit(pref, slots[0])
-        logits = self._prefill_chunks(slots[0], prompt, start_chunk)
+        start_chunk = self._hit(pref, slots[0], adapter)
+        logits = self._prefill_chunks(slots[0], prompt, start_chunk,
+                                      adapter)
         last = logits[(len(prompt) - 1) % self.prefill_len]
         if n > 1:
             self._fork_stripe(slots[0], slots[1:], len(prompt))
@@ -1436,7 +1575,8 @@ class ServingEngine:
             self._check_prompt_fits(r.prompt)
         self._check_capacity(sum(r.n for r in reqs))
         t_match = time.perf_counter()
-        prefs = [self._match_prefix(r.prompt) for r in reqs]
+        prefs = [self._match_prefix(r.prompt) if r.adapter == 0 else None
+                 for r in reqs]
         get_tracer().record(
             "engine.radix_match", (time.perf_counter() - t_match) * 1e3,
             matched=sum(p.length for p in prefs if p),
@@ -1479,10 +1619,13 @@ class ServingEngine:
             # contiguous low-first: what sequential admissions would pick
             slots_per.append(free[i:i + r.n])
             i += r.n
+        self._set_slot_adapters(
+            [s for ss in slots_per for s in ss],
+            [r.adapter for r, ss in zip(reqs, slots_per) for _ in ss])
         # radix-matched stripes land before any chunk round touches the
         # slot: each request joins the rounds at its own matched depth
-        cursors = [self._hit(pref, ss[0])
-                   for pref, ss in zip(prefs, slots_per)]
+        cursors = [self._hit(pref, ss[0], r.adapter)
+                   for r, pref, ss in zip(reqs, prefs, slots_per)]
         n_chunks = [-(-len(r.prompt) // P) for r in reqs]
         last_logits: List[Optional[torch.Tensor]] = [None] * len(reqs)
         max_rows = self._prefill_buckets[-1] if self._prefill_buckets else 1
@@ -1499,7 +1642,7 @@ class ServingEngine:
                     ri = part[0]
                     logits1 = self._prefill(
                         self._chunk(reqs[ri].prompt, cursors[ri]),
-                        slots_per[ri][0], cursors[ri] * P)
+                        slots_per[ri][0], cursors[ri] * P, reqs[ri].adapter)
                     self.prefill_rows += 1
                     if cursors[ri] == n_chunks[ri] - 1:
                         last_logits[ri] = logits1
@@ -1513,6 +1656,7 @@ class ServingEngine:
                     [slots_per[ri][0] for ri in rows],
                     [cursors[ri] * P for ri in rows],
                     n_real=len(part),
+                    adapters=[reqs[ri].adapter for ri in rows],
                 )
                 self.prefill_batches += 1
                 self.prefill_rows += len(part)
@@ -1557,7 +1701,9 @@ class ServingEngine:
                 # would attend zero-holes
                 self._draft_forward(self.last_token[:, None],
                                     self.draft_cache, self.lengths)
-            logits = self._decode_logits(self.last_token, self.lengths, 0)
+            aidx, single = self._adapter_args()
+            logits = self._decode_logits(self.last_token, self.lengths, 0,
+                                         aidx, single)
         toks, lps = self._sample(logits)
         toks_h, lps_h = toks.tolist(), lps.tolist()
         self.last_dispatch_landed = time.monotonic()
@@ -1619,9 +1765,11 @@ class ServingEngine:
         rows = torch.arange(self.max_batch, device=self.device)
         last, lens = self.last_token, self.lengths
         toks_steps, lps_steps = [], []
+        aidx, single = self._adapter_args()
         with self._cache_write():
             for _ in range(n_steps):
-                logits = self._decode_logits(last, lens, attend)
+                logits = self._decode_logits(last, lens, attend, aidx,
+                                             single)
                 if self.track_seen:
                     logits = apply_repetition_penalty(
                         logits, self.seen, self.repetition_penalty)

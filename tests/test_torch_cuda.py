@@ -779,3 +779,109 @@ def test_session_export_import_on_the_card(dev):
         req = eng.slots[0]
         out.append((req.generated, req.logprobs, eng.spec_accepted - a0))
     assert out[0] == out[1]
+
+
+# ------------------------------------------------------------- multi-LoRA
+
+def _lora_setup(dev):
+    """The spec engine's int8 model (hd 128, G 2: B1 built) and two
+    rank-8 adapters on all six targets with ``b`` nonzero."""
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    from instaslice_tpu_torch.models.lora import LoraConfig, init_lora
+    from instaslice_tpu_torch.models.quant import quantize_params
+    cfg = ModelConfig(vocab_size=1024, d_model=512, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=1024, dtype=torch.bfloat16,
+                      remat=False)
+    lcfg = LoraConfig(rank=8, targets=("wq", "wk", "wv", "wo", "w_in",
+                                       "w_out"))
+    ads = []
+    for i in (1, 2):
+        ad = init_lora(i, cfg, lcfg, device=dev)
+        g = torch.Generator(device=dev).manual_seed(50 + i)
+        for ab in ad["blocks"].values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=g,
+                                  device=dev) * 0.05
+        ads.append(ad)
+    model = TpuLM(cfg)
+    return model, quantize_params(model.init(0, device=dev)), ads
+
+
+def test_lora_single_adapter_path_against_the_gathered_path(dev):
+    """Every row on one adapter (the base included): the single-adapter
+    path's prefill and decode logits and cache against the gathered
+    path's on the card, both through B1-B3 (launch counts equal)."""
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models.lora import stack_adapters
+    model, params, ads = _lora_setup(dev)
+    stack = stack_adapters(ads, model.cfg)
+    toks = torch.randint(1, 1024, (3, 32), generator=torch.Generator()
+                         .manual_seed(3)).to(dev)
+    for aid in (0, 1, 2):
+        outs = []
+        for single in (False, True):
+            cache = model.init_cache(3, 128, quant=True, device=dev)
+            lens = torch.zeros(3, dtype=torch.int32, device=dev)
+            aidx = torch.full((1 if single else 3,), aid, device=dev)
+            ops.reset_launch_counts()
+            lg, cache = model.apply_with_cache(
+                params, toks, cache, lens, lora=stack, adapter_idx=aidx,
+                single_adapter=single)
+            lg1, cache = model.apply_with_cache(
+                params, lg[:, -1].argmax(-1)[:, None], cache, lens + 32,
+                lora=stack, adapter_idx=aidx, single_adapter=single)
+            torch.cuda.synchronize()
+            outs.append((lg, lg1, cache, ops.launch_counts()))
+        (g0, g1, gc, gn), (s0, s1, sc, sn) = outs
+        assert gn == sn and gn["quant_decode_attention"] == 2
+        assert gn["quant_matmul_stacked"] == 6 * 2 * 2
+        for a, b in ((g0, s0), (g1, s1)):
+            assert float((a - b).abs().max()) <= 1e-3 * float(
+                b.abs().max()), aid
+        for k in gc:
+            assert float((gc[k].float() - sc[k].float()).abs().max()) <= (
+                1.0 if k in ("k", "v") else 1e-3 * float(
+                    sc[k].float().abs().max())), (aid, k)
+
+
+def test_lora_decode_step_launch_counts_on_the_card(dev, monkeypatch):
+    """A mixed-adapter decode block (rows on adapters 0, 1, 2: the
+    gathered path) launches B1-B3 as an engine without adapters does,
+    and its tokens and logprobs equal the plain versions' run on the
+    same card within bf16 (logprobs 5e-2)."""
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models import lm, quant
+    from instaslice_tpu_torch.serving import ServingEngine
+    model, params, ads = _lora_setup(dev)
+    prompts = [[(7 * i + j) % 1000 + 1 for j in range(n)]
+               for i, n in enumerate((40, 17, 64))]
+
+    def run(adapters):
+        eng = ServingEngine(model, params, kv_quant=True, max_batch=4,
+                            max_len=256, prefill_len=32, device=dev,
+                            lora_adapters=ads if adapters else None)
+        for i, p in enumerate(prompts):
+            eng.add_request(p, adapter=i if adapters else 0)
+        ops.reset_launch_counts()
+        eng.decode_block(4)
+        torch.cuda.synchronize()
+        return (ops.launch_counts(), eng.gathered_rounds,
+                [(r.generated, r.logprobs)
+                 for _, r in sorted(eng.slots.items())])
+
+    counts, gathered, kern = run(True)
+    assert gathered == 1
+    assert counts["quant_decode_attention"] == 2 * 4
+    assert counts["quant_matmul_stacked"] == 6 * 2 * 4
+    assert counts["quant_matmul_t"] == 4
+    assert counts == run(False)[0]
+    monkeypatch.setattr(quant, "quant_matmul_stacked",
+                        qm.quant_matmul_stacked_ref)
+    monkeypatch.setattr(quant, "quant_matmul_t", qm.quant_matmul_t_ref)
+    monkeypatch.setattr(lm, "quant_decode_attention",
+                        fd.quant_decode_attention_ref)
+    ops.reset_launch_counts()
+    _, _, plain = run(True)
+    assert sum(ops.launch_counts().values()) == 0
+    for (gk, lk), (gp, lp) in zip(kern, plain):
+        assert gk == gp
+        assert max(abs(a - b) for a, b in zip(lk, lp)) <= 5e-2

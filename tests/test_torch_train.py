@@ -304,7 +304,8 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--ring"], ["--tp", "2"], ["--zero1"],
-                                  ["--from-env"], ["--lora-rank", "4"],
+                                  ["--from-env"],
+                                  ["--lora-rank", "4", "--zero1"],
                                   ["--n-experts", "4"], ["--remat", "dots"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
