@@ -110,6 +110,23 @@ base rows bit-equal, adapter rows' decode logits and served logprobs
 within the stated bounds of their lone runs and, the control, 5x the
 bound away from the base rows; decode tok/s and device ms per step with
 and without adapters (``serving_lora_overhead_pct``);
+window (after lora's serving half): the serving configuration with
+Mistral 7B's sliding window (``--window 4096 --max-len 8192``) from the
+server's CLI wiring: six short streamed completions, then, once they
+decode, two of 4400 and 4200 prompt tokens decoded past the window; B1
+on exactly the decode steps whose 256-position bucket is at most 4095
+wide, the band on the others, B2/B3 on every forward of at most 256
+rows, no leaked KV blocks; decode tok/s and device ms per step inside the
+window (B1) and past it (the band); a long row's decode logits against
+the windowed full forward (bf16 at full depth, and a float32 2-layer cut
+with a float32 and with the int8 KV cache), the control without the
+window gated on the float32 cut;
+int4: the serving configuration with ``--quantize-bits 4`` (group-wise
+int4 weights, int8 KV cache): 8 concurrent completions over HTTP with B1
+32 times a decode step and no B2/B3, the card's int4 unpacking equal to
+the CPU's, a burst's decode logits against the same engine over the
+dequantized bf16 weights, the weights' GiB as int4, int8 and bf16, decode
+tok/s and device ms per step;
 lora (last, training half): QLoRA on the 871M training configuration,
 rank 8 on (wq, wv) over the int8 base at batch 8 x 1024: the first loss
 the frozen base's, falling, the base bit-unchanged, B5/B6/B7 16 launches
@@ -120,8 +137,9 @@ training CLI twice (``--lora-rank 8 --quantize-base``) and an 871M
 Then the ``kernels`` JSON line (launches: B1-B4 from the serve phase,
 B5-B7 from the train phase; ``engine_launches`` from phase 3,
 ``spec_launches`` from the spec phase's engine, ``lora_launches`` from the
-lora phase's server (B1-B4) and QLoRA steps (B5-B7); ``spec_detail``
-holds B1-B3 at the 871M shapes), and last
+lora phase's server (B1-B4) and QLoRA steps (B5-B7), ``window_launches``
+and ``int4_launches`` from the window and int4 phases' servers;
+``spec_detail`` holds B1-B3 at the 871M shapes), and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
 """
@@ -2438,6 +2456,459 @@ def phase_lora_train(torch, ops, train: dict) -> dict:
             "cli": lines, "cli_answers": answers}
 
 
+# ------------------------------------------------- window and int4 phases
+
+#: the windowed server: the serve phase's 7B int8 configuration with
+#: Mistral 7B's sliding window and context (Jiang et al. 2023, Table 1:
+#: window_size 4096, context_len 8192; ``sliding_window: 4096`` in
+#: Mistral-7B-v0.1's published config)
+WINDOW = 4096
+WINDOW_SERVE_FLAGS = (SERVE_FLAGS.replace("--max-len 1024", "--max-len 8192")
+                      + f" --window {WINDOW}")
+#: prompt lengths: two whose decode runs past the window, six short ones
+#: (sent first, so that decode steps inside the window run before the
+#: long rows are admitted)
+WINDOW_LONG = (4400, 4200)
+WINDOW_SHORT = (600, 400, 300, 200, 129, 64)
+WINDOW_NEW = 16
+#: a long row's decode logits against ``TpuLM.apply`` over the same tokens
+#: and weights with the same window: relative L2 at most this. bf16 at
+#: full depth: the engine reads an int8 KV cache and projects through B2,
+#: the full forward keeps K/V exact and projects through bf16 matmuls
+#: (1.5e-2 measured on a d1024 32-layer cut on the CPU); a float32 2-layer
+#: cut with a float32 KV cache: sums in another order only (6e-7 there);
+#: the same cut with the int8 KV cache: int8 K/V rounding (9e-4 there)
+WINDOW_TOL = {"bf16": 5e-2, "fp32": 1e-4, "fp32_int8_kv": 5e-3}
+#: the control: the same decode steps against the full forward WITHOUT the
+#: window must read at least this many times the bound. Gated on the
+#: float32 cut with the float32 KV cache: at full depth in bf16 the window
+#: moves the random model's logits by under 5x the rounding noise (4.8x
+#: at the d1024 cut, at a larger share of positions outside the window),
+#: so the bf16 and int8-KV controls are logged
+WINDOW_CONTROL = 5
+#: the int4 server: the serve phase's configuration with group-wise int4
+#: weights over the int8 KV cache, the repo's capacity recipe
+#: (``docs/SERVING.md:821``: ``--quantize --quantize-bits 4``)
+INT4_SERVE_FLAGS = SERVE_FLAGS + " --quantize-bits 4"
+INT4_NEW = 16
+#: the int4 engine's decode logits against the same engine over the
+#: ``weight()``-dequantized bf16 weights: both run the same bf16 weights
+#: through the same ``torch.matmul`` calls (only the int8 KV cache and B1
+#: besides), so they should agree bit for bit; relative L2 at most this
+INT4_TOL = 1e-3
+
+
+def tree_gib(tree) -> float:
+    """GiB of a params tree's tensors (packed bytes and scales of its
+    quantized leaves)."""
+    from instaslice_tpu_torch.models.quant import Int4Tensor, QuantizedTensor
+
+    if isinstance(tree, dict):
+        return sum(tree_gib(v) for v in tree.values())
+    if isinstance(tree, QuantizedTensor):
+        return tree_gib(tree.q) + tree_gib(tree.s)
+    if isinstance(tree, Int4Tensor):
+        return tree_gib(tree.p) + tree_gib(tree.s)
+    return tree.numel() * tree.element_size() / 2 ** 30
+
+
+def decode_tput(torch, ops, eng, prompts, n: int = 16) -> dict:
+    """Decode tok/s at the batch of ``prompts`` (admitted one by one, so a
+    radix hit serves a repeated head) over one timed block of ``n`` steps
+    after a warm one, its launches and sliding-window band steps, and the
+    device ms of a decode step (``device_busy``); the slots are evicted
+    after."""
+    for p in prompts:
+        eng.add_request(p)
+    eng.decode_block(2)
+    torch.cuda.synchronize()
+    band0 = eng.band_steps
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.decode_block(n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, band = ops.launch_counts(), eng.band_steps - band0
+    busy = device_busy(torch, lambda: eng.decode_block(4), 4)
+    for s in list(eng.slots):
+        eng.evict_slot(s)
+    return {"tok_s": len(prompts) * n / wall, "step_ms": wall / n * 1e3,
+            "device_ms_per_step": busy and busy["ms_per_step"],
+            "device_top": busy and busy["top"], "counts": counts,
+            "band_steps": band, "steps": n}
+
+
+def decode_logits(torch, eng, prompt, n: int):
+    """``prompt`` alone through ``eng.generate`` (an empty engine: slot 0)
+    for ``n`` tokens: the tokens and the (n - 1, vocab) logits of its
+    decode steps."""
+    check(not eng.slots, "an empty engine")
+    rec = StepLogits(eng)
+    try:
+        res = eng.generate([prompt], n)[0]
+    finally:
+        rec.close()
+    return res.tokens, torch.stack(rec.steps)[:, 0]
+
+
+def window_rows(torch, model, params, prompt, toks, dec) -> dict:
+    """Relative L2 of decode logits ``dec`` against ``TpuLM.apply`` over
+    the same tokens with the model's window and without it (the
+    control)."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+
+    seq = torch.tensor([prompt + toks[:-1]], device="cuda")
+    P, out = len(prompt), {}
+    for name, cfg in (("window", model.cfg),
+                      ("no_window", dataclasses.replace(model.cfg,
+                                                        window=0))):
+        with torch.no_grad():
+            full = TpuLM(cfg).apply(params, seq)[0, P:P + dec.shape[0]]
+        out[name] = rel_l2(dec, full)
+        del full
+        free_memory(torch)
+    return out
+
+
+def window_cut(torch, eng, prompt) -> dict:
+    """The served weights cut to 2 layers in float32 on engines with a
+    float32 and with the int8 KV cache (batch 1, the server's max_len and
+    chunk): a long prompt's decode logits against the windowed full
+    forward and without the window."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.models.quant import QuantizedTensor
+    from instaslice_tpu_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(eng.model.cfg, n_layers=2, dtype=torch.float32)
+
+    def take(leaf):
+        if isinstance(leaf, QuantizedTensor):
+            return QuantizedTensor(leaf.q[:2], leaf.s[:2])
+        return leaf[:2]
+
+    params = dict(eng.params, blocks={
+        k: ({"scale": take(v["scale"])} if isinstance(v, dict) else take(v))
+        for k, v in eng.params["blocks"].items()})
+    model, out = TpuLM(cfg), {}
+    for name, kvq in (("fp32", False), ("fp32_int8_kv", True)):
+        cut = ServingEngine(model, params, max_batch=1, max_len=eng.max_len,
+                            prefill_len=eng.prefill_len, kv_quant=kvq,
+                            device="cuda")
+        toks, dec = decode_logits(torch, cut, prompt, 8)
+        check(cut.band_steps == 7, f"window cut {name}: every decode step "
+              f"reads the band ({cut.band_steps} of 7)")
+        del cut
+        out[name] = window_rows(torch, model, params, prompt, toks, dec)
+    return out
+
+
+def staggered_burst(url, short, long_):
+    """The short prompts' streamed completions first, the long prompts'
+    once every short stream has two tokens (a decode block has run); each
+    result with its host clock of sending."""
+    import threading
+
+    progress = [{"n": 0} for _ in short + long_]
+    results, errors = [None] * len(progress), []
+
+    def one(i, prompt):
+        body = {"prompt": prompt, "max_tokens": WINDOW_NEW,
+                "temperature": 0.0, "stream": True}
+        t_send = time.perf_counter()
+        try:
+            r = http_stream(url + "/v1/completions", body,
+                            progress=progress[i])
+            r["t_send"] = t_send
+            results[i] = r
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=one, args=(i, p))
+               for i, p in enumerate(short)]
+    for th in threads:
+        th.start()
+    t0 = time.perf_counter()
+    while (not errors and any(progress[i]["n"] < 2 for i in range(len(short)))
+           and time.perf_counter() - t0 < 600.0):
+        time.sleep(0.01)
+    late = [threading.Thread(target=one, args=(len(short) + j, p))
+            for j, p in enumerate(long_)]
+    for th in late:
+        th.start()
+    for th in threads + late:
+        th.join()
+    return results, errors
+
+
+def phase_window(torch, ops) -> dict:
+    """The windowed 7B int8 server (``WINDOW_SERVE_FLAGS``), built by the
+    port's own CLI wiring and driven over HTTP: six short streamed
+    completions, then, once they decode, two past the window. B1 runs on
+    the decode steps whose 256-position bucket is at most ``window - 1``
+    wide, the band on the others; B2/B3 on every forward of at most 256
+    rows. Then, the server stopped: decode tok/s and device ms per step
+    inside the window (B1) and past it (the band); a long row's decode
+    logits against the windowed full forward in bf16 and on a float32
+    2-layer cut, each beside the control without the window."""
+    from collections import Counter
+
+    from instaslice_tpu_torch.models.lm import window_band
+    from instaslice_tpu_torch.serving import api_server
+
+    t0 = time.perf_counter()
+    args = api_server.build_parser().parse_args(WINDOW_SERVE_FLAGS.split())
+    eng = api_server.build_engine(args)
+    srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
+    setup_s = time.perf_counter() - t0
+    cfg, L, V = eng.model.cfg, args.n_layers, args.vocab_size
+    check(cfg.window == WINDOW and eng.max_len == 8192 and eng.kv_quant,
+          "window: int8 W+KV, window 4096, context 8192")
+    route = eng.attention_route()
+    check(route.startswith("B1 to 4095"), f"window: route {route!r}")
+    gen = torch.Generator().manual_seed(41)
+    short = [torch.randint(1, V, (n,), generator=gen).tolist()
+             for n in WINDOW_SHORT]
+    long_ = [torch.randint(1, V, (n,), generator=gen).tolist()
+             for n in WINDOW_LONG]
+    rows, attends = [], []
+    forward, decode = eng._forward, eng._decode_logits
+
+    def counted_forward(tokens, cache, lengths, *a, **kw):
+        rows.append(tokens.numel())
+        return forward(tokens, cache, lengths, *a, **kw)
+
+    def counted_decode(last, lens, attend_len, *a, **kw):
+        attends.append(attend_len)
+        return decode(last, lens, attend_len, *a, **kw)
+
+    eng._forward, eng._decode_logits = counted_forward, counted_decode
+    try:
+        wait_ready(srv.url)
+        band0 = eng.band_steps
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, errors = staggered_burst(srv.url, short, long_)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        band = eng.band_steps - band0
+        st = http_json(srv.url + "/v1/stats")
+    finally:
+        srv.stop()
+        eng._forward, eng._decode_logits = forward, decode
+    check(not errors, f"window: {errors}")
+    for i, r in enumerate(results):
+        check(len(r["token_ids"]) == WINDOW_NEW
+              and all(0 <= t < V for t in r["token_ids"])
+              and r["finish_reason"] == "max_new_tokens",
+              f"window: request {i}: {r['token_ids']} {r['finish_reason']}")
+    b1_steps = sum(not window_band(cfg, eng.max_len, a or eng.max_len)
+                   for a in attends)
+    kernel_fw = sum(r <= 256 for r in rows)
+    ttft = [round((r["t_first"] - r["t_send"]) * 1e3, 1) for r in results]
+    log(f"window: server in {setup_s:.1f} s; 8 streamed completions "
+        f"{list(WINDOW_SHORT)} then {list(WINDOW_LONG)} x {WINDOW_NEW} "
+        f"tokens in {wall:.2f} s: rows {sorted(Counter(rows).items())}, "
+        f"{len(attends)} decode steps at buckets "
+        f"{sorted(Counter(attends).items())} ({b1_steps} through B1, {band} "
+        f"through the band), launches {counts}; TTFT ms {ttft} (long "
+        f"prompts last)")
+    check(b1_steps > 0 and band > 0 and b1_steps + band == len(attends),
+          "window: decode steps inside the window (B1) and past it (band)")
+    check(counts["quant_decode_attention"] == L * b1_steps,
+          "window: B1 launches = layers x decode steps of buckets <= 4095")
+    check(counts["quant_matmul_stacked"] == 6 * L * kernel_fw > 0,
+          "window: B2 launches = 6 x layers x forwards of <= 256 rows")
+    check(counts["quant_matmul_t"] == kernel_fw > 0,
+          "window: B3 launches = forwards of <= 256 rows")
+    check(counts["quant_matmul"] == 0 and all(counts[n] == 0 for n in FLASH),
+          "window: B4-B7 are not on this path")
+    check(st["live_slots"] == 0 and st["parked"] == 0, "window: quiesced")
+    check(st["kv"]["used"] == st["radix"]["blocks"],
+          f"window: no leaked KV blocks: kv {st['kv']}")
+
+    # decode inside the window (8 short rows: bucket 256, B1) and past it
+    # (a long row's radix-cached prompt beside 7 short rows: the band)
+    inside = decode_tput(torch, ops, eng, [[1, 2, 3]] * 8)
+    past = decode_tput(torch, ops, eng, [long_[0]] + [[1, 2, 3]] * 7)
+    check(inside["counts"]["quant_decode_attention"] == L * inside["steps"]
+          and inside["band_steps"] == 0, "window: short rows decode by B1")
+    check(past["counts"]["quant_decode_attention"] == 0
+          and past["band_steps"] == past["steps"],
+          "window: a row past the window sends every decode step to the band")
+    log(f"window: decode at batch 8 inside the window (B1) "
+        f"{inside['tok_s']:.1f} tok/s, {inside['device_ms_per_step']} device "
+        f"ms per step; past it (band) {past['tok_s']:.1f} tok/s, "
+        f"{past['device_ms_per_step']} device ms per step; band step by "
+        f"kernel (ms): {past['device_top']}")
+
+    # a long row's decode logits: bf16 at full depth, then the float32 cut
+    eng.radix.reclaim(eng.kv.total_blocks)
+    toks, dec = decode_logits(torch, eng, long_[0], 8)
+    bf16 = window_rows(torch, eng.model, eng.params, long_[0], toks, dec)
+    cut = window_cut(torch, eng, long_[0])
+    log(f"window: a {WINDOW_LONG[0]}-token row's 7 decode steps against the "
+        f"full forward, rel L2 with the window and without it (control): "
+        f"bf16 {bf16}, float32 2-layer cut {cut}; bounds {WINDOW_TOL}, "
+        f"control gated on the float32 KV cut at {WINDOW_CONTROL}x")
+    check(bf16["window"] <= WINDOW_TOL["bf16"], f"window: bf16 {bf16}")
+    for name in ("fp32", "fp32_int8_kv"):
+        check(cut[name]["window"] <= WINDOW_TOL[name],
+              f"window: {name} cut {cut[name]}")
+    check(cut["fp32"]["no_window"] >= WINDOW_CONTROL * WINDOW_TOL["fp32"],
+          f"window: the float32 control (no window) reads "
+          f"{cut['fp32']['no_window']}, under {WINDOW_CONTROL} x the bound")
+    check(eng.kv.used_blocks() == eng.radix.pool_blocks(),
+          "window: no leaked KV blocks")
+    out = {"setup_s": setup_s, "wall_s": wall, "counts": counts,
+           "decode_steps": len(attends), "b1_steps": b1_steps,
+           "band_steps": band, "ttft_ms": ttft,
+           "ttft_ms_long": ttft[len(short):],
+           "inside": {k: v for k, v in inside.items() if k != "counts"},
+           "past": {k: v for k, v in past.items() if k != "counts"},
+           "rows_bf16": bf16, "rows_cut": cut, "route": route}
+    del eng, srv
+    free_memory(torch)
+    return out
+
+
+def phase_int4(torch, ops) -> dict:
+    """The int4 7B server (``INT4_SERVE_FLAGS``: group-wise int4 weights,
+    int8 KV cache) from the same seeded weights, by the port's own CLI
+    wiring: 8 concurrent greedy completions over HTTP, B1 32 times a decode
+    step and no B2/B3 (int4 weights dequantize into ``torch.matmul``); the
+    card's unpacking against the CPU's on the same bytes; the decode
+    logits of a burst against the same engine over the ``weight()``-
+    dequantized bf16 weights; the weights' GiB as int4, int8 and bf16;
+    decode tok/s and device ms per step."""
+    import threading
+
+    from instaslice_tpu_torch.models.quant import (
+        Int4Tensor,
+        quantize_params,
+        weight,
+    )
+    from instaslice_tpu_torch.serving import ServingEngine, api_server
+
+    t0 = time.perf_counter()
+    args = api_server.build_parser().parse_args(INT4_SERVE_FLAGS.split())
+    eng = api_server.build_engine(args)
+    srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
+    setup_s = time.perf_counter() - t0
+    L, V = args.n_layers, args.vocab_size
+    check(isinstance(eng.params["blocks"]["w_in"], Int4Tensor)
+          and isinstance(eng.params["embed"], Int4Tensor) and eng.kv_quant,
+          "int4: int4 weights, int8 KV cache")
+    check(eng.attention_route() == "B1", "int4: B1 decode attention")
+    gen = torch.Generator().manual_seed(43)
+    prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
+               for n in SERVE_PLENS]
+    results, errors = [None] * len(prompts), []
+
+    def one(i):
+        body = {"prompt": prompts[i], "max_tokens": INT4_NEW,
+                "temperature": 0.0}
+        try:
+            results[i] = http_json(srv.url + "/v1/completions",
+                                   body)["choices"][0]
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {e!r}")
+
+    try:
+        wait_ready(srv.url)
+        steps0 = eng.decode_steps
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        steps = eng.decode_steps - steps0
+        st = http_json(srv.url + "/v1/stats")
+    finally:
+        srv.stop()
+    check(not errors, f"int4: {errors}")
+    for i, r in enumerate(results):
+        check(len(r["token_ids"]) == INT4_NEW
+              and all(0 <= t < V for t in r["token_ids"]),
+              f"int4: request {i}: {r['token_ids']}")
+    log(f"int4: server in {setup_s:.1f} s; 8 concurrent completions "
+        f"{list(SERVE_PLENS)} x {INT4_NEW} tokens over HTTP in {wall:.2f} s: "
+        f"{steps} decode steps, launches {counts}")
+    check(counts["quant_decode_attention"] == L * steps > 0,
+          "int4: B1 launches = layers x decode steps")
+    check(all(counts[n] == 0 for n in ("quant_matmul_stacked",
+                                       "quant_matmul_t", "quant_matmul")),
+          "int4: no B2-B4 (int4 weights dequantize into torch.matmul)")
+    check(all(counts[n] == 0 for n in FLASH), "int4: B5-B7 are not on "
+          "this path")
+    check(st["live_slots"] == 0 and st["parked"] == 0, "int4: quiesced")
+    check(st["kv"]["used"] == st["radix"]["blocks"],
+          f"int4: no leaked KV blocks: kv {st['kv']}")
+
+    # the card's unpacking and dequantization against the CPU's
+    for name, leaf in (("w_in", eng.params["blocks"]["w_in"].layer(0)),
+                       ("embed", eng.params["embed"])):
+        host = Int4Tensor(leaf.p.cpu(), leaf.s.cpu(), leaf.group,
+                          leaf.pack_axis)
+        check(torch.equal(leaf._unpack().cpu(), host._unpack())
+              and torch.equal(leaf.dequantize(torch.bfloat16).cpu(),
+                              host.dequantize(torch.bfloat16)),
+              f"int4: {name} unpacked on the card equals the CPU's")
+
+    def dequantized(tree):
+        if isinstance(tree, dict):
+            return {k: dequantized(v) for k, v in tree.items()}
+        return weight(tree, torch.bfloat16) if isinstance(tree, Int4Tensor) \
+            else tree
+
+    deq = dequantized(eng.params)
+    gib = {"int4": tree_gib(eng.params), "bf16": tree_gib(deq)}
+    q8 = quantize_params(deq)
+    gib["int8"] = tree_gib(q8)
+    del q8
+    free_memory(torch)
+    eng.radix.reclaim(eng.kv.total_blocks)
+    got, got_lg = lora_burst(eng, prompts, [0] * len(prompts))
+    ref = ServingEngine(eng.model, deq, max_batch=8, max_len=eng.max_len,
+                        prefill_len=eng.prefill_len, kv_quant=True,
+                        device="cuda")
+    want, want_lg = lora_burst(ref, prompts, [0] * len(prompts))
+    del ref, deq
+    free_memory(torch)
+    l2 = [rel_l2(got_lg[:, i], want_lg[:, i]) for i in range(len(prompts))]
+    bit_equal = bool(torch.equal(got_lg, want_lg))
+    log(f"int4: weights {gib} GiB; burst decode logits against the "
+        f"dequantized bf16 engine rel L2 {[f'{x:.3g}' for x in l2]} (bound "
+        f"{INT4_TOL:g}), bit-equal {bit_equal}")
+    check(max(l2) <= INT4_TOL and [t for t, _ in got] == [t for t, _ in want],
+          f"int4: decode logits against the dequantized forward {l2}")
+    check(eng.kv.used_blocks() == eng.radix.pool_blocks(),
+          "int4: no leaked KV blocks")
+    tput = decode_tput(torch, ops, eng, [[1, 2, 3]] * 8, n=8)
+    check(tput["counts"]["quant_decode_attention"] == L * tput["steps"]
+          and tput["counts"]["quant_matmul_stacked"] == 0,
+          "int4: decode block launches B1 32 times a step, no B2")
+    log(f"int4: decode at batch 8 {tput['tok_s']:.1f} tok/s, "
+        f"{tput['step_ms']:.1f} ms per step on the host clock, "
+        f"{tput['device_ms_per_step']} device ms per step; by kernel (ms): "
+        f"{tput['device_top']}")
+    out = {"setup_s": setup_s, "wall_s": wall, "counts": counts,
+           "decode_steps": steps, "weights_gib": gib, "rel_l2": l2,
+           "bit_equal": bit_equal,
+           "decode": {k: v for k, v in tput.items() if k != "counts"}}
+    del eng, srv
+    free_memory(torch)
+    return out
+
+
 def param_count(cfg) -> int:
     """Matmul parameters of a dense TpuLM (the embedding once, tied
     unembedding; norms left out): ``instaslice_tpu/bench_tpu.py:355``."""
@@ -2926,6 +3397,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lora_serve = phase_lora_serve(torch, ops)
     mark("lora_serve", t0)
+    t0 = time.perf_counter()
+    window = phase_window(torch, ops)
+    mark("window", t0)
+    t0 = time.perf_counter()
+    int4 = phase_int4(torch, ops)
+    mark("int4", t0)
 
     t0 = time.perf_counter()
     train_kernels = phase_train_kernels(torch, ops.flash_attention)
@@ -2952,7 +3429,8 @@ def main() -> int:
     # the engine's generate is the earlier serving path, spec_launches
     # the 871M spec engine's admission and greedy rounds (its int8 draft),
     # lora_launches the multi-LoRA server's completions (B1-B4) and the
-    # QLoRA train steps (B5-B7)
+    # QLoRA train steps (B5-B7), window_launches and int4_launches the
+    # windowed and the int4 servers' completions
     for k in kernels:
         k["launches"] = serve["counts"][k["name"]]
         k["engine_launches"] = eng["counts"][k["name"]]
@@ -2965,6 +3443,9 @@ def main() -> int:
         k["spec_launches"] = spec["counts"][k["name"]]
         k["lora_launches"] = lora_train["counts"][k["name"]]
     kernels += train_kernels
+    for k in kernels:
+        k["window_launches"] = window["counts"][k["name"]]
+        k["int4_launches"] = int4["counts"][k["name"]]
     for k in kernels:
         lib = k["library_ms"]
         log(f"kernel {k['name']} ({k['work']}): launches {k['launches']}, "
@@ -2988,6 +3469,10 @@ def main() -> int:
     log(json.dumps({"card": card, "migrate": migrate}))
     log(json.dumps({"card": card, "lora": {"serve": lora_serve,
                                            "train": lora_train}}))
+    log(json.dumps({"card": card, "window": window, "int4": int4,
+                    "int8_engine": {
+                        "decode_tok_s_b8": eng["decode_tok_s"],
+                        "device_ms_per_step": busy and busy["ms_per_step"]}}))
     tbusy = train["device_busy"]
     log(json.dumps({"card": card, "train_step_ms": train["step_ms"],
                     "train_tokens_per_s": train["tokens_per_s"],

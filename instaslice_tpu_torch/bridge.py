@@ -2,7 +2,9 @@
 
 The input is the JAX package's tree after ``jax.device_get``: nested
 dicts of numpy arrays (``ml_dtypes.bfloat16`` included) and
-``QuantizedTensor`` nodes holding numpy ``q`` and ``s``. The output is
+``QuantizedTensor`` nodes holding numpy ``q`` and ``s`` and
+``Int4Tensor`` nodes holding numpy ``p`` and ``s`` (with their ``group``
+and ``pack_axis``). The output is
 the port's tree in the SAME layout (per-layer leaves ``(L, ...)``,
 projections ``(in, out)``, embedding ``(V, D)``, fp32 norm scales), so
 no transpose hides in the bridge, and the round trip is bit-exact.
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from instaslice_tpu_torch import resolve_device
-from instaslice_tpu_torch.models.quant import QuantizedTensor
+from instaslice_tpu_torch.models.quant import Int4Tensor, QuantizedTensor
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -47,8 +49,8 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(tree: Any, *, device="cuda") -> Any:
     """A JAX-package parameter tree (numpy leaves) -> the port's tree on
-    ``device``. ``QuantizedTensor`` nodes become the port's
-    :class:`QuantizedTensor`; int4 leaves are not ported and raise."""
+    ``device``. ``QuantizedTensor`` and ``Int4Tensor`` nodes become the
+    port's :class:`QuantizedTensor` and :class:`Int4Tensor`."""
     dev = resolve_device(device)
 
     def walk(node):
@@ -59,7 +61,8 @@ def params_from_jax(tree: Any, *, device="cuda") -> Any:
             return QuantizedTensor(_to_torch(node.q, dev),
                                    _to_torch(node.s, dev))
         if kind == "Int4Tensor":
-            raise NotImplementedError("int4 weights are not ported yet")
+            return Int4Tensor(_to_torch(node.p, dev), _to_torch(node.s, dev),
+                              int(node.group), int(node.pack_axis))
         return _to_torch(node, dev)
 
     return walk(tree)
@@ -67,9 +70,13 @@ def params_from_jax(tree: Any, *, device="cuda") -> Any:
 
 def params_to_numpy(tree: Any) -> Any:
     """The port's tree -> numpy leaves (bf16 as ``ml_dtypes.bfloat16``);
-    a :class:`QuantizedTensor` becomes its ``(q, s)`` pair."""
+    a :class:`QuantizedTensor` becomes its ``(q, s)`` pair, an
+    :class:`Int4Tensor` its ``(p, s, group, pack_axis)``."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, QuantizedTensor):
         return (_to_numpy(tree.q), _to_numpy(tree.s))
+    if isinstance(tree, Int4Tensor):
+        return (_to_numpy(tree.p), _to_numpy(tree.s), tree.group,
+                tree.pack_axis)
     return _to_numpy(tree)

@@ -8,14 +8,14 @@ so :mod:`instaslice_tpu_torch.bridge` moves weights across with no
 transpose. Ported here: :class:`ModelConfig`, :func:`init_params`, the
 full forward :func:`apply` (:meth:`TpuLM.apply`: dense MLP, GQA, causal
 attention through the flash-attention kernels at the head dims they are
-built for and the plain grouped formulation at others, block remat
-"full" as ``torch.utils.checkpoint``; int8 leaves dequantize one layer
-at a time, the QLoRA base), :func:`init_cache` and
-:func:`apply_with_cache` (dense MLP, bf16 or int8 KV cache, multi-LoRA
-deltas per row). Not yet ported, and raising ``NotImplementedError``:
-mixture-of-experts, ring and pipeline attention, remat "dots", int4, and
-sliding windows in the cache forward (the full forward takes windows
-through the plain grouped formulation, as the reference routes them).
+built for and the plain grouped formulation at others and under a sliding
+window, block remat "full" as ``torch.utils.checkpoint``; int8 and int4
+leaves dequantize one layer at a time, the QLoRA base),
+:func:`init_cache` and :func:`apply_with_cache` (dense MLP, bf16 or int8
+KV cache, sliding windows through the banded cache read, int8 or int4
+weights, multi-LoRA deltas per row). Not yet ported, and raising
+``NotImplementedError``: mixture-of-experts, ring and pipeline
+attention, remat "dots".
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from instaslice_tpu_torch import resolve_device
 from instaslice_tpu_torch.models.quant import (
+    QUANT_TYPES,
     QuantizedTensor,
     embed_lookup,
     qdot,
@@ -231,11 +232,11 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:func:`~instaslice_tpu_torch.ops.flash_attention.kernel_built`).
     "xla", "auto" at any other head dim, or any ``window`` > 0 takes the
     grouped plain formulation with its -1e9 mask, as the reference routes
-    shapes its kernel does not take."""
+    shapes its kernel does not take and every window; on the card an
+    unbuilt head dim is logged once, a window (a route by design) not."""
     if window or (impl == "auto" and not _fa.kernel_built(q.shape[-1])):
-        if impl == "auto" and q.is_cuda:
-            _log_plain_route("attention (B5-B7)",
-                             (("hd", q.shape[-1]), ("window", window)))
+        if impl == "auto" and q.is_cuda and not window:
+            _log_plain_route("attention (B5-B7)", (("hd", q.shape[-1]),))
         impl = "xla"
     H, Hkv = q.shape[2], k.shape[2]
     if impl in ("auto", "flash"):
@@ -314,14 +315,14 @@ def _layers(blocks: Params, n_layers: int):
     """The stacked ``(L, ...)`` leaves as L per-layer dicts of views.
     ``unbind`` has one backward node that stacks the L grads, where
     indexing would scatter each layer's grad into a zeroed copy of the
-    whole stack. An int8 leaf (a frozen QLoRA base) splits into its
-    layers' :class:`QuantizedTensor` views, each dequantized only where
+    whole stack. A quantized leaf (an int8 QLoRA base, int4 serving
+    weights) splits into its layers' views, each dequantized only where
     its block uses it."""
     def split(node):
         if isinstance(node, dict):
             parts = {k: split(v) for k, v in node.items()}
             return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
-        if isinstance(node, QuantizedTensor):
+        if isinstance(node, QUANT_TYPES):
             return [node.layer(i) for i in range(n_layers)]
         return node.unbind(0)
 
@@ -384,6 +385,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
     }
+
+
+def window_band(cfg: ModelConfig, S_cache: int, S_max: int) -> int:
+    """Width of the sliding-window band :func:`apply_with_cache` reads
+    from a cache of ``S_cache`` positions attended up to ``S_max``
+    (``lm.py:799-801``): ``min(window - 1, S_cache)`` positions, the
+    union of every fresh query's admissible cached keys; 0 when the model
+    has no window or the band is not narrower than ``S_max`` (the prefix
+    read, its mask windowed, serves then, and decode may take B1)."""
+    if not cfg.window:
+        return 0
+    band = max(1, min(cfg.window - 1, S_cache))
+    return band if band < S_max else 0
 
 
 def _write_fresh(c: torch.Tensor, li: int, rows: torch.Tensor,
@@ -461,15 +475,26 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     attended window to ``[0, attend_len)`` (caller contract:
     ``lengths[b] + T <= attend_len``).
 
+    Sliding windows (``lm.py:777-841``): where :func:`window_band` is
+    nonzero each row reads only the band of ``window - 1`` cached
+    positions from ``start = clamp(lengths - (window - 1), 0, S_cache -
+    band)`` (the int8 values and their scales, or the bf16 cache),
+    masked by ``s < lengths`` and ``position - s < window``; otherwise
+    the prefix read keeps the window in its mask. The local (T, T) block
+    is windowed too.
+
     Decode (T = 1) over an int8 cache runs the decode-attention kernel
     plus :func:`merge_local` where the kernel is built for the head dim
-    and group (the plain grouped read otherwise); quantized projections
-    take the w8a16 kernels. Unlike the JAX package's single post-scan write
-    (``lm.py:1044-1066``) the fresh K/V land IN PLACE, per layer, right
-    after that layer has read its prefix: the results are the same,
-    because reads admit only ``s < lengths[b]`` and the fresh entries
-    sit at ``lengths[b]`` and beyond. The write start clamps so the T
-    entries fit, as ``dynamic_update_slice`` does.
+    and group (the plain grouped read otherwise) and no band is read,
+    as the reference gates its fused branch on ``not use_window``
+    (``lm.py:856-863``); int8 projections take the w8a16 kernels, int4
+    ones dequantize into ``torch.matmul``. Unlike the JAX package's
+    single post-scan write (``lm.py:1044-1066``) the fresh K/V land IN
+    PLACE, per layer, right after that layer has read its prefix (or its
+    band): the results are the same, because reads admit only ``s <
+    lengths[b]`` and the fresh entries sit at ``lengths[b]`` and beyond.
+    The write start clamps so the T entries fit, as
+    ``dynamic_update_slice`` does.
 
     Multi-LoRA (``lm.py:736-775``, ``:896-915``): with a stacked ``lora``
     tree and ``adapter_idx`` (B,) each row adds its adapter's delta
@@ -479,8 +504,6 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     through ``adapter_idx[0]`` (the engine's fast path when its live
     slots agree), equal to the gathered path bit for bit.
     """
-    if cfg.window:
-        raise NotImplementedError("sliding-window attention is not ported")
     if cfg.n_experts:
         raise NotImplementedError("mixture-of-experts is not ported")
     blocks = params["blocks"]
@@ -499,18 +522,43 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     t_idx = torch.arange(T, dtype=torch.int32, device=dev)
     positions = lengths[:, None] + t_idx                      # (B, T)
     cos, sin = _rope_tables(positions, hd)     # shared by every layer
-    # B1 where it is built for the shape; the grouped plain read of the
-    # cache otherwise, as the reference gates its fused branch
-    use_fdk = quant and T == 1 and _fd.kernel_built(hd, G)
-    if quant and T == 1 and not use_fdk and tokens.is_cuda:
+    band = window_band(cfg, S_cache, S_max)
+    # B1 where it is built for the shape and no band is read; the grouped
+    # plain read of the cache otherwise, as the reference gates its fused
+    # branch (the band is a route by shape, not logged as a plain one)
+    use_fdk = quant and T == 1 and not band and _fd.kernel_built(hd, G)
+    if quant and T == 1 and not band and not use_fdk and tokens.is_cuda:
         _log_plain_route("int8 decode attention (B1)",
                          (("hd", hd), ("G", G)))
     use_stacked = all(isinstance(blocks.get(nm), QuantizedTensor)
                       for nm in BIG_NAMES)
-    if not use_fdk:
+    if band:
+        start = torch.clamp(lengths - (cfg.window - 1), 0, S_cache - band)
+        s_abs = start[:, None] + torch.arange(band, dtype=torch.int32,
+                                              device=dev)   # (B, band)
+        # indexes each row's band of a (B, Hkv, S, ...) layer of the cache
+        at = (torch.arange(B, device=dev)[:, None, None],
+              torch.arange(Hkv, device=dev)[None, :, None],
+              s_abs[:, None, :].long())
+        mask = ((s_abs[:, None, :] < lengths[:, None, None])
+                & (positions[:, :, None] - s_abs[:, None, :] < cfg.window))
+        mask = mask[:, None, None]                      # (B, 1, 1, T, band)
+    elif not use_fdk:
         s_idx = torch.arange(S_max, dtype=torch.int32, device=dev)
-        mask = (s_idx[None, :] < lengths[:, None])[:, None, None, None, :]
+        mask = s_idx[None, None, :] < lengths[:, None, None]  # (B, 1, S)
+        if cfg.window:
+            mask = mask & (positions[:, :, None] - s_idx[None, None, :]
+                           < cfg.window)
+        mask = mask[:, None, None]
+    if not use_fdk:
         local_mask = t_idx[None, :] <= t_idx[:, None]         # (T, T)
+        if cfg.window:
+            local_mask &= t_idx[:, None] - t_idx[None, :] < cfg.window
+
+    def read(c: torch.Tensor) -> torch.Tensor:
+        """The attended positions of one layer of a cache leaf."""
+        return c[at] if band else c[:, :, :S_max]
+
     starts = torch.clamp(lengths, 0, S_cache - T)
     wpos = starts[:, None] + t_idx                            # (B, T)
     rows = torch.arange(B, device=dev)[:, None]
@@ -526,7 +574,7 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 y = qdot_stacked(h2, leaf, li, compute_dtype=dt)
             else:
                 layer_leaf = (leaf.layer(li)
-                              if isinstance(leaf, QuantizedTensor)
+                              if isinstance(leaf, QUANT_TYPES)
                               else leaf[li])
                 y = qdot(h2, layer_leaf, compute_dtype=dt)
             y = y.reshape(B, T, -1)
@@ -561,13 +609,14 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             attn = attn.to(dt).reshape(B, 1, H * hd)
         else:
             if quant:
-                k_read = (cache["k"][li, :, :, :S_max].float()
-                          * cache["k_s"][li, :, :, :S_max, None]).to(dt)
-                v_read = (cache["v"][li, :, :, :S_max].float()
-                          * cache["v_s"][li, :, :, :S_max, None]).to(dt)
+                k_read = (read(cache["k"][li]).float()
+                          * read(cache["k_s"][li])[..., None]).to(dt)
+                v_read = (read(cache["v"][li]).float()
+                          * read(cache["v_s"][li])[..., None]).to(dt)
             else:
-                k_read = cache["k"][li, :, :, :S_max]
-                v_read = cache["v"][li, :, :, :S_max]
+                k_read = read(cache["k"][li])
+                v_read = read(cache["v"][li])
+            S_attn = k_read.shape[2]
             # grouped-query contraction against the stored KV heads; one
             # joint softmax over (cached prefix ‖ local fresh entries)
             q5 = q.reshape(B, T, Hkv, G, hd).float()
@@ -582,10 +631,11 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             # each product rounds to the compute dtype, then they add
             # (the two einsums of lm.py:1000-1004)
             attn = (
-                torch.einsum("bkgts,bksd->btkgd", probs[..., :S_max].float(),
+                torch.einsum("bkgts,bksd->btkgd",
+                             probs[..., :S_attn].float(),
                              v_read.float()).to(dt)
                 + torch.einsum("bkgtu,bukd->btkgd",
-                               probs[..., S_max:].float(),
+                               probs[..., S_attn:].float(),
                                v.float()).to(dt)
             )
             attn = attn.reshape(B, T, H * hd)

@@ -37,7 +37,7 @@ import torch
 
 from instaslice_tpu_torch import resolve_device
 from instaslice_tpu_torch.models.lm import ModelConfig, _generator
-from instaslice_tpu_torch.models.quant import QuantizedTensor, weight
+from instaslice_tpu_torch.models.quant import QUANT_TYPES, weight
 
 Params = Dict[str, Any]
 
@@ -116,8 +116,8 @@ def init_lora(seed: Union[int, torch.Generator], cfg: ModelConfig,
 def merge_lora(params: Params, lora: Params, cfg: ModelConfig,
                lcfg: LoraConfig) -> Params:
     """Base params with every adapted leaf replaced by ``weight(w) +
-    scale · a @ b`` in ``cfg.dtype`` (an int8 base dequantizes here:
-    QLoRA). The products and the sum are fp32, as the reference's
+    scale · a @ b`` in ``cfg.dtype`` (an int8 or int4 base dequantizes
+    here: QLoRA). The products and the sum are fp32, as the reference's
     ``preferred_element_type=float32``. Differentiable in ``lora``; the
     other leaves are the base's own objects, and the returned tree feeds
     the unmodified forward and loss."""
@@ -173,11 +173,11 @@ def stack_adapters(adapters, cfg: ModelConfig, alphas=None) -> Params:
 
 def frozen(tree, dev: torch.device):
     """A params or adapter tree on ``dev`` with every tensor detached (no
-    grad; no copy where it is there already); int8 leaves stay
-    :class:`QuantizedTensor`, nothing is dequantized."""
+    grad; no copy where it is there already); int8 and int4 leaves stay
+    quantized, nothing is dequantized."""
     if isinstance(tree, dict):
         return {k: frozen(v, dev) for k, v in tree.items()}
-    if isinstance(tree, QuantizedTensor):
+    if isinstance(tree, QUANT_TYPES):
         return tree.to(dev)
     return tree.detach().to(dev)
 

@@ -1,5 +1,5 @@
-"""Per-channel int8 weight quantization (the int8 part of
-``instaslice_tpu/models/quant.py``).
+"""Weight-only quantization: per-channel int8 and group-wise packed int4
+(port of ``instaslice_tpu/models/quant.py``).
 
 Routing follows the JAX package with its kernel opt-in on
 (``TPUSLICE_QUANT_KERNEL=1``): a quantized leaf contracted at
@@ -8,8 +8,12 @@ Routing follows the JAX package with its kernel opt-in on
 device memory (bf16 activations on 16-byte-aligned rows take the
 tensor-core kernel there, fp32 activations the CUDA-core one); larger M
 (batched prefill) dequantizes and runs ``torch.matmul``, as XLA does at
-``quant.py:356-366``. That split is by shape, not a fallback. Group-wise
-int4 is not ported yet.
+``quant.py:356-366``. That split is by shape, not a fallback.
+
+Group-wise int4 (:class:`Int4Tensor`, ``quant.py:104-231``) is the
+capacity tier: its weights dequantize into ``torch.matmul`` at every
+use, as the JAX package dequantizes them into ``einsum`` outside any
+Pallas kernel, so int4 buys model size, not tokens per second.
 """
 
 from __future__ import annotations
@@ -83,28 +87,157 @@ def quantize_tensor(w: torch.Tensor, reduce_axis: int = -2) -> QuantizedTensor:
     return QuantizedTensor(q, scale.to(w.dtype))
 
 
-def quantize_params(params: Params, bits: int = 8) -> Params:
-    """Quantize every matmul weight of an :func:`init_params` tree to
-    int8; norms stay full precision, the embedding reduces over its last
-    axis (``(vocab, d)`` layout). Idempotent on quantized leaves."""
-    if bits != 8:
-        raise NotImplementedError(f"bits={bits}: only int8 is ported")
+class Int4Tensor:
+    """Group-wise int4 weights (``quant.py:104-176``): two values packed
+    per uint8 byte along the contraction axis, one fp32 scale per
+    (group, output channel).
+
+    ``p``: packed uint8; along ``pack_axis`` byte ``i`` holds values
+    ``2i`` (low nibble) and ``2i+1`` (high nibble). ``s``: fp32 scales
+    with the weight's rank, the packed axis reduced to its groups.
+    ``pack_axis`` is -2 for ``(..., in, out)`` projections and -1 for the
+    ``(vocab, d)`` embedding; negative, so it names the same axis in one
+    layer of a stacked leaf. ``dtype`` is the scales' (float32), unlike
+    :class:`QuantizedTensor`'s."""
+
+    __slots__ = ("p", "s", "group", "pack_axis")
+
+    def __init__(self, p: torch.Tensor, s: torch.Tensor, group: int,
+                 pack_axis: int):
+        self.p = p
+        self.s = s
+        self.group = group
+        self.pack_axis = pack_axis
+
+    @property
+    def shape(self):
+        shp = list(self.p.shape)
+        shp[self.pack_axis] *= 2
+        return tuple(shp)
+
+    @property
+    def dtype(self):
+        return self.s.dtype
+
+    @property
+    def device(self):
+        return self.p.device
+
+    def _unpack(self) -> torch.Tensor:
+        """The int values in [-7, 7] in the weight's shape (int8: the
+        JAX package's int32 values, in a narrower type)."""
+        ax = self.pack_axis % self.p.dim()
+        # sign-extend each nibble: (n ^ 8) - 8
+        lo = ((self.p & 0xF) ^ 8).to(torch.int8) - 8
+        hi = ((self.p >> 4) ^ 8).to(torch.int8) - 8
+        return torch.stack([lo, hi], dim=ax + 1).reshape(self.shape)
+
+    def dequantize(self, dtype=None) -> torch.Tensor:
+        """fp32 products of the values and their group's scale, then one
+        cast (to ``dtype``, else the scales' float32)."""
+        ax = self.pack_axis % self.p.dim()
+        u = self._unpack()
+        K = u.shape[ax]
+        grouped = list(u.shape)
+        grouped[ax:ax + 1] = [K // self.group, self.group]
+        out = u.reshape(grouped).float() * self.s.float().unsqueeze(ax + 1)
+        return out.reshape(self.shape).to(dtype or self.s.dtype)
+
+    def to(self, device) -> "Int4Tensor":
+        return Int4Tensor(self.p.to(device), self.s.to(device), self.group,
+                          self.pack_axis)
+
+    def layer(self, li: int) -> "Int4Tensor":
+        """One layer of a stacked (L, ...) leaf (views, no copy)."""
+        return Int4Tensor(self.p[li], self.s[li], self.group, self.pack_axis)
+
+    def __repr__(self):
+        return (f"Int4Tensor(shape={self.shape}, group={self.group}, "
+                f"pack_axis={self.pack_axis})")
+
+
+#: the quantized leaf types of a params tree
+QUANT_TYPES = (QuantizedTensor, Int4Tensor)
+
+
+def quantize_tensor_int4(w: torch.Tensor, reduce_axis: int = -2,
+                         group: int = 128) -> Int4Tensor:
+    """Symmetric group-wise int4 (``quant.py:179-205``): the contraction
+    axis splits into runs of ``min(group, K)``, each with one fp32 scale
+    ``amax / 7`` per output channel; values are rounded half to even and
+    clipped to [-7, 7], then packed two per byte along the same axis."""
+    ax = reduce_axis % w.dim()
+    K = w.shape[ax]
+    g = min(group, K)
+    if K % g or K % 2:
+        raise ValueError(f"contraction dim {K} must be even and "
+                         f"divisible by group={g}")
+    grouped = list(w.shape)
+    grouped[ax:ax + 1] = [K // g, g]
+    wg = w.float().reshape(grouped)
+    amax = torch.clamp(wg.abs().amax(dim=ax + 1, keepdim=True), min=1e-8)
+    # a tensor divisor: CUDA divides by a scalar as a product with its
+    # reciprocal, one ulp away from the JAX package's quotient
+    scale = amax / torch.full_like(amax, 7.0)
+    q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int16)
+    q = q.reshape(w.shape)
+    even = [slice(None)] * q.dim()
+    odd = list(even)
+    even[ax], odd[ax] = slice(0, None, 2), slice(1, None, 2)
+    lo, hi = q[tuple(even)], q[tuple(odd)]
+    packed = ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8)
+    return Int4Tensor(packed, scale.squeeze(ax + 1), g, reduce_axis)
+
+
+def _quantize_leaf(w: torch.Tensor, reduce_axis: int, bits: int,
+                   group: int):
+    """One weight leaf; a stacked (L, ...) leaf quantizes one layer at a
+    time (groups and channels never span layers, so the result is the
+    whole leaf's), so a 7B-class stack never needs its fp32 copy whole."""
+    def one(t):
+        if bits == 4:
+            return quantize_tensor_int4(t, reduce_axis, group)
+        return quantize_tensor(t, reduce_axis)
+
+    if w.dim() < 3:
+        return one(w)
+    parts = [one(w[i]) for i in range(w.shape[0])]
+    if bits == 4:
+        return Int4Tensor(torch.stack([t.p for t in parts]),
+                          torch.stack([t.s for t in parts]),
+                          parts[0].group, reduce_axis)
+    return QuantizedTensor(torch.stack([t.q for t in parts]),
+                           torch.stack([t.s for t in parts]))
+
+
+def quantize_params(params: Params, bits: int = 8,
+                    group: int = 128) -> Params:
+    """Quantize every matmul weight of an :func:`init_params` tree:
+    ``bits=8`` per-channel int8 (:class:`QuantizedTensor`), ``bits=4``
+    group-wise packed int4 (:class:`Int4Tensor`, groups of ``group``
+    along the contraction axis). Norms stay full precision, the
+    embedding reduces over its last axis (``(vocab, d)`` layout).
+    Idempotent on quantized leaves of either type."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
 
     def walk(tree, key=""):
-        if isinstance(tree, QuantizedTensor):
+        if isinstance(tree, QUANT_TYPES):
             return tree
         if isinstance(tree, dict):
             return {k: (tree[k] if k in _SKIP_KEYS else walk(tree[k], k))
                     for k in tree}
-        return quantize_tensor(tree, reduce_axis=-1 if key == "embed" else -2)
+        return _quantize_leaf(tree, -1 if key == "embed" else -2, bits,
+                              group)
 
     return walk(params)
 
 
 def weight(leaf, dtype=None) -> torch.Tensor:
     """A usable weight from a params leaf: dequantize a
-    :class:`QuantizedTensor`, pass tensors through (cast)."""
-    if isinstance(leaf, QuantizedTensor):
+    :class:`QuantizedTensor` or :class:`Int4Tensor`, pass tensors
+    through (cast)."""
+    if isinstance(leaf, QUANT_TYPES):
         return leaf.dequantize(dtype)
     return leaf if dtype is None else leaf.to(dtype)
 
@@ -117,8 +250,9 @@ def _dot_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def qdot(x2: torch.Tensor, leaf, *, compute_dtype=None,
          transpose_w: bool = False) -> torch.Tensor:
-    """(M, K) contraction against a params leaf -> fp32 (M, N); a
-    quantized leaf at ``M <= 256`` takes the w8a16 kernel."""
+    """(M, K) contraction against a params leaf -> fp32 (M, N); an int8
+    leaf at ``M <= 256`` takes the w8a16 kernel, an :class:`Int4Tensor`
+    dequantizes to ``compute_dtype`` at any M (``quant.py:339-366``)."""
     if isinstance(leaf, QuantizedTensor) and x2.shape[0] <= _QDOT_MAX_M:
         if transpose_w:
             return quant_matmul_t(x2, leaf.q, leaf.s)
@@ -139,6 +273,8 @@ def qdot_stacked(x2: torch.Tensor, leaf, layer: int, *,
         w = (leaf.q[layer].float()
              * leaf.s[layer].float().reshape(1, N))
         w = w.to(compute_dtype or leaf.s.dtype)
+    elif isinstance(leaf, Int4Tensor):
+        w = leaf.layer(layer).dequantize(compute_dtype)
     else:
         w = leaf[layer]
         if compute_dtype is not None:
@@ -148,11 +284,15 @@ def qdot_stacked(x2: torch.Tensor, leaf, layer: int, *,
 
 def embed_lookup(leaf, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding gather that dequantizes AFTER the gather (a full-table
-    dequantize would materialize the V x D matrix int8 exists to
-    avoid)."""
+    dequantize would materialize the V x D matrix quantization exists to
+    avoid): an :class:`Int4Tensor` table gathers its packed rows and
+    their group scales, so it stays packed."""
     tokens = tokens.long()
     if isinstance(leaf, QuantizedTensor):
         rows = leaf.q[tokens].float()
         scales = leaf.s[tokens].float()            # (..., 1) per row
         return (rows * scales).to(leaf.s.dtype)
+    if isinstance(leaf, Int4Tensor):
+        return Int4Tensor(leaf.p[tokens], leaf.s[tokens], leaf.group,
+                          leaf.pack_axis).dequantize()
     return leaf[tokens]

@@ -49,9 +49,10 @@ handler, the server and the flags are the reference's, plus
 on the device from a seeded init (or a port checkpoint; the draft of
 ``--draft-*`` likewise from ``--draft-checkpoint``), merges one
 ``--lora`` adapter into the weights or serves several batched, and
-refuses the flags whose paths are not ported yet (``--from-env``,
-``--window`` > 0, ``--quantize-bits 4``, an orbax checkpoint), each
-with its ROADMAP item. The TPU host lock (``utils/tpulock.py``) is a
+serves ``--window`` (sliding-window attention) and ``--quantize-bits 4``
+(group-wise int4 weights over an int8 KV cache), and refuses the flags
+whose paths are not ported yet (``--from-env``, an orbax checkpoint),
+each with its ROADMAP item. The TPU host lock (``utils/tpulock.py``) is a
 rule of the TPU host's runtime and is not copied. Run via
 ``tpuslice-gpu-serve`` or
 ``python -m instaslice_tpu_torch.serving.api_server``.
@@ -1108,16 +1109,9 @@ def _refuse_unported(args) -> None:
     """Exit non-zero on a flag whose path is not ported yet, naming its
     ROADMAP queue A item, and on a checkpoint directory that holds no
     checkpoint of the port's own format."""
-    unported = [
-        (args.from_env, "--from-env", "the parallel layer"),
-        (args.window > 0, "--window", "sliding window and int4"),
-        (args.quantize_bits == 4, "--quantize-bits 4",
-         "sliding window and int4"),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise SystemExit(f"{flag} is not ported yet ({item}: ROADMAP "
-                             "queue A)")
+    if args.from_env:
+        raise SystemExit("--from-env is not ported yet (the parallel layer: "
+                         "ROADMAP queue A)")
     from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
 
     def missing(path: str) -> bool:
@@ -1195,12 +1189,15 @@ def _load_adapters(args):
 
 def build_engine(args) -> ServingEngine:
     """Model + params (seeded init on the device, optionally restored
-    from a port checkpoint, optionally int8-quantized with an int8 KV
-    cache), plus the ``--draft-*`` draft model (bf16, seeded or restored
-    from ``--draft-checkpoint``) -> engine, warmed before traffic. One
-    ``--lora`` adapter merges into the bf16 weights BEFORE ``--quantize``
-    (``eng.merged_adapter`` names it); two or more serve batched as
-    runtime adapters named by their directories' basenames. Split from
+    from a port checkpoint, optionally int8- or int4-quantized with an
+    int8 KV cache; ``--quantize-bits`` implies ``--quantize``), plus the
+    ``--draft-*`` draft model (bf16, seeded or restored from
+    ``--draft-checkpoint``; it inherits ``--window``) -> engine, warmed
+    before traffic. One ``--lora`` adapter merges into the bf16 weights
+    BEFORE ``--quantize`` (int4 included; ``eng.merged_adapter`` names
+    it); two or more serve batched as runtime adapters named by their
+    directories' basenames, their deltas added to the dequantized
+    product over an int4 base. Split from
     :func:`main` so tests and ``chip_smoke.py`` drive the exact CLI
     wiring."""
     import dataclasses

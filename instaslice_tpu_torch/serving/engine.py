@@ -59,7 +59,14 @@ As in the JAX engine:
   path (``adapter_fastpath``), counted in ``fastpath_rounds`` against
   ``gathered_rounds``. Adapter requests neither read nor feed the radix
   cache, which holds base-model KV only; the adapter rides
-  preempt/resume and session export/import.
+  preempt/resume and session export/import;
+- **sliding windows and int4**: a windowed model (``ModelConfig.window``)
+  serves through every path above; a decode step whose attended bucket
+  is wider than ``window - 1`` reads each row's window band
+  (:func:`~instaslice_tpu_torch.models.lm.window_band`) instead of B1, a
+  route by shape counted in ``band_steps``. Int4 weights
+  (:class:`~instaslice_tpu_torch.models.quant.Int4Tensor`) serve like
+  int8 ones, dequantized at each use.
 
 What the JAX engine has and this port does not yet: the mesh (tensor
 parallelism, ROADMAP queue A). The scheduler's guards keep it off
@@ -83,7 +90,7 @@ from typing import Dict, List, Optional
 import torch
 
 from instaslice_tpu_torch import resolve_device
-from instaslice_tpu_torch.models.lm import Params, TpuLM
+from instaslice_tpu_torch.models.lm import Params, TpuLM, window_band
 from instaslice_tpu_torch.models.lora import (
     _target_shapes,
     frozen,
@@ -382,6 +389,8 @@ class ServingEngine:
         #: batched) and decode steps (every step of every block)
         self.prefill_dispatches = 0
         self.decode_steps = 0
+        #: decode steps that read the sliding-window band (no B1)
+        self.band_steps = 0
         #: an in-flight decode block (dispatched, tokens not yet read)
         self._pending_block: Optional[dict] = None
         #: time.monotonic() stamp of the most recent decode readback
@@ -598,6 +607,9 @@ class ServingEngine:
                                   attend_len=attend_len, aidx=aidx,
                                   single=single)
         self.decode_steps += 1
+        if window_band(self.model.cfg, self.max_len,
+                       attend_len or self.max_len):
+            self.band_steps += 1
         return logits[:, 0]
 
     def _sample(self, logits: torch.Tensor, rows=None):
@@ -699,7 +711,9 @@ class ServingEngine:
         """What computes a decode step's attention: "B1" where the int8
         decode kernel launches, else "plain" and why. A model at an
         (hd, G) that B1 is not built for serves on the card all the
-        same, through the plain formulation; ``/v1/stats`` says so."""
+        same, through the plain formulation; ``/v1/stats`` says so. A
+        windowed model takes B1 up to ``window - 1`` attended positions
+        and its window band past them."""
         cfg = self.model.cfg
         hd, G = cfg.head_dim, cfg.n_heads // cfg.kv_heads
         if self.device.type != "cuda":
@@ -708,6 +722,9 @@ class ServingEngine:
             return "plain (kv cache not int8)"
         if not _fd.kernel_built(hd, G):
             return f"plain (no B1 built for hd {hd}, G {G})"
+        if cfg.window and window_band(cfg, self.max_len, self.max_len):
+            return (f"B1 to {cfg.window - 1} attended positions, the "
+                    "window band past them")
         return "B1"
 
     def warm_prefill_buckets(self) -> None:
@@ -721,19 +738,24 @@ class ServingEngine:
             raise RuntimeError(
                 "warm_prefill_buckets must run before any admission "
                 "(it scribbles on slot 0's masked stripe)")
-        counts = (self.prefill_dispatches, self.decode_steps)
+        counts = (self.prefill_dispatches, self.decode_steps,
+                  self.band_steps)
         P = self.prefill_len
         if self.batched_prefill:
             for b in self._prefill_buckets:
                 self._prefill_batch([[0] * P] * b, [0] * b, [0] * b, b)
         self._prefill([0] * P, 0, 0)
+        # the first 256-position bucket, as a short decode block attends:
+        # a windowed model's whole cache would read its band, not B1
+        attend = 256 if self.max_len > 256 else 0
         with self._cache_write():
             self._decode_logits(torch.zeros_like(self.last_token),
-                                torch.zeros_like(self.lengths), 0,
+                                torch.zeros_like(self.lengths), attend,
                                 aidx=self.slot_adapter)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.prefill_dispatches, self.decode_steps = counts
+        self.prefill_dispatches, self.decode_steps, self.band_steps = \
+            counts
 
     # ------------------------------------------------------- slot release
 

@@ -885,3 +885,91 @@ def test_lora_decode_step_launch_counts_on_the_card(dev, monkeypatch):
     for (gk, lk), (gp, lp) in zip(kern, plain):
         assert gk == gp
         assert max(abs(a - b) for a, b in zip(lk, lp)) <= 5e-2
+
+
+# ----------------------------------------------- sliding window and int4
+
+def _windowed_decode(dev, window, prompt_len, attend):
+    """A windowed fp32 model (hd 128, G 2: B1 is built for it) with an
+    int8 KV cache: a prefill of 3 rows at staggered offsets, then one
+    decode step at ``attend``, on the CPU and on the card; the card's
+    launch counts over the decode step."""
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models.lm import TpuLM
+    cfg, params = _routing_model(dev, d_model=512, n_heads=4, n_kv_heads=2,
+                                 window=window)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, 256, (3, prompt_len), generator=gen)
+    lens = torch.tensor([0, 5, 11], dtype=torch.int32)
+    out = {}
+    for d in ("cpu", dev):
+        model = TpuLM(cfg)
+        p = _to(params, d)
+        cache = model.init_cache(3, 64, quant=True, device=d)
+        lg, cache = model.apply_with_cache(p, prompt.to(d), cache,
+                                           lens.to(d))
+        nxt = lg[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        lg1, _ = model.apply_with_cache(p, nxt[:, None], cache,
+                                        (lens + prompt_len).to(d),
+                                        attend_len=attend)
+        torch.cuda.synchronize()
+        out[str(d)] = (lg1[:, 0].cpu(), ops.launch_counts())
+    (l_cpu, _), (l_dev, counts) = out["cpu"], out[str(dev)]
+    assert float((l_dev - l_cpu).abs().max()) <= 1e-4 * float(
+        l_cpu.abs().max())
+    assert torch.equal(l_dev.argmax(-1), l_cpu.argmax(-1))
+    return cfg, counts
+
+
+def test_windowed_decode_past_the_band_on_the_card(dev, monkeypatch, caplog):
+    """Window 16 over a 64-position cache, rows at depths 20-31: each row
+    reads its band of 15 positions, no B1 launch, no plain-route log line,
+    and the CPU's logits."""
+    from instaslice_tpu_torch.models import lm
+    monkeypatch.setattr(lm, "_plain_logged", set())
+    caplog.set_level("WARNING", logger="instaslice_tpu_torch.models.lm")
+    cfg, counts = _windowed_decode(dev, 16, 20, 0)
+    assert lm.window_band(cfg, 64, 64) == 15
+    assert counts["quant_decode_attention"] == 0
+    assert not [r for r in caplog.records
+                if "no kernel is built" in r.getMessage()]
+
+
+def test_windowed_decode_inside_the_band_takes_b1(dev):
+    """Window 48, the decode step attending a 32-position bucket (no wider
+    than window - 1): no band, B1 once per layer, the CPU's logits."""
+    from instaslice_tpu_torch.models import lm
+    cfg, counts = _windowed_decode(dev, 48, 16, 32)
+    assert lm.window_band(cfg, 64, 32) == 0
+    assert counts["quant_decode_attention"] == cfg.n_layers
+
+
+def test_int4_dequantize_on_the_card_is_bit_equal(dev):
+    """Int4 unpacking, dequantization (fp32 and bf16), one layer of a
+    stacked leaf and an embedding gather on the card equal the CPU's bit
+    for bit (integer nibble arithmetic, one fp32 product per element)."""
+    from instaslice_tpu_torch.models.quant import embed_lookup, quantize_params
+    gen = torch.Generator().manual_seed(4)
+    tree = {"embed": torch.randn(300, 256, generator=gen),
+            "blocks": {"w_in": torch.randn(3, 256, 640, generator=gen)
+                       .to(torch.bfloat16)}}
+    cpu = quantize_params(tree, bits=4)
+    card = quantize_params(_to(tree, dev), bits=4)
+    toks = torch.randint(0, 300, (2, 7), generator=gen)
+    for name, leaf in (("embed", cpu["embed"]),
+                       ("w_in", cpu["blocks"]["w_in"])):
+        on = leaf.to(dev)
+        other = card["embed"] if name == "embed" else card["blocks"]["w_in"]
+        assert torch.equal(other.p.cpu(), leaf.p)
+        assert torch.equal(other.s.cpu(), leaf.s)
+        assert torch.equal(on._unpack().cpu(), leaf._unpack())
+        for dt in (None, torch.bfloat16):
+            assert torch.equal(on.dequantize(dt).cpu(), leaf.dequantize(dt))
+    assert torch.equal(cpu["blocks"]["w_in"].to(dev).layer(2)
+                       .dequantize(torch.bfloat16).cpu(),
+                       cpu["blocks"]["w_in"].layer(2)
+                       .dequantize(torch.bfloat16))
+    assert torch.equal(embed_lookup(cpu["embed"].to(dev), toks.to(dev)).cpu(),
+                       embed_lookup(cpu["embed"], toks))

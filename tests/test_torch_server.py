@@ -235,8 +235,6 @@ def test_session_routes_answer_like_the_reference(servers):
     (["--draft-n-layers", "1", "--draft-checkpoint", "EMPTY"],
      "orbax checkpoints are not read"),
     (["--from-env"], "the parallel layer"),
-    (["--window", "8"], "sliding window"),
-    (["--quantize-bits", "4"], "int4"),
     (["--checkpoint", "EMPTY"], "orbax checkpoints are not read"),
 ])
 def test_unported_flags_refuse_before_anything_is_built(flags, item,
