@@ -89,7 +89,28 @@ without a result line:
    master weights, bf16 compute) through ``make_train_step`` at batch 8 x
    1024 tokens: 1 warm-up and 4 timed steps on one batch, loss finite and
    falling, B5/B6/B7 launches exactly 16 per step; step ms, tokens/s,
-   MFU, device busy share and peak memory;
+   MFU, device busy share and peak memory; then the same step under
+   remat "dots" and "full" (B5 32 a step: the recompute runs it again),
+   not profiled;
+   moe: (a) ``bench_moe``'s dense/MoE forward pair at its defaults (L4
+   d2048, dense ff 8192 against 8 experts of ff 4096, top-2, B4 S512,
+   vocab 8192, bf16), each model's device time per forward from the
+   profiler: ``moe_bench_overhead_pct``; (b) the MoE main path: the 871M
+   widths with 8 experts of d_ff 4096, top-2, capacity 1.25 (2.48 B params,
+   fp32 masters) through ``make_train_step`` at batch 8 x 1024 under
+   remat "dots": 1 warm-up and 3 timed steps, loss finite and falling,
+   the load-balance term finite and in (0, 8], B5 32 and B6/B7 16
+   launches a step;
+   step ms, tokens/s, MFU over the active parameters, peak memory, device
+   time by class; then remat "full", and no remat (an out-of-memory is
+   recorded as a reading), not profiled; (c) its 2-layer fp32 cut, CPU against card,
+   within the train cut's bounds; (d) ``quantize_params`` of its bf16
+   weights served by ``ServingEngine`` (batch 8, max_len 1024, prefill
+   128) on 8 prompts: B4 4 per layer and B3 once per forward, B1 and B2
+   none (gated off for MoE, as in the reference), decode tok/s and device
+   ms a step, and a 2-layer int8 cut of its cache forward in fp32, CPU
+   against card, with equal greedy tokens; (e) B4 against its plain
+   version at (M, 2048) x (2048, 2048), M = 1 ... 256, timed at M = 8;
 7. CLI: ``instaslice_tpu_torch.cli.train_main`` on a synthetic corpus at
    the 871M defaults, 3 steps at ``--seq-len 1024`` (rows of 1025
    tokens: the ragged path), its JSON line checked;
@@ -134,8 +155,11 @@ a step; step ms, tokens/s and peak memory beside the full step's; the
 training CLI twice (``--lora-rank 8 --quantize-base``) and an 871M
 ``--quantize`` server answering one completion on each of its adapters.
 
-Then the ``kernels`` JSON line (launches: B1-B4 from the serve phase,
-B5-B7 from the train phase; ``engine_launches`` from phase 3,
+Then the ``kernels`` JSON line (launches: B1-B3 from the serve phase,
+B4 from the moe phase's engine (its times at that path's 2048 x 2048,
+the 7B-shaped reading in ``detail_7b_wq``), B5-B7 from the train phase;
+``moe_launches`` from the moe phase's engine (B1-B4) and MoE train steps
+(B5-B7); ``engine_launches`` from phase 3,
 ``spec_launches`` from the spec phase's engine, ``lora_launches`` from the
 lora phase's server (B1-B4) and QLoRA steps (B5-B7), ``window_launches``
 and ``int4_launches`` from the window and int4 phases' servers;
@@ -215,6 +239,14 @@ KERNEL_CLASSES = (
     ("reductions", ("reduce",)),
 )
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+#: ``bench_moe``'s defaults (``instaslice_tpu/bench_tpu.py:794-797``): a
+#: dense model against the MoE of matched active FLOPs (expert d_ff =
+#: dense d_ff / top_k, ``:802-807``), bf16 forward only
+MOE_BENCH = dict(d_model=2048, n_heads=16, n_layers=4, dense_ff=8192,
+                 n_experts=8, top_k=2, batch=4, seq=512, vocab=8192)
+#: forwards in the profiled window of each model
+MOE_BENCH_FWDS = 2
 
 
 def free_memory(torch) -> None:
@@ -550,8 +582,8 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
         "name": "quant_matmul", "route": "cuda",
         "source": "instaslice_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "instaslice_tpu/ops/quant_matmul.py:66",
-        "work": "one unstacked 4096 x 4096 int8 weight at M=8 (not on "
-                "the main path: the stacked route serves it)",
+        "work": "one unstacked 4096 x 4096 int8 weight (a 7B wq layer) "
+                "at M=8",
         "max_abs_err": errs["max_abs"], "rel_l2_err": errs["rel_l2"],
         "tile_rel_l2_err": errs["tile_rel_l2"], "tol": QMM_TOL_TEXT,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
@@ -805,7 +837,7 @@ def device_busy(torch, run, n_steps: int):
     return {"ms_per_step": total, "top": top, "by_class": by_class}
 
 
-def phase_cut(torch, cfg, qp) -> dict:
+def phase_cut(torch, cfg, qp, what: str = "cut") -> dict:
     """2 layers of the same weights: CPU plain versions vs card kernels,
     one prefill and 4 greedy decode steps (the CPU's tokens fed to
     both)."""
@@ -846,14 +878,14 @@ def phase_cut(torch, cfg, qp) -> dict:
         # measured gap is ~5e-4 of max|logit| (H100); 5e-3 leaves 10x
         tol = 5e-3 * float(ref.abs().max())
         err = float((got - ref).abs().max())
-        check(err <= tol, f"cut step {step}: logits err {err} > {tol}")
+        check(err <= tol, f"{what} step {step}: logits err {err} > {tol}")
         worst = max(worst, err / float(ref.abs().max()))
         want_tok, got_tok = ref.argmax(-1), got.argmax(-1)
-        check(bool((want_tok == got_tok).all()), f"cut step {step}: greedy "
-              f"tokens {got_tok.tolist()} != {want_tok.tolist()}")
+        check(bool((want_tok == got_tok).all()), f"{what} step {step}: "
+              f"greedy tokens {got_tok.tolist()} != {want_tok.tolist()}")
         lens = lens + toks.shape[1]
         toks = want_tok[:, None]
-    log(f"cut: 2 layers, prefill 16 + 4 decode steps: max logit error "
+    log(f"{what}: 2 layers, prefill 16 + 4 decode steps: max logit error "
         f"{worst:.2e} of max|logit|, greedy tokens equal")
     return {"max_rel_err": worst}
 
@@ -2910,12 +2942,17 @@ def phase_int4(torch, ops) -> dict:
 
 
 def param_count(cfg) -> int:
-    """Matmul parameters of a dense TpuLM (the embedding once, tied
-    unembedding; norms left out): ``instaslice_tpu/bench_tpu.py:355``."""
+    """Matmul parameters a token runs through (the embedding once, tied
+    unembedding; norms left out): ``instaslice_tpu/bench_tpu.py:355``
+    for a dense TpuLM; an MoE layer counts its top-k experts and its
+    router (the active parameters)."""
     attn = (2 * cfg.d_model * cfg.n_heads * cfg.head_dim
             + 2 * cfg.d_model * cfg.kv_heads * cfg.head_dim)
-    return (cfg.vocab_size * cfg.d_model
-            + cfg.n_layers * (attn + 2 * cfg.d_model * cfg.d_ff))
+    mlp = 2 * cfg.d_model * cfg.d_ff
+    if cfg.n_experts:
+        mlp = mlp * min(cfg.expert_top_k, cfg.n_experts) \
+            + cfg.d_model * cfg.n_experts
+    return cfg.vocab_size * cfg.d_model + cfg.n_layers * (attn + mlp)
 
 
 def train_config(torch, n_layers: int = 16, **kw):
@@ -3178,23 +3215,37 @@ def phase_bf16_cut(torch, ops) -> dict:
     return {"loss_rel_err": loss_err, "grad_rel_l2_err": grad_err}
 
 
-def phase_train(torch, ops) -> dict:
-    """The training main path: the 871M train step at batch 8 x 1024,
-    launch counters zeroed just before and read just after."""
+def train_run(torch, ops, cfg, n_timed: int, what: str,
+              profile: bool) -> dict:
+    """``make_train_step`` on ``cfg`` at batch 8 x 1024: launch counters
+    zeroed just before a warm-up step and ``n_timed`` timed steps and
+    read just after; the loss finite and falling, B5 once per layer per
+    step (twice under remat: the recompute runs it again), B6 and B7 once,
+    no serving kernel; step ms, tokens/s, MFU over the active parameters,
+    peak memory, and with ``profile`` (the main path's run, not the
+    remat sweeps) the device time by kernel class. An MoE model also
+    reads its load-balance term before and after."""
     from instaslice_tpu_torch.models.lm import TpuLM
     from instaslice_tpu_torch.models.train import make_train_step
 
-    cfg = train_config(torch)
-    B, S, n_timed = 8, 1024, 4
+    B, S = 8, 1024
     # as the training CLI: the fp32-output unembedding in TF32 (exact on
     # the forward's bf16 operands; its backward rounds dlogits to TF32)
     torch.backends.cuda.matmul.allow_tf32 = True
-    init_fn, step_fn = make_train_step(TpuLM(cfg), learning_rate=3e-4,
+    model = TpuLM(cfg)
+    init_fn, step_fn = make_train_step(model, learning_rate=3e-4,
                                        grad_clip=1.0, device="cuda")
     state = init_fn(0)
     gen = torch.Generator(device="cuda").manual_seed(17)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device="cuda")
+
+    def aux_now() -> float:
+        with torch.no_grad():
+            return float(model.apply(state.params, tokens, unembed=False,
+                                     return_aux=True)[1])
+
+    auxes = [aux_now()] if cfg.n_experts else []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3208,35 +3259,293 @@ def phase_train(torch, ops) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     steps = 1 + n_timed
-    log(f"train: 871M B={B} S={S}, {steps} steps, losses {losses}, "
-        f"launches {counts}")
-    check(all(math.isfinite(x) for x in losses), "finite losses")
-    check(losses[-1] < losses[0], "the loss falls over the steps")
-    for name in FLASH:
-        check(counts[name] == cfg.n_layers * steps,
-              f"{name} launches = layers x steps")
+    remat = cfg.remat_policy if cfg.remat else "none"
+    log(f"{what}: B={B} S={S} remat {remat}, {steps} steps, losses "
+        f"{losses}, launches {counts}")
+    check(all(math.isfinite(x) for x in losses), f"{what}: finite losses")
+    check(losses[-1] < losses[0], f"{what}: the loss falls over the steps")
+    per_step = {"flash_fwd": cfg.n_layers * (2 if cfg.remat else 1),
+                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    for name, n in per_step.items():
+        check(counts[name] == n * steps,
+              f"{what}: {name} launches {counts[name]} = {n} x {steps}")
     check(all(counts[n] == 0 for n in counts if n not in FLASH),
-          "no serving kernel on the train path")
+          f"{what}: no serving kernel on the train path")
+    if cfg.n_experts:
+        auxes.append(aux_now())
+        # E * sum_e f_e P_e: 1 at perfect balance, E at collapse; a
+        # product of two means, it can fall below 1
+        check(all(math.isfinite(a) and 0.0 < a <= cfg.n_experts
+                  for a in auxes), f"{what}: aux {auxes} within (0, E]")
     step_s = wall / n_timed
     n_params = param_count(cfg)
     mfu = 6 * n_params * B * S / step_s / BF16_FLOPS
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    busy = device_busy(torch, lambda: step_fn(state, tokens), 1)
-    log(f"train: {step_s * 1e3:.1f} ms/step, {B * S / step_s:.0f} tokens/s, "
-        f"MFU {mfu:.4f} (6 x {n_params / 1e6:.1f}M x {B * S} tokens over "
-        f"989 TFLOP/s), peak memory {peak:.2f} GiB")
+    busy = (device_busy(torch, lambda: step_fn(state, tokens), 1)
+            if profile else None)
+    log(f"{what}: {step_s * 1e3:.1f} ms/step, {B * S / step_s:.0f} "
+        f"tokens/s, MFU {mfu:.4f} (6 x {n_params / 1e6:.1f}M active x "
+        f"{B * S} tokens over 989 TFLOP/s), peak memory {peak:.2f} GiB"
+        + (f", aux {auxes}" if auxes else ""))
     if busy is not None:
-        log(f"train: device busy {busy['ms_per_step']:.1f} ms per step = "
+        log(f"{what}: device busy {busy['ms_per_step']:.1f} ms per step = "
             f"{busy['ms_per_step'] / (step_s * 1e3):.1%}; by class "
             f"(ms/step): {busy['by_class']}; by kernel: {busy['top']}")
-    del state
-    torch.cuda.empty_cache()
+    del state, init_fn, step_fn
+    free_memory(torch)
     return {"counts": counts, "steps": steps, "losses": losses,
             "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
             "mfu": mfu, "params_m": n_params / 1e6, "peak_gib": peak,
-            "device_busy": busy}
+            "device_busy": busy, "remat": remat, "aux": auxes}
+
+
+def phase_train(torch, ops) -> dict:
+    """The training main path: the 871M train step at batch 8 x 1024, no
+    remat, launch counters zeroed just before and read just after; then
+    the same step under remat "dots" and "full" (the remat sweep of
+    ``bench_train_mfu``, ``instaslice_tpu/bench_tpu.py:646-655``), not
+    profiled."""
+    out = train_run(torch, ops, train_config(torch), 4, "train",
+                    profile=True)
+    out["remat_sweep"] = {}
+    for policy in ("dots", "full"):
+        r = train_run(torch, ops, train_config(torch, remat=True,
+                                               remat_policy=policy), 3,
+                      f"train remat {policy}", profile=False)
+        out["remat_sweep"][policy] = {k: r[k] for k in (
+            "step_ms", "tokens_per_s", "mfu", "peak_gib", "losses")}
+    return out
+
+
+# ---------------------------------------------------------------- moe phase
+
+
+def moe_config(torch, n_layers: int = 16, **kw):
+    """The MoE training configuration at the 871M's widths: 8 experts,
+    top-2, capacity factor 1.25, expert d_ff 4096 = the dense 8192 over
+    top_k, so a token's active FLOPs equal the dense model's
+    (``bench_moe``'s rule, ``instaslice_tpu/bench_tpu.py:802-807``);
+    fp32 masters, bf16 compute, remat "dots"."""
+    base = dict(n_experts=8, expert_top_k=2, expert_capacity_factor=1.25,
+                d_ff=4096, remat=True, remat_policy="dots")
+    base.update(kw)
+    return train_config(torch, n_layers=n_layers, **base)
+
+
+def moe_bench(torch) -> dict:
+    """``bench_moe`` at its defaults (``MOE_BENCH``): each model's device
+    time per forward from a profiler window of ``MOE_BENCH_FWDS`` forwards
+    after one warm-up, and ``moe_bench_overhead_pct`` = the MoE's over the
+    dense's. Device time, not the host's clock: eager PyTorch at this size
+    is partly host-bound, and a host reading measures the launch overhead
+    rather than the MoE's cost."""
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM, init_params
+
+    m = MOE_BENCH
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, m["vocab"], (m["batch"], m["seq"]),
+                           generator=gen, device="cuda")
+    out = {}
+    for kind in ("dense", "moe"):
+        moe = kind == "moe"
+        cfg = ModelConfig(vocab_size=m["vocab"], d_model=m["d_model"],
+                          n_heads=m["n_heads"], n_layers=m["n_layers"],
+                          d_ff=m["dense_ff"] // m["top_k"] if moe
+                          else m["dense_ff"],
+                          max_seq_len=m["seq"], dtype=torch.bfloat16,
+                          remat=False, n_experts=m["n_experts"] if moe
+                          else 0, expert_top_k=m["top_k"])
+        model, params = TpuLM(cfg), init_params(cfg, 12, device="cuda")
+
+        def fwds():
+            for _ in range(MOE_BENCH_FWDS):
+                model.apply(params, tokens)
+
+        with torch.no_grad():
+            fwds()                                  # warm-up
+            busy = device_busy(torch, fwds, MOE_BENCH_FWDS)
+        check(busy is not None, f"moe bench: {kind} device time read")
+        out[f"{kind}_fwd_device_ms"] = busy["ms_per_step"]
+        out[f"{kind}_fwd_device_by_class"] = busy["by_class"]
+        del model, params
+        free_memory(torch)
+    out["moe_bench_overhead_pct"] = (
+        100.0 * (out["moe_fwd_device_ms"] - out["dense_fwd_device_ms"])
+        / out["dense_fwd_device_ms"])
+    log(f"moe bench: L{m['n_layers']} d{m['d_model']} ff{m['dense_ff']} "
+        f"B{m['batch']} S{m['seq']} vs E{m['n_experts']} top{m['top_k']} "
+        f"expert_ff{m['dense_ff'] // m['top_k']} (matched active FLOPs), "
+        f"bf16 forward, device ms per forward: dense "
+        f"{out['dense_fwd_device_ms']:.3f}, moe {out['moe_fwd_device_ms']:.3f}"
+        f"; moe_bench_overhead_pct {out['moe_bench_overhead_pct']:.1f}; by "
+        f"class: dense {out['dense_fwd_device_by_class']}, moe "
+        f"{out['moe_fwd_device_by_class']}")
+    return out
+
+
+def moe_engine(torch, ops, cfg, qp) -> dict:
+    """The MoE int8 cache forward, the first path that launches B4: the
+    int8 weights ``qp`` of the MoE configuration ``cfg`` served by
+    ``ServingEngine`` (batch 8, max_len 1024, prefill 128, int8 KV) on 8
+    prompts through ``generate``; launch counters zeroed just before and
+    read just after: B4 4 per layer (q, k, v, o) and B3 once per forward
+    (every forward has at most 256 rows), B1 and B2 none (gated off for
+    MoE, as in the reference); then decode tok/s and device ms a step."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(TpuLM(cfg), qp, max_batch=8, max_len=1024,
+                        prefill_len=128, kv_quant=True, device="cuda")
+    check(eng.attention_route().startswith("plain (mixture-of-experts"),
+          f"moe engine route {eng.attention_route()!r}")
+    gen = torch.Generator().manual_seed(11)
+    plens = [300, 200, 129, 100, 64, 33, 17, 5]
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in plens]
+    max_new = 32
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    eng.decode_steps = eng.prefill_dispatches = 0
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, max_new_tokens=max_new, block_size=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps, chunks = eng.decode_steps, eng.prefill_dispatches
+    log(f"moe engine: generate 8 prompts {plens} x {max_new} tokens in "
+        f"{wall:.2f} s: {chunks} prefill chunks, {steps} decode steps, "
+        f"launches {counts}")
+    check(len(results) == 8 and all(len(r.tokens) == max_new
+                                     for r in results), "moe engine tokens")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
+          "moe engine tokens in range")
+    check(eng.kv.used_blocks() == eng.radix.pool_blocks(),
+          "moe engine: no leaked KV blocks")
+    L = cfg.n_layers
+    forwards = steps + chunks              # every chunk has M=128 <= 256
+    check(chunks == sum(-(-n // 128) for n in plens), "prefill chunks")
+    check(counts["quant_matmul"] == 4 * L * forwards > 0,
+          "B4 launches = 4 x layers x forwards")
+    check(counts["quant_matmul_t"] == forwards, "B3 launches = forwards")
+    check(counts["quant_matmul_stacked"] == 0
+          and counts["quant_decode_attention"] == 0,
+          "B1 and B2 are gated off for MoE")
+    check(all(counts[n] == 0 for n in FLASH), "B5-B7 are not on this path")
+    tok_s = eng.throughput(n_steps=32)
+    for _ in range(8 - len(eng.slots)):
+        eng.add_request([1, 2, 3])
+    eng.decode_block(1)
+    busy = device_busy(torch, lambda: eng.decode_block(2), 2)
+    log(f"moe engine: decode {tok_s:.1f} tok/s at batch 8 "
+        f"({8 / tok_s * 1e3:.2f} ms/step on the host clock)"
+        + (f", device busy {busy['ms_per_step']:.2f} ms per decode step; "
+           f"by kernel (ms/step): {busy['top']}" if busy else ""))
+    out = {"counts": counts, "decode_steps": steps, "prefill_chunks": chunks,
+           "generate_s": wall, "decode_tok_s": tok_s,
+           "device_busy": busy, "weights_gib": tree_gib(qp)}
+    del eng
+    return out
+
+
+def moe_b4(torch, qm, wq, L: int) -> dict:
+    """B4 against its plain version at the MoE path's shape, (M, 2048) x
+    (2048, 2048) int8 (one layer's wq), M = 1 ... 256 in bf16 and fp32;
+    two runs bit-equal; timed at M = 8 like phase 2 (graph replay over
+    the L layers' weights, so the weight is not in L2), beside its plain
+    version and ``torch.matmul`` on the bf16 weight."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    K, N = wq.q.shape[1:]
+    errs = {}
+    for M in QMM_MS:
+        x32 = torch.randn((M, K), generator=gen, device=dev)
+        for xin in (x32.to(torch.bfloat16), x32):
+            got = qm.quant_matmul(xin, wq.q[L - 1], wq.s[L - 1])
+            want = qm.quant_matmul_ref(xin, wq.q[L - 1], wq.s[L - 1])
+            worse(errs, check_qmm(torch, qm, got, want, f"B4 {K}x{N} M={M} "
+                                  f"{xin.dtype}", xin.dtype, M, K, N, False))
+            again = qm.quant_matmul(xin, wq.q[L - 1], wq.s[L - 1])
+            check(bool(torch.equal(got, again)),
+                  f"B4 {K}x{N} M={M}: two runs bit-equal")
+    x = torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
+    wb = [wq.layer(li).dequantize(torch.bfloat16) for li in range(L)]
+    ms = graph_ms(torch, lambda i: qm.quant_matmul(
+        x, wq.q[i % L], wq.s[i % L]), L)
+    plain = graph_ms(torch, lambda i: qm.quant_matmul_ref(
+        x, wq.q[i % L], wq.s[i % L]), 8, replays=2)
+    lib = graph_ms(torch, lambda i: torch.matmul(x, wb[i % L]), L)
+    del wb
+    nbytes = K * N + 2 * N + 2 * 8 * K + 4 * 8 * N
+    b_ms, b_by = bound(nbytes, 2 * 8 * K * N)
+    log(f"moe: B4 {K}x{N} M=8: {ms * 1e3:.1f} us = {gbs(nbytes, ms):.0f} "
+        f"GB/s (bound {b_ms * 1e3:.1f} us, {b_by}; plain "
+        f"{plain * 1e3:.1f}, library {lib * 1e3:.1f}); errors {errs}")
+    return {"errs": errs, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "gb_per_s": gbs(nbytes, ms)}
+
+
+def phase_moe(torch, ops) -> dict:
+    """(a) ``bench_moe``'s dense/MoE forward pair; (b) the MoE main path:
+    the MoE configuration through ``make_train_step`` at batch 8 x 1024
+    under remat "dots", then "full", then no remat (an OOM is recorded,
+    not fatal); (c) a 2-layer fp32 cut of it, CPU against card; (d) the
+    MoE int8 engine and a 2-layer int8 cut of its cache forward (fp32
+    compute, so that no top-2 choice is decided by bf16 rounding), CPU
+    against card; (e) B4 at the path's shape."""
+    from instaslice_tpu_torch.models.lm import init_params
+    from instaslice_tpu_torch.models.quant import quantize_params
+
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        secs[name] = round(time.perf_counter() - t0, 1)
+        free_memory(torch)
+        t0 = time.perf_counter()
+
+    out = {"bench": moe_bench(torch)}
+    lap("bench")
+    out["train"] = train_run(torch, ops, moe_config(torch), 3, "moe train",
+                             profile=True)
+    lap("train")
+    out["train_sweep"] = {}
+    r = train_run(torch, ops, moe_config(torch, remat_policy="full"), 3,
+                  "moe train remat full", profile=False)
+    out["train_sweep"]["full"] = {k: r[k] for k in (
+        "step_ms", "tokens_per_s", "mfu", "peak_gib", "losses", "aux")}
+    lap("train_full")
+    try:
+        r = train_run(torch, ops, moe_config(torch, remat=False), 3,
+                      "moe train remat none", profile=False)
+        out["train_sweep"]["none"] = {k: r[k] for k in (
+            "step_ms", "tokens_per_s", "mfu", "peak_gib", "losses", "aux")}
+    except torch.cuda.OutOfMemoryError as e:
+        msg = str(e).splitlines()[0]
+        log(f"moe train remat none: out of memory (measured): {msg}")
+        out["train_sweep"]["none"] = {"oom": msg}
+    lap("train_none")
+    out["train_cut"] = phase_train_cut(
+        torch, moe_config(torch, n_layers=2, dtype=torch.float32,
+                          param_dtype=None), "moe train cut")
+    lap("train_cut")
+    cfg = moe_config(torch, param_dtype=None, remat=False)
+    qp = quantize_params(init_params(cfg, 0, device="cuda"))
+    lap("engine_weights")
+    out["engine"] = moe_engine(torch, ops, cfg, qp)
+    lap("engine")
+    out["b4"] = moe_b4(torch, ops.quant_matmul, qp["blocks"]["wq"],
+                       cfg.n_layers)
+    del qp
+    lap("b4")
+    cut = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    out["cut"] = phase_cut(torch, cut, quantize_params(
+        init_params(cut, 0, device="cpu")), "moe int8 cut")
+    lap("int8_cut")
+    log(f"moe: seconds by part {secs}")
+    out["seconds"] = secs
+    return out
 
 
 def phase_cli(torch, ops) -> dict:
@@ -3269,10 +3578,11 @@ def phase_cli(torch, ops) -> dict:
     return {"line": line, "counts": counts}
 
 
-def phase_train_cut(torch) -> dict:
-    """2 layers of the 871M configuration in fp32 at batch 2 x 256: loss
-    and grads at the initial weights, then params after 3 AdamW steps
-    (clip 1.0, warmup 2, decay 3), CPU plain versions vs card kernels."""
+def phase_train_cut(torch, cfg=None, what: str = "train cut") -> dict:
+    """2 layers of the 871M configuration (or ``cfg``) in fp32 at batch
+    2 x 256: loss and grads at the initial weights, then params after 3
+    AdamW steps (clip 1.0, warmup 2, decay 3), CPU plain versions vs card
+    kernels."""
     from instaslice_tpu_torch.models.lm import TpuLM, init_params
     from instaslice_tpu_torch.models.train import (
         leaves,
@@ -3281,8 +3591,9 @@ def phase_train_cut(torch) -> dict:
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = train_config(torch, n_layers=2, dtype=torch.float32,
-                       param_dtype=None)
+    if cfg is None:
+        cfg = train_config(torch, n_layers=2, dtype=torch.float32,
+                           param_dtype=None)
     model = TpuLM(cfg)
     params = init_params(cfg, 3, device="cpu")
     gen = torch.Generator().manual_seed(19)
@@ -3311,13 +3622,13 @@ def phase_train_cut(torch) -> dict:
     grad_err = max(rel_l2(a, b) for a, b in zip(g_g, g_c))
     upd_err = max(rel_l2(a - w, b - w) for a, b, w in zip(p_g, p_c, p0))
     par_err = max(float((a - b).abs().max()) for a, b in zip(p_g, p_c))
-    log(f"train cut: losses cpu {ls_c} card {ls_g}; loss rel err "
+    log(f"{what}: losses cpu {ls_c} card {ls_g}; loss rel err "
         f"{loss_err:.2e}, grads rel L2 err {grad_err:.2e}, param update "
         f"rel L2 err {upd_err:.2e}, param max abs err {par_err:.2e}")
-    check(loss_err <= CUT_TOL["loss"], f"train cut loss err {loss_err}")
-    check(grad_err <= CUT_TOL["grads"], f"train cut grads err {grad_err}")
-    check(upd_err <= CUT_TOL["update"], f"train cut update err {upd_err}")
-    check(par_err <= CUT_TOL["params"], f"train cut params err {par_err}")
+    check(loss_err <= CUT_TOL["loss"], f"{what} loss err {loss_err}")
+    check(grad_err <= CUT_TOL["grads"], f"{what} grads err {grad_err}")
+    check(upd_err <= CUT_TOL["update"], f"{what} update err {upd_err}")
+    check(par_err <= CUT_TOL["params"], f"{what} params err {par_err}")
     return {"loss_rel_err": loss_err, "grad_rel_l2_err": grad_err,
             "update_rel_l2_err": upd_err, "param_max_abs_err": par_err}
 
@@ -3414,6 +3725,9 @@ def main() -> int:
     train = phase_train(torch, ops)
     mark("train", t0)
     t0 = time.perf_counter()
+    moe = phase_moe(torch, ops)
+    mark("moe", t0)
+    t0 = time.perf_counter()
     cli = phase_cli(torch, ops)
     mark("cli", t0)
     t0 = time.perf_counter()
@@ -3436,12 +3750,31 @@ def main() -> int:
         k["engine_launches"] = eng["counts"][k["name"]]
         k["spec_launches"] = spec["counts"][k["name"]]
         k["lora_launches"] = lora_serve["counts"][k["name"]]
+        k["moe_launches"] = moe["engine"]["counts"][k["name"]]
         if k["name"] in spec["kernels"]:
             k["spec_detail"] = spec["kernels"][k["name"]]
+    # B4's main path is the MoE int8 engine: its launches there, its
+    # times at that path's shape; the 7B-shaped reading stays as detail
+    b4 = next(k for k in kernels if k["name"] == "quant_matmul")
+    b4["detail_7b_wq"] = {key: b4[key] for key in (
+        "work", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "gb_per_s")}
+    mb4 = moe["b4"]
+    b4.update(
+        work="one layer's wq of the MoE int8 engine, 2048 x 2048 at M=8",
+        launches=moe["engine"]["counts"]["quant_matmul"],
+        ms=mb4["ms"], plain_ms=mb4["plain_ms"], bound_ms=mb4["bound_ms"],
+        bound_by=mb4["bound_by"], library_ms=mb4["library_ms"],
+        gb_per_s=mb4["gb_per_s"],
+        max_abs_err=max(b4["max_abs_err"], mb4["errs"]["max_abs"]),
+        rel_l2_err=max(b4["rel_l2_err"], mb4["errs"]["rel_l2"]),
+        tile_rel_l2_err=max(b4["tile_rel_l2_err"],
+                            mb4["errs"]["tile_rel_l2"]))
     for k in train_kernels:
         k["launches"] = train["counts"][k["name"]]
         k["spec_launches"] = spec["counts"][k["name"]]
         k["lora_launches"] = lora_train["counts"][k["name"]]
+        k["moe_launches"] = moe["train"]["counts"][k["name"]]
     kernels += train_kernels
     for k in kernels:
         k["window_launches"] = window["counts"][k["name"]]
@@ -3473,6 +3806,7 @@ def main() -> int:
                     "int8_engine": {
                         "decode_tok_s_b8": eng["decode_tok_s"],
                         "device_ms_per_step": busy and busy["ms_per_step"]}}))
+    log(json.dumps({"card": card, "moe": moe}))
     tbusy = train["device_busy"]
     log(json.dumps({"card": card, "train_step_ms": train["step_ms"],
                     "train_tokens_per_s": train["tokens_per_s"],
@@ -3483,6 +3817,7 @@ def main() -> int:
                         tbusy and tbusy["ms_per_step"],
                     "train_device_ms_by_class": tbusy and tbusy["by_class"],
                     "train_losses": train["losses"],
+                    "train_remat_sweep": train["remat_sweep"],
                     "cli": cli["line"], "bf16_cut": bf16_cut,
                     "train_cut": cut}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)

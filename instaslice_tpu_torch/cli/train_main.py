@@ -21,9 +21,14 @@ not kept), int8-quantized with ``--quantize-base`` (QLoRA). The
 checkpoint then holds the adapter tree, which the server's ``--lora``
 reads.
 
+``--n-experts E`` trains the GShard top-2 mixture-of-experts model (the
+expert width is ``--d-ff``), its loss carrying the router's load-balance
+term; ``--remat full`` or ``dots`` rematerializes each block (``dots``
+keeps its unbatched matmul outputs).
+
 Flags of the reference that the port does not run yet exit non-zero
 and name their ROADMAP queue-A item: ``--ring``, ``--tp``/``--sp`` > 1,
-``--from-env``, ``--zero1``, ``--n-experts`` > 0, ``--remat dots``.
+``--from-env``, ``--zero1``.
 Dataset rows are ``seq_len + 1`` tokens wide, so the model runs at S =
 seq_len + 1, which the flash kernels take as it is.
 """
@@ -108,8 +113,6 @@ def _refuse_unported(args) -> None:
         (args.tp > 1 or args.sp > 1, "--tp/--sp > 1", "the parallel layer"),
         (args.from_env, "--from-env", "multi-host training"),
         (args.zero1, "--zero1", "the parallel layer"),
-        (args.n_experts > 0, "--n-experts", "MoE training"),
-        (args.remat == "dots", "--remat dots", "remat policy 'dots'"),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -173,8 +176,9 @@ def main(argv=None) -> int:
         # mixed precision on the card: bf16 compute, fp32 master weights
         param_dtype=(torch.float32 if on_card
                      and args.param_dtype == "float32" else None),
-        window=args.window, remat=args.remat != "none",
-        remat_policy="full",
+        n_experts=args.n_experts, window=args.window,
+        remat=args.remat != "none",
+        remat_policy="dots" if args.remat == "dots" else "full",
     )
     # the fp32-output products (the unembedding) run on the tensor cores
     # in TF32: exact on the forward's bf16 operands; the backward rounds

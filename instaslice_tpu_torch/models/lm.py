@@ -3,30 +3,38 @@
 
 Parameters are plain dicts of tensors in the JAX package's layout
 (per-layer leaves stacked ``(L, ...)``, projections ``(in, out)``, the
-``(vocab, d)`` embedding doubling as the unembedding, fp32 norm scales),
-so :mod:`instaslice_tpu_torch.bridge` moves weights across with no
+``(vocab, d)`` embedding doubling as the unembedding, fp32 norm scales;
+a mixture-of-experts model adds the fp32 ``router`` (L, D, E) and takes
+expert stacks ``w_in`` (L, E, D, F) and ``w_out`` (L, E, F, D)), so
+:mod:`instaslice_tpu_torch.bridge` moves weights across with no
 transpose. Ported here: :class:`ModelConfig`, :func:`init_params`, the
-full forward :func:`apply` (:meth:`TpuLM.apply`: dense MLP, GQA, causal
-attention through the flash-attention kernels at the head dims they are
-built for and the plain grouped formulation at others and under a sliding
-window, block remat "full" as ``torch.utils.checkpoint``; int8 and int4
+full forward :func:`apply` (:meth:`TpuLM.apply`: dense MLP or the GShard
+top-k MoE with its load-balance term, GQA, causal attention through the
+flash-attention kernels at the head dims they are built for and the
+plain grouped formulation at others and under a sliding window, block
+remat "full" and "dots" as ``torch.utils.checkpoint``; int8 and int4
 leaves dequantize one layer at a time, the QLoRA base),
-:func:`init_cache` and :func:`apply_with_cache` (dense MLP, bf16 or int8
-KV cache, sliding windows through the banded cache read, int8 or int4
-weights, multi-LoRA deltas per row). Not yet ported, and raising
-``NotImplementedError``: mixture-of-experts, ring and pipeline
-attention, remat "dots".
+:func:`init_cache` and :func:`apply_with_cache` (dense MLP or MoE, bf16
+or int8 KV cache, sliding windows through the banded cache read, int8 or
+int4 weights, multi-LoRA deltas per row). Not yet ported, and raising
+``NotImplementedError``: ring and pipeline attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from instaslice_tpu_torch import resolve_device
 from instaslice_tpu_torch.models.quant import (
@@ -62,10 +70,44 @@ def _log_plain_route(path: str, shape: Tuple) -> None:
                     "PyTorch formulation runs on the card", path, shape)
 
 #: block-level rematerialization policies (a copy of
-#: ``instaslice_tpu/parallel/pipeline.py: REMAT_POLICIES``); :func:`apply`
-#: runs "full" and raises on "dots", the cache forward never
-#: rematerializes
+#: ``instaslice_tpu/parallel/pipeline.py: REMAT_POLICIES``): "full" keeps
+#: only each block's inputs, "dots" also its contractions with no batch
+#: dimension (:func:`dots_policy`); the cache forward never rematerializes
 REMAT_POLICIES = ("full", "dots")
+
+#: the ops remat "dots" saves: a contraction with no batch dimension
+#: lands on ``mm`` (``torch.matmul`` of (..., K) by (K, N)); ``torch.einsum``
+#: lowers to ``bmm`` even without batch dims, so products meant to be
+#: saved are written as ``torch.matmul``
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Remat "dots", JAX's ``dots_with_no_batch_dims_saveable``
+    (``instaslice_tpu/parallel/pipeline.py:45-62``) as a selective
+    checkpoint policy: ``mm``/``addmm`` outputs are saved (the q/k/v/o and
+    dense-MLP projections, the MoE router), everything else is recomputed
+    in the backward, the batched ``bmm`` products (plain attention, the
+    MoE dispatch, expert and combine einsums) and the elementwise work
+    included. The flash kernels launch through ctypes, which a dispatch
+    policy never sees, so their forward (B5) runs again in the recompute,
+    as the reference recomputes its ``pallas_call``; the saved ``mm``
+    outputs are only read by what follows them (the kernels write their
+    own output buffers)."""
+    if op in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str, *args):
+    """``fn(*args)`` under block-level rematerialization (``apply_remat``
+    of the reference)."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
 
 #: per-layer projections the stacked w8a16 kernel serves
 BIG_NAMES = ("wq", "wk", "wv", "wo", "w_in", "w_out")
@@ -162,9 +204,10 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0, *,
     """Random weights in the JAX package's layout, from a torch
     generator (the draws differ from ``jax.random``'s; move the JAX
     package's own weights with :mod:`instaslice_tpu_torch.bridge` where
-    the two must agree)."""
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts is not ported yet")
+    the two must agree). A mixture-of-experts model draws the router
+    (L, D, E), stored fp32 whatever ``param_dtype`` is, then the expert
+    stacks w_in (L, E, D, F) and w_out (L, E, F, D) in the stored dtype
+    (``lm.py:239-246``)."""
     dev = resolve_device(device)
     gen = _generator(seed, dev)
     dt = cfg.stored_dtype
@@ -176,8 +219,14 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0, *,
         "ln2": {"scale": torch.ones((L, D), **ones)},
     }
     for name, shape in (("wq", (L, D, H * hd)), ("wk", (L, D, Hkv * hd)),
-                        ("wv", (L, D, Hkv * hd)), ("wo", (L, H * hd, D)),
-                        ("w_in", (L, D, Fd)), ("w_out", (L, Fd, D))):
+                        ("wv", (L, D, Hkv * hd)), ("wo", (L, H * hd, D))):
+        block[name] = _dense_init(gen, shape, dt, dev, stacked=True)
+    E = cfg.n_experts
+    if E:
+        block["router"] = _dense_init(gen, (L, D, E), torch.float32, dev,
+                                      stacked=True)
+    mlp = ((L, E, D, Fd), (L, E, Fd, D)) if E else ((L, D, Fd), (L, Fd, D))
+    for name, shape in zip(("w_in", "w_out"), mlp):
         block[name] = _dense_init(gen, shape, dt, dev, stacked=True)
     return {
         "embed": _dense_init(gen, (cfg.vocab_size, D), dt, dev, scale=1.0),
@@ -266,8 +315,11 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
-                       cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One pre-norm dense block (``lm.py:348-391``); x: (B, S, D).
+                       cos: torch.Tensor, sin: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm block (``lm.py:348-391``); x: (B, S, D). Returns
+    ``(x, aux)``: the MoE load-balance term (0.0 for a dense block) rides
+    alongside for the training loss.
 
     Weights are cast to ``cfg.dtype`` at each use, so fp32 master weights
     get fp32 grads through autograd. A ``cfg.dtype`` matmul returns its
@@ -276,7 +328,8 @@ def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     ``.astype(cfg.dtype)``, which is how q, k, v, the attention output
     projection and the MLP down projection come out there too. The MLP up
     projection differs by one rounding in bf16: the reference applies the
-    GELU to its fp32 sums, here they are rounded to ``cfg.dtype`` first."""
+    GELU to its fp32 sums, here they are rounded to ``cfg.dtype`` first
+    (the experts' up projection in :func:`_moe_mlp` likewise)."""
     dt = cfg.dtype
     B, S = x.shape[:2]
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -290,10 +343,80 @@ def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     attn = attn.reshape(B, S, H * hd)
     x = x + torch.matmul(attn, weight(layer["wo"], dt))
     h = _rmsnorm(x, layer["ln2"]["scale"])
+    if cfg.n_experts:
+        y, aux = _moe_mlp(h, layer["router"], weight(layer["w_in"], dt),
+                          weight(layer["w_out"], dt), cfg.expert_top_k,
+                          cfg.expert_capacity_factor)
+        return x + y, aux
     # jax.nn.gelu defaults to the tanh form
     y = F.gelu(torch.matmul(h, weight(layer["w_in"], dt)).float(),
                approximate="tanh").to(dt)
-    return x + torch.matmul(y, weight(layer["w_out"], dt))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + torch.matmul(y, weight(layer["w_out"], dt)), aux
+
+
+def _moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
+             w_out: torch.Tensor, top_k: int = 2,
+             capacity_factor: float = 1.25
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE with capacity, GShard-style (``lm.py:394-472``):
+    static shapes, one-hot dispatch and combine einsums, each token
+    through only its top-k experts. x: (B, S, D) in the compute dtype;
+    router_w: (D, E) fp32; w_in: (E, D, F); w_out: (E, F, D).
+
+    Each expert takes at most ``C = max(1, ceil(capacity_factor · k · S /
+    E))`` (token, choice) pairs per batch row, earlier tokens first
+    (token-major: choice c of token s is pair s·k + c); a pair past its
+    expert's capacity is dropped (its dispatch and combine rows are zero)
+    and the token falls through the residual. The gates renormalize over
+    the k chosen when k > 1; at k == 1 the raw gate stays, the router's
+    only gradient path.
+
+    Returns ``(y, aux)``: y (B, S, D) in x's dtype and the load-balance
+    term ``E · Σ_e f_e · P_e`` (f_e: the share of tokens whose top-1
+    choice is e; P_e: the mean router probability of e): 1 at perfect
+    balance, up to E when the router collapses onto one expert.
+
+    Differences from the JAX code that change no value: ties in the
+    top-k break toward the lower expert index, as ``jax.lax.top_k``
+    does, through a stable descending sort; the capacity one-hot is a
+    comparison with ``arange(C)``, all-zero at ``pos >= C`` as
+    ``jax.nn.one_hot`` is (``F.one_hot`` would raise there). Products
+    the reference takes with fp32 sums then casts (the dispatch, the two
+    expert products) are ``cfg.dtype`` einsums, whose fp32 sums round
+    once; the combine rounds once in both. The experts' up projection
+    rounds to the compute dtype before the GELU (one rounding in bf16
+    that the reference does not take, as in the dense block). The router
+    product is ``torch.matmul`` so remat "dots" saves it, as JAX's policy
+    saves that unbatched dot."""
+    B, S, D = x.shape
+    E = router_w.shape[-1]
+    k = min(top_k, E)
+    N = S * k
+    C = max(1, int(math.ceil(capacity_factor * k * S / E)))
+    dt = x.dtype
+    gates = torch.softmax(torch.matmul(x.float(), router_w.float()), dim=-1)
+    ranked, order = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = ranked[..., :k], order[..., :k]             # (B, S, k)
+    if k > 1:
+        topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    sel = F.one_hot(topi, E).float().reshape(B, N, E)
+    # position of each (token, choice) pair in its expert's buffer
+    pos = ((torch.cumsum(sel, dim=1) - sel) * sel).sum(-1).long()  # (B, N)
+    slot = (pos[..., None] == torch.arange(C, device=x.device)).to(dt)
+    disp = sel.to(dt)[:, :, :, None] * slot[:, :, None, :]   # (B, N, E, C)
+    comb = disp * topv.reshape(B, N)[:, :, None, None].to(dt)
+    # contract over (s, choice) against x itself, not x repeated k times
+    expert_in = torch.einsum("bskec,bsd->becd",
+                             disp.reshape(B, S, k, E, C), x)
+    h = torch.einsum("becd,edf->becf", expert_in, w_in)
+    h = F.gelu(h.float(), approximate="tanh").to(dt)
+    y_e = torch.einsum("becf,efd->becd", h, w_out)
+    y = torch.einsum("bskec,becd->bsd", comb.reshape(B, S, k, E, C), y_e)
+    f_e = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
+    p_e = gates.mean(dim=(0, 1))
+    aux = E * (f_e * p_e).sum()
+    return y.to(dt), aux
 
 
 def unembed(x: torch.Tensor, embed_leaf, dtype) -> torch.Tensor:
@@ -330,30 +453,31 @@ def _layers(blocks: Params, n_layers: int):
 
 
 def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-          unembed_out: bool = True):
+          unembed_out: bool = True, return_aux: bool = False):
     """The full forward (``lm.py:484-568``): logits (B, S, vocab) fp32
     for ``tokens`` (B, S), or with ``unembed_out=False`` the final hidden
-    states (B, S, D) in ``cfg.dtype`` (the hook of the chunked loss)."""
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts is not ported")
+    states (B, S, D) in ``cfg.dtype`` (the hook of the chunked loss);
+    ``return_aux`` adds the MoE load-balance term averaged over layers
+    (0.0 for a dense model) as a second output."""
     if cfg.ring_attention:
         raise NotImplementedError("ring attention is not ported")
-    if cfg.remat and cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat policy 'dots' is not ported (ROADMAP queue A); use "
-            "'full' or remat=False")
     B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     cos, sin = _rope_tables(positions, cfg.head_dim)
+    auxes = []
     for layer in _layers(params["blocks"], cfg.n_layers):
         if cfg.remat:
-            x = checkpoint(_transformer_block, cfg, layer, x, cos, sin,
-                           use_reentrant=False)
+            x, aux = _remat(_transformer_block, cfg.remat_policy, cfg, layer,
+                            x, cos, sin)
         else:
-            x = _transformer_block(cfg, layer, x, cos, sin)
+            x, aux = _transformer_block(cfg, layer, x, cos, sin)
+        auxes.append(aux)
     x = _rmsnorm(x, params["ln_f"]["scale"])
-    return unembed(x, params["embed"], cfg.dtype) if unembed_out else x
+    out = unembed(x, params["embed"], cfg.dtype) if unembed_out else x
+    if return_aux:
+        return out, torch.stack(auxes).mean()
+    return out
 
 
 def _kv_quantize(t: torch.Tensor):
@@ -485,10 +609,16 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     Decode (T = 1) over an int8 cache runs the decode-attention kernel
     plus :func:`merge_local` where the kernel is built for the head dim
-    and group (the plain grouped read otherwise) and no band is read,
-    as the reference gates its fused branch on ``not use_window``
-    (``lm.py:856-863``); int8 projections take the w8a16 kernels, int4
-    ones dequantize into ``torch.matmul``. Unlike the JAX package's
+    and group (the plain grouped read otherwise), no band is read and the
+    model is dense, as the reference gates its fused branch on ``not
+    use_window`` and ``not cfg.n_experts`` (``lm.py:856-866``); int8
+    projections take the w8a16 kernels (a dense model's six through the
+    stacked one, gated on ``not cfg.n_experts`` as at ``lm.py:872-876``;
+    an MoE model's four attention projections through the one-weight
+    kernel on each layer's slice), int4 ones dequantize into
+    ``torch.matmul``. An MoE layer's expert stacks dequantize one layer
+    at a time into :func:`_moe_mlp` (``lm.py:1008-1013``), whose
+    load-balance term is dropped, as in the reference. Unlike the JAX package's
     single post-scan write (``lm.py:1044-1066``) the fresh K/V land IN
     PLACE, per layer, right after that layer has read its prefix (or its
     band): the results are the same, because reads admit only ``s <
@@ -504,9 +634,8 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     through ``adapter_idx[0]`` (the engine's fast path when its live
     slots agree), equal to the gathered path bit for bit.
     """
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts is not ported")
     blocks = params["blocks"]
+    moe = bool(cfg.n_experts)
     quant = "k_s" in cache
     B, T = tokens.shape
     dev = tokens.device
@@ -523,15 +652,17 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions = lengths[:, None] + t_idx                      # (B, T)
     cos, sin = _rope_tables(positions, hd)     # shared by every layer
     band = window_band(cfg, S_cache, S_max)
-    # B1 where it is built for the shape and no band is read; the grouped
-    # plain read of the cache otherwise, as the reference gates its fused
-    # branch (the band is a route by shape, not logged as a plain one)
-    use_fdk = quant and T == 1 and not band and _fd.kernel_built(hd, G)
-    if quant and T == 1 and not band and not use_fdk and tokens.is_cuda:
+    # B1 where it is built for the shape, no band is read and the model
+    # is dense; the grouped plain read of the cache otherwise, as the
+    # reference gates its fused branch (the band and MoE are routes by
+    # design, not logged as plain ones)
+    fdk_path = quant and T == 1 and not band and not moe
+    use_fdk = fdk_path and _fd.kernel_built(hd, G)
+    if fdk_path and not use_fdk and tokens.is_cuda:
         _log_plain_route("int8 decode attention (B1)",
                          (("hd", hd), ("G", G)))
-    use_stacked = all(isinstance(blocks.get(nm), QuantizedTensor)
-                      for nm in BIG_NAMES)
+    use_stacked = not moe and all(
+        isinstance(blocks.get(nm), QuantizedTensor) for nm in BIG_NAMES)
     if band:
         start = torch.clamp(lengths - (cfg.window - 1), 0, S_cache - band)
         s_abs = start[:, None] + torch.arange(band, dtype=torch.int32,
@@ -566,17 +697,19 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                single_adapter, B)
                   if lora is not None and adapter_idx is not None else None)
 
+    def at_layer(name: str, li: int):
+        """Layer ``li`` of a stacked leaf (views; a quantized leaf stays
+        quantized)."""
+        leaf = blocks[name]
+        return leaf.layer(li) if isinstance(leaf, QUANT_TYPES) else leaf[li]
+
     for li in range(cfg.n_layers):
         def proj(h_in, name, out_fp32=False):
             h2 = h_in.reshape(B * T, -1)
-            leaf = blocks[name]
             if use_stacked:
-                y = qdot_stacked(h2, leaf, li, compute_dtype=dt)
+                y = qdot_stacked(h2, blocks[name], li, compute_dtype=dt)
             else:
-                layer_leaf = (leaf.layer(li)
-                              if isinstance(leaf, QUANT_TYPES)
-                              else leaf[li])
-                y = qdot(h2, layer_leaf, compute_dtype=dt)
+                y = qdot(h2, at_layer(name, li), compute_dtype=dt)
             y = y.reshape(B, T, -1)
             if lora_delta is not None:
                 d = lora_delta(h_in, name, li)
@@ -647,10 +780,16 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             _write_fresh(cache["v_s"], li, rows, wpos, v_sc)
         x = x + proj(attn, "wo")
         h = _rmsnorm(x, blocks["ln2"]["scale"][li])
-        y = proj(h, "w_in", out_fp32=True)
-        # jax.nn.gelu defaults to the tanh form
-        y = F.gelu(y, approximate="tanh").to(dt)
-        x = x + proj(y, "w_out")
+        if moe:
+            y, _ = _moe_mlp(h, blocks["router"][li],
+                            weight(at_layer("w_in", li), dt),
+                            weight(at_layer("w_out", li), dt),
+                            cfg.expert_top_k, cfg.expert_capacity_factor)
+        else:
+            y = proj(h, "w_in", out_fp32=True)
+            # jax.nn.gelu defaults to the tanh form
+            y = proj(F.gelu(y, approximate="tanh").to(dt), "w_out")
+        x = x + y
     x = _rmsnorm(x, params["ln_f"]["scale"])
     logits = qdot(x.reshape(B * T, -1), params["embed"], compute_dtype=dt,
                   transpose_w=True).reshape(B, T, -1)
@@ -686,16 +825,13 @@ class TpuLM:
     def apply(self, params: Params, tokens: torch.Tensor, *, mesh=None,
               unembed: bool = True, return_aux: bool = False):
         """Logits (B, S, vocab) fp32, or the final hidden states with
-        ``unembed=False``; ``return_aux`` adds the MoE load-balance term
-        (0.0: only dense models are ported)."""
+        ``unembed=False``; ``return_aux`` adds the layer-averaged MoE
+        load-balance term (0.0 for a dense model)."""
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported: the "
                                       "forward runs on one card")
-        out = apply(self.cfg, params, tokens, unembed_out=unembed)
-        if return_aux:
-            return out, torch.zeros((), dtype=torch.float32,
-                                    device=out.device)
-        return out
+        return apply(self.cfg, params, tokens, unembed_out=unembed,
+                     return_aux=return_aux)
 
     def apply_pipelined(self, *args, **kwargs):
         raise NotImplementedError("pipeline parallelism is not ported: "

@@ -18,6 +18,9 @@ As in the JAX package:
   apply`);
 - ``B`` starts at zero, so a LoRA run's first loss is the frozen-base
   loss;
+- over a mixture-of-experts base only the attention projections take
+  adapters (the expert stacks are 4-D), and the loss carries the
+  router's load-balance term, as full training does;
 - serving: one adapter merges into the weights once (:func:`merge_lora`);
   several serve batched (:func:`stack_adapters`, the per-row deltas of
   :func:`~instaslice_tpu_torch.models.lm.apply_with_cache`).

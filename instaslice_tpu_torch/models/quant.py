@@ -193,7 +193,9 @@ def _quantize_leaf(w: torch.Tensor, reduce_axis: int, bits: int,
                    group: int):
     """One weight leaf; a stacked (L, ...) leaf quantizes one layer at a
     time (groups and channels never span layers, so the result is the
-    whole leaf's), so a 7B-class stack never needs its fp32 copy whole."""
+    whole leaf's), so a 7B-class stack never needs its fp32 copy whole.
+    An MoE expert stack (L, E, D, F) reduces over D per layer: int8
+    scales (L, E, 1, F), and ``layer(i)`` is that layer's (E, D, F)."""
     def one(t):
         if bits == 4:
             return quantize_tensor_int4(t, reduce_axis, group)

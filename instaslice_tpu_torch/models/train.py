@@ -5,12 +5,13 @@ on the card): the reference's mixed-precision recipe. The step is the
 reference's without the mesh: loss (chunked cross-entropy over the
 final hidden states), gradients (optionally accumulated over
 micro-batches in fp32), a global-norm clip, AdamW with an optional
-warmup-cosine schedule. Autograd replaces ``jax.value_and_grad``; the
-flash-attention kernels (B5 forward, B6 and B7 backward) run inside the
-model's attention.
+warmup-cosine schedule. A mixture-of-experts model adds
+``moe_aux_weight`` times its router load-balance term to the loss.
+Autograd replaces ``jax.value_and_grad``; the flash-attention kernels
+(B5 forward, B6 and B7 backward) run inside the model's attention.
 
 Not ported, and raising ``NotImplementedError``: pipeline parallelism
-(``n_micro``), ZeRO-1 (``zero1``), a device mesh, MoE's load-balance term.
+(``n_micro``), ZeRO-1 (``zero1``), a device mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ Params = Dict[str, Any]
 #: sequence-chunk length for the chunked cross-entropy (0 disables): the
 #: live (B, chunk, V) fp32 logits stay a fraction of the full (B, S, V)
 DEFAULT_LOSS_CHUNK = 512
+
+#: Switch/GShard default weight for the MoE load-balance term
+DEFAULT_MOE_AUX_WEIGHT = 0.01
 
 
 def leaves(params: Params) -> List[torch.Tensor]:
@@ -82,23 +86,33 @@ def _chunked_xent(embed_leaf, hidden, targets, mask,
 
 
 def loss_fn(model: TpuLM, params: Params, tokens: torch.Tensor,
-            loss_chunk: int = DEFAULT_LOSS_CHUNK) -> torch.Tensor:
-    """Next-token cross-entropy (``train.py:94-150``, dense, no
-    pipeline): tokens (B, S) predict ``roll(tokens, -1)``, the last
-    position has no target. ``loss_chunk`` > 0 takes the chunked loss, 0
-    the one-shot log-softmax over the full logits."""
+            loss_chunk: int = DEFAULT_LOSS_CHUNK,
+            moe_aux_weight: float = DEFAULT_MOE_AUX_WEIGHT) -> torch.Tensor:
+    """Next-token cross-entropy (``train.py:94-150``, no pipeline):
+    tokens (B, S) predict ``roll(tokens, -1)``, the last position has no
+    target. ``loss_chunk`` > 0 takes the chunked loss, 0 the one-shot
+    log-softmax over the full logits. An MoE model with
+    ``moe_aux_weight`` > 0 adds that weight times the layer-averaged
+    load-balance term (without it top-k routing collapses onto a few
+    experts and the capacity drops eat the batch)."""
     targets = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32,
                       device=tokens.device)
     mask[:, -1] = 0.0
     chunked = loss_chunk > 0
-    out = model.apply(params, tokens, unembed=not chunked)
+    want_aux = bool(model.cfg.n_experts) and moe_aux_weight > 0
+    out = model.apply(params, tokens, unembed=not chunked,
+                      return_aux=want_aux)
+    if want_aux:
+        out, aux = out
     if chunked:
-        return _chunked_xent(params["embed"], out, targets, mask,
+        xent = _chunked_xent(params["embed"], out, targets, mask,
                              loss_chunk) / mask.sum()
-    logp = torch.log_softmax(out, dim=-1)
-    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
-    return (nll * mask).sum() / mask.sum()
+    else:
+        logp = torch.log_softmax(out, dim=-1)
+        nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+        xent = (nll * mask).sum() / mask.sum()
+    return xent + moe_aux_weight * aux if want_aux else xent
 
 
 def warmup_cosine(peak: float, warmup_steps: int,
@@ -220,6 +234,7 @@ def make_train_step(
     *,
     learning_rate: float = 3e-4,
     loss_chunk: int = DEFAULT_LOSS_CHUNK,
+    moe_aux_weight: float = DEFAULT_MOE_AUX_WEIGHT,
     grad_accum: int = 1,
     grad_clip: float = 0.0,
     warmup_steps: int = 0,
@@ -255,7 +270,8 @@ def make_train_step(
         return TrainState(step=0, params=params, opt_state=opt)
 
     def loss_of(p, toks):
-        return loss_fn(model, p, toks, loss_chunk=loss_chunk)
+        return loss_fn(model, p, toks, loss_chunk=loss_chunk,
+                       moe_aux_weight=moe_aux_weight)
 
     def step_fn(state: TrainState, tokens: torch.Tensor):
         tokens = torch.as_tensor(tokens).to(dev)

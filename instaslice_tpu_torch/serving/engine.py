@@ -713,13 +713,16 @@ class ServingEngine:
         (hd, G) that B1 is not built for serves on the card all the
         same, through the plain formulation; ``/v1/stats`` says so. A
         windowed model takes B1 up to ``window - 1`` attended positions
-        and its window band past them."""
+        and its window band past them; a mixture-of-experts model never
+        takes it (the reference gates it off)."""
         cfg = self.model.cfg
         hd, G = cfg.head_dim, cfg.n_heads // cfg.kv_heads
         if self.device.type != "cuda":
             return "plain (cpu)"
         if not self.kv_quant:
             return "plain (kv cache not int8)"
+        if cfg.n_experts:
+            return "plain (mixture-of-experts: no B1, as in the reference)"
         if not _fd.kernel_built(hd, G):
             return f"plain (no B1 built for hd {hd}, G {G})"
         if cfg.window and window_band(cfg, self.max_len, self.max_len):

@@ -15,8 +15,6 @@ same softmax; the bf16 tolerance below covers that XLA rounds the
 dequantized prefix to bf16 and the port keeps it fp32.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,14 +124,3 @@ def test_attend_len_bucket_is_result_identical(kv_quant):
         out.append(lg)
     torch.testing.assert_close(out[0], out[1], atol=1e-6, rtol=1e-6)
 
-
-def test_unported_paths_raise():
-    _, tcfg = configs("fp32")
-    cache = tlm.init_cache(tcfg, 1, 16, device="cpu")
-    toks = torch.ones(1, 1, dtype=torch.int64)
-    lens = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tlm.apply_with_cache(dataclasses.replace(tcfg, n_experts=2),
-                             {"blocks": {}}, toks, cache, lens)
-    with pytest.raises(NotImplementedError):
-        tlm.TpuLM(dataclasses.replace(tcfg, n_experts=2)).apply({}, toks)

@@ -109,14 +109,11 @@ def test_apply_hidden_states_and_window():
 
 
 def test_apply_refuses_what_is_not_ported():
-    _, tcfg = configs("fp32", remat=True, remat_policy="dots")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.TpuLM(tcfg).apply({}, toks)
     _, tcfg = configs("fp32")
-    for kw in (dict(n_experts=4), dict(ring_attention=True)):
-        with pytest.raises(NotImplementedError):
-            tlm.TpuLM(dataclasses.replace(tcfg, **kw)).apply({}, toks)
+    with pytest.raises(NotImplementedError, match="ring"):
+        tlm.TpuLM(dataclasses.replace(tcfg, ring_attention=True)).apply(
+            {}, toks)
     with pytest.raises(NotImplementedError, match="mesh"):
         tlm.TpuLM(tcfg).apply({}, toks, mesh=object())
     with pytest.raises(NotImplementedError, match="pipeline"):
@@ -305,8 +302,7 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--ring"], ["--tp", "2"], ["--zero1"],
                                   ["--from-env"],
-                                  ["--lora-rank", "4", "--zero1"],
-                                  ["--n-experts", "4"], ["--remat", "dots"]])
+                                  ["--lora-rank", "4", "--zero1"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
         train_main.main(_TINY + ["--synthetic", "1000"] + flag)
