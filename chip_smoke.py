@@ -30,7 +30,24 @@ without a result line:
    ``generate``; launch counters are zeroed just before and read just
    after, and must match what the path implies; then TTFT, decode
    tokens/s and the device-busy time of a decode step and of a 128-token
-   prefill chunk;
+   prefill chunk; on the card every decode block and spec round of this
+   and the later serving phases replays captured CUDA graphs, which
+   launch their kernels with no wrapper call, so a serving path's
+   launches are counted from a torch.profiler trace of the card over
+   the counted run (``Traced``), and the wrappers count only what ran
+   eagerly (prefill chunks, a capture's warm-up step); the LoRA,
+   window, int4, MoE, spec and migrate phases hold their graph runs
+   against an eager twin over the same weights (``eager_twin``: tokens
+   and logprobs bit-equal), read logits on the twin, and time both;
+   graph: the same engine on the graph route against
+   ``decode_graphs=False`` (the final norm's scale divided by 64, so that
+   logprobs and draws of the seeded weights can differ): greedy tokens
+   and logprobs bit-equal over 32 steps that change attend bucket, both
+   keys captured with the slots live, a control with every length one
+   further on that differs, B1-B3 launches under replay, a sampled block
+   equal to the eager route's draws and two replays from one state
+   differing, tok/s and device busy of both routes in turns, the graphs
+   within ``compile_budget``, capture seconds and the pool's GiB;
 4. cut: the same weights cut to 2 layers run one prefill and 4 decode
    steps on the CPU (plain versions) and on the card (kernels); logits
    within the stated tolerance, greedy tokens equal;
@@ -155,15 +172,17 @@ a step; step ms, tokens/s and peak memory beside the full step's; the
 training CLI twice (``--lora-rank 8 --quantize-base``) and an 871M
 ``--quantize`` server answering one completion on each of its adapters.
 
-Then the ``kernels`` JSON line (launches: B1-B3 from the serve phase,
-B4 from the moe phase's engine (its times at that path's 2048 x 2048,
+Then the ``kernels`` JSON line (launches, from the card's trace on the
+serving paths and from the wrappers on the training ones: B1-B3 from the
+serve phase, B4 from the moe phase's engine (its times at that path's 2048 x 2048,
 the 7B-shaped reading in ``detail_7b_wq``), B5-B7 from the train phase;
 ``moe_launches`` from the moe phase's engine (B1-B4) and MoE train steps
 (B5-B7); ``engine_launches`` from phase 3,
 ``spec_launches`` from the spec phase's engine, ``lora_launches`` from the
 lora phase's server (B1-B4) and QLoRA steps (B5-B7), ``window_launches``
 and ``int4_launches`` from the window and int4 phases' servers;
-``spec_detail`` holds B1-B3 at the 871M shapes), and last
+``spec_detail`` holds B1-B3 at the 871M shapes), the graph phase's JSON
+line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
 """
@@ -736,6 +755,9 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
 
     eng = ServingEngine(TpuLM(cfg), qp, max_batch=8, max_len=1024,
                         prefill_len=128, kv_quant=True, device="cuda")
+    # the server's start-up: every decode graph captured before traffic
+    eng.warm_prefill_buckets()
+    graphs0 = eng.graph_stats()["graphs"]
     gen = torch.Generator().manual_seed(11)
     plens = [300, 200, 129, 100, 64, 33, 17, 5]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
@@ -745,14 +767,18 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
     ops.reset_launch_counts()
     eng.decode_steps = eng.prefill_dispatches = 0
     t0 = time.perf_counter()
-    results = eng.generate(prompts, max_new_tokens=max_new, block_size=16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    with Traced(torch, ops) as tr:
+        results = eng.generate(prompts, max_new_tokens=max_new,
+                               block_size=16)
+    wall = tr.t_end - t0
+    counts, eager_counts = tr.counts, ops.launch_counts()
     steps, chunks = eng.decode_steps, eng.prefill_dispatches
     log(f"engine: generate 8 prompts {plens} x {max_new} tokens in "
-        f"{wall:.2f} s: {chunks} prefill chunks, {steps} decode steps, "
-        f"launches {counts}")
+        f"{wall:.2f} s (traced): {chunks} prefill chunks, {steps} decode "
+        f"steps, launches on the card's trace {counts}, by the wrappers "
+        f"(eager) {eager_counts}")
+    check(eng.graph_stats()["graphs"] == graphs0, "engine: no capture in "
+          "the counted run")
     check(len(results) == 8, "one result per prompt")
     for r in results:
         check(len(r.tokens) == max_new, f"rid {r.request_id}: "
@@ -775,6 +801,11 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
           "B3 launches = forwards")
     check(counts["quant_matmul"] == 0, "B4 is not on this path")
     check(all(counts[n] == 0 for n in FLASH), "B5-B7 are not on this path")
+    check(eager_counts["quant_decode_attention"] == 0
+          and eager_counts["quant_matmul_stacked"] == 6 * L * chunks
+          and eager_counts["quant_matmul_t"] == chunks,
+          "engine: the wrappers count the prefill chunks' launches only "
+          "(every decode step replayed a graph)")
 
     # warm path TTFT: one 128-token prompt through first sampled token
     t0 = time.perf_counter()
@@ -800,28 +831,206 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
     if chunk is not None:
         log(f"engine: device busy {chunk['ms_per_step']:.2f} ms per "
             f"128-token prefill chunk; by kernel (ms): {chunk['top']}")
+    graphs = eng.graph_stats()
+    within_budget(graphs, "engine")
+    log(f"engine: decode graphs {graphs}")
     return {"counts": counts, "decode_steps": steps, "prefill_chunks": chunks,
             "generate_s": wall, "ttft_ms": ttft * 1e3, "decode_tok_s": tok_s,
-            "step_ms": step_ms, "device_busy": busy, "chunk_busy": chunk}
+            "step_ms": step_ms, "device_busy": busy, "chunk_busy": chunk,
+            "graphs": graphs}
 
 
-def device_busy(torch, run, n_steps: int):
+#: the graph phase's prompts: the engine phase's, the first cut to 240
+#: tokens so that its 32 decode steps cross from the 256-position attend
+#: bucket into the 512 one
+GRAPH_PLENS = (240, 200, 129, 100, 64, 33, 17, 5)
+#: its decode blocks: 8 steps in bucket 256, then 8 and 16 in bucket 512
+GRAPH_BLOCKS = (8, 8, 16)
+
+
+def phase_graph(torch, cfg, qp, ops) -> dict:
+    """The decode graphs against the eager route on the 7B int8 engine at
+    full width and depth (batch 8, max_len 1024, prefill 128): greedy
+    tokens and logprobs bit-equal over 32 steps whose bucket changes
+    after the first block, each key captured lazily with the slots live,
+    with a control that must differ (the eager engine with every length
+    one further on); B1-B3 launches under replay as the path implies; at
+    temperature 0.8 two replays of one graph from the same decode state
+    draw different tokens and a sampled block equals the eager route's
+    draws; decode tok/s and device busy for both routes, the graphs
+    against ``compile_budget``, capture seconds and the pool's GiB.
+
+    The seeded weights' logits spread about sqrt(d_model) = 64 wide, so
+    every step's top token takes all the mass: its logprob rounds to 0,
+    a sampled draw is the argmax, and neither comparison could fail. The
+    phase serves the same weights with the final norm's scale divided by
+    64 (logits about 1 wide); kernels and launches are the same."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.serving import ServingEngine
+
+    opts = dict(max_batch=8, max_len=1024, prefill_len=128, kv_quant=True,
+                device="cuda")
+    flat = dict(qp, ln_f={"scale": qp["ln_f"]["scale"]
+                          / math.sqrt(cfg.d_model)})
+    g_eng = ServingEngine(TpuLM(cfg), flat, **opts)
+    e_eng = ServingEngine(TpuLM(cfg), flat, decode_graphs=False, **opts)
+    check(g_eng.decode_route() == "cuda graphs" and e_eng.decode_route()
+          == "eager (decode_graphs=False)", "graph: the two routes")
+    gen = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in GRAPH_PLENS]
+    L, n = cfg.n_layers, sum(GRAPH_BLOCKS)
+
+    def run(eng, shift: int = 0):
+        """The prompts admitted (every length ``shift`` further on), then
+        GRAPH_BLOCKS: per slot (tokens, logprobs), the launches on the
+        card's trace and by the wrappers, the decode steps dispatched and
+        the graphs captured meanwhile."""
+        for s in list(eng.slots):
+            eng.evict_slot(s)
+        eng.radix.reclaim(eng.kv.total_blocks)
+        for p in prompts:
+            eng.add_request(p)
+        eng.lengths.add_(shift)
+        ops.reset_launch_counts()
+        steps0, graphs0 = eng.decode_steps, len(eng._graphs)
+        with Traced(torch, ops) as tr:
+            t0 = time.perf_counter()
+            for b in GRAPH_BLOCKS:
+                eng.decode_block(b)
+        run.seconds = tr.t_end - t0
+        return (slot_runs(eng), tr.counts, ops.launch_counts(),
+                eng.decode_steps - steps0, len(eng._graphs) - graphs0)
+
+    def implied(steps: int) -> dict:
+        return dict.fromkeys(ops.KERNEL_WRAPPERS, 0) | {
+            "quant_decode_attention": L * steps,
+            "quant_matmul_stacked": 6 * L * steps,
+            "quant_matmul_t": steps}
+
+    g_out, g_counts, g_wrap, g_steps, g_new = run(g_eng)
+    first_s = run.seconds
+    e_out, e_counts, e_wrap, e_steps, _ = run(e_eng)
+    keys = sorted(k[1] for k in g_eng._graphs)
+    check(keys == [256, 512] and g_new == 2,
+          f"graph: keys captured lazily {keys}")
+    check(g_out == e_out, "graph: greedy tokens and logprobs bit-equal "
+          "to the eager route over 32 steps")
+    check(g_steps == e_steps == n, f"graph: decode steps {g_steps}")
+    # the eager route: the trace counts what the wrappers count
+    check(e_counts == e_wrap == implied(n), f"graph: eager launches, "
+          f"traced {e_counts}, by the wrappers {e_wrap}")
+    # the graph route: each lazy capture's warm-up step launched for real
+    # (the wrappers counted those, and nothing of the captures or the
+    # replays); the trace holds every replayed step's kernels besides
+    check(g_wrap == implied(g_new), f"graph: the wrappers count the "
+          f"{g_new} warm-up steps only: {g_wrap}")
+    check(g_counts == implied(n + g_new),
+          f"graph: B1 = layers x steps, B2 = 6 x layers x steps, B3 = "
+          f"steps on the trace under replay (warm-ups included): "
+          f"{g_counts}")
+    ctrl = run(e_eng, shift=1)[0]
+    lp_ctrl = max(abs(a - b) for (_, la), (_, lb) in zip(ctrl, g_out)
+                  for a, b in zip(la, lb))
+    check(ctrl != g_out and lp_ctrl > 0.0, "graph: the control (lengths "
+          "one further on) differs")
+    log(f"graph: 8 prompts {list(GRAPH_PLENS)}, blocks {list(GRAPH_BLOCKS)} "
+        f"(buckets {keys}, captured lazily in the first run, its blocks "
+        f"{first_s:.2f} s, traced): tokens and logprobs bit-equal to the eager route; launches "
+        f"on the trace {g_counts} ({n} replayed steps and {g_new} warm-up "
+        f"steps), by the wrappers {g_wrap}; control with lengths + 1: "
+        f"largest logprob difference {lp_ctrl:.3g}")
+
+    # ---- sampled: fresh draws per replay, and the eager route's draws
+    for e in (g_eng, e_eng):
+        e.temperature = 0.8
+    samp = [run(e)[0] for e in (g_eng, e_eng)]
+    check(samp[0] == samp[1], "graph: sampled blocks equal the eager "
+          "route's draws from the same generator state")
+    saved = g_eng._save_state()
+    g_eng.decode_block(8)
+    first = g_eng._blk_toks[:8].clone()
+    for b, c in zip(g_eng._state_buffers(), saved[0]):
+        b.copy_(c)
+    g_eng.decode_block(8)
+    differ = int((first != g_eng._blk_toks[:8]).sum())
+    check(differ > 0, "graph: two replays of one sampled graph draw "
+          "different tokens")
+    log(f"graph: temperature 0.8: a sampled run equals the eager route's "
+        f"draws; two replays of one graph from the same state differ in "
+        f"{differ} of 64 tokens")
+    for e in (g_eng, e_eng):
+        e.temperature = 0.0
+        for s in list(e.slots):
+            e.evict_slot(s)
+
+    # ---- host clock and device time, the routes in turns
+    tok_s = {"graphs": [], "eager": []}
+    for name, e in (("eager", e_eng), ("graphs", g_eng), ("graphs", g_eng),
+                    ("eager", e_eng)):
+        tok_s[name].append(e.throughput(n_steps=64))
+        for s in list(e.slots):
+            e.evict_slot(s)
+    busy = {}
+    for name, e in (("graphs", g_eng), ("eager", e_eng)):
+        for _ in range(8):
+            e.add_request([1, 2, 3])
+        e.decode_block(1)
+        busy[name] = device_busy(torch, lambda: e.decode_block(8), 8)
+        for s in list(e.slots):
+            e.evict_slot(s)
+    stats = g_eng.graph_stats()
+    within_budget(stats, "graph")
+    pool = g_eng.graph_pool_gib()
+    rate = {k: sum(v) / len(v) for k, v in tok_s.items()}
+    step_ms = {k: 8 / v * 1e3 for k, v in rate.items()}
+    dev_ms = {k: v and v["ms_per_step"] for k, v in busy.items()}
+    share = {k: dev_ms[k] and dev_ms[k] / step_ms[k] for k in rate}
+    log(f"graph: decode at batch 8, tok/s by turn {tok_s}: graphs "
+        f"{rate['graphs']:.1f} ({step_ms['graphs']:.2f} ms a step), eager "
+        f"{rate['eager']:.1f} ({step_ms['eager']:.2f} ms); device ms a step "
+        f"{dev_ms}, busy share {share}; graphs {stats['graphs']} of budget "
+        f"{stats['budget']}, captured in {stats['capture_seconds']:.2f} s, "
+        f"pool {pool} GiB; device by kernel (graphs) "
+        f"{busy['graphs'] and busy['graphs']['top']}")
+    out = {"counts": g_counts, "decode_steps": g_steps, "tok_s": tok_s,
+           "step_ms": step_ms, "device_ms_per_step": dev_ms,
+           "device_busy_share": share, "graphs": stats["graphs"],
+           "budget": stats["budget"],
+           "capture_seconds": stats["capture_seconds"], "pool_gib": pool,
+           "control_logprob_diff": lp_ctrl, "sampled_replay_differ": differ,
+           "first_run_s": first_s}
+    del g_eng, e_eng
+    free_memory(torch)
+    return out
+
+
+def device_busy(torch, run, n_steps: int, kn: str = "quant_matmul_stacked"):
     """Device time per step, by kernel, from a torch.profiler window over
     ``run()`` (``n_steps`` steps; None when the profiler reports no
-    device activity)."""
+    device activity), and the window's kernel launches by wrapper
+    (``Traced``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from instaslice_tpu_torch import ops
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    try:
         run()
-        torch.cuda.synchronize()
+    except BaseException:
+        prof.__exit__(None, None, None)
+        raise
+    names = stop_trace(torch, prof)
     # kernels only: a user annotation (the optimizer's record_function
-    # range) spans kernels that are counted on their own
+    # range) spans kernels that are counted on their own; the trace's
+    # marker is not the window's
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total
-            and not getattr(e, "is_user_annotation", False)]
+            and not getattr(e, "is_user_annotation", False)
+            and "spin_kernel" not in e.key]
     if not rows:
         return None
     rows.sort(key=lambda e: -e.self_device_time_total)
@@ -834,7 +1043,9 @@ def device_busy(torch, run, n_steps: int):
                      if any(p in e.key.lower() for p in pats)), "other")
         by_class[name] = round(by_class.get(name, 0.0)
                                + e.self_device_time_total / 1e3 / n_steps, 3)
-    return {"ms_per_step": total, "top": top, "by_class": by_class}
+    launches = ops.trace_launch_counts(names.items(), kn)
+    return {"ms_per_step": total, "top": top, "by_class": by_class,
+            "launches": launches}
 
 
 def phase_cut(torch, cfg, qp, what: str = "cut") -> dict:
@@ -1009,24 +1220,23 @@ def phase_serve(torch, ops) -> dict:
     setup_s = time.perf_counter() - t0
     url = srv.url
     V, L = args.vocab_size, args.n_layers
-    # the rows of every forward the engine runs: B2 and B3 take the
-    # forwards of at most 256 rows (decode steps, single-slot chunks,
-    # 2-row batched chunks); wider batched prefills dequantize into
-    # torch.matmul, as the reference does at M > 256
-    rows = []
-    forward = eng._forward
+    check(eng.decode_route() == "cuda graphs", "serve: decode blocks "
+          "replay CUDA graphs")
+    # the rows of every forward the engine runs (replayed decode steps
+    # included): B2 and B3 take the forwards of at most 256 rows (decode
+    # steps, single-slot chunks, 2-row batched chunks); wider batched
+    # prefills dequantize into torch.matmul, as the reference does at
+    # M > 256
     #: (tokens, lengths, logits) of each prefill forward while set
     chunks_seen = None
 
-    def counted_forward(tokens, cache, lengths, *a, **kw):
-        rows.append(tokens.numel())
-        out = forward(tokens, cache, lengths, *a, **kw)
+    def tap(tokens, lengths, logits):
         if chunks_seen is not None and tokens.shape[1] > 1:
             chunks_seen.append((tokens.cpu(), lengths.cpu(),
-                                out[0].float()))
-        return out
+                                logits.float()))
 
-    eng._forward = counted_forward
+    fl = ForwardLog(eng, tap=tap)
+    fl.start()
     try:
         wait_ready(url)
         gen = torch.Generator().manual_seed(17)
@@ -1052,23 +1262,23 @@ def phase_serve(torch, ops) -> dict:
                 errors.append(f"request {i}: {e!r}")
 
         st0 = http_json(url + "/v1/stats")
-        steps0, chunks0, rows0 = (eng.decode_steps, eng.prefill_dispatches,
-                                  len(rows))
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
+        steps0, chunks0 = eng.decode_steps, eng.prefill_dispatches
+        fl.start()
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        with Traced(torch, ops) as tr:
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        wall = tr.t_end - t0
+        fl.stop()
+        counts = tr.counts
         steps = eng.decode_steps - steps0
         chunks = eng.prefill_dispatches - chunks0
-        kernel_fw = sum(r <= 256 for r in rows[rows0:])
+        rows = [b * t for b, t in fl.target]
+        kernel_fw = sum(r <= 256 for r in rows)
         st1 = http_json(url + "/v1/stats")
         check(not errors, f"serve: {errors}")
         for i, r in enumerate(results):
@@ -1081,10 +1291,14 @@ def phase_serve(torch, ops) -> dict:
             check(len(lps) == SERVE_NEW and all(lp <= 0.0 for lp in lps),
                   f"request {i}: logprobs 1:1 with tokens, all <= 0")
         log(f"serve: 8 concurrent completions {list(SERVE_PLENS)} x "
-            f"{SERVE_NEW} tokens over HTTP in {wall:.2f} s: {chunks} prefill "
-            f"forwards (rows: {sorted(Counter(rows[rows0:]).items())}), "
-            f"{steps} "
-            f"decode steps, launches {counts}")
+            f"{SERVE_NEW} tokens over HTTP in {wall:.2f} s (traced): "
+            f"{chunks} prefill forwards (rows: "
+            f"{sorted(Counter(rows).items())}), {steps} decode steps, "
+            f"launches on the card's trace {counts}")
+        check(len(fl.attends) == steps and st1["engine"]["decode_graphs"]
+              ["graphs"] == st0["engine"]["decode_graphs"]["graphs"],
+              "serve: every decode step replayed a graph captured at "
+              "start-up")
         check(counts["quant_decode_attention"] == L * steps > 0,
               "B1 launches = layers x decode steps")
         check(counts["quant_matmul_stacked"] == 6 * L * kernel_fw > 0,
@@ -1123,13 +1337,11 @@ def phase_serve(torch, ops) -> dict:
             nonlocal chunks_seen
             steps0, chunks0 = eng.decode_steps, eng.prefill_dispatches
             chunks_seen = []
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
             t0 = time.perf_counter()
-            r = send()
-            torch.cuda.synchronize()
-            r.update(ms=(time.perf_counter() - t0) * 1e3,
-                     b2=ops.launch_counts()["quant_matmul_stacked"],
+            with Traced(torch, ops) as tr:
+                r = send()
+            r.update(ms=(tr.t_end - t0) * 1e3,
+                     b2=tr.counts["quant_matmul_stacked"],
                      chunks=eng.prefill_dispatches - chunks0,
                      steps=eng.decode_steps - steps0,
                      logits=chunk_logits(offset))
@@ -1157,6 +1369,7 @@ def phase_serve(torch, ops) -> dict:
               f"no leaked KV blocks: kv {st['kv']}, radix {st['radix']}")
         route = st["engine"]["attention_route"]
         check(route == "B1", f"decode attention route {route!r}")
+        within_budget(st["engine"]["decode_graphs"], "serve")
     finally:
         srv.stop()
 
@@ -1296,21 +1509,134 @@ def check_spec_kernels(torch, ops, qp) -> dict:
     return {"quant_matmul_stacked": b2, "quant_matmul_t": b3}
 
 
-class ForwardLog:
-    """Wraps an engine's target and draft forwards: the (rows, T) of each
-    while ``on``, the lengths and attended window of each single-token
-    target forward (B1's shape), and, once armed, a copy of the first
-    multi-row target forward's inputs and cache (taken before it writes)
-    with its logits."""
+class Traced:
+    """The kernel launches the card made inside the ``with`` block, by
+    wrapper name (``ops.trace_launch_counts``), counted from a
+    torch.profiler (CUPTI) trace of the device: a replayed CUDA graph
+    launches its kernels with no wrapper call, so on the graph route only
+    the trace sees them. ``kn`` names the wrapper of the (K, N) products
+    on this path; ``kernels`` is every kernel the trace saw; ``t_end``
+    the host clock when the block's work had finished on the card. The
+    trace's raw device events are counted by name (the profiler's own
+    event tree, which ``key_averages`` builds, costs ~0.1 ms an event on
+    the host)."""
 
-    def __init__(self, eng):
-        self.eng, self.on = eng, False
-        self.target, self.draft, self.single = [], [], []
+    def __init__(self, torch, ops, kn: str = "quant_matmul_stacked"):
+        self.torch, self.ops, self.kn = torch, ops, kn
+        self.counts, self.kernels, self.t_end = None, 0, None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.t_end = time.perf_counter()
+        if exc[0] is not None:
+            self.prof.__exit__(*exc)
+            return False
+        names = stop_trace(self.torch, self.prof)
+        self.counts = self.ops.trace_launch_counts(names.items(), self.kn)
+        self.kernels = sum(names.values())
+        return False
+
+
+#: seconds the host waits, after the card has run a traced window's work
+#: and its marker, before stopping the trace
+TRACE_SETTLE_S = 0.25
+
+
+def stop_trace(torch, prof):
+    """Stop ``prof`` (entered, CUDA activity on) and count its device
+    kernels by name, from the raw trace events (the profiler's own event
+    tree, which ``key_averages`` builds, costs ~0.1 ms an event on the
+    host). CUPTI hands a kernel's record over after the kernel ends: a
+    trace stopped right after a synchronize lost the window's last
+    kernels on the H100 (the last 7 layers of an eager 7B step). So a
+    marker kernel (``torch.cuda._sleep``'s spin kernel) runs after the
+    work, the host waits ``TRACE_SETTLE_S`` before stopping, and the
+    trace must hold the marker."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(TRACE_SETTLE_S)
+    prof.__exit__(None, None, None)
+    names = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    marker = [n for n in names if "spin_kernel" in n]
+    check(len(marker) == 1 and names.pop(marker[0]) == 1,
+          f"the trace lost the marker after its window's work: "
+          f"{len(names)} kernel names, none the marker")
+    return names
+
+
+def eager_twin(eng, **kw):
+    """An engine over ``eng``'s model and weights (shared, not copied) and
+    its configuration, on the eager route (``decode_graphs=False``): the
+    steps ``eng``'s graphs capture, run op by op, where instrumentation
+    can read them. ``kw`` adds what the configuration holds besides
+    (adapters, a draft)."""
+    from instaslice_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(
+        eng.model, eng.params, max_batch=eng.max_batch, max_len=eng.max_len,
+        prefill_len=eng.prefill_len, kv_quant=eng.kv_quant,
+        temperature=eng.temperature, device=eng.device, decode_graphs=False,
+        **kw)
+
+
+def lora_twin(eng):
+    """:func:`eager_twin` of a multi-LoRA engine, its adapters taken from
+    ``eng``'s stack (alpha 16, the recipe's)."""
+    return eager_twin(eng, lora_adapters=[{"blocks": {
+        t: {k: v[:, i] for k, v in ab.items()}
+        for t, ab in eng.lora["blocks"].items()}}
+        for i in range(1, eng.n_adapters + 1)],
+        lora_alphas=[16.0] * eng.n_adapters)
+
+
+def slot_runs(eng) -> list:
+    """(tokens, logprobs) of every live slot, in slot order."""
+    return [(list(r.generated), list(r.logprobs))
+            for _, r in sorted(eng.slots.items())]
+
+
+class ForwardLog:
+    """The forwards an engine runs while ``on``: the (rows, T) of each
+    target and draft forward, and the attended window of each
+    single-token target forward (B1's). An eager forward is seen through
+    the engine's ``_forward``/``_draft_forward``; a capture's are not
+    counted (a capture records launches and makes none; its warm-up runs
+    for real and is). A replayed graph runs no Python: its forwards
+    follow, at :meth:`stop`, from its key in the engine's record of the
+    replays it dispatched (``graph_replays``): a decode step is one (B,
+    1) target forward, a spec round of depth k is k + 1 (B, 1) draft
+    forwards and a (B, k + 1) verify, a catch-up of n steps one (B, n)
+    draft forward. Once armed, it copies the first multi-row target
+    forward's inputs and cache (taken before it writes) with its logits;
+    ``tap(tokens, lengths, logits)`` sees every eager target forward."""
+
+    def __init__(self, eng, tap=None):
+        import torch
+
+        self.eng, self.on, self.tap = eng, False, tap
+        self.target, self.draft, self.attends = [], [], []
         self.capture = None
+        self.replays0 = {}
         fwd, dfwd = eng._forward, eng._draft_forward
+        capturing = torch.cuda.is_current_stream_capturing
 
         def target(tokens, cache, lengths, attend_len=0, **kw):
-            cap = (self.capture is not None and not self.capture
+            live = not capturing()
+            cap = (live and self.capture is not None and not self.capture
                    and tokens.shape[1] > 1)
             if cap:
                 self.capture.update(
@@ -1318,27 +1644,57 @@ class ForwardLog:
                     attend=attend_len,
                     cache={k: c.clone() for k, c in cache.items()})
             out = fwd(tokens, cache, lengths, attend_len, **kw)
+            if live and self.tap is not None:
+                self.tap(tokens, lengths, out[0])
             if cap:
                 self.capture["logits"] = out[0].clone()
-            if self.on:
+            if self.on and live:
                 self.target.append(tuple(tokens.shape))
                 if tokens.shape[1] == 1:
-                    self.single.append((lengths.clone(),
-                                        attend_len or cache["k"].shape[3]))
+                    self.attends.append(attend_len or cache["k"].shape[3])
             return out
 
         def draft(tokens, cache, lengths, attend_len=0):
-            if self.on:
+            if self.on and not capturing():
                 self.draft.append(tuple(tokens.shape))
             return dfwd(tokens, cache, lengths, attend_len)
 
         eng._forward, eng._draft_forward = target, draft
 
     def start(self):
-        self.target, self.draft, self.single, self.on = [], [], [], True
+        self.target, self.draft, self.attends = [], [], []
+        self.replays0 = dict(self.eng.graph_replays)
+        self.on = True
 
     def stop(self):
         self.on = False
+        B, S = self.eng.max_batch, self.eng.max_len
+        for key, n in list(self.eng.graph_replays.items()):
+            n -= self.replays0.get(key, 0)
+            if key[0] == "decode_block":
+                self.target += [(B, 1)] * n
+                self.attends += [key[1] or S] * n
+            elif key[0] == "spec_round":
+                k = key[1]
+                self.draft += [(B, 1)] * ((k + 1) * n)
+                self.target += [(B, k + 1)] * n
+                if k == 0:
+                    self.attends += [key[2] or S] * n
+            else:
+                self.draft += [(B, key[1])] * n
+
+    def close(self):
+        for name in ("_forward", "_draft_forward"):
+            self.eng.__dict__.pop(name, None)
+
+
+def within_budget(graphs: dict, what: str) -> None:
+    """A ``/v1/stats`` ``decode_graphs`` block: the graph route, with every
+    form's captured graphs within ``compile_budget``."""
+    over = {f: n for f, n in graphs["graphs"].items()
+            if n > graphs["budget"][f]}
+    check(graphs["route"] == "cuda graphs" and not over,
+          f"{what}: decode graphs {graphs}")
 
 
 def fp32_tree(tree):
@@ -1452,9 +1808,12 @@ def phase_spec(torch, ops) -> dict:
     opts = dict(max_batch=8, max_len=1024, prefill_len=128, device="cuda")
     eng = ServingEngine(model, params, draft_model=model, draft_params=draft,
                         spec_k=SPEC_K, **opts)
+    fl = ForwardLog(eng)
     eng.warm_prefill_buckets()
     eng.warm_spec_programs()
-    fl = ForwardLog(eng)
+    warm_graphs = eng.graph_stats()
+    log(f"spec: warm-up captured {warm_graphs['graphs']} graphs in "
+        f"{warm_graphs['capture_seconds']:.1f} s")
     gen = torch.Generator().manual_seed(41)
     prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
                for n in SPEC_PLENS]
@@ -1467,27 +1826,22 @@ def phase_spec(torch, ops) -> dict:
         return [eng.slots[s].generated[:SPEC_NEW] for s in range(8)]
 
     # ---- greedy spec rounds from an admission, launches counted
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
     fl.start()
-    admit()
-    rounds, ks, verify = 0, [], None
-    fl.capture = {}
-    while min(len(r.generated) for r in eng.slots.values()) < SPEC_NEW:
-        k = eng.spec_plan_k()
-        rid_slot = {r.request_id: s for s, r in eng.slots.items()}
-        emitted = eng.spec_step(k=k)
-        if verify is None and k > 0:
-            acc = [0] * 8
-            for rid, seq in emitted.items():
-                acc[rid_slot[rid]] = len(seq) - 1
-            verify = (dict(fl.capture), acc)
-        rounds += 1
-        ks.append(k)
-    torch.cuda.synchronize()
+    with Traced(torch, ops) as tr:
+        admit()
+        rounds, ks = 0, []
+        t_rounds = time.perf_counter()
+        while min(len(r.generated) for r in eng.slots.values()) < SPEC_NEW:
+            k = eng.spec_plan_k()
+            eng.spec_step(k=k)
+            rounds += 1
+            ks.append(k)
+        torch.cuda.synchronize()
+        t_rounds = time.perf_counter() - t_rounds
     fl.stop()
-    counts = ops.launch_counts()
+    counts = tr.counts
     spec_chains = chains()
+    spec_runs = slot_runs(eng)
     draft_rows = [b * t for b, t in fl.draft]
     check(all(len(c) == SPEC_NEW for c in spec_chains), "spec chains")
     check(counts["quant_matmul_stacked"]
@@ -1503,10 +1857,6 @@ def phase_spec(torch, ops) -> dict:
         f"{len(fl.draft)} draft forwards (rows "
         f"{sorted(set(draft_rows))}), launches {counts}; accepted "
         f"{eng.spec_accepted} of {eng.spec_proposed}")
-    cap, acc = verify
-    out["verify"] = check_verify(torch, model, params, cap, acc)
-    fl.capture = None
-    log(f"spec: verify forward check {out['verify']}")
     # ---- the same admission through plain decode
     for s in list(eng.slots):
         eng.evict_slot(s)
@@ -1520,13 +1870,54 @@ def phase_spec(torch, ops) -> dict:
         f"prompts ({distinct} distinct tokens across them)")
     for s in list(eng.slots):
         eng.evict_slot(s)
+    # ---- the same admission and rounds on the eager route (an eager
+    # twin over the same weights): tokens and logprobs bit-equal to the
+    # replayed rounds'; then one more round there, whose verify forward
+    # is held against single-row forwards (its inputs are copied from
+    # the eager round's Python: a replay has none) and which the graph
+    # engine's round from the same state equals
+    twin = eager_twin(eng, draft_model=model, draft_params=draft,
+                      spec_k=SPEC_K)
+    tfl = ForwardLog(twin)
+    for e in (twin, eng):
+        e.radix.reclaim(e.kv.total_blocks)
+        e.add_requests([AdmissionRequest(p) for p in prompts])
+    for k in ks:
+        twin.spec_step(k=k)
+    check(slot_runs(twin) == spec_runs, "spec: the eager route's rounds "
+          "equal the replayed rounds (tokens and logprobs)")
+    for k in ks:
+        eng.spec_step(k=k)
+    rid_slot = {r.request_id: s for s, r in twin.slots.items()}
+    tfl.capture = {}
+    emitted = twin.spec_step(k=SPEC_K)
+    acc = [0] * 8
+    for rid, seq in emitted.items():
+        acc[rid_slot[rid]] = len(seq) - 1
+    out["verify"] = check_verify(torch, model, params, dict(tfl.capture),
+                                 acc)
+    eng.spec_step(k=SPEC_K)
+    check(slot_runs(eng) == slot_runs(twin), "spec: the verified round "
+          "replayed equals the eager round")
+    log(f"spec: {rounds} rounds and one more of k {SPEC_K} on the eager "
+        f"twin equal the replayed ones; verify forward check "
+        f"{out['verify']}")
+    tfl.close()
+    for e in (eng, twin):
+        for s in list(e.slots):
+            e.evict_slot(s)
     out.update(counts=counts, rounds=rounds, ks=ks,
-               accepted=eng.spec_accepted, proposed=eng.spec_proposed)
+               accepted=eng.spec_accepted, proposed=eng.spec_proposed,
+               rounds_ms=t_rounds / rounds * 1e3)
 
-    # ---- throughput: spec rounds vs plain decode, device ms per round
+    # ---- throughput: spec rounds vs plain decode, device ms per round;
+    # the same rounds on the eager twin
     d = eng.spec_throughput(rounds=16, detail=True)
     for s in list(eng.slots):
         eng.evict_slot(s)
+    d_eager = twin.spec_throughput(rounds=16, detail=True)
+    for s in list(twin.slots):
+        twin.evict_slot(s)
     # the same engine's plain decode blocks (its draft catching up after
     # each block), and an engine of the same weights with no draft
     same_tok_s = eng.throughput(n_steps=32)
@@ -1544,26 +1935,36 @@ def phase_spec(torch, ops) -> dict:
         k + 1, True, 1e-6, attend), 1)
     busy_verify = device_busy(torch, lambda: eng._spec_verify(
         d_all[:, :k], None, True, 1e-6, attend), 1)
+    # the whole round as the engine replays it: one graph
+    busy_round = device_busy(torch, lambda: eng.spec_step(k=k), 1)
     for s in list(eng.slots):
         eng.evict_slot(s)
     round_ms = d["wall_seconds"] / 16 * 1e3
     out["throughput"] = {
         "spec_tok_s": d["tokens_per_sec"],
         "spec_tokens_per_round": d["tokens_per_round"],
+        "eager_spec_tok_s": d_eager["tokens_per_sec"],
+        "eager_round_ms": d_eager["wall_seconds"] / 16 * 1e3,
         "plain_tok_s": plain_tok_s, "same_engine_plain_tok_s": same_tok_s,
         "round_ms": round_ms, "k": k,
         "device_ms_draft": busy_draft and busy_draft["ms_per_step"],
         "device_ms_verify": busy_verify and busy_verify["ms_per_step"],
+        "device_ms_round": busy_round and busy_round["ms_per_step"],
+        "graphs": eng.graph_stats(),
         "draft_top": busy_draft and busy_draft["top"],
         "verify_top": busy_verify and busy_verify["top"]}
     log(f"spec: batch 8 greedy, {d['tokens_per_sec']:.1f} tok/s with spec "
         f"({d['tokens_per_round']:.2f} tokens per slot-round, "
-        f"{round_ms:.1f} ms a round on the host clock) vs plain decode "
-        f"{plain_tok_s:.1f} tok/s without a draft, {same_tok_s:.1f} on the "
+        f"{round_ms:.1f} ms a round on the host clock; the eager twin "
+        f"{d_eager['tokens_per_sec']:.1f} tok/s, "
+        f"{out['throughput']['eager_round_ms']:.1f} ms a round) vs plain "
+        f"decode {plain_tok_s:.1f} tok/s without a draft, {same_tok_s:.1f} on the "
         f"spec engine (its draft catching up); device per round at k {k}: "
         f"draft "
         f"{out['throughput']['device_ms_draft']} ms ({k + 1} forwards), "
-        f"verify {out['throughput']['device_ms_verify']} ms")
+        f"verify {out['throughput']['device_ms_verify']} ms; the replayed "
+        f"round {out['throughput']['device_ms_round']} ms on the card; "
+        f"graphs {out['throughput']['graphs']}")
     # ---- sampled rounds
     eng.temperature = 0.8
     a0, p0 = eng.spec_accepted, eng.spec_proposed
@@ -1579,31 +1980,43 @@ def phase_spec(torch, ops) -> dict:
         f"{ds['tokens_per_round']:.2f} tokens per slot-round, "
         f"{ds['tokens_per_sec']:.1f} tok/s")
 
-    # ---- one engine-level export/import between two spec engines
+    # ---- one engine-level export/import between two spec engines, on
+    # both routes: the graph engine exports to a graph engine, its eager
+    # twin (the same steps) to an eager engine; the eager pair's next
+    # round is read (draft logits, proposals), and all four next rounds
+    # agree
     other = ServingEngine(model, params, draft_model=model,
                           draft_params=draft, spec_k=SPEC_K, **opts)
-    rid = eng.add_request(prompts[3])
-    eng.spec_step()
-    eng.spec_step()
-    eng.preempt_slot(0)
-    blob = json.loads(json.dumps(eng.export_session(rid)))
-    check(blob["draft_stripe"]["k"]["dtype"] == "bfloat16"
-          and blob["stripe"]["k"]["dtype"] == "bfloat16",
-          "spec: the blob carries both bf16 stripes")
-    rid_b = other.import_session(blob)
-    n = blob["length"]
-    check((eng.resume_request(rid), other.resume_request(rid_b)) == (0, 0),
-          "spec migration: both resume into slot 0")
-    # the resumed rows of both caches, the draft's included: an import
-    # that dropped or mis-wrote the draft stripe differs here, where the
-    # collapsed greedy chain of random weights would not show it
-    for cname in ("cache", "draft_cache"):
-        for key, c in getattr(eng, cname).items():
-            check(bool(torch.equal(c[:, 0, :, :n],
-                                   getattr(other, cname)[key][:, 0, :, :n])),
-                  f"spec migration: resumed {cname} rows {key}[:{n}] equal")
+    twin_b = eager_twin(eng, draft_model=model, draft_params=draft,
+                        spec_k=SPEC_K)
+    pairs = {"graph": (eng, other), "eager": (twin, twin_b)}
+    rids, n = {}, None
+    for route, (a, b) in pairs.items():
+        rid = a.add_request(prompts[3])
+        a.spec_step(k=SPEC_K)
+        a.spec_step(k=SPEC_K)
+        a.preempt_slot(0)
+        blob = json.loads(json.dumps(a.export_session(rid)))
+        check(blob["draft_stripe"]["k"]["dtype"] == "bfloat16"
+              and blob["stripe"]["k"]["dtype"] == "bfloat16",
+              "spec: the blob carries both bf16 stripes")
+        rid_b = b.import_session(blob)
+        n = blob["length"]
+        rids[route] = (rid, rid_b)
+        check((a.resume_request(rid), b.resume_request(rid_b)) == (0, 0),
+              f"spec migration ({route}): both resume into slot 0")
+        # the resumed rows of both caches, the draft's included: an
+        # import that dropped or mis-wrote the draft stripe differs here,
+        # where the collapsed greedy chain of random weights would not
+        # show it
+        for cname in ("cache", "draft_cache"):
+            for key, c in getattr(a, cname).items():
+                check(bool(torch.equal(c[:, 0, :, :n],
+                                       getattr(b, cname)[key][:, 0, :, :n])),
+                      f"spec migration ({route}): resumed {cname} rows "
+                      f"{key}[:{n}] equal")
     seen = {}
-    for name, e in (("a", eng), ("b", other)):
+    for name, e in (("a", twin), ("b", twin_b)):
         dr, dfwd = e._spec_draft, e._draft_forward
 
         def rec(*a, _dr=dr, _n=name):
@@ -1617,9 +2030,10 @@ def phase_spec(torch, ops) -> dict:
             return out
         e._spec_draft, e._draft_forward = rec, grab
         a0 = e.spec_accepted
-        seen[name + "_out"] = (e.spec_step(), e.spec_accepted - a0)
+        seen[name + "_out"] = (e.spec_step(k=SPEC_K), e.spec_accepted - a0)
         e._spec_draft, e._draft_forward = dr, dfwd
     (out_a, acc_a), (out_b, acc_b) = seen["a_out"], seen["b_out"]
+    rid, rid_b = rids["eager"]
     check(bool(torch.equal(seen["a_draft_logits"], seen["b_draft_logits"])),
           "spec migration: the next round's first draft logits are equal "
           "bit for bit")
@@ -1628,16 +2042,29 @@ def phase_spec(torch, ops) -> dict:
     check(acc_a == acc_b and out_a[rid] == out_b[rid_b],
           "spec migration: the next round's accepted counts and tokens "
           "are equal")
-    log(f"spec: engine export/import between two spec engines: resumed "
-        f"target and draft cache rows [0, {n}) equal, next round's first "
-        f"draft logits equal bit for bit, proposals "
-        f"{seen['a'][0].tolist()}, accepted {acc_a}, tokens equal")
-    for e in (eng, other):
+    emitted = {"eager_a": out_a[rid], "eager_b": out_b[rid_b]}
+    for name, e, r in (("graph_a", eng, rids["graph"][0]),
+                       ("graph_b", other, rids["graph"][1])):
+        emitted[name] = e.spec_step(k=SPEC_K)[r]
+    # each next round's tokens and their logprobs (slot 0's last ones)
+    runs = {name: (emitted[name], e.slots[0].logprobs[-len(emitted[name]):])
+            for name, e in (("graph_a", eng), ("graph_b", other),
+                            ("eager_a", twin), ("eager_b", twin_b))}
+    check(all(r == runs["eager_a"] for r in runs.values()),
+          f"spec migration: the exporter's and the importer's next rounds "
+          f"on the graph route equal the eager route's (tokens and "
+          f"logprobs): {runs}")
+    log(f"spec: engine export/import between two spec engines on each "
+        f"route: resumed target and draft cache rows [0, {n}) equal, next "
+        f"round's first draft logits equal bit for bit (eager), proposals "
+        f"{seen['a'][0].tolist()}, accepted {acc_a}, the four next rounds' "
+        f"tokens and logprobs equal")
+    for e in (eng, other, twin, twin_b):
         for s in list(e.slots):
             e.evict_slot(s)
         e.radix.reclaim(e.kv.total_blocks)
         check(e.kv.used_blocks() == 0, "spec: no leaked KV blocks")
-    del eng, other, fl
+    del eng, other, twin, twin_b, fl
     free_memory(torch)
 
     out["serve"] = spec_serve(torch, ops, params, prompts)
@@ -1699,20 +2126,18 @@ def spec_serve(torch, ops, params, prompts) -> dict:
                 errors.append(f"request {i}: {e!r}")
 
         st0 = http_json(srv.url + "/v1/stats")["spec"]
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
         fl.start()
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with Traced(torch, ops) as tr:
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        wall = tr.t_end - t0
         fl.stop()
-        counts = ops.launch_counts()
+        counts = tr.counts
         st = http_json(srv.url + "/v1/stats")
     finally:
         srv.stop()
@@ -1754,11 +2179,14 @@ def spec_serve(torch, ops, params, prompts) -> dict:
         f"over HTTP (prefill included); tokens equal to plain decode of the "
         f"same engine, logprobs within {lp:.3g}; setup {setup_s:.1f} s")
     forwards = sorted(set(fl.target))
-    # B1's shapes on this path: the first and the last single-token
-    # forward's (lengths, attended window)
+    # B1's shapes on this path: the rows' lengths at their first and at
+    # their last decode step, each at the smallest and the largest window
+    # the single-token forwards attended
+    plens = [len(p) for p in prompts]
     b1 = []
-    for lens, att in (fl.single[0], fl.single[-1]):
-        shape = (lens.tolist(), att)
+    for lens, att in (([n + 1 for n in plens], min(fl.attends)),
+                      ([n + SPEC_NEW - 1 for n in plens], max(fl.attends))):
+        shape = (lens, att if max(lens) < att < eng.max_len else 0)
         if shape not in b1:
             b1.append(shape)
     cache_len = eng.cache["k"].shape[3]
@@ -1895,50 +2323,56 @@ def phase_migrate(torch, ops) -> dict:
         f"{out['cold_ttft_ms']:.1f} ms")
 
     # ---- engine level, the servers stopped: A's continuation from a
-    # parked state against B's after importing it
+    # parked state against B's after importing it, on both routes (A and
+    # B replay graphs; their eager twins over the same weights run the
+    # same steps, and their first decode logits are read)
     eng_a, eng_b = engs
+    twins = [eager_twin(e) for e in engs]
     for e in engs:
         e.radix.reclaim(e.kv.total_blocks)
     prompt2 = torch.randint(1, V, (600,), generator=gen).tolist()
-    rid = eng_a.add_request(prompt2)
-    eng_a.decode_block(7)
-    eng_a.preempt_slot(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    blob = eng_a.export_session(rid)
-    t1 = time.perf_counter()
-    wire = json.dumps(blob)
-    t2 = time.perf_counter()
-    blob2 = json.loads(wire)
-    t3 = time.perf_counter()
-    rid_b = eng_b.import_session(blob2)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
-    stripe = blob["stripe"]
-    length = blob["length"]
-    out["engine"] = {
-        "length": length, "stripe_shape": stripe["k"]["shape"],
-        "wire_mb": len(wire) / 1e6, "export_ms": (t1 - t0) * 1e3,
-        "json_encode_ms": (t2 - t1) * 1e3, "json_decode_ms": (t3 - t2) * 1e3,
-        "import_ms": (t4 - t3) * 1e3}
-    logits = {}
-    for name, e, r in (("a", eng_a, rid), ("b", eng_b, rid_b)):
-        fwd = e._forward
-
-        def grab(tokens, cache, lengths, attend_len=0, _f=fwd, _n=name,
-                 **kw):
-            lg = _f(tokens, cache, lengths, attend_len, **kw)
-            logits[_n] = lg[0][0].clone()
-            return lg
-        e._forward = grab
-        slot = e.resume_request(r)
-        check(slot == 0, "migrate: the session resumes into slot 0")
-        e.decode_block(1)
-        del e._forward
+    logits, conts = {}, {}
+    for route, (a, b) in (("graph", engs), ("eager", twins)):
+        rid = a.add_request(prompt2)
+        a.decode_block(7)
+        a.preempt_slot(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = a.export_session(rid)
+        t1 = time.perf_counter()
+        wire = json.dumps(blob)
+        t2 = time.perf_counter()
+        blob2 = json.loads(wire)
+        t3 = time.perf_counter()
+        rid_b = b.import_session(blob2)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if route == "graph":
+            stripe = blob["stripe"]
+            length = blob["length"]
+            out["engine"] = {
+                "length": length, "stripe_shape": stripe["k"]["shape"],
+                "wire_mb": len(wire) / 1e6, "export_ms": (t1 - t0) * 1e3,
+                "json_encode_ms": (t2 - t1) * 1e3,
+                "json_decode_ms": (t3 - t2) * 1e3,
+                "import_ms": (t4 - t3) * 1e3}
+        for name, e, r in (("a", a, rid), ("b", b, rid_b)):
+            rec = StepLogits(e) if route == "eager" else None
+            slot = e.resume_request(r)
+            check(slot == 0, "migrate: the session resumes into slot 0")
+            e.decode_block(4)
+            if rec is not None:
+                rec.close()
+                logits[name] = rec.steps[0][0]
+            conts[route + "_" + name] = (
+                e.slots[0].generated[-4:], e.slots[0].logprobs[-4:])
     check(bool(torch.equal(logits["a"], logits["b"])),
           "migrate: B's first decode logits after import equal A's "
           "continuation bit for bit")
-    for name, e in zip("AB", engs):
+    check(all(c == conts["eager_a"] for c in conts.values()),
+          f"migrate: the next 4 tokens and logprobs after the import equal "
+          f"A's continuation, on the graph route as on the eager: {conts}")
+    for name, e in zip(("A", "B", "A's twin", "B's twin"), engs + twins):
         for s in list(e.slots):
             e.evict_slot(s)
         e.radix.reclaim(e.kv.total_blocks)
@@ -1946,8 +2380,9 @@ def phase_migrate(torch, ops) -> dict:
               f"migrate: engine {name} leaked KV blocks")
     log(f"migrate: engine level, a {length}-token session (stripe "
         f"{stripe['k']['shape']} int8 + fp32 scales): {out['engine']}; B's "
-        "first decode logits equal A's continuation bit for bit")
-    del engs, eng_a, eng_b, srvs
+        "first decode logits equal A's continuation bit for bit (eager), "
+        "the next 4 tokens and logprobs equal on both routes")
+    del engs, eng_a, eng_b, srvs, twins
     free_memory(torch)
     return out
 
@@ -1984,10 +2419,12 @@ LORA_CONTROL = 5
 
 
 class StepLogits:
-    """Records the (B, vocab) logits of each decode step an engine runs
-    while installed (``ServingEngine._decode_logits``)."""
+    """Records the (B, vocab) logits of each decode step an eager engine
+    runs while installed (``ServingEngine._decode_logits``): a replayed
+    graph runs no Python to copy them from."""
 
     def __init__(self, eng):
+        check(not eng.decode_graphs, "StepLogits reads an eager engine")
         self.eng, self.real, self.steps = eng, eng._decode_logits, []
         eng._decode_logits = self
 
@@ -2028,60 +2465,60 @@ def lora_adapter_dirs(torch, cfg, root) -> list:
 
 def lora_burst(eng, prompts, adapters):
     """One burst admission of ``prompts`` (request i on ``adapters[i]``)
-    decoded to LORA_NEW tokens: per row (tokens, logprobs) and the (steps,
-    rows, vocab) decode logits; the slots are finished after."""
+    decoded to LORA_NEW tokens: per row (tokens, logprobs) and, on an
+    eager engine, the (steps, rows, vocab) decode logits (None on a graph
+    engine); the slots are finished after."""
     import torch
 
     from instaslice_tpu_torch.serving import AdmissionRequest
 
-    rec = StepLogits(eng)
+    rec = None if eng.decode_graphs else StepLogits(eng)
     try:
         rids = [r[0] for r in eng.add_requests(
             [AdmissionRequest(p, adapter=a)
              for p, a in zip(prompts, adapters)])]
         eng.decode_block(LORA_NEW - 1)
     finally:
-        rec.close()
+        if rec is not None:
+            rec.close()
     slot_of = {r.request_id: s for s, r in eng.slots.items()}
     rows = [slot_of[rid] for rid in rids]
     out = [(list(eng.slots[s].generated), list(eng.slots[s].logprobs))
            for s in rows]
     for s in rows:
         eng.finish_slot(s)
-    return out, torch.stack(rec.steps)[:, rows]
+    return out, rec and torch.stack(rec.steps)[:, rows]
 
 
 def lora_alone(eng, prompt, adapter):
     """The same request served alone (one live slot)."""
     import torch
 
-    rec = StepLogits(eng)
+    rec = None if eng.decode_graphs else StepLogits(eng)
     try:
         rid = eng.add_request(prompt, adapter=adapter)
         eng.decode_block(LORA_NEW - 1)
     finally:
-        rec.close()
+        if rec is not None:
+            rec.close()
     slot = next(s for s, r in eng.slots.items() if r.request_id == rid)
     req = eng.slots[slot]
     out = (list(req.generated), list(req.logprobs))
     eng.finish_slot(slot)
-    return out, torch.stack(rec.steps)[:, slot]
+    return out, rec and torch.stack(rec.steps)[:, slot]
 
 
 def lora_rows(torch, eng, prompts, adapters) -> dict:
-    """Each request alone on ``eng``, then all as one burst on ``eng``
-    and on an engine without adapters over the same weights and config:
-    the base rows' equality with the latter (tokens, logprobs, logits),
-    every row's decode logits against its lone run (rel L2) and, the
-    control, each adapter row against the base row of its prompt."""
-    from instaslice_tpu_torch.serving import ServingEngine
-
+    """Each request alone on the eager engine ``eng``, then all as one
+    burst on ``eng`` and on an eager engine without adapters over the
+    same weights and config: the base rows' equality with the latter
+    (tokens, logprobs, logits), every row's decode logits against its
+    lone run (rel L2) and, the control, each adapter row against the base
+    row of its prompt."""
     alone = [lora_alone(eng, p, a) for p, a in zip(prompts, adapters)]
     eng.radix.reclaim(eng.kv.total_blocks)
     burst, burst_lg = lora_burst(eng, prompts, adapters)
-    base_eng = ServingEngine(eng.model, eng.params, max_batch=eng.max_batch,
-                             max_len=eng.max_len, prefill_len=eng.prefill_len,
-                             kv_quant=eng.kv_quant, device=eng.device)
+    base_eng = eager_twin(eng)
     base, base_lg = lora_burst(base_eng, prompts, [0] * len(prompts))
     del base_eng
     l2 = [rel_l2(burst_lg[:, i], alone[i][1]) for i in range(len(prompts))]
@@ -2098,8 +2535,8 @@ def lora_rows(torch, eng, prompts, adapters) -> dict:
             f"{[f'{x:.3g}' for x in control]} (logprobs "
             f"{[f'{x:.3g}' for x in lp_ctrl]}), base rows bit-equal "
             f"{base_equal}")
-    return {"alone_runs": [r for r, _ in alone], "alone_l2": l2,
-            "base_equal": base_equal, "control": control,
+    return {"alone_runs": [r for r, _ in alone], "burst_runs": burst,
+            "alone_l2": l2, "base_equal": base_equal, "control": control,
             "control_logprob": lp_ctrl, "text": text}
 
 
@@ -2169,14 +2606,7 @@ def phase_lora_serve(torch, ops) -> dict:
     srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
     setup_s = time.perf_counter() - t0
     V, L = args.vocab_size, args.n_layers
-    rows = []
-    forward = eng._forward
-
-    def counted_forward(tokens, cache, lengths, *a, **kw):
-        rows.append(tokens.numel())
-        return forward(tokens, cache, lengths, *a, **kw)
-
-    eng._forward = counted_forward
+    fl = ForwardLog(eng)
     gen = torch.Generator().manual_seed(31)
     prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
                for n in LORA_PLENS]
@@ -2203,22 +2633,24 @@ def phase_lora_serve(torch, ops) -> dict:
             except Exception as e:  # noqa: BLE001 - reported below
                 errors.append(f"request {i}: {e!r}")
 
-        steps0, rows0 = eng.decode_steps, len(rows)
+        steps0 = eng.decode_steps
         g0, f0 = eng.gathered_rounds, eng.fastpath_rounds
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
+        graphs0 = eng.graph_stats()["graphs"]
+        fl.start()
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        with Traced(torch, ops) as tr:
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        wall = tr.t_end - t0
+        fl.stop()
+        counts = tr.counts
         steps = eng.decode_steps - steps0
-        kernel_fw = sum(r <= 256 for r in rows[rows0:])
+        rows = [b * t for b, t in fl.target]
+        kernel_fw = sum(r <= 256 for r in rows)
         st = http_json(srv.url + "/v1/stats")
         check(not errors, f"lora: {errors}")
         gathered = eng.gathered_rounds - g0
@@ -2226,9 +2658,13 @@ def phase_lora_serve(torch, ops) -> dict:
         log(f"lora: server from 4 adapter checkpoints in {setup_s:.1f} s; 8 "
             f"concurrent completions {list(LORA_PLENS)} x "
             f"{LORA_NEW} tokens on adapters {adapters} over HTTP in "
-            f"{wall:.2f} s: rows {sorted(Counter(rows[rows0:]).items())}, "
+            f"{wall:.2f} s (traced): rows {sorted(Counter(rows).items())}, "
             f"{steps} decode steps, {gathered} gathered and {fast_http} "
-            f"single-adapter rounds, launches {counts}")
+            f"single-adapter rounds, launches on the card's trace {counts}")
+        check(len(fl.attends) == steps
+              and eng.graph_stats()["graphs"] == graphs0,
+              "lora: every decode step replayed a graph captured at "
+              "start-up")
         for i, r in enumerate(results):
             check(len(r["token_ids"]) == LORA_NEW and len(r["logprobs"])
                   == LORA_NEW and all(lp <= 0.0 for lp in r["logprobs"]),
@@ -2247,21 +2683,37 @@ def phase_lora_serve(torch, ops) -> dict:
         check(st["live_slots"] == 0 and st["parked"] == 0, "lora: quiesced")
         check(st["kv"]["used"] == st["radix"]["blocks"],
               f"lora: no leaked KV blocks: kv {st['kv']}")
+        within_budget(eng_st["decode_graphs"], "lora")
+        check(eng_st["decode_graphs"]["graphs"]["decode_block"] >= 2,
+              "lora: the single and the gathered step are captured")
     finally:
         srv.stop()
-        eng._forward = forward
+        fl.close()
 
     # the server is stopped: the engine is this thread's. Each request
-    # alone (the radix cache emptied: every run prefills whole), then the
-    # bf16 and the float32 readings of the rows
+    # alone (the radix cache emptied: every run prefills whole: the
+    # single-adapter graph), then all as one burst (the gathered graph);
+    # the same on an eager twin, whose logits give the bf16 readings of
+    # the rows; then the float32 readings
     eng.radix.reclaim(eng.kv.total_blocks)
-    f1 = eng.fastpath_rounds
-    t0 = time.perf_counter()
-    rows16 = lora_rows(torch, eng, prompts, adapters)
-    rows16_s = time.perf_counter() - t0
+    f1, g1 = eng.fastpath_rounds, eng.gathered_rounds
+    g_alone = [lora_alone(eng, p, a)[0] for p, a in zip(prompts, adapters)]
     fast_alone = eng.fastpath_rounds - f1
-    check(fast_alone == len(prompts),
-          "lora: a lone request takes the single-adapter path")
+    eng.radix.reclaim(eng.kv.total_blocks)
+    g_burst = lora_burst(eng, prompts, adapters)[0]
+    check(fast_alone == len(prompts) and eng.gathered_rounds > g1,
+          "lora: a lone request takes the single-adapter path, the burst "
+          "the gathered one")
+    twin = lora_twin(eng)
+    t0 = time.perf_counter()
+    rows16 = lora_rows(torch, twin, prompts, adapters)
+    rows16_s = time.perf_counter() - t0
+    check(g_alone == rows16["alone_runs"],
+          "lora: the single-adapter graph's replays equal the eager route "
+          "(tokens and logprobs of every request alone)")
+    check(g_burst == rows16["burst_runs"],
+          "lora: the gathered graph's replays equal the eager route "
+          "(tokens and logprobs of the burst)")
     served_lp = [max(abs(x - y) for x, y in zip(results[i]["logprobs"],
                                                  rows16["alone_runs"][i][1]))
                  for i in range(len(prompts))]
@@ -2275,12 +2727,15 @@ def phase_lora_serve(torch, ops) -> dict:
                               t: {k: v[:, i] for k, v in ab.items()}
                               for t, ab in eng.lora["blocks"].items()}}
                               for i in range(1, LORA_N + 1)],
-                          lora_alphas=[16.0] * LORA_N)
+                          lora_alphas=[16.0] * LORA_N,
+                          decode_graphs=False)
     t0 = time.perf_counter()
     rows32 = lora_rows(torch, eng32, prompts, adapters)
     rows32_s = time.perf_counter() - t0
     del eng32
-    log(f"lora: served vs alone logprobs (largest difference by request) "
+    log(f"lora: alone and burst runs replayed (single and gathered "
+        f"graphs) equal the eager twin's bit for bit; served vs alone "
+        f"logprobs (largest difference by request) "
         f"{[f'{x:.3g}' for x in served_lp]}, tokens equal in {tok_same} of "
         f"{len(prompts)}; bf16 ({rows16_s:.1f} s): {rows16['text']}; "
         f"float32 ({rows32_s:.1f} s): {rows32['text']}")
@@ -2302,18 +2757,21 @@ def phase_lora_serve(torch, ops) -> dict:
 
     # decode throughput and device time per step at batch 8: host clocks
     # spread between runs, so the engines take turns (plain, adapters,
-    # adapters, plain)
+    # the adapters' eager twin, twice over in reverse)
     t0 = time.perf_counter()
-    runs = {"plain": [], "adapters": []}
-    for name, e, ad in (("plain", base_eng, False), ("adapters", eng, True),
-                        ("adapters", eng, True), ("plain", base_eng, False)):
+    runs = {"plain": [], "adapters": [], "adapters_eager": []}
+    turns = (("plain", base_eng, False), ("adapters", eng, True),
+             ("adapters_eager", twin, True))
+    for name, e, ad in turns + turns[::-1]:
         runs[name].append(lora_tput(torch, e, ad, profile=not runs[name]))
     tok_s = {k: sum(r["tok_s"] for r in v) / len(v) for k, v in runs.items()}
     dev_ms = {k: v[0]["device_ms_per_step"] for k, v in runs.items()}
     overhead = 100.0 * (tok_s["plain"] - tok_s["adapters"]) / tok_s["plain"]
     log(f"lora: decode at batch 8 ({time.perf_counter() - t0:.1f} s; tok/s "
         f"by turn): 4 adapters round-robin "
-        f"{[round(r['tok_s'], 1) for r in runs['adapters']]}, no adapters "
+        f"{[round(r['tok_s'], 1) for r in runs['adapters']]} (eager twin "
+        f"{[round(r['tok_s'], 1) for r in runs['adapters_eager']]}), no "
+        f"adapters "
         f"{[round(r['tok_s'], 1) for r in runs['plain']]}: "
         f"serving_lora_overhead_pct {overhead:.1f}; device ms per step "
         f"{dev_ms}; device by kernel with adapters "
@@ -2331,7 +2789,7 @@ def phase_lora_serve(torch, ops) -> dict:
            "tok_s": tok_s, "device_ms_per_step": dev_ms,
            "serving_lora_overhead_pct": overhead,
            "engine": eng_st}
-    del eng, base_eng, srv
+    del eng, base_eng, srv, twin
     free_memory(torch)
     return out
 
@@ -2544,43 +3002,45 @@ def tree_gib(tree) -> float:
     return tree.numel() * tree.element_size() / 2 ** 30
 
 
-def decode_tput(torch, ops, eng, prompts, n: int = 16) -> dict:
+def decode_tput(torch, eng, prompts, n: int = 16) -> dict:
     """Decode tok/s at the batch of ``prompts`` (admitted one by one, so a
     radix hit serves a repeated head) over one timed block of ``n`` steps
-    after a warm one, its launches and sliding-window band steps, and the
-    device ms of a decode step (``device_busy``); the slots are evicted
-    after."""
+    after a warm one; then the device ms of a decode step over a profiled
+    block of 4 (``device_busy``), its launches on the card's trace and
+    its sliding-window band steps; the slots are evicted after."""
     for p in prompts:
         eng.add_request(p)
     eng.decode_block(2)
     torch.cuda.synchronize()
-    band0 = eng.band_steps
-    ops.reset_launch_counts()
     t0 = time.perf_counter()
     eng.decode_block(n)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, band = ops.launch_counts(), eng.band_steps - band0
+    band0 = eng.band_steps
     busy = device_busy(torch, lambda: eng.decode_block(4), 4)
+    band = eng.band_steps - band0
     for s in list(eng.slots):
         eng.evict_slot(s)
     return {"tok_s": len(prompts) * n / wall, "step_ms": wall / n * 1e3,
             "device_ms_per_step": busy and busy["ms_per_step"],
-            "device_top": busy and busy["top"], "counts": counts,
-            "band_steps": band, "steps": n}
+            "device_top": busy and busy["top"],
+            "counts": busy and busy["launches"], "band_steps": band,
+            "steps": 4}
 
 
 def decode_logits(torch, eng, prompt, n: int):
     """``prompt`` alone through ``eng.generate`` (an empty engine: slot 0)
     for ``n`` tokens: the tokens and the (n - 1, vocab) logits of its
-    decode steps."""
+    decode steps (None on a graph engine), and its logprobs."""
     check(not eng.slots, "an empty engine")
-    rec = StepLogits(eng)
+    rec = None if eng.decode_graphs else StepLogits(eng)
     try:
         res = eng.generate([prompt], n)[0]
     finally:
-        rec.close()
-    return res.tokens, torch.stack(rec.steps)[:, 0]
+        if rec is not None:
+            rec.close()
+    return (res.tokens, rec and torch.stack(rec.steps)[:, 0],
+            res.logprobs)
 
 
 def window_rows(torch, model, params, prompt, toks, dec) -> dict:
@@ -2625,8 +3085,8 @@ def window_cut(torch, eng, prompt) -> dict:
     for name, kvq in (("fp32", False), ("fp32_int8_kv", True)):
         cut = ServingEngine(model, params, max_batch=1, max_len=eng.max_len,
                             prefill_len=eng.prefill_len, kv_quant=kvq,
-                            device="cuda")
-        toks, dec = decode_logits(torch, cut, prompt, 8)
+                            device="cuda", decode_graphs=False)
+        toks, dec, _ = decode_logits(torch, cut, prompt, 8)
         check(cut.band_steps == 7, f"window cut {name}: every decode step "
               f"reads the band ({cut.band_steps} of 7)")
         del cut
@@ -2702,33 +3162,25 @@ def phase_window(torch, ops) -> dict:
              for n in WINDOW_SHORT]
     long_ = [torch.randint(1, V, (n,), generator=gen).tolist()
              for n in WINDOW_LONG]
-    rows, attends = [], []
-    forward, decode = eng._forward, eng._decode_logits
-
-    def counted_forward(tokens, cache, lengths, *a, **kw):
-        rows.append(tokens.numel())
-        return forward(tokens, cache, lengths, *a, **kw)
-
-    def counted_decode(last, lens, attend_len, *a, **kw):
-        attends.append(attend_len)
-        return decode(last, lens, attend_len, *a, **kw)
-
-    eng._forward, eng._decode_logits = counted_forward, counted_decode
+    fl = ForwardLog(eng)
     try:
         wait_ready(srv.url)
         band0 = eng.band_steps
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
+        fl.start()
         t0 = time.perf_counter()
-        results, errors = staggered_burst(srv.url, short, long_)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        with Traced(torch, ops) as tr:
+            results, errors = staggered_burst(srv.url, short, long_)
+        wall = tr.t_end - t0
+        fl.stop()
+        counts = tr.counts
         band = eng.band_steps - band0
         st = http_json(srv.url + "/v1/stats")
+        within_budget(st["engine"]["decode_graphs"], "window")
     finally:
         srv.stop()
-        eng._forward, eng._decode_logits = forward, decode
+        fl.close()
+    rows = [b * t for b, t in fl.target]
+    attends = fl.attends
     check(not errors, f"window: {errors}")
     for i, r in enumerate(results):
         check(len(r["token_ids"]) == WINDOW_NEW
@@ -2744,8 +3196,8 @@ def phase_window(torch, ops) -> dict:
         f"tokens in {wall:.2f} s: rows {sorted(Counter(rows).items())}, "
         f"{len(attends)} decode steps at buckets "
         f"{sorted(Counter(attends).items())} ({b1_steps} through B1, {band} "
-        f"through the band), launches {counts}; TTFT ms {ttft} (long "
-        f"prompts last)")
+        f"through the band), launches on the card's trace {counts}; TTFT "
+        f"ms {ttft} (long prompts last)")
     check(b1_steps > 0 and band > 0 and b1_steps + band == len(attends),
           "window: decode steps inside the window (B1) and past it (band)")
     check(counts["quant_decode_attention"] == L * b1_steps,
@@ -2762,8 +3214,13 @@ def phase_window(torch, ops) -> dict:
 
     # decode inside the window (8 short rows: bucket 256, B1) and past it
     # (a long row's radix-cached prompt beside 7 short rows: the band)
-    inside = decode_tput(torch, ops, eng, [[1, 2, 3]] * 8)
-    past = decode_tput(torch, ops, eng, [long_[0]] + [[1, 2, 3]] * 7)
+    inside = decode_tput(torch, eng, [[1, 2, 3]] * 8)
+    past = decode_tput(torch, eng, [long_[0]] + [[1, 2, 3]] * 7)
+    # the same on the eager route (a twin over the same weights)
+    twin = eager_twin(eng)
+    eager = {"inside": decode_tput(torch, twin, [[1, 2, 3]] * 8),
+             "past": decode_tput(torch, twin,
+                                 [long_[0]] + [[1, 2, 3]] * 7)}
     check(inside["counts"]["quant_decode_attention"] == L * inside["steps"]
           and inside["band_steps"] == 0, "window: short rows decode by B1")
     check(past["counts"]["quant_decode_attention"] == 0
@@ -2773,11 +3230,21 @@ def phase_window(torch, ops) -> dict:
         f"{inside['tok_s']:.1f} tok/s, {inside['device_ms_per_step']} device "
         f"ms per step; past it (band) {past['tok_s']:.1f} tok/s, "
         f"{past['device_ms_per_step']} device ms per step; band step by "
-        f"kernel (ms): {past['device_top']}")
+        f"kernel (ms): {past['device_top']}; the eager twin inside "
+        f"{eager['inside']['tok_s']:.1f} tok/s, past "
+        f"{eager['past']['tok_s']:.1f} tok/s")
 
-    # a long row's decode logits: bf16 at full depth, then the float32 cut
+    # a long row's decode logits (the eager twin's): bf16 at full depth,
+    # then the float32 cut; the graph route's tokens and logprobs of the
+    # same row equal the eager twin's
     eng.radix.reclaim(eng.kv.total_blocks)
-    toks, dec = decode_logits(torch, eng, long_[0], 8)
+    twin.radix.reclaim(twin.kv.total_blocks)
+    toks, dec, lps = decode_logits(torch, twin, long_[0], 8)
+    g_toks, _, g_lps = decode_logits(torch, eng, long_[0], 8)
+    check((g_toks, g_lps) == (toks, lps), "window: a long row past the "
+          "window replayed (the band's graph) equals the eager route "
+          "(tokens and logprobs)")
+    del twin
     bf16 = window_rows(torch, eng.model, eng.params, long_[0], toks, dec)
     cut = window_cut(torch, eng, long_[0])
     log(f"window: a {WINDOW_LONG[0]}-token row's 7 decode steps against the "
@@ -2799,6 +3266,9 @@ def phase_window(torch, ops) -> dict:
            "ttft_ms_long": ttft[len(short):],
            "inside": {k: v for k, v in inside.items() if k != "counts"},
            "past": {k: v for k, v in past.items() if k != "counts"},
+           "eager": {k: {key: v[key] for key in ("tok_s", "step_ms",
+                                                 "device_ms_per_step")}
+                     for k, v in eager.items()},
            "rows_bf16": bf16, "rows_cut": cut, "route": route}
     del eng, srv
     free_memory(torch)
@@ -2850,30 +3320,35 @@ def phase_int4(torch, ops) -> dict:
     try:
         wait_ready(srv.url)
         steps0 = eng.decode_steps
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
+        graphs0 = eng.graph_stats()["graphs"]
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        with Traced(torch, ops) as tr:
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        wall = tr.t_end - t0
+        counts = tr.counts
         steps = eng.decode_steps - steps0
         st = http_json(srv.url + "/v1/stats")
+        within_budget(st["engine"]["decode_graphs"], "int4")
+        check(eng.graph_stats()["graphs"] == graphs0, "int4: no capture "
+              "in the counted run")
     finally:
         srv.stop()
     check(not errors, f"int4: {errors}")
+    log(f"int4: decode graphs {st['engine']['decode_graphs']}, pool "
+        f"{eng.graph_pool_gib()} GiB")
     for i, r in enumerate(results):
         check(len(r["token_ids"]) == INT4_NEW
               and all(0 <= t < V for t in r["token_ids"]),
               f"int4: request {i}: {r['token_ids']}")
     log(f"int4: server in {setup_s:.1f} s; 8 concurrent completions "
-        f"{list(SERVE_PLENS)} x {INT4_NEW} tokens over HTTP in {wall:.2f} s: "
-        f"{steps} decode steps, launches {counts}")
+        f"{list(SERVE_PLENS)} x {INT4_NEW} tokens over HTTP in {wall:.2f} s "
+        f"(traced): {steps} decode steps, launches on the card's trace "
+        f"{counts}")
     check(counts["quant_decode_attention"] == L * steps > 0,
           "int4: B1 launches = layers x decode steps")
     check(all(counts[n] == 0 for n in ("quant_matmul_stacked",
@@ -2907,11 +3382,18 @@ def phase_int4(torch, ops) -> dict:
     gib["int8"] = tree_gib(q8)
     del q8
     free_memory(torch)
+    # the burst on the graph route and on an eager twin over the same
+    # int4 weights (whose logits are read): tokens and logprobs equal;
+    # the twin's logits against the dequantized bf16 engine's (eager)
     eng.radix.reclaim(eng.kv.total_blocks)
-    got, got_lg = lora_burst(eng, prompts, [0] * len(prompts))
+    g_got = lora_burst(eng, prompts, [0] * len(prompts))[0]
+    twin = eager_twin(eng)
+    got, got_lg = lora_burst(twin, prompts, [0] * len(prompts))
+    check(g_got == got, "int4: the burst replayed equals the eager route "
+          "(tokens and logprobs)")
     ref = ServingEngine(eng.model, deq, max_batch=8, max_len=eng.max_len,
                         prefill_len=eng.prefill_len, kv_quant=True,
-                        device="cuda")
+                        device="cuda", decode_graphs=False)
     want, want_lg = lora_burst(ref, prompts, [0] * len(prompts))
     del ref, deq
     free_memory(torch)
@@ -2924,18 +3406,24 @@ def phase_int4(torch, ops) -> dict:
           f"int4: decode logits against the dequantized forward {l2}")
     check(eng.kv.used_blocks() == eng.radix.pool_blocks(),
           "int4: no leaked KV blocks")
-    tput = decode_tput(torch, ops, eng, [[1, 2, 3]] * 8, n=8)
+    tput = decode_tput(torch, eng, [[1, 2, 3]] * 8, n=8)
     check(tput["counts"]["quant_decode_attention"] == L * tput["steps"]
           and tput["counts"]["quant_matmul_stacked"] == 0,
           "int4: decode block launches B1 32 times a step, no B2")
+    eager = decode_tput(torch, twin, [[1, 2, 3]] * 8, n=8)
+    del twin
     log(f"int4: decode at batch 8 {tput['tok_s']:.1f} tok/s, "
         f"{tput['step_ms']:.1f} ms per step on the host clock, "
-        f"{tput['device_ms_per_step']} device ms per step; by kernel (ms): "
+        f"{tput['device_ms_per_step']} device ms per step (the eager twin "
+        f"{eager['tok_s']:.1f} tok/s, {eager['step_ms']:.1f} ms, "
+        f"{eager['device_ms_per_step']} device ms); by kernel (ms): "
         f"{tput['device_top']}")
     out = {"setup_s": setup_s, "wall_s": wall, "counts": counts,
            "decode_steps": steps, "weights_gib": gib, "rel_l2": l2,
            "bit_equal": bit_equal,
-           "decode": {k: v for k, v in tput.items() if k != "counts"}}
+           "decode": {k: v for k, v in tput.items() if k != "counts"},
+           "eager_decode": {k: eager[k] for k in (
+               "tok_s", "step_ms", "device_ms_per_step")}}
     del eng, srv
     free_memory(torch)
     return out
@@ -3400,23 +3888,37 @@ def moe_engine(torch, ops, cfg, qp) -> dict:
                         prefill_len=128, kv_quant=True, device="cuda")
     check(eng.attention_route().startswith("plain (mixture-of-experts"),
           f"moe engine route {eng.attention_route()!r}")
+    eng.warm_prefill_buckets()
+    graphs0 = eng.graph_stats()["graphs"]
     gen = torch.Generator().manual_seed(11)
     plens = [300, 200, 129, 100, 64, 33, 17, 5]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen)
                .tolist() for n in plens]
     max_new = 32
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
     eng.decode_steps = eng.prefill_dispatches = 0
     t0 = time.perf_counter()
-    results = eng.generate(prompts, max_new_tokens=max_new, block_size=16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    with Traced(torch, ops, kn="quant_matmul") as tr:
+        results = eng.generate(prompts, max_new_tokens=max_new,
+                               block_size=16)
+    wall = tr.t_end - t0
+    counts = tr.counts
     steps, chunks = eng.decode_steps, eng.prefill_dispatches
     log(f"moe engine: generate 8 prompts {plens} x {max_new} tokens in "
-        f"{wall:.2f} s: {chunks} prefill chunks, {steps} decode steps, "
-        f"launches {counts}")
+        f"{wall:.2f} s (traced): {chunks} prefill chunks, {steps} decode "
+        f"steps, launches on the card's trace {counts}")
+    check(eng.graph_stats()["graphs"] == graphs0, "moe engine: no capture "
+          "in the counted run")
+    # the same prompts on the eager route (a twin over the same weights)
+    twin = eager_twin(eng)
+    ops.reset_launch_counts()
+    want = twin.generate(prompts, max_new_tokens=max_new, block_size=16)
+    check([(r.tokens, r.logprobs) for r in results]
+          == [(r.tokens, r.logprobs) for r in want],
+          "moe engine: the replayed blocks equal the eager route (tokens "
+          "and logprobs)")
+    check(ops.launch_counts() == counts, f"moe engine: the eager route's "
+          f"wrappers count what the graph route's trace holds: "
+          f"{ops.launch_counts()}")
     check(len(results) == 8 and all(len(r.tokens) == max_new
                                      for r in results), "moe engine tokens")
     check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
@@ -3434,17 +3936,25 @@ def moe_engine(torch, ops, cfg, qp) -> dict:
           "B1 and B2 are gated off for MoE")
     check(all(counts[n] == 0 for n in FLASH), "B5-B7 are not on this path")
     tok_s = eng.throughput(n_steps=32)
+    eager_tok_s = twin.throughput(n_steps=32)
+    del twin
     for _ in range(8 - len(eng.slots)):
         eng.add_request([1, 2, 3])
     eng.decode_block(1)
-    busy = device_busy(torch, lambda: eng.decode_block(2), 2)
+    busy = device_busy(torch, lambda: eng.decode_block(2), 2,
+                       kn="quant_matmul")
     log(f"moe engine: decode {tok_s:.1f} tok/s at batch 8 "
-        f"({8 / tok_s * 1e3:.2f} ms/step on the host clock)"
+        f"({8 / tok_s * 1e3:.2f} ms/step on the host clock; the eager twin "
+        f"{eager_tok_s:.1f} tok/s, {8 / eager_tok_s * 1e3:.2f} ms/step)"
         + (f", device busy {busy['ms_per_step']:.2f} ms per decode step; "
            f"by kernel (ms/step): {busy['top']}" if busy else ""))
+    graphs = eng.graph_stats()
+    within_budget(graphs, "moe engine")
     out = {"counts": counts, "decode_steps": steps, "prefill_chunks": chunks,
            "generate_s": wall, "decode_tok_s": tok_s,
-           "device_busy": busy, "weights_gib": tree_gib(qp)}
+           "eager_decode_tok_s": eager_tok_s,
+           "device_busy": busy, "weights_gib": tree_gib(qp),
+           "graphs": graphs, "graph_pool_gib": eng.graph_pool_gib()}
     del eng
     return out
 
@@ -3692,6 +4202,9 @@ def main() -> int:
     eng = phase_engine(torch, cfg, qp, ops)
     mark("engine", t0)
     t0 = time.perf_counter()
+    graph = phase_graph(torch, cfg, qp, ops)
+    mark("graph", t0)
+    t0 = time.perf_counter()
     phase_cut(torch, cfg, qp)
     mark("cut", t0)
     del qp
@@ -3796,6 +4309,7 @@ def main() -> int:
                         eng["chunk_busy"] and eng["chunk_busy"]["ms_per_step"],
                     "decode_steps": eng["decode_steps"],
                     "prefill_chunks": eng["prefill_chunks"]}))
+    log(json.dumps({"card": card, "graph": graph}))
     log(json.dumps({"card": card, "serve": serve}))
     log(json.dumps({"card": card, "spec": {k: v for k, v in spec.items()
                                            if k != "kernels"}}))

@@ -542,7 +542,9 @@ def _lora_deltas(cfg: ModelConfig, lora: Params, adapter_idx: torch.Tensor,
     one-hot of ``adapter_idx`` (B,) over N+1 and ``sel = pick * scales``;
     the scale rides the A gather only (the delta is linear in the
     product). Single: every row takes adapter ``adapter_idx[0]`` and the
-    stack is indexed once. The gathered per-row pair is computed for all
+    stack is indexed once, on the device (the id is read by no host
+    code: a captured decode step replays with whatever id the engine's
+    buffer holds). The gathered per-row pair is computed for all
     L layers at once (one product per target and forward, not one per
     layer); each of its elements is one product rounded once to
     ``cfg.dtype``, the reference's value, and so is the single path's, so
@@ -553,11 +555,12 @@ def _lora_deltas(cfg: ModelConfig, lora: Params, adapter_idx: torch.Tensor,
     scales = lora["scales"].to(dt)
     pairs = {}
     if single:
-        aid = aidx[0]
-        a_scale = scales[aid]
+        aid = aidx[:1]
+        a_scale = scales.index_select(0, aid)
         for t, ab in lora["blocks"].items():
-            pairs[t] = ((ab["a"][:, aid].to(dt) * a_scale).float(),
-                        ab["b"][:, aid].to(dt).float())
+            pairs[t] = ((ab["a"].index_select(1, aid)[:, 0].to(dt)
+                         * a_scale).float(),
+                        ab["b"].index_select(1, aid)[:, 0].to(dt).float())
     else:
         pick = F.one_hot(aidx, scales.shape[0]).to(dt)          # (B, N+1)
         sel = (pick * scales[None, :]).float()

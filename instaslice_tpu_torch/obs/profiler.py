@@ -29,9 +29,10 @@ deltas re-baseline silently — lazily-compiled first-dispatch programs
 are startup, not the mid-run compile bug CompileObserved announces).
 
 Compile attribution: :class:`CompileWatch` snapshots the engine's
-loaded kernel libraries (``engine.compiled_programs()``) and the
-process-wide compile wall-clock accumulator (fed by the port's nvcc
-builds). Any growth
+loaded kernel libraries and captured CUDA graphs
+(``engine.compiled_programs()``) and the process-wide compile
+wall-clock accumulator (fed by the port's nvcc builds and graph
+captures). Any growth
 observed after the traffic grace window is a **mid-traffic compile**
 — the scheduler journals it as ``CompileObserved`` with the program
 name, the dispatch shape key, and the accumulated compile wall ms, so
@@ -43,8 +44,8 @@ of the JAX package), trimmed to what the port's server uses: left out
 are the Chrome trace export (``chrome_trace``, read by the reference's
 CLI), ``reset_profiler`` and ``Profiler.disarm``/``clear``. The compile watch listens on the port's kernel
 builds (``instaslice_tpu_torch.ops.build``) where the reference listens
-on ``jax.monitoring``: an nvcc build or library load after the warm
-window is the port's mid-traffic compile.
+on ``jax.monitoring``: an nvcc build, library load or graph capture
+after the warm window is the port's mid-traffic compile.
 """
 
 from __future__ import annotations
@@ -88,18 +89,25 @@ def _env_flag(name: str) -> bool:
 
 #: process-wide compile wall-ms accumulator, fed by the port's kernel
 #: builds (``ops/build.py`` reports every nvcc build with its wall time)
+#: and the serving engine's CUDA-graph captures
 _compile_lock = named_lock("profile.compile")
 _compile_ms = 0.0
 _listener_installed = False
 
 
-def _on_build(name: str, seconds: float) -> None:
+def record_compile(seconds: float) -> None:
+    """Add ``seconds`` of compile work (a kernel build, a graph capture)
+    to the accumulator."""
     global _compile_ms
     try:
         with _compile_lock:
             _compile_ms += float(seconds) * 1e3
     except Exception:  # noqa: BLE001  # slicelint: disable=broad-except
         pass           # monitoring must never break a dispatch
+
+
+def _on_build(name: str, seconds: float) -> None:
+    record_compile(seconds)
 
 
 def install_compile_listener() -> None:

@@ -148,6 +148,14 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launched() -> int:
+    """What a wrapper adds to its launch count after its call: 1, or 0
+    under a CUDA-graph capture, which records the launch without making
+    it (each replay makes it, with no wrapper call: only the card's
+    trace counts those)."""
+    return 0 if torch.cuda.is_current_stream_capturing() else 1
+
+
 def require_cuda(what: str, *tensors: torch.Tensor) -> torch.device:
     """All ``tensors`` on one CUDA device; raises otherwise."""
     dev = tensors[0].device

@@ -293,7 +293,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            k.shape[1], hd, int(causal), hd ** -0.5,
                            build.stream_handle(dev))
     build.check_launch(rc, what)
-    flash_fwd.launches += 1
+    flash_fwd.launches += build.launched()
     return o, lse
 
 
@@ -313,7 +313,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
                               k.shape[1], hd, int(causal), hd ** -0.5,
                               build.stream_handle(dev))
     build.check_launch(rc, what)
-    flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches += build.launched()
     return dq
 
 
@@ -335,7 +335,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
                                int(causal), hd ** -0.5,
                                build.stream_handle(dev))
     build.check_launch(rc, what)
-    flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches += build.launched()
     return dk, dv
 
 

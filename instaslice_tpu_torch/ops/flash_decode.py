@@ -208,7 +208,7 @@ def quant_decode_attention(q4: torch.Tensor, k3: torch.Tensor,
         layer, s_attn, hd ** -0.5, build.stream_handle(dev),
     )
     build.check_launch(rc, what)
-    quant_decode_attention.launches += 1
+    quant_decode_attention.launches += build.launched()
     return o, m, l
 
 

@@ -272,7 +272,7 @@ def quant_matmul_stacked(x: torch.Tensor, q3: torch.Tensor,
         s3.data_ptr() + layer * N * s3.element_size(), x.shape[0], K, N,
         False,
     )
-    quant_matmul_stacked.launches += 1
+    quant_matmul_stacked.launches += build.launched()
     return out
 
 
@@ -300,7 +300,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
                          f"want N = {N}")
     out = _launch(what, x, q.data_ptr(), s, s.data_ptr(), x.shape[0], K, N,
                   False)
-    quant_matmul.launches += 1
+    quant_matmul.launches += build.launched()
     return out
 
 
@@ -326,7 +326,7 @@ def quant_matmul_t(x: torch.Tensor, q: torch.Tensor,
                          f"want N = {N}")
     out = _launch(what, x, q.data_ptr(), s, s.data_ptr(), x.shape[0], K, N,
                   True)
-    quant_matmul_t.launches += 1
+    quant_matmul_t.launches += build.launched()
     return out
 
 

@@ -72,17 +72,28 @@ What the JAX engine has and this port does not yet: the mesh (tensor
 parallelism, ROADMAP queue A). The scheduler's guards keep it off
 (``mesh`` is None).
 
-Where the JAX engine compiles a ``lax.scan`` of decode steps, the port
-runs a Python loop of device steps; sampled tokens stay on the device
-and feed the next step, and the (n_steps, B) token block is copied to
-the host once (asynchronously, between :meth:`decode_block_start` and
-:meth:`decode_block_finish`).
+Where the JAX engine compiles a ``lax.scan`` of decode steps (one
+program per static key), a CUDA engine captures ONE decode step as a CUDA
+graph per key (attend bucket, greedy or sampled, adapter variant) and
+replays it ``n_steps`` times; a spec round (k+1 draft steps, the verify
+forward, the acceptance and the advance) is one graph per (k, attend
+bucket, greedy or sampled), and the draft's catch-up after a block one
+per (n_steps, attend bucket). :meth:`ServingEngine.compile_budget` bounds
+the set. A graph replays fixed device addresses, so the decode state
+(``last_token``, ``lengths``, ``seen``, the adapter ids, a step counter
+and the token/logprob block buffers) is allocated once and every path
+writes it in place. The eager step is what is captured: the CPU, and a
+CUDA engine built with ``decode_graphs=False``, run it as it is. Sampled
+tokens stay on the device and feed the next step, and the (n_steps, B)
+token block is copied to the host once (asynchronously, between
+:meth:`decode_block_start` and :meth:`decode_block_finish`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import time
 from typing import Dict, List, Optional
@@ -96,7 +107,7 @@ from instaslice_tpu_torch.models.lora import (
     frozen,
     stack_adapters,
 )
-from instaslice_tpu_torch.obs.profiler import get_profiler
+from instaslice_tpu_torch.obs.profiler import get_profiler, record_compile
 from instaslice_tpu_torch.ops import build
 from instaslice_tpu_torch.ops import flash_decode as _fd
 from instaslice_tpu_torch.serving.kvcache import (
@@ -175,6 +186,11 @@ class _Parked:
     adapter: int = 0                   # LoRA adapter id (0 = base)
 
 
+#: the dispatch forms a CUDA engine captures graphs for
+#: (:meth:`ServingEngine.compile_budget`'s keys)
+GRAPH_FORMS = ("decode_block", "draft_catchup", "spec_round")
+
+
 class ServingEngine:
     def __init__(
         self,
@@ -206,6 +222,7 @@ class ServingEngine:
         lora_names=None,
         adapter_fastpath: bool = True,
         device="cuda",
+        decode_graphs: Optional[bool] = None,
     ) -> None:
         """``kv_quant=True`` stores the KV cache as int8 with per-vector
         scales (decode then runs the int8 decode-attention kernel).
@@ -225,8 +242,15 @@ class ServingEngine:
         adapter id (0 included) take the single-adapter path. Adapters
         cannot combine with a draft model. ``device`` defaults to the
         card and raises without one; pass ``device="cpu"`` to run the
-        plain versions of the kernels."""
+        plain versions of the kernels. ``decode_graphs`` (default: on
+        for a CUDA engine) replays decode blocks and spec rounds as
+        captured CUDA graphs; False runs the same steps eagerly (the
+        comparison route on the card; the CPU always runs them so)."""
         self.device = resolve_device(device)
+        if decode_graphs is None:
+            decode_graphs = self.device.type == "cuda"
+        if decode_graphs and self.device.type != "cuda":
+            raise ValueError("decode_graphs needs a CUDA engine")
         if prefill_len > max_len:
             raise ValueError("prefill_len must be <= max_len")
         if not 0.0 < top_p <= 1.0:
@@ -324,7 +348,10 @@ class ServingEngine:
         #: decode rounds whose live slots share one adapter id take the
         #: single-adapter path (no per-row gather)
         self.adapter_fastpath = adapter_fastpath
-        self._single_aidx_cache: Dict[int, torch.Tensor] = {}
+        #: the adapter id of single-adapter forwards (the fast path and
+        #: prefill chunks), filled in place before each use (stream
+        #: order; no host-to-device copy)
+        self._aidx1 = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.fastpath_rounds = 0       # decode rounds on the single-
         self.gathered_rounds = 0       # adapter path vs the gather
         self.cache = model.init_cache(max_batch, max_len, quant=kv_quant,
@@ -333,6 +360,32 @@ class ServingEngine:
                                    device=self.device)
         self.last_token = torch.zeros(max_batch, dtype=torch.int64,
                                       device=self.device)
+        # ---- decode state a captured graph reads and writes ----
+        self._rows = torch.arange(max_batch, device=self.device)
+        #: row of the block buffers the next decode step writes
+        self._step_ctr = torch.zeros(1, dtype=torch.int64,
+                                     device=self.device)
+        #: (max_len, B) tokens and logprobs of the block in flight (a
+        #: block is shorter than the cache), and each row's last token
+        #: before it (the draft catch-up's first input)
+        self._blk_toks = torch.zeros((max_len, max_batch), dtype=torch.int64,
+                                     device=self.device)
+        self._blk_lps = torch.zeros((max_len, max_batch),
+                                    dtype=torch.float32, device=self.device)
+        self._blk_first = torch.zeros(max_batch, dtype=torch.int64,
+                                      device=self.device)
+        #: spec round outputs per k: accepted (B,), tokens and logprobs
+        #: (B, k+1)
+        self._spec_out: Dict[int, tuple] = {}
+        self.decode_graphs = bool(decode_graphs)
+        #: captured graphs by key (the form first, see GRAPH_FORMS)
+        self._graphs: Dict[tuple, torch.cuda.CUDAGraph] = {}
+        #: replays dispatched, by graph key (the host's record of what
+        #: each launched; the card's trace counts the kernels)
+        self.graph_replays: Dict[tuple, int] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self.capture_seconds = 0.0
         self.slots: Dict[int, _Slot] = {}
         self.finished: List[GenerationResult] = []
         self.tokens_generated = 0
@@ -475,29 +528,22 @@ class ServingEngine:
             self.params, tokens, cache, lengths, attend_len=attend_len,
             lora=self.lora, adapter_idx=aidx, single_adapter=single)
 
-    def _single_aidx(self, aid: int) -> torch.Tensor:
-        """A memoized (1,) device tensor holding adapter id ``aid`` (no
-        host-to-device copy per dispatch)."""
-        t = self._single_aidx_cache.get(aid)
-        if t is None:
-            t = torch.full((1,), aid, dtype=torch.int64, device=self.device)
-            self._single_aidx_cache[aid] = t
-        return t
-
     def _adapter_args(self):
         """(aidx, single) for this round's decode dispatch
         (``engine.py:944-960``): when every live slot shares one adapter
         id (0 included) and the fast path is on, the single-adapter path
         with that id; else the per-row gather over ``slot_adapter``.
         Chosen host-side from ``_slot_adapter_host``; each call is one
-        round of ``fastpath_rounds`` or ``gathered_rounds``."""
+        round of ``fastpath_rounds`` or ``gathered_rounds``. Both are
+        persistent buffers, so a captured step reads whatever ids they
+        hold when it replays."""
         if self.lora is None:
             return None, False
         if self.adapter_fastpath:
             ids = {self._slot_adapter_host.get(s, 0) for s in self.slots}
             if len(ids) == 1:
                 self.fastpath_rounds += 1
-                return self._single_aidx(ids.pop()), True
+                return self._aidx1.fill_(ids.pop()), True
         self.gathered_rounds += 1
         return self.slot_adapter, False
 
@@ -534,7 +580,7 @@ class ServingEngine:
             lens = torch.full((1,), offset, dtype=torch.int32,
                               device=self.device)
             logits, _ = self._forward(toks, stripe, lens,
-                                      aidx=self._single_aidx(adapter))
+                                      aidx=self._aidx1.fill_(adapter))
             if self.draft_model is not None:
                 self._draft_forward(toks, {k: c[:, slot:slot + 1] for k, c
                                            in self.draft_cache.items()},
@@ -606,11 +652,14 @@ class ServingEngine:
         logits, _ = self._forward(last[:, None], self.cache, lens,
                                   attend_len=attend_len, aidx=aidx,
                                   single=single)
-        self.decode_steps += 1
-        if window_band(self.model.cfg, self.max_len,
-                       attend_len or self.max_len):
-            self.band_steps += 1
         return logits[:, 0]
+
+    def _count_steps(self, n: int, attend: int) -> None:
+        """Count ``n`` decode steps dispatched attending ``attend``, on
+        the host where they are dispatched (eager or replayed alike)."""
+        self.decode_steps += n
+        if window_band(self.model.cfg, self.max_len, attend or self.max_len):
+            self.band_steps += n
 
     def _sample(self, logits: torch.Tensor, rows=None):
         """(tokens (B,) int64, logprobs (B,)) for a (B, vocab) batch, on
@@ -634,6 +683,193 @@ class ServingEngine:
                                                    device=self.device))
             self.seen[r, toks] = True
         return toks, token_logprob(logits, toks)
+
+    # --------------------------------------------------- captured steps
+
+    def _decode_step(self, attend: int, greedy: bool, aidx, single: bool):
+        """One decode step of every row on the persistent decode state,
+        the body of the reference's ``_decode_block_impl`` scan and what
+        a decode graph captures: the forward, the repetition penalty,
+        argmax or the filters and a draw, the ``seen`` update, the
+        step's tokens and logprobs into row ``_step_ctr`` of the block
+        buffers, then ``last_token``, ``lengths`` and the counter
+        advance. Nothing here reads a value back to the host."""
+        logits = self._decode_logits(self.last_token, self.lengths, attend,
+                                     aidx, single)
+        if self.track_seen:
+            logits = apply_repetition_penalty(logits, self.seen,
+                                              self.repetition_penalty)
+        if greedy:
+            toks = torch.argmax(logits, dim=-1)
+        else:
+            logits = filter_logits(logits / max(self.temperature, 1e-6),
+                                   self.top_k, self.top_p, self.min_p)
+            toks = sample(logits, self._gen)
+        if self.track_seen:
+            self.seen[self._rows, toks] = True
+        self._blk_toks.index_copy_(0, self._step_ctr, toks[None])
+        self._blk_lps.index_copy_(0, self._step_ctr,
+                                  token_logprob(logits, toks)[None])
+        self.last_token.copy_(toks)
+        self.lengths.add_(1)
+        self._step_ctr.add_(1)
+
+    def _draft_catchup(self, n_steps: int, attend: int) -> None:
+        """Teacher-force a finished block's inputs (``[last, toks[:-1]]``)
+        through the draft in ONE (B, n_steps) forward, so its cache
+        tracks the positions produced outside spec rounds."""
+        consumed = torch.cat([self._blk_first[:, None],
+                              self._blk_toks[:n_steps - 1].t()], dim=1)
+        self._draft_forward(consumed, self.draft_cache,
+                            self.lengths - n_steps, attend)
+
+    def _spec_buffers(self, k: int) -> tuple:
+        """The (accepted, tokens, logprobs) buffers of rounds of depth
+        ``k``, allocated outside any capture on first use."""
+        bufs = self._spec_out.get(k)
+        if bufs is None:
+            B, dev = self.max_batch, self.device
+            bufs = (torch.zeros(B, dtype=torch.int64, device=dev),
+                    torch.zeros((B, k + 1), dtype=torch.int64, device=dev),
+                    torch.zeros((B, k + 1), dtype=torch.float32, device=dev))
+            self._spec_out[k] = bufs
+        return bufs
+
+    def _spec_round(self, k: int, greedy: bool, attend: int) -> None:
+        """One speculative round on the persistent decode state, what a
+        spec graph captures: k+1 draft steps (step j consumes [last,
+        d0..d_{j-1}], so on full acceptance every admitted draft-cache
+        position is really written), the verify forward over (B, k+1)
+        with the acceptance, the outputs into this k's buffers, and the
+        on-device advance of ``last_token`` and ``lengths``."""
+        temp = max(self.temperature, 1e-6)
+        d_all, q_all = self._spec_draft(k + 1, greedy, temp, attend)
+        accepted, out, lps, final = self._spec_verify(
+            d_all[:, :k], None if greedy else q_all[:, :k], greedy, temp,
+            attend)
+        acc_b, out_b, lps_b = self._spec_out[k]
+        acc_b.copy_(accepted)
+        out_b.copy_(out)
+        lps_b.copy_(lps)
+        self.last_token.copy_(final)
+        self.lengths.add_((accepted + 1).to(torch.int32))
+
+    # ------------------------------------------------------ CUDA graphs
+
+    def _sampling_key(self, greedy: bool):
+        """What a sampled graph bakes in besides its shapes."""
+        return ("greedy",) if greedy else (
+            "sampled", self.temperature, self.top_k, self.top_p, self.min_p)
+
+    def _decode_key(self, attend: int, greedy: bool, aidx,
+                    single: bool) -> tuple:
+        variant = ("none" if aidx is None
+                   else "single" if single else "gathered")
+        return ("decode_block", attend, variant, self._sampling_key(greedy))
+
+    def _program(self, key: tuple, fn):
+        """``fn`` as this engine runs it: on a graph engine a replay of
+        its captured graph under ``key`` (captured on first use), else
+        ``fn`` itself. Called inside :meth:`_cache_write`: a capture or
+        replay that raises poisons the cache, and nothing falls back to
+        the eager step."""
+        if not self.decode_graphs:
+            return fn
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._capture(key, fn)
+        return functools.partial(self._replay, key, graph)
+
+    def _replay(self, key: tuple, graph) -> None:
+        graph.replay()
+        self.graph_replays[key] = self.graph_replays.get(key, 0) + 1
+
+    def _state_buffers(self) -> list:
+        bufs = [self.last_token, self.lengths, self._step_ctr]
+        return bufs + [self.seen] if self.track_seen else bufs
+
+    def _save_state(self):
+        """Copies of the decode state a step or round advances, and the
+        generator's state."""
+        return ([b.clone() for b in self._state_buffers()],
+                self._gen.get_state())
+
+    def _restore_state(self, saved) -> None:
+        for b, c in zip(self._state_buffers(), saved[0]):
+            b.copy_(c)
+        self._gen.set_state(saved[1])
+
+    def _capture(self, key: tuple, fn):
+        """Capture ``fn`` into a CUDA graph under ``key``. A warm-up run
+        on the capture stream first loads the kernels' modules, sets
+        their shared-memory attributes and makes the stream's cuBLAS
+        workspace, none of which a capture may do. The warm-up really
+        runs (its kernel launches are real, and the wrappers count
+        them), so the decode state and the generator are saved before it
+        and restored after it; the K/V it writes sits at each row's
+        ``lengths`` and beyond, where the real step writes the same
+        values (or, for a catch-up, rewrites the same positions from the
+        same inputs) before anything reads them. The capture records
+        launches without making them: no wrapper counts them, and a
+        replay's kernels show only in the card's trace. All graphs of
+        the engine share one memory pool: their outputs land in
+        engine-owned buffers and every replay runs on one stream."""
+        t0 = time.perf_counter()
+        dev = self.device
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(dev)
+        saved = self._save_state()
+        cur, side = torch.cuda.current_stream(dev), self._capture_stream
+        graph = torch.cuda.CUDAGraph()
+        # replays draw fresh numbers from the engine's generator
+        graph.register_generator_state(self._gen)
+        try:
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                fn()
+                self._restore_state(saved)
+                graph.capture_begin(pool=self._graph_pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    fn()
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        except BaseException:
+            if not self._graphs:
+                # the failed graph held the pool's only reference: the
+                # allocator retires a pool nothing uses, so ask anew
+                self._graph_pool = None
+            raise
+        finally:
+            cur.wait_stream(side)
+        self._graphs[key] = graph
+        dt = time.perf_counter() - t0
+        self.capture_seconds += dt
+        record_compile(dt)
+        get_profiler().event("compile", key[0], dur_ms=dt * 1e3,
+                             key=str(key[1:]))
+        return graph
+
+    def _attend_buckets(self) -> List[int]:
+        """Every attend value a block or round can dispatch: the
+        256-position buckets below ``max_len``, and 0 (the whole
+        cache)."""
+        return [b for b in range(256, self.max_len, 256)] + [0]
+
+    def _warm(self, key: tuple, fn) -> None:
+        """Capture ``fn`` under ``key`` now (a graph engine), or run it
+        once eagerly with the decode state restored after it."""
+        if self.decode_graphs:
+            if key not in self._graphs:
+                self._capture(key, fn)
+            return
+        saved = self._save_state()
+        fn()
+        self._restore_state(saved)
 
     # ------------------------------------------------------------ queries
 
@@ -702,10 +938,92 @@ class ServingEngine:
 
     def compiled_programs(self) -> Dict[str, int]:
         """The kernel libraries this process has built and loaded, by
-        source name: the port's counterpart of the JAX engine's
-        per-jit compile-cache sizes (the profiler's compile watch reports
-        any that appear mid-traffic)."""
-        return {name: 1 for name in build.loaded()}
+        source name, and this engine's captured CUDA graphs by dispatch
+        form (:data:`GRAPH_FORMS`): the port's counterpart of the JAX
+        engine's per-jit compile-cache sizes (the profiler's compile
+        watch reports any that appear mid-traffic)."""
+        out = {name: 1 for name in build.loaded()}
+        for key in list(self._graphs):
+            out[key[0]] = out.get(key[0], 0) + 1
+        return out
+
+    def compile_budget(self, block_cap: int = 0) -> Dict[str, int]:
+        """The documented upper bound on captured graphs per dispatch
+        form for this engine's configuration (the reference's
+        ``compile_budget``, ``engine.py:1076-1126``), what
+        :meth:`compiled_programs` is held to. ``block_cap`` is the
+        largest decode block the caller dispatches (the scheduler's
+        ``block_size``; 0 = up to ``max_len``).
+
+        - decode_block: attend buckets (256-position steps below
+          ``max_len``, plus the whole cache) x adapter variants (1, or 2
+          with adapters: single and gathered) x greedy/sampled. Where the
+          reference compiles one scan per power-of-two ``n_steps``, the
+          port captures ONE step and replays it ``n_steps`` times, so
+          the step count is no factor; the sampling mode is, because the
+          port keys it (temperature is mutable between calls; the
+          reference counts it only in its spec forms);
+        - draft_catchup (with a draft): one per power-of-two ``n_steps``
+          up to ``block_cap`` x attend buckets. The reference counts
+          ``1 + n_steps``: its catch-up attends the whole cache and its
+          ``step()`` catch-up is a program of its own; the port's
+          attends the block's bucket, and ``step()`` runs eagerly;
+        - spec_round (with a draft): ``len(_spec_kset)`` x attend
+          buckets x greedy/sampled: ONE graph holds the reference's
+          ``spec_draft`` and ``spec_verify`` programs (each
+          ``2 x len(_spec_kset)`` there) with the acceptance and the
+          advance.
+
+        Prefill, stripes and ``step()`` run eagerly: no graph form.
+        A sampled form assumes one sampling configuration (temperature,
+        top-k, top-p, min-p); changing it captures its set again."""
+        cap = block_cap or self.max_len
+        n_steps = max(1, cap).bit_length()
+        attend = len(self._attend_buckets())
+        variants = 2 if self.lora is not None else 1
+        out = {"decode_block": attend * variants * 2}
+        if self.draft_model is not None:
+            out["draft_catchup"] = n_steps * attend
+            out["spec_round"] = len(self._spec_kset) * attend * 2
+        return out
+
+    def decode_route(self) -> str:
+        """What runs a decode block and a spec round: "cuda graphs", or
+        "eager" and why."""
+        if self.decode_graphs:
+            return "cuda graphs"
+        if self.device.type != "cuda":
+            return "eager (cpu)"
+        return "eager (decode_graphs=False)"
+
+    def graph_stats(self) -> dict:
+        """The ``/v1/stats`` engine block's graph gauges: the route, the
+        captured graphs by form against :meth:`compile_budget`, the
+        replays dispatched by form, and the seconds spent capturing."""
+        got = self.compiled_programs()
+        replays = {f: 0 for f in self.compile_budget()}
+        for key, n in list(self.graph_replays.items()):
+            replays[key[0]] += n
+        return {
+            "route": self.decode_route(),
+            "graphs": {f: got.get(f, 0) for f in self.compile_budget()},
+            "budget": self.compile_budget(),
+            "replays": replays,
+            "capture_seconds": round(self.capture_seconds, 3),
+        }
+
+    def graph_pool_gib(self) -> Optional[float]:
+        """GiB the graphs' shared memory pool holds on the card (None
+        before the first capture, or where the allocator's snapshot
+        names no pool)."""
+        if self._graph_pool is None:
+            return None
+        pool = tuple(self._graph_pool)
+        segs = [sg for sg in torch.cuda.memory_snapshot()
+                if tuple(sg.get("segment_pool_id", ())) == pool]
+        if not segs:
+            return None
+        return sum(sg["total_size"] for sg in segs) / 2 ** 30
 
     def attention_route(self) -> str:
         """What computes a decode step's attention: "B1" where the int8
@@ -734,9 +1052,11 @@ class ServingEngine:
         """Run one chunk through every batched-prefill bucket, one
         single-row chunk and one decode step NOW, with zero admissions,
         so the kernel builds, library loads and cuBLAS handles happen
-        before traffic. The dummy rows write masked positions of slot
-        0's stripe (and one position of every slot): harmless while no
-        slot is live. Forward and block counters are left as they were."""
+        before traffic; a graph engine captures its decode step for
+        every attend bucket and adapter variant at the engine's sampling
+        mode here. The dummy rows write masked positions of slot 0's
+        stripe (and one position of every slot): harmless while no slot
+        is live. Forward and block counters are left as they were."""
         if self.slots:
             raise RuntimeError(
                 "warm_prefill_buckets must run before any admission "
@@ -748,13 +1068,22 @@ class ServingEngine:
             for b in self._prefill_buckets:
                 self._prefill_batch([[0] * P] * b, [0] * b, [0] * b, b)
         self._prefill([0] * P, 0, 0)
-        # the first 256-position bucket, as a short decode block attends:
-        # a windowed model's whole cache would read its band, not B1
-        attend = 256 if self.max_len > 256 else 0
+        greedy = self.temperature <= 0.0
+        # eagerly, the first 256-position bucket, as a short decode
+        # block attends: a windowed model's whole cache would read its
+        # band, not B1
+        attends = (self._attend_buckets() if self.decode_graphs
+                   else [256 if self.max_len > 256 else 0])
+        variants = ([(None, False)] if self.lora is None
+                    else [(self._aidx1.fill_(0), True),
+                          (self.slot_adapter, False)])
         with self._cache_write():
-            self._decode_logits(torch.zeros_like(self.last_token),
-                                torch.zeros_like(self.lengths), attend,
-                                aidx=self.slot_adapter)
+            for attend in attends:
+                for aidx, single in variants:
+                    self._warm(self._decode_key(attend, greedy, aidx,
+                                                single),
+                               functools.partial(self._decode_step, attend,
+                                                 greedy, aidx, single))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prefill_dispatches, self.decode_steps, self.band_steps = \
@@ -1119,7 +1448,9 @@ class ServingEngine:
         """Rebuild device decode state after a failed device call: drop
         every live slot (their stripes may be half written), return
         their request ids so the caller can fail those requests, and
-        rebuild zeroed caches (the draft's too) and decode state. Delivered ``finished``
+        zero the caches (the draft's too) and the decode state IN PLACE,
+        so captured graphs, which replay those addresses, stay valid (a
+        capture that failed stored no graph). Delivered ``finished``
         results, parked requests and the radix stripes survive (they
         are independent copies, never views of the cache)."""
         self._pending_block = None
@@ -1129,16 +1460,10 @@ class ServingEngine:
         for rid in lost:
             self._release_table(rid)
         self.slots.clear()
-        self.cache = self.model.init_cache(self.max_batch, self.max_len,
-                                           quant=self.kv_quant,
-                                           device=self.device)
-        self.lengths = torch.zeros_like(self.lengths)
-        self.last_token = torch.zeros_like(self.last_token)
-        if self.track_seen:
-            self.seen = torch.zeros_like(self.seen)
-        if self.draft_model is not None:
-            self.draft_cache = self.draft_model.init_cache(
-                self.max_batch, self.max_len, device=self.device)
+        for c in (*self.cache.values(), *(self.draft_cache or {}).values()):
+            c.zero_()
+        for b in self._state_buffers():
+            b.zero_()
         self._poisoned = False
         return lost
 
@@ -1709,7 +2034,10 @@ class ServingEngine:
 
     def step(self) -> Dict[int, int]:
         """One decode step for every live slot (the whole cache
-        attended); returns request id -> new token."""
+        attended); returns request id -> new token. It advances the live
+        rows only and reads its tokens back at once, so it runs eagerly
+        on every engine (the scheduler takes it only where a block of one
+        step would overrun the cache)."""
         self._drain_pending()
         if not self.slots:
             return {}
@@ -1729,6 +2057,7 @@ class ServingEngine:
             aidx, single = self._adapter_args()
             logits = self._decode_logits(self.last_token, self.lengths, 0,
                                          aidx, single)
+            self._count_steps(1, 0)
         toks, lps = self._sample(logits)
         toks_h, lps_h = toks.tolist(), lps.tolist()
         self.last_dispatch_landed = time.monotonic()
@@ -1739,11 +2068,11 @@ class ServingEngine:
             req.generated.append(t)
             req.logprobs.append(float(lps_h[slot]))
             self.tokens_generated += 1
-        self.last_token = toks
-        live = torch.zeros(self.max_batch, dtype=torch.bool,
+        self.last_token.copy_(toks)
+        live = torch.zeros(self.max_batch, dtype=torch.int32,
                            device=self.device)
-        live[list(self.slots)] = True
-        self.lengths = torch.where(live, self.lengths + 1, self.lengths)
+        live[list(self.slots)] = 1
+        self.lengths.add_(live)
         for slot in list(self.slots):
             self._maybe_finish(slot)
         self._sync_tables()
@@ -1766,10 +2095,11 @@ class ServingEngine:
             self.spec_step_finish()
 
     def decode_block_start(self, n_steps: int) -> bool:
-        """Enqueue ``n_steps`` decode steps and start the asynchronous
-        copy of the token block to the host; returns without waiting
-        for the device (False, and nothing enqueued, on an empty
-        batch)."""
+        """Enqueue ``n_steps`` decode steps (a graph engine replays its
+        captured step ``n_steps`` times, capturing it first for a new
+        key) and start the asynchronous copy of the token block to the
+        host; returns without waiting for the device (False, and nothing
+        enqueued, on an empty batch)."""
         self._drain_pending()
         if not self.slots:
             return False
@@ -1786,41 +2116,24 @@ class ServingEngine:
         bucket = min(self.max_len, ((need + 255) // 256) * 256)
         attend = bucket if bucket < self.max_len else 0
         greedy = self.temperature <= 0.0
-        temp = max(self.temperature, 1e-6)
-        rows = torch.arange(self.max_batch, device=self.device)
-        last, lens = self.last_token, self.lengths
-        toks_steps, lps_steps = [], []
         aidx, single = self._adapter_args()
         with self._cache_write():
+            step = self._program(
+                self._decode_key(attend, greedy, aidx, single),
+                functools.partial(self._decode_step, attend, greedy, aidx,
+                                  single))
+            self._blk_first.copy_(self.last_token)
+            self._step_ctr.zero_()
             for _ in range(n_steps):
-                logits = self._decode_logits(last, lens, attend, aidx,
-                                             single)
-                if self.track_seen:
-                    logits = apply_repetition_penalty(
-                        logits, self.seen, self.repetition_penalty)
-                if greedy:
-                    toks = torch.argmax(logits, dim=-1)
-                else:
-                    logits = filter_logits(logits / temp, self.top_k,
-                                           self.top_p, self.min_p)
-                    toks = sample(logits, self._gen)
-                if self.track_seen:
-                    self.seen[rows, toks] = True
-                lps_steps.append(token_logprob(logits, toks))
-                toks_steps.append(toks)
-                last, lens = toks, lens + 1
-            block = torch.stack(toks_steps)
+                step()
+            self._count_steps(n_steps, attend)
             if self.draft_model is not None:
-                # teacher-force the block's inputs ([last, toks[:-1]])
-                # through the draft in ONE forward so its cache tracks
-                # the positions produced outside spec_step
-                consumed = torch.cat([self.last_token[:, None],
-                                      block.t()[:, :-1]], dim=1)
-                self._draft_forward(consumed, self.draft_cache,
-                                    self.lengths, attend)
-        self.last_token, self.lengths = last, lens
-        block_lp = torch.stack(lps_steps)
-        host_t, host_lp, landed = self._to_host(block, block_lp)
+                self._program(
+                    ("draft_catchup", n_steps, attend),
+                    functools.partial(self._draft_catchup, n_steps,
+                                      attend))()
+        host_t, host_lp, landed = self._to_host(self._blk_toks[:n_steps],
+                                                self._blk_lps[:n_steps])
         self._pending_block = {"toks": host_t, "lps": host_lp,
                                "landed": landed, "n_steps": n_steps,
                                "batch": len(self.slots),
@@ -1998,11 +2311,15 @@ class ServingEngine:
         bucket = min(self.max_len, ((worst + k + 2 + 255) // 256) * 256)
         return bucket if bucket < self.max_len else 0
 
+    def _spec_key(self, k: int, attend: int, greedy: bool) -> tuple:
+        return ("spec_round", k, attend, self._sampling_key(greedy))
+
     def spec_step_start(self, k: Optional[int] = None) -> bool:
-        """Enqueue one speculative round without waiting for it: the
-        draft steps, the verify forward and the acceptance, and the
-        on-device advance of ``last_token``/``lengths``; then start the
-        asynchronous copy of (accepted, tokens, logprobs) to the host.
+        """Enqueue one speculative round without waiting for it (a graph
+        engine replays the round's captured graph): the draft steps, the
+        verify forward and the acceptance, and the on-device advance of
+        ``last_token``/``lengths``; then start the asynchronous copy of
+        (accepted, tokens, logprobs) to the host.
         Returns False (nothing enqueued) on an empty batch. A greedy
         round consumes no randomness."""
         if self.draft_model is None:
@@ -2015,21 +2332,13 @@ class ServingEngine:
             self.fault_hook("spec")
         k = self.spec_plan_k() if k is None else self._spec_clamp(k)
         greedy = self.temperature <= 0.0
-        temp = max(self.temperature, 1e-6)
         attend = self._spec_attend(k)
+        bufs = self._spec_buffers(k)
         with self._cache_write():
-            # k+1 draft steps: step j consumes [last, d0..d_{k-1}], so on
-            # full acceptance every admitted draft-cache position is
-            # really written (a k-step loop would leave d_{k-1}'s
-            # position a permanent zero-hole)
-            d_all, q_all = self._spec_draft(k + 1, greedy, temp, attend)
-            d = d_all[:, :k]
-            q = None if greedy else q_all[:, :k]
-            accepted, out, lps, final = self._spec_verify(d, q, greedy, temp,
-                                                          attend)
-        self.last_token = final
-        self.lengths = (self.lengths + accepted + 1).to(torch.int32)
-        host_a, host_out, host_lp, landed = self._to_host(accepted, out, lps)
+            self._program(self._spec_key(k, attend, greedy),
+                          functools.partial(self._spec_round, k, greedy,
+                                            attend))()
+        host_a, host_out, host_lp, landed = self._to_host(*bufs)
         self._pending_spec = {
             "accepted": host_a, "out": host_out, "lps": host_lp,
             "landed": landed, "k": k, "batch": len(self.slots),
@@ -2123,8 +2432,10 @@ class ServingEngine:
         shape set NOW, with zero admissions, so kernel builds, library
         loads and the w8a16 launch plans of every round shape happen
         before traffic (the reference compiles its draft/verify programs
-        here). The dummy rounds scribble masked positions of empty slots;
-        the generator's state and the forward counters are left as they
+        here); a graph engine captures the round of every k at every
+        attend bucket at the engine's sampling mode. The dummy rounds
+        scribble masked positions of empty slots; the decode state, the
+        generator's state and the forward counters are left as they
         were. No-op without a draft."""
         if self.draft_model is None:
             return
@@ -2133,20 +2444,19 @@ class ServingEngine:
                 "warm_spec_programs must run before any admission "
                 "(it scribbles on empty slots' masked stripes)")
         greedy = self.temperature <= 0.0
-        temp = max(self.temperature, 1e-6)
-        state = self._gen.get_state()
         P = self.prefill_len
+        attends = self._attend_buckets() if self.decode_graphs else [0]
         with self._cache_write():
             self._draft_forward(
                 torch.zeros((1, P), dtype=torch.int64, device=self.device),
                 {k: c[:, 0:1] for k, c in self.draft_cache.items()},
                 torch.zeros(1, dtype=torch.int32, device=self.device))
             for k in self._spec_kset:
-                d_all, q_all = self._spec_draft(k + 1, greedy, temp, 0)
-                self._spec_verify(d_all[:, :k],
-                                  None if greedy else q_all[:, :k],
-                                  greedy, temp, 0)
-        self._gen.set_state(state)
+                self._spec_buffers(k)
+                for attend in attends:
+                    self._warm(self._spec_key(k, attend, greedy),
+                               functools.partial(self._spec_round, k, greedy,
+                                                 attend))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -2111,6 +2111,10 @@ class Scheduler(threading.Thread):
                 # the port's: "B1", or "plain (why)" where the decode
                 # attention of this model runs without a kernel
                 "attention_route": eng.attention_route(),
+                # the port's: what runs decode blocks and spec rounds
+                # ("cuda graphs" or "eager (why)"), the captured graphs
+                # by form against compile_budget, capture seconds
+                "decode_graphs": eng.graph_stats(),
             },
             "parked": len(self._parked),
             "preempted": self.preempted,

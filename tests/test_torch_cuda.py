@@ -7,6 +7,8 @@ they reach the masked edges and layouts ``chip_smoke.py``'s 7B shapes
 never do. Tolerances: fp32 sums of exact products in another order.
 """
 
+import time
+
 import pytest
 import torch
 
@@ -845,10 +847,10 @@ def test_lora_single_adapter_path_against_the_gathered_path(dev):
 
 def test_lora_decode_step_launch_counts_on_the_card(dev, monkeypatch):
     """A mixed-adapter decode block (rows on adapters 0, 1, 2: the
-    gathered path) launches B1-B3 as an engine without adapters does,
-    and its tokens and logprobs equal the plain versions' run on the
-    same card within bf16 (logprobs 5e-2)."""
-    from instaslice_tpu_torch import ops
+    gathered path) launches B1-B3 as an engine without adapters does
+    (counted on the card's trace: the block replays graphs captured at
+    warm-up), and its tokens and logprobs equal the plain versions' run
+    on the same card within bf16 (logprobs 5e-2)."""
     from instaslice_tpu_torch.models import lm, quant
     from instaslice_tpu_torch.serving import ServingEngine
     model, params, ads = _lora_setup(dev)
@@ -859,12 +861,11 @@ def test_lora_decode_step_launch_counts_on_the_card(dev, monkeypatch):
         eng = ServingEngine(model, params, kv_quant=True, max_batch=4,
                             max_len=256, prefill_len=32, device=dev,
                             lora_adapters=ads if adapters else None)
+        eng.warm_prefill_buckets()
         for i, p in enumerate(prompts):
             eng.add_request(p, adapter=i if adapters else 0)
-        ops.reset_launch_counts()
-        eng.decode_block(4)
-        torch.cuda.synchronize()
-        return (ops.launch_counts(), eng.gathered_rounds,
+        _, counts = _traced(lambda: eng.decode_block(4))
+        return (counts, eng.gathered_rounds,
                 [(r.generated, r.logprobs)
                  for _, r in sorted(eng.slots.items())])
 
@@ -879,9 +880,8 @@ def test_lora_decode_step_launch_counts_on_the_card(dev, monkeypatch):
     monkeypatch.setattr(quant, "quant_matmul_t", qm.quant_matmul_t_ref)
     monkeypatch.setattr(lm, "quant_decode_attention",
                         fd.quant_decode_attention_ref)
-    ops.reset_launch_counts()
-    _, _, plain = run(True)
-    assert sum(ops.launch_counts().values()) == 0
+    counts, _, plain = run(True)
+    assert sum(counts.values()) == 0
     for (gk, lk), (gp, lp) in zip(kern, plain):
         assert gk == gp
         assert max(abs(a - b) for a, b in zip(lk, lp)) <= 5e-2
@@ -973,3 +973,328 @@ def test_int4_dequantize_on_the_card_is_bit_equal(dev):
                        .dequantize(torch.bfloat16))
     assert torch.equal(embed_lookup(cpu["embed"].to(dev), toks.to(dev)).cpu(),
                        embed_lookup(cpu["embed"], toks))
+
+
+# ------------------------------------------------------------ decode graphs
+
+def _traced(fn, kn="quant_matmul_stacked"):
+    """``fn()``'s result and the kernel launches the card's trace shows
+    for it, by wrapper (``ops.trace_launch_counts``)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from instaslice_tpu_torch import ops
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        # a last marker kernel, and time for CUPTI to hand over the
+        # window's last records before the trace stops
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    names = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    assert sum(n for k, n in names.items() if "spin_kernel" in k) == 1
+    return out, ops.trace_launch_counts(names.items(), kn)
+
+
+def test_graph_of_one_b1_and_one_b2_launch_replays_equal_to_eager(dev):
+    """The kernels launch through their own CUDA runtime onto the stream
+    they are handed: under capture that is the capture stream, and a
+    graph holding one B1 and one B2 launch replays equal to the eager
+    calls, on the inputs its addresses hold at replay. The wrappers count
+    nothing under the capture (it records the launches), and the card's
+    trace shows each replay's B1 and B2 kernel once."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    L, B, Hkv, G, S, hd = 2, 4, 2, 2, 256, 128
+    k3 = torch.randint(-127, 128, (L, B, Hkv, S, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    v3 = torch.randint(-127, 128, (L, B, Hkv, S, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    ks3 = torch.rand((L, B, Hkv, S), generator=g, device=dev) * 0.01
+    vs3 = torch.rand((L, B, Hkv, S), generator=g, device=dev) * 0.01
+    q4 = torch.randn((B, Hkv, G, hd), generator=g, device=dev)
+    lens = torch.tensor([0, 17, 200, 256], dtype=torch.int32, device=dev)
+    x = torch.randn((8, 512), generator=g, device=dev).to(torch.bfloat16)
+    q3 = torch.randint(-127, 128, (L, 512, 384), generator=g, device=dev,
+                       dtype=torch.int8)
+    s3 = torch.rand((L, 1, 384), generator=g, device=dev).to(torch.bfloat16)
+
+    def both():
+        return (fd.quant_decode_attention(q4, k3, ks3, v3, vs3, lens, 1, S),
+                qm.quant_matmul_stacked(x, q3, s3, 1))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = (fd.quant_decode_attention.launches,
+          qm.quant_matmul_stacked.launches)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        (o, m, l), y = both()
+    assert (fd.quant_decode_attention.launches,
+            qm.quant_matmul_stacked.launches) == n0
+    _, counts = _traced(lambda: (graph.replay(), graph.replay()))
+    assert {k: n for k, n in counts.items() if n} == {
+        "quant_decode_attention": 2, "quant_matmul_stacked": 2}
+    for _ in range(2):
+        q4.copy_(torch.randn(q4.shape, generator=g, device=dev))
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        graph.replay()
+        (eo, em, el), ey = both()
+        torch.cuda.synchronize()
+        for a, b in ((o, eo), (m, em), (l, el), (y, ey)):
+            assert torch.equal(a, b)
+
+
+def test_sampler_and_one_hot_capture(dev):
+    """The decode step's host-sync suspects capture as they are on this
+    PyTorch: ``torch.multinomial`` (through ``sampling.sample`` with the
+    engine's kind of generator, registered with the graph) and
+    ``F.one_hot`` (the MoE dispatch, the gathered LoRA pick); two replays
+    of the draw read the generator's advanced offset."""
+    from instaslice_tpu_torch.serving import sampling
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.zeros((64, 1000), device=dev)
+    idx = torch.randint(0, 8, (64,), device=dev)
+
+    def body():
+        return sampling.sample(logits, gen), torch.nn.functional.one_hot(
+            idx, 8)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        toks, hot = body()
+    graph.replay()
+    first = toks.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(first, toks)
+    assert torch.equal(hot, torch.nn.functional.one_hot(idx, 8))
+
+
+def _graph_engine(dev, **kw):
+    """The spec engine's int8 W+KV model (hd 128, G 2: B1-B3 built)
+    without a draft, at a cache of three 256-position buckets. With the
+    seeded weights the last token's own logit (its tied embedding's
+    squared norm over the final norm) takes all the mass: logprob 0,
+    every draw the argmax. The final norm's scale divided by d_model
+    spreads the mass (top probability ~0.002), so logprobs and draws are
+    comparisons that can fail."""
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    from instaslice_tpu_torch.models.quant import quantize_params
+    from instaslice_tpu_torch.serving import ServingEngine
+    cfg = ModelConfig(vocab_size=1024, d_model=512, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=1024, dtype=torch.bfloat16,
+                      remat=False)
+    model = TpuLM(cfg)
+    params = model.init(0, device=dev)
+    params["ln_f"]["scale"] = params["ln_f"]["scale"] / cfg.d_model
+    return ServingEngine(model, quantize_params(params), kv_quant=True,
+                         max_batch=4, max_len=768, prefill_len=32,
+                         device=dev, **kw)
+
+
+_GRAPH_PROMPTS = [[(7 * i + j) % 1000 + 1 for j in range(n)]
+                  for i, n in enumerate((240, 17, 64, 5))]
+
+
+def _run_blocks(eng, blocks, prompts=None, adapters=None):
+    """The prompts admitted (request i on ``adapters[i]``), then decode
+    blocks of the given lengths: per slot (tokens, logprobs), the
+    launches on the card's trace and by the wrappers across the blocks,
+    and the decode steps dispatched."""
+    from instaslice_tpu_torch import ops
+    prompts = prompts or _GRAPH_PROMPTS
+    for i, p in enumerate(prompts):
+        eng.add_request(p, adapter=adapters[i] if adapters else 0)
+    ops.reset_launch_counts()
+    steps0 = eng.decode_steps
+
+    def run():
+        for n in blocks:
+            eng.decode_block(n)
+    _, traced = _traced(run)
+    return ([(r.generated, r.logprobs) for _, r in sorted(eng.slots.items())],
+            traced, ops.launch_counts(), eng.decode_steps - steps0)
+
+
+def test_decode_block_graphs_bit_equal_to_eager_and_counted(dev):
+    """Greedy blocks whose 256-position bucket changes (the 240-token row
+    crosses 256 in the second block, so its key is captured mid-stream)
+    replay bit-equal to the eager route on the same card: tokens and
+    logprobs. The card's trace holds every replayed step's kernels (B1
+    layers x steps, B2 6 x layers x steps, B3 one a step) plus those of
+    each lazy capture's warm-up step, which are the only launches the
+    wrappers count; on the eager route trace and wrappers agree, and
+    ``decode_steps`` counts the steps dispatched on both."""
+    blocks, L = (8, 16, 4), 2
+
+    def implied(steps):
+        from instaslice_tpu_torch import ops
+        return dict.fromkeys(ops.KERNEL_WRAPPERS, 0) | {
+            "quant_decode_attention": L * steps,
+            "quant_matmul_stacked": 6 * L * steps, "quant_matmul_t": steps}
+
+    g_eng = _graph_engine(dev)
+    g_out, g_traced, g_wrap, g_steps = _run_blocks(g_eng, blocks)
+    e_out, e_traced, e_wrap, e_steps = _run_blocks(
+        _graph_engine(dev, decode_graphs=False), blocks)
+    assert g_out == e_out
+    assert g_steps == e_steps == sum(blocks)
+    assert e_traced == e_wrap == implied(sum(blocks))
+    captures = len(g_eng._graphs)
+    assert captures == 2
+    assert g_wrap == implied(captures)
+    assert g_traced == implied(sum(blocks) + captures)
+    assert g_eng.graph_stats()["replays"]["decode_block"] == sum(blocks)
+
+
+def _lora_engine(dev, **kw):
+    """:func:`_graph_engine`'s model and weights serving two seeded rank-8
+    adapters on (wq, wv) with B nonzero, so each adapter moves its rows."""
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    from instaslice_tpu_torch.models.lora import LoraConfig, init_lora
+    from instaslice_tpu_torch.models.quant import quantize_params
+    from instaslice_tpu_torch.serving import ServingEngine
+    cfg = ModelConfig(vocab_size=1024, d_model=512, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=1024, dtype=torch.bfloat16,
+                      remat=False)
+    model = TpuLM(cfg)
+    params = model.init(0, device=dev)
+    params["ln_f"]["scale"] = params["ln_f"]["scale"] / cfg.d_model
+    lcfg = LoraConfig(rank=8, alpha=16.0, targets=("wq", "wv"))
+    adapters = []
+    for i in range(2):
+        ad = init_lora(100 + i, cfg, lcfg, device=dev)
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        for ab in ad["blocks"].values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=g,
+                                  device=dev) * 0.05
+        adapters.append(ad)
+    return ServingEngine(model, quantize_params(params), kv_quant=True,
+                         max_batch=4, max_len=768, prefill_len=32,
+                         lora_adapters=adapters, lora_alphas=[16.0] * 2,
+                         device=dev, **kw)
+
+
+@pytest.mark.parametrize("adapters", [(2, 2, 2, 2), (0, 1, 2, 1)],
+                         ids=["single", "gathered"])
+def test_lora_graph_replays_bit_equal_to_eager(dev, adapters):
+    """Every live row on one adapter takes the single-adapter step, mixed
+    adapters the gathered one: each replays bit-equal to the eager route
+    (tokens and logprobs), across a bucket change, and its key is the
+    one its variant names."""
+    g_eng = _lora_engine(dev)
+    g_out, g_traced, _, _ = _run_blocks(g_eng, (8, 16), adapters=adapters)
+    e_out, e_traced, _, _ = _run_blocks(
+        _lora_engine(dev, decode_graphs=False), (8, 16), adapters=adapters)
+    assert g_out == e_out
+    assert g_traced["quant_decode_attention"] == e_traced[
+        "quant_decode_attention"] + 2 * len(g_eng._graphs)
+    variant = "single" if len(set(adapters)) == 1 else "gathered"
+    assert {k[2] for k in g_eng._graphs} == {variant}
+
+
+def test_graph_engine_keys_route_and_budget(dev):
+    eng = _graph_engine(dev)
+    _run_blocks(eng, (8, 16))
+    assert eng.decode_route() == "cuda graphs"
+    assert sorted(k[1] for k in eng._graphs) == [256, 512]
+    st = eng.graph_stats()
+    assert st["graphs"]["decode_block"] == 2 <= st["budget"]["decode_block"]
+    assert st["capture_seconds"] > 0
+    assert eng.compiled_programs()["decode_block"] == 2
+    gib = eng.graph_pool_gib()
+    assert gib is None or 0 < gib < 1
+    assert _graph_engine(dev, decode_graphs=False).decode_route() == (
+        "eager (decode_graphs=False)")
+
+
+def test_sampled_replays_draw_afresh_and_match_eager(dev):
+    """At temperature 0.8 two replays of one graph from the same decode
+    state draw different tokens (the engine's generator is registered
+    with the graph, so each replay reads its advanced offset), and a
+    sampled block replays the eager route's draws from the same
+    generator state."""
+    eng = _graph_engine(dev, temperature=0.8, seed=3)
+    for p in _GRAPH_PROMPTS[1:]:        # 16 steps in one bucket: one key
+        eng.add_request(p)
+    saved = eng._save_state()
+    eng.decode_block(8)
+    first = eng._blk_toks[:8].clone()
+    for b, c in zip(eng._state_buffers(), saved[0]):
+        b.copy_(c)
+    eng.decode_block(8)
+    assert len(eng._graphs) == 1
+    assert not torch.equal(first, eng._blk_toks[:8])
+    outs = []
+    for graphs in (True, False):
+        e = _graph_engine(dev, temperature=0.8, seed=3,
+                          decode_graphs=graphs)
+        outs.append(_run_blocks(e, (8, 8))[0])
+    assert outs[0] == outs[1]
+
+
+def test_blocks_after_recover_and_a_lazy_capture_equal_eager(dev):
+    """A graph engine and an eager one, block for block: a key captured
+    lazily with live slots leaves the stream as eager has it, and after
+    ``recover()`` (caches and state zeroed in place, the graphs kept) a
+    new admission's blocks equal eager's too."""
+    engs = [_graph_engine(dev), _graph_engine(dev, decode_graphs=False)]
+    outs = [_run_blocks(e, (8, 16))[0] for e in engs]
+    assert outs[0] == outs[1]
+    for e in engs:
+        e.mark_cache_poisoned()
+        e.recover()
+    assert len(engs[0]._graphs) == 2
+    outs = [_run_blocks(e, (4, 8))[0] for e in engs]
+    assert outs[0] == outs[1]
+
+
+def test_failed_capture_raises_and_poisons_with_no_fallback(dev):
+    """A step that cannot be captured raises out of ``decode_block``: the
+    cache is poisoned, no graph is stored, no token was produced eagerly,
+    no decode step is counted and the wrappers count the warm-up's
+    launches only (one step: B1 twice, B2 12 times, B3 once);
+    ``recover()`` serves again."""
+    from instaslice_tpu_torch import ops
+    eng = _graph_engine(dev)
+    ref = _graph_engine(dev, decode_graphs=False)
+    for e in (eng, ref):
+        for p in _GRAPH_PROMPTS:
+            e.add_request(p)
+    real = eng._decode_step
+
+    def step(*a):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused inside a capture")
+        real(*a)
+
+    eng._decode_step = step
+    before = [list(r.generated) for r in eng.slots.values()]
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="refused inside a capture"):
+        eng.decode_block(4)
+    assert eng.cache_poisoned() and eng._graphs == {}
+    assert eng._pending_block is None and eng.decode_steps == 0
+    assert {k: n for k, n in ops.launch_counts().items() if n} == {
+        "quant_decode_attention": 2, "quant_matmul_stacked": 12,
+        "quant_matmul_t": 1}
+    assert [r.generated for r in eng.slots.values()] == before
+    del eng._decode_step
+    eng.recover()
+    for e in (eng, ref):
+        e.recover()
+    outs = [_run_blocks(e, (4,))[0] for e in (eng, ref)]
+    assert outs[0] == outs[1]

@@ -68,8 +68,9 @@ def _sse_tokens(raw: str) -> dict:
     return {i: (t, lp, f[0]) for i, (t, lp, f) in out.items()}
 
 
-#: keys only the port's ``/v1/stats`` has (the decode attention route)
-PORT_ONLY = ("attention_route",)
+#: keys only the port's ``/v1/stats`` has (the decode attention route,
+#: the decode route and its captured graphs)
+PORT_ONLY = ("attention_route", "decode_graphs")
 
 
 def _keyshape(obj):
@@ -152,6 +153,10 @@ def test_completion_stream_and_stats_match_the_reference(servers):
     _, port_stats = _call(servers["port"], "/v1/stats")
     assert _keyshape(port_stats) == _keyshape(ref_stats)
     assert port_stats["engine"]["attention_route"] == "plain (cpu)"
+    graphs = port_stats["engine"]["decode_graphs"]
+    assert graphs["route"] == "eager (cpu)"
+    assert graphs["graphs"] == {"decode_block": 0}
+    assert graphs["budget"]["decode_block"] >= 1
     for key in ("hits", "misses", "inserted", "tokens_saved", "nodes",
                 "tokens", "blocks", "digest"):
         assert port_stats["radix"][key] == ref_stats["radix"][key], key
