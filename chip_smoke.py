@@ -170,7 +170,21 @@ rank 8 on (wq, wv) over the int8 base at batch 8 x 1024: the first loss
 the frozen base's, falling, the base bit-unchanged, B5/B6/B7 16 launches
 a step; step ms, tokens/s and peak memory beside the full step's; the
 training CLI twice (``--lora-rank 8 --quantize-base``) and an 871M
-``--quantize`` server answering one completion on each of its adapters.
+``--quantize`` server answering one completion on each of its adapters;
+parallel (after lora's training half): the parallel layer on one card.
+World size 1 on NCCL: the 871M training configuration through
+``slice_mesh`` and ``make_train_step(mesh=...)``, 3 steps from the train
+phase's seed and batch, losses and params bit-equal to the meshless step
+on the same weights, B5/B6/B7 16 launches a step, step ms and peak GiB
+beside the meshless step's; then two processes on the one card over gloo
+on CUDA tensors (spawned after the parent frees its cached memory, the
+kernels already built), the 871M widths at 4 layers, batch 8 x 1024:
+(dp 1, tp 2), the same with the two ranks' ``wo`` shards swapped (the
+control, which must miss the bound), and (dp 2, tp 1) with ZeRO-1, each 3
+steps against the one-process step on the same weights within
+``PAR_TOL``, B5-B7 4 launches per rank a step, each ZeRO-1 moment holding
+numel / 2; the phase logs its seconds and the groups' backend. No run
+is a scaling number.
 
 Then the ``kernels`` JSON line (launches, from the card's trace on the
 serving paths and from the wrappers on the training ones: B1-B3 from the
@@ -181,8 +195,10 @@ the 7B-shaped reading in ``detail_7b_wq``), B5-B7 from the train phase;
 ``spec_launches`` from the spec phase's engine, ``lora_launches`` from the
 lora phase's server (B1-B4) and QLoRA steps (B5-B7), ``window_launches``
 and ``int4_launches`` from the window and int4 phases' servers;
-``spec_detail`` holds B1-B3 at the 871M shapes), the graph phase's JSON
-line, and last
+``spec_detail`` holds B1-B3 at the 871M shapes; ``parallel_launches``
+from the parallel phase's world-size-1 mesh step and
+``parallel_rank_launches`` per rank of its two-process runs), the graph
+phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
 """
@@ -4143,6 +4159,333 @@ def phase_train_cut(torch, cfg=None, what: str = "train cut") -> dict:
             "update_rel_l2_err": upd_err, "param_max_abs_err": par_err}
 
 
+# ------------------------------------------------------------ parallel phase
+
+#: the two-process runs: name, model-axis size, ZeRO-1, the control that
+#: swaps the two ranks' wo shards
+PAR_RUNS = (("tp2", 2, False, False), ("tp2_swapped_wo", 2, False, True),
+            ("dp2_zero1", 1, True, False))
+#: their depth: gloo moves every collective through host memory, so this
+#: run puts B5-B7 and the tensor-parallel code on the card at the per-rank
+#: shapes; it times nothing
+PAR_LAYERS = 4
+#: the two-process runs against the one-process step on the same weights
+#: (bf16 compute over fp32 masters, 3 AdamW steps at lr 3e-4, clip 1.0):
+#: the largest relative loss error over the steps and the worst leaf's
+#: relative L2 error of the final params. Set from the CPU cut of the same
+#: configuration before the first card run (871M widths, 2 layers, batch
+#: 2 x 128, two gloo processes on the CPU): tp 2 read 5.0e-5 and 1.9e-3,
+#: dp 2 with ZeRO-1 4.0e-5 and 1.5e-3, the swapped-wo control 3.4e-2 and
+#: 1.41; each bound is about 10x the larger in-bound reading
+PAR_TOL = {"loss": 5e-4, "params": 2e-2}
+
+
+def _swap_model_shards(torch, state, path: str) -> None:
+    """The control: this rank takes the other model rank's block of leaf
+    ``path`` (two model ranks)."""
+    from instaslice_tpu_torch.parallel import collectives as coll
+
+    lay = state.layout
+    i = lay.paths.index(path)
+    leaf = state.params
+    for k in path.split("/"):
+        leaf = leaf[k]
+    full = lay.gather(i, leaf)
+    other = dataclasses.replace(lay.axes.model, rank=1 - lay.axes.model.rank)
+    with torch.no_grad():
+        leaf.copy_(coll.shard_leaf(full, lay.specs[i],
+                                   dataclasses.replace(lay.axes,
+                                                       model=other)))
+
+
+def parallel_child(rank: int, world: int, init_method: str, out: str,
+                   dev_type: str, n_layers: int, B: int, S: int) -> None:
+    """One rank of the two-process runs (spawned): gloo on ``dev_type``
+    tensors, each of :data:`PAR_RUNS` over a (dp, 1, tp) mesh for 3 steps
+    of the step :func:`parallel_reference` ran; rank 0 holds the gathered
+    params against the reference's. Writes ``rank<r>.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.models.train import (
+        full_params,
+        leaf_paths,
+        leaves,
+        make_train_step,
+    )
+    from instaslice_tpu_torch.parallel import (
+        initialize_distributed,
+        slice_mesh,
+    )
+    from instaslice_tpu_torch.parallel.collectives import mesh_axes
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    out = Path(out)
+    dev = f"{dev_type}:0" if dev_type == "cuda" else "cpu"
+    if dev_type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    initialize_distributed(backend="gloo", init_method=init_method,
+                           device=dev)
+    res = {}
+    try:
+        cfg = train_config(torch, n_layers=n_layers)
+        ref = (torch.load(out / "reference.pt", mmap=True, weights_only=True)
+               if rank == 0 else None)
+        for name, tp, zero1, swap in PAR_RUNS:
+            t0 = time.perf_counter()
+            mesh = slice_mesh(axis_sizes=(-1, 1, tp), device=dev_type)
+            axes = mesh_axes(mesh)
+            init_fn, step_fn = make_train_step(
+                TpuLM(cfg), mesh=mesh, zero1=zero1, learning_rate=3e-4,
+                grad_clip=1.0, device=dev)
+            state = init_fn(0)
+            if swap:
+                _swap_model_shards(torch, state, "blocks/wo")
+            gen = torch.Generator(device=dev).manual_seed(17)
+            tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                   device=dev)
+            ops.reset_launch_counts()
+            losses = []
+            for _ in range(3):
+                state, loss = step_fn(state, tokens)
+                losses.append(float(loss))
+            counts = ops.launch_counts()
+            moments = [(z, p.numel(), st["exp_avg"].numel())
+                       for z, p, st in zip(
+                           state.layout.zero_dims, leaves(state.params),
+                           state.opt_state.adamw.state_dict()[
+                               "state"].values())]
+            full = full_params(state)
+            r = {"losses": losses, "counts": counts, "moments": moments,
+                 "backend": axes.model.backend or axes.data.backend,
+                 "seconds": time.perf_counter() - t0}
+            if rank == 0:
+                r["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                        zip(losses, ref["losses"]))
+                r["params_rel_l2"] = {
+                    p: rel_l2(t.detach().float().cpu(),
+                              ref["params"][p].float())
+                    for p, t in zip(leaf_paths(full), leaves(full))}
+            res[name] = r
+            del state, full, init_fn, step_fn
+            if dev_type == "cuda":
+                free_memory(torch)
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def parallel_reference(torch, dev: str, n_layers: int, B: int, S: int,
+                       out: Path) -> dict:
+    """The one-process step the two-process runs are held against: the
+    871M widths at ``n_layers``, seed 0, 3 steps on the train phase's
+    batch; its losses and final params saved to ``out``."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.models.train import (
+        leaf_paths,
+        leaves,
+        make_train_step,
+    )
+
+    cfg = train_config(torch, n_layers=n_layers)
+    init_fn, step_fn = make_train_step(TpuLM(cfg), learning_rate=3e-4,
+                                       grad_clip=1.0, device=dev)
+    state = init_fn(0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    losses = []
+    for _ in range(3):
+        state, loss = step_fn(state, tokens)
+        losses.append(float(loss))
+    params = {p: t.detach().cpu() for p, t in
+              zip(leaf_paths(state.params), leaves(state.params))}
+    torch.save({"losses": losses, "params": params}, out / "reference.pt")
+    return {"losses": losses}
+
+
+def parallel_two_process(torch, dev_type: str = "cuda",
+                         n_layers: int = PAR_LAYERS, B: int = 8,
+                         S: int = 1024) -> dict:
+    """Two processes on one card over gloo on CUDA tensors (spawned, not
+    forked; the kernels are built and the parent's cached memory freed
+    before): (dp 1, tp 2), the same with the two ranks' wo shards swapped
+    (the control), and (dp 2, tp 1) with ZeRO-1, each 3 steps against the
+    one-process step on the same weights, within :data:`PAR_TOL`; B5-B7
+    4 launches per rank per layer-step; each ZeRO-1 moment numel / 2."""
+    import multiprocessing as mp
+    import shutil
+    import socket
+
+    out = HERE / "build" / "parallel"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    dev = "cuda" if dev_type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    ref = parallel_reference(torch, dev, n_layers, B, S, out)
+    t_ref = time.perf_counter() - t0
+    if dev_type == "cuda":
+        free_memory(torch)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=parallel_child, args=(
+        r, 2, f"tcp://127.0.0.1:{port}", str(out), dev_type, n_layers, B,
+        S)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"parallel children exit codes {codes}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(out)          # the reference's params: ~1 GiB at 4 layers
+    runs = {}
+    for name, tp, zero1, swap in PAR_RUNS:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        worst = max(r0["params_rel_l2"].values())
+        runs[name] = {
+            "losses": r0["losses"], "loss_rel_err": r0["loss_rel_err"],
+            "params_rel_l2_worst": worst,
+            "worst_leaf": max(r0["params_rel_l2"],
+                              key=r0["params_rel_l2"].get),
+            "counts": [r0["counts"], r1["counts"]],
+            "backend": r0["backend"], "seconds": r0["seconds"]}
+        log(f"parallel {name}: losses {r0['losses']} (one process "
+            f"{ref['losses']}), loss rel err {r0['loss_rel_err']:.2e}, "
+            f"params rel L2 worst {worst:.2e} ({runs[name]['worst_leaf']}); "
+            f"backend {r0['backend']} on {dev_type} tensors; per-rank "
+            f"launches {[{k: c[k] for k in FLASH} for c in runs[name]['counts']]}; "
+            f"{r0['seconds']:.1f} s")
+        within = (r0["loss_rel_err"] <= PAR_TOL["loss"]
+                  and worst <= PAR_TOL["params"])
+        if swap:
+            check(not within, f"parallel {name}: the control misses the "
+                  f"bound {PAR_TOL}")
+        else:
+            check(within, f"parallel {name}: within {PAR_TOL}")
+        for c in runs[name]["counts"]:
+            for k in FLASH:
+                check(c[k] == n_layers * 3,
+                      f"parallel {name}: {k} {c[k]} = {n_layers} x 3 "
+                      "per rank")
+        if zero1:
+            for rk in ranks:
+                for zdim, numel, mu in rk[name]["moments"]:
+                    check(mu == (numel // 2 if zdim is not None else numel),
+                          f"parallel {name}: ZeRO-1 moment {mu} of {numel}")
+    return {"runs": runs, "reference_losses": ref["losses"],
+            "reference_s": t_ref, "tol": PAR_TOL,
+            "n_layers": n_layers, "B": B, "S": S}
+
+
+def parallel_ws1(torch, ops) -> dict:
+    """World size 1 on NCCL at the full 871M: ``slice_mesh`` ->
+    ``make_train_step(mesh=...)``, 3 steps from the train phase's seed and
+    batch, bit-equal in losses and params to the meshless step on the
+    same weights; B5-B7 16 launches a step; step ms (steps 2-3) and peak
+    GiB of both."""
+    import socket
+
+    import torch.distributed as dist
+
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.models.train import leaves, make_train_step
+    from instaslice_tpu_torch.parallel import (
+        initialize_distributed,
+        slice_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = train_config(torch)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(backend="nccl",
+                           init_method=f"tcp://127.0.0.1:{port}",
+                           device="cuda")
+    try:
+        mesh = slice_mesh(device="cuda")
+        out = {"backend": dist.get_backend(), "mesh": list(mesh.shape)}
+        for what, m in (("meshless", None), ("mesh", mesh)):
+            init_fn, step_fn = make_train_step(
+                TpuLM(cfg), learning_rate=3e-4, grad_clip=1.0,
+                device="cuda", mesh=m)
+            state = init_fn(0)
+            gen = torch.Generator(device="cuda").manual_seed(17)
+            tokens = torch.randint(0, cfg.vocab_size, (8, 1024),
+                                   generator=gen, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            losses = []
+            state, loss = step_fn(state, tokens)
+            losses.append(loss)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                state, loss = step_fn(state, tokens)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / 2 * 1e3
+            out[what] = {"losses": [float(x) for x in losses],
+                         "step_ms": step_ms,
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2 ** 30,
+                         "counts": ops.launch_counts()}
+            # on the host: a copy on the card would raise the next run's
+            # peak by the params' 3.2 GiB
+            out[what + "_params"] = [p.detach().cpu()
+                                     for p in leaves(state.params)]
+            del state, init_fn, step_fn
+            free_memory(torch)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(out.pop("meshless_params"), out.pop("mesh_params")))
+        free_memory(torch)
+    finally:
+        dist.destroy_process_group()
+    a, b = out["meshless"], out["mesh"]
+    log(f"parallel ws1 (NCCL, mesh {out['mesh']}): losses {b['losses']} "
+        f"vs meshless {a['losses']}, params bit-equal {same}; step "
+        f"{b['step_ms']:.1f} ms vs {a['step_ms']:.1f} ms, peak "
+        f"{b['peak_gib']:.2f} vs {a['peak_gib']:.2f} GiB; launches "
+        f"{ {k: b['counts'][k] for k in FLASH} }")
+    check(b["losses"] == a["losses"], "parallel ws1: losses bit-equal")
+    check(same, "parallel ws1: params bit-equal")
+    for k in FLASH:
+        check(b["counts"][k] == 16 * 3, f"parallel ws1: {k} = 16 x 3")
+    out["params_bit_equal"] = same
+    return out
+
+
+def phase_parallel(torch, ops) -> dict:
+    """The parallel layer on one card: world size 1 on NCCL at the full
+    871M (:func:`parallel_ws1`), then two processes over gloo on CUDA
+    tensors at 4 layers (:func:`parallel_two_process`). No scaling
+    number: one card."""
+    t0 = time.perf_counter()
+    out = {"ws1": parallel_ws1(torch, ops)}
+    t1 = time.perf_counter()
+    free_memory(torch)
+    out["two_process"] = parallel_two_process(torch)
+    out["seconds"] = {"ws1": t1 - t0, "two_process": time.perf_counter() - t1}
+    log(f"parallel: seconds by part {out['seconds']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4249,6 +4592,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lora_train = phase_lora_train(torch, ops, train)
     mark("lora_train", t0)
+    t0 = time.perf_counter()
+    parallel = phase_parallel(torch, ops)
+    mark("parallel", t0)
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
@@ -4292,6 +4638,12 @@ def main() -> int:
     for k in kernels:
         k["window_launches"] = window["counts"][k["name"]]
         k["int4_launches"] = int4["counts"][k["name"]]
+        # the parallel phase: its world-size-1 mesh step at the full 871M,
+        # and per rank (rank 0, rank 1) of each two-process run
+        k["parallel_launches"] = parallel["ws1"]["mesh"]["counts"][k["name"]]
+        k["parallel_rank_launches"] = {
+            run: [c[k["name"]] for c in r["counts"]]
+            for run, r in parallel["two_process"]["runs"].items()}
     for k in kernels:
         lib = k["library_ms"]
         log(f"kernel {k['name']} ({k['work']}): launches {k['launches']}, "
@@ -4334,6 +4686,7 @@ def main() -> int:
                     "train_remat_sweep": train["remat_sweep"],
                     "cli": cli["line"], "bf16_cut": bf16_cut,
                     "train_cut": cut}))
+    log(json.dumps({"card": card, "parallel": parallel}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,12 @@
-"""The training entry point on one card (port of
-``instaslice_tpu/cli/train_main.py``, ``tpuslice-train``).
+"""The training entry point (port of ``instaslice_tpu/cli/train_main.py``,
+``tpuslice-train``), on one card or one process per rank under
+``torchrun``.
 
     python -m instaslice_tpu_torch.cli.train_main --synthetic 200000 \\
         --seq-len 1024 --global-batch 8 --steps 20
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m instaslice_tpu_torch.cli.train_main --synthetic 200000 \\
+        --tp 2 --zero1
 
 Streams batches from a memory-mapped token file (or a seeded synthetic
 corpus), runs :func:`~instaslice_tpu_torch.models.train.make_train_step`
@@ -26,9 +30,18 @@ expert width is ``--d-ff``), its loss carrying the router's load-balance
 term; ``--remat full`` or ``dots`` rematerializes each block (``dots``
 keeps its unbatched matmul outputs).
 
+Under ``torchrun`` (``WORLD_SIZE`` set) each process joins the process
+group (NCCL on the card, gloo with ``--device cpu``) and the step runs
+over a ("data", "seq", "model") mesh: ``--tp`` ranks hold each model
+shard, ``data`` takes the rest, ``--global-batch`` splits over ``data``
+and each rank reads only its rows; ``--zero1`` slices the AdamW moments
+over ``data``. Rank 0 prints the JSON line and writes the checkpoints,
+which restore at any world size.
+
 Flags of the reference that the port does not run yet exit non-zero
-and name their ROADMAP queue-A item: ``--ring``, ``--tp``/``--sp`` > 1,
-``--from-env``, ``--zero1``.
+and name their ROADMAP queue-A item: ``--ring``, ``--sp`` > 1,
+``--from-env``, ``--n-experts`` with ``--tp`` > 1, and ``--lora-rank``
+at a world size above 1.
 Dataset rows are ``seq_len + 1`` tokens wide, so the model runs at S =
 seq_len + 1, which the flash kernels take as it is.
 """
@@ -36,6 +49,7 @@ seq_len + 1, which the flash kernels take as it is.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -106,18 +120,44 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
+def _refuse_unported(args, world: int) -> None:
     """Exit non-zero on a flag whose path is not ported yet."""
     unported = [
         (args.ring, "--ring", "ring attention"),
-        (args.tp > 1 or args.sp > 1, "--tp/--sp > 1", "the parallel layer"),
+        (args.sp > 1, "--sp > 1", "ring attention"),
         (args.from_env, "--from-env", "multi-host training"),
-        (args.zero1, "--zero1", "the parallel layer"),
+        (args.n_experts and args.tp > 1, "--n-experts with --tp > 1",
+         "MoE experts over the model axis"),
+        (args.lora_rank and world > 1, "--lora-rank at world size > 1",
+         "LoRA/QLoRA under a mesh"),
     ]
     for hit, flag, item in unported:
         if hit:
             raise SystemExit(f"{flag} is not ported yet ({item}: ROADMAP "
                              "queue A, training)")
+
+
+def _build_mesh(args, dev):
+    """The ("data", "seq", "model") mesh under torchrun
+    (``train_main.py:109-140``): the process group from torchrun's env,
+    ``--tp`` ranks on ``model``, the rest on ``data``. None in a plain
+    single process."""
+    if "WORLD_SIZE" not in os.environ:
+        if args.tp > 1:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} processes: "
+                             "run under python -m torch.distributed.run")
+        return None
+    from instaslice_tpu_torch.parallel import (
+        initialize_distributed,
+        slice_mesh,
+    )
+
+    world = int(os.environ["WORLD_SIZE"])
+    if world % args.tp:
+        raise SystemExit(f"--tp {args.tp} does not divide the world size "
+                         f"{world}")
+    initialize_distributed(device=dev)
+    return slice_mesh(axis_sizes=(-1, 1, args.tp), device=dev)
 
 
 def _lora_step(args, model, opts):
@@ -130,6 +170,9 @@ def _lora_step(args, model, opts):
     )
     from instaslice_tpu_torch.models.quant import quantize_params
 
+    if args.zero1:
+        raise SystemExit("--zero1 has nothing to shard in a LoRA run (the "
+                         "adapter moments are ~0.1% of the base); remove it")
     lcfg = LoraConfig(rank=args.lora_rank, alpha=args.lora_alpha,
                       targets=tuple(t for t in args.lora_targets.split(",")
                                     if t))
@@ -148,15 +191,34 @@ def _lora_step(args, model, opts):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    _refuse_unported(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
+    _refuse_unported(args, world)
 
+    import torch.distributed as dist
+
+    from instaslice_tpu_torch import resolve_device
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = resolve_device(f"cuda:{os.environ['LOCAL_RANK']}")
+    # LoRA runs on one process (a larger world was refused above)
+    mesh = None if args.lora_rank else _build_mesh(args, dev)
+    try:
+        return _train(args, dev, mesh, rank)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, dev, mesh, rank: int) -> int:
     import numpy as np
     import torch
 
-    from instaslice_tpu_torch import resolve_device
     from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
     from instaslice_tpu_torch.models.data import (
+        HostShardedTokens,
         Prefetcher,
         TokenDataset,
         batch_for_step,
@@ -164,8 +226,15 @@ def main(argv=None) -> int:
     )
     from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
     from instaslice_tpu_torch.models.train import leaves, make_train_step
+    from instaslice_tpu_torch.parallel.collectives import mesh_axes
 
-    dev = resolve_device(args.device)
+    axes = mesh_axes(mesh)
+    dp, tp = axes.data.size, axes.model.size
+    if args.global_batch % (dp * args.grad_accum):
+        raise SystemExit(
+            f"--global-batch {args.global_batch} must be divisible by the "
+            f"data-parallel axis ({dp} = world size / tp {tp}) times "
+            f"--grad-accum {args.grad_accum}")
     on_card = dev.type == "cuda"
     cfg = ModelConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
@@ -193,7 +262,8 @@ def main(argv=None) -> int:
     if args.lora_rank:
         init_fn, step_fn = _lora_step(args, model, opts)
     else:
-        init_fn, step_fn = make_train_step(model, **opts)
+        init_fn, step_fn = make_train_step(model, mesh=mesh,
+                                           zero1=args.zero1, **opts)
 
     data_path = args.data
     synthetic = bool(args.synthetic)
@@ -218,12 +288,22 @@ def main(argv=None) -> int:
                                      max_to_keep=args.max_keep)
             if ckpt.restore(state) is not None:
                 log.info("resumed from step %d", state.step)
-        prefetch = Prefetcher(
-            lambda step: batch_for_step(ds, step, args.global_batch, dev),
-            start_step=state.step)
+        if mesh is None:
+            def fetch(step):
+                return batch_for_step(ds, step, args.global_batch, dev)
+        else:
+            # this rank's rows only; the step takes them as they are
+            loader = HostShardedTokens(ds, args.global_batch, dp,
+                                       axes.data.rank, args.grad_accum)
+
+            def fetch(step):
+                return loader.batch_for_step(step, dev)
+            step_fn = functools.partial(step_fn, local=True)
+        prefetch = Prefetcher(fetch, start_step=state.step)
         t0 = time.monotonic()
         tokens_done = 0
         last_loss = float("nan")
+        logged = []
         try:
             for step, batch in prefetch:
                 if step >= args.steps:
@@ -233,6 +313,7 @@ def main(argv=None) -> int:
                 if (step + 1) % args.log_every == 0 or \
                         step + 1 == args.steps:
                     last_loss = float(loss)   # sync point
+                    logged.append([step + 1, last_loss])
                     log.info("step %d loss %.4f  %.0f tok/s", step + 1,
                              last_loss, tokens_done / max(
                                  time.monotonic() - t0, 1e-9))
@@ -252,6 +333,9 @@ def main(argv=None) -> int:
             ckpt.close()
         if synthetic and os.path.exists(data_path):
             os.unlink(data_path)
+    if rank:
+        return 0
+    lay = state.layout
     print(json.dumps({
         "metric": "train_tokens_per_sec",
         "value": round(tokens_done / max(wall, 1e-9), 1),
@@ -261,9 +345,13 @@ def main(argv=None) -> int:
         # does no work, and bare NaN is invalid JSON
         "final_loss": (round(last_loss, 4)
                        if last_loss == last_loss else None),
-        "params_m": round(sum(p.numel() for p in leaves(state.params))
-                          / 1e6, 1),
-        "mesh": {"data": 1, "seq": 1, "model": 1},
+        # [step, loss] of every logged step, unrounded
+        "losses": logged,
+        "params_m": round(sum(
+            p.numel() * (tp if lay is not None and lay.model_sharded(i)
+                         else 1)
+            for i, p in enumerate(leaves(state.params))) / 1e6, 1),
+        "mesh": {"data": dp, "seq": 1, "model": tp},
         "backend": dev.type,
     }), flush=True)
     return 0

@@ -12,6 +12,13 @@ reproduces the uninterrupted run bit for bit: batches are a pure function
 of the step (:mod:`instaslice_tpu_torch.models.data`), so the step is the
 loader state.
 
+Checkpoints do not depend on the mesh. Under one (a state whose
+``layout`` is set) every rank calls :meth:`TrainCheckpointer.save`: the
+``model`` shards and the ZeRO-1 moment slices are gathered into whole
+leaves, and rank 0 writes them in the one-process format; on restore
+every rank reads the whole leaves and keeps its block. A checkpoint
+written at one mesh shape restores at any other, or on one card.
+
 Each leaf is saved with its path in the tree (``"paths"``, e.g.
 ``"blocks/wq/a"``), so a tree can be rebuilt from the file alone
 (:meth:`TrainCheckpointer.load_tree`: the server reads a LoRA adapter's
@@ -28,10 +35,13 @@ from pathlib import Path
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from instaslice_tpu_torch.models.train import (
+    Layout,
     Params,
     TrainState,
+    full_params,
     leaf_paths,
     leaves,
 )
@@ -61,25 +71,37 @@ class TrainCheckpointer:
     def save(self, state: TrainState, step: Optional[int] = None) -> bool:
         """Persist ``state``; False when skipped (by the interval, or
         because a checkpoint at or past ``step`` exists). ``step``
-        defaults to the state's own counter."""
+        defaults to the state's own counter. Under a mesh every rank
+        calls it (the gathers are collective), rank 0 writes, and all
+        ranks wait for the write, so that each takes the next decision
+        from the same directory."""
         step = state.step if step is None else int(step)
         latest = self.latest_step()
         if (latest is not None and latest >= step) or \
                 step % self.save_interval_steps:
             return False
+        params = full_params(state)
         payload = {
             "step": state.step,
-            "params": [p.detach() for p in leaves(state.params)],
-            "paths": leaf_paths(state.params),
+            "params": [p.detach() for p in leaves(params)],
+            "paths": leaf_paths(params),
             "opt": state.opt_state.state_dict(),
         }
-        dst = self._path(step)
-        tmp = dst.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, dst)
-        if self.max_to_keep:
-            for old in self._steps()[:-self.max_to_keep]:
-                self._path(old).unlink(missing_ok=True)
+        if state.layout is None or (state.layout.axes.model.rank == 0
+                                    and state.layout.axes.data.rank == 0):
+            dst = self._path(step)
+            tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, dst)
+            if self.max_to_keep:
+                for old in self._steps()[:-self.max_to_keep]:
+                    self._path(old).unlink(missing_ok=True)
+        if state.layout is not None:
+            # over each axis in turn: every rank of the mesh then waits
+            # for rank 0's write (a mesh may hold part of the world)
+            for ax in (state.layout.axes.model, state.layout.axes.data):
+                if ax.size > 1:
+                    dist.barrier(group=ax.group)
         return True
 
     def latest_step(self) -> Optional[int]:
@@ -95,13 +117,15 @@ class TrainCheckpointer:
                           weights_only=True)
 
     def restore_params(self, params: Params, step: Optional[int] = None,
-                       cast: bool = False) -> Optional[dict]:
+                       cast: bool = False,
+                       layout: Optional[Layout] = None) -> Optional[dict]:
         """Copy the params of checkpoint ``step`` (default: the latest)
         INTO ``params`` by leaf order (paths checked where the file has
         them); with ``cast`` each tensor takes the destination's dtype,
-        else dtypes must agree. Returns the loaded payload (its optimizer
-        state unused here), None when the directory holds no
-        checkpoint."""
+        else dtypes must agree. With a mesh ``layout`` ``params`` are this
+        rank's shards, and each takes its block of the saved leaf.
+        Returns the loaded payload (its optimizer state unused here),
+        None when the directory holds no checkpoint."""
         payload = self._load(step)
         if payload is None:
             return None
@@ -114,7 +138,9 @@ class TrainCheckpointer:
             raise ValueError(f"checkpoint leaves {paths} do not match the "
                              f"state's {leaf_paths(params)}")
         with torch.no_grad():
-            for p, saved in zip(dst, payload["params"]):
+            for i, (p, saved) in enumerate(zip(dst, payload["params"])):
+                if layout is not None:
+                    saved = layout.shard(i, saved)
                 if p.shape != saved.shape or (
                         p.dtype != saved.dtype and not cast):
                     raise ValueError(
@@ -130,7 +156,8 @@ class TrainCheckpointer:
         (a fresh ``init_fn()`` result of the same model and optimizer
         settings: its leaves keep their device and ``requires_grad``);
         None when the directory holds no checkpoint."""
-        payload = self.restore_params(state.params, step)
+        payload = self.restore_params(state.params, step,
+                                      layout=state.layout)
         if payload is None:
             return None
         state.opt_state.load_state_dict(payload["opt"])

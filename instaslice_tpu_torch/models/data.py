@@ -5,22 +5,23 @@
 are copies of the reference's (numpy and threads, no JAX): a flat token
 file viewed as ``seq_len + 1``-token rows, shuffled per epoch by a seeded
 permutation, so batch ``i`` is a pure function of the step and a resumed
-run needs no loader state. :func:`batch_for_step` takes the place of the
-reference's ``HostShardedTokens``: one process, one card, so a step's
-batch is the dataset's rows moved to the device.
+run needs no loader state. :func:`batch_for_step` is a step's whole batch
+on the device; :class:`HostShardedTokens` (``data.py:132-180``) is one
+rank's share of it under a ``data`` mesh axis, the rows
+:func:`data_rows` gives that rank, read from the dataset alone.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["TokenDataset", "Prefetcher", "batch_for_step",
-           "write_token_file"]
+__all__ = ["TokenDataset", "HostShardedTokens", "Prefetcher",
+           "batch_for_step", "data_rows", "write_token_file"]
 
 
 def write_token_file(path: str, tokens: np.ndarray) -> None:
@@ -117,6 +118,58 @@ def batch_for_step(dataset: TokenDataset, step: int, global_batch: int,
     """The step's ``(global_batch, seq_len + 1)`` int32 batch (the
     dataset's rows for that step, a pure function of it) on ``device``."""
     return torch.from_numpy(dataset.batch(step, global_batch)).to(device)
+
+
+def data_rows(global_batch: int, dp: int, rank: int,
+              grad_accum: int = 1) -> List[int]:
+    """The rows of a step's global batch that rank ``rank`` of a ``data``
+    axis of ``dp`` ranks owns, in the order its micro-batches take them.
+
+    At ``grad_accum`` 1 rank ``p`` owns the contiguous block ``[p *
+    global_batch / dp, (p + 1) * global_batch / dp)``, the reference's
+    ``local_batch``. With ``grad_accum`` micro-batches the step splits the
+    global batch into ``grad_accum`` contiguous micro-batches first (the
+    reference's ``tokens.reshape(grad_accum, B / grad_accum, -1)``) and each
+    rank owns its block of every one, so that micro-batch ``j`` of rank
+    ``p`` is its share of the reference's micro-batch ``j``."""
+    if global_batch % (dp * grad_accum):
+        raise ValueError(f"global batch {global_batch} does not divide over "
+                         f"{dp} data ranks x {grad_accum} micro-batches")
+    micro, per = global_batch // grad_accum, global_batch // (dp * grad_accum)
+    return [j * micro + rank * per + i for j in range(grad_accum)
+            for i in range(per)]
+
+
+class HostShardedTokens:
+    """One data rank's share of a globally consistent batch stream: the
+    rows :func:`data_rows` gives it, read from the dataset, so the union
+    over ranks is the one-process batch and no rank reads another's
+    rows."""
+
+    def __init__(self, dataset: TokenDataset, global_batch: int, dp: int,
+                 rank: int, grad_accum: int = 1):
+        self.dataset = dataset
+        self.global_batch = global_batch
+        self.rows = data_rows(global_batch, dp, rank, grad_accum)
+        self.per_host = len(self.rows)
+        # contiguous runs of rows: one dataset read each
+        self._runs: List[Tuple[int, int]] = []
+        for r in self.rows:
+            if self._runs and self._runs[-1][0] + self._runs[-1][1] == r:
+                self._runs[-1] = (self._runs[-1][0], self._runs[-1][1] + 1)
+            else:
+                self._runs.append((r, 1))
+
+    def local_batch(self, step: int) -> np.ndarray:
+        """(per_host, seq_len + 1) int32: this rank's rows of ``step``."""
+        return np.concatenate([
+            self.dataset.batch(step, n, offset=start,
+                               global_batch=self.global_batch)
+            for start, n in self._runs])
+
+    def batch_for_step(self, step: int, device) -> torch.Tensor:
+        """:meth:`local_batch` on ``device``."""
+        return torch.from_numpy(self.local_batch(step)).to(device)
 
 
 class Prefetcher:

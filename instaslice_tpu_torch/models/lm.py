@@ -16,8 +16,14 @@ remat "full" and "dots" as ``torch.utils.checkpoint``; int8 and int4
 leaves dequantize one layer at a time, the QLoRA base),
 :func:`init_cache` and :func:`apply_with_cache` (dense MLP or MoE, bf16
 or int8 KV cache, sliding windows through the banded cache read, int8 or
-int4 weights, multi-LoRA deltas per row). Not yet ported, and raising
-``NotImplementedError``: ring and pipeline attention.
+int4 weights, multi-LoRA deltas per row). :func:`param_specs` and
+:func:`batch_spec` lay the tree and the batch over a ("data", "seq",
+"model") mesh as the reference's do; under a mesh :func:`apply` runs on
+this rank's shards (:meth:`TpuLM.apply` with ``mesh=``): heads, the
+dense FFN hidden dim and the vocabulary over ``model``, the MoE
+load-balance means over ``data``. Not yet ported, and raising
+``NotImplementedError``: ring and pipeline attention, and MoE experts over
+``model``.
 """
 
 from __future__ import annotations
@@ -51,6 +57,17 @@ from instaslice_tpu_torch.ops.flash_attention import flash_attention
 from instaslice_tpu_torch.ops.flash_decode import (
     merge_local,
     quant_decode_attention,
+)
+from instaslice_tpu_torch.parallel.collectives import (
+    NO_AXIS,
+    NO_MESH,
+    Axis,
+    MeshAxes,
+    copy_to,
+    gather_from,
+    mean_over,
+    mesh_axes,
+    reduce_from,
 )
 
 Params = Dict[str, Any]
@@ -171,6 +188,72 @@ class ModelConfig:
     def stored_dtype(self):
         return self.param_dtype if self.param_dtype is not None \
             else self.dtype
+
+
+#: a leaf's layout over the mesh: one axis name (or None) per dim
+Spec = Tuple[Optional[str], ...]
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """Axis-name tuples mirroring :func:`init_params`' tree
+    (``instaslice_tpu/models/lm.py:164-207`` without ``pipe_axis``):
+    attention heads over ``model`` (``wq``/``wk``/``wv`` by column, ``wo``
+    by row), the dense MLP's hidden dim over ``model`` (``w_in`` by
+    column, ``w_out`` by row), MoE experts over ``model``, the embedding's
+    vocabulary over ``model``; norm scales and the router replicated.
+    Stacked leaves lead with the unsharded layer axis."""
+    block: Dict[str, Any] = {
+        "ln1": {"scale": (None,)},
+        "ln2": {"scale": (None,)},
+        "wq": (None, "model"),
+        "wk": (None, "model"),
+        "wv": (None, "model"),
+        "wo": ("model", None),
+    }
+    if cfg.n_experts:
+        block.update(router=(None, None), w_in=("model", None, None),
+                     w_out=("model", None, None))
+    else:
+        block.update(w_in=(None, "model"), w_out=("model", None))
+
+    def stack(node):
+        if isinstance(node, dict):
+            return {k: stack(v) for k, v in node.items()}
+        return (None, *node)
+
+    return {"embed": ("model", None), "blocks": stack(block),
+            "ln_f": {"scale": (None,)}}
+
+
+def batch_spec(cfg: ModelConfig) -> Spec:
+    """The layout of a (batch, seq) token array: rows over ``data``, the
+    sequence over ``seq`` for ring attention."""
+    return ("data", "seq" if cfg.ring_attention else None)
+
+
+def check_mesh(cfg: ModelConfig, axes: MeshAxes) -> None:
+    """Raise where ``cfg`` cannot run over ``axes``: what is not ported
+    (the ``seq`` axis, MoE experts over ``model``) and a ``model`` axis
+    that does not divide the heads, the KV heads, the FFN hidden dim or
+    the vocabulary (each rank takes a contiguous block of each: query
+    head ``h`` reads KV head ``h // G``, so a contiguous split keeps every
+    query head beside its KV group)."""
+    if axes.seq.size > 1:
+        raise NotImplementedError(
+            "a seq axis > 1 (ring attention) is not ported yet: ROADMAP "
+            "queue A")
+    tp = axes.model.size
+    if tp == 1:
+        return
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE experts over the model axis (expert parallelism) are not "
+            "ported yet: ROADMAP queue A")
+    for what, n in (("n_heads", cfg.n_heads), ("kv_heads", cfg.kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{what}={n} does not divide over the model "
+                             f"axis ({tp})")
 
 
 def _generator(seed_or_gen: Union[int, torch.Generator],
@@ -315,7 +398,8 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
-                       cos: torch.Tensor, sin: torch.Tensor
+                       cos: torch.Tensor, sin: torch.Tensor,
+                       axes: MeshAxes = NO_MESH
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm block (``lm.py:348-391``); x: (B, S, D). Returns
     ``(x, aux)``: the MoE load-balance term (0.0 for a dense block) rides
@@ -329,11 +413,21 @@ def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     projection and the MLP down projection come out there too. The MLP up
     projection differs by one rounding in bf16: the reference applies the
     GELU to its fp32 sums, here they are rounded to ``cfg.dtype`` first
-    (the experts' up projection in :func:`_moe_mlp` likewise)."""
+    (the experts' up projection in :func:`_moe_mlp` likewise).
+
+    Under a ``model`` axis the layer holds this rank's columns of
+    ``wq``/``wk``/``wv``/``w_in`` and rows of ``wo``/``w_out``: the
+    normed input enters the column-parallel products through
+    :func:`copy_to`, and each row-parallel product's partial sum leaves
+    through :func:`reduce_from`, so ``x`` stays whole on every rank and
+    attention runs on the rank's ``n_heads / tp`` query heads and
+    ``kv_heads / tp`` KV heads. On axes of size 1 both are the identity."""
     dt = cfg.dtype
     B, S = x.shape[:2]
-    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    h = _rmsnorm(x, layer["ln1"]["scale"])
+    tp = axes.model
+    H, Hkv, hd = cfg.n_heads // tp.size, cfg.kv_heads // tp.size, \
+        cfg.head_dim
+    h = copy_to(_rmsnorm(x, layer["ln1"]["scale"]), tp)
     q = torch.matmul(h, weight(layer["wq"], dt)).reshape(B, S, H, hd)
     k = torch.matmul(h, weight(layer["wk"], dt)).reshape(B, S, Hkv, hd)
     v = torch.matmul(h, weight(layer["wv"], dt)).reshape(B, S, Hkv, hd)
@@ -341,23 +435,24 @@ def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     k = _apply_rope(k, cos, sin)
     attn = _attention(q, k, v, impl=cfg.attention_impl, window=cfg.window)
     attn = attn.reshape(B, S, H * hd)
-    x = x + torch.matmul(attn, weight(layer["wo"], dt))
+    x = x + reduce_from(torch.matmul(attn, weight(layer["wo"], dt)), tp)
     h = _rmsnorm(x, layer["ln2"]["scale"])
     if cfg.n_experts:
         y, aux = _moe_mlp(h, layer["router"], weight(layer["w_in"], dt),
                           weight(layer["w_out"], dt), cfg.expert_top_k,
-                          cfg.expert_capacity_factor)
+                          cfg.expert_capacity_factor, data=axes.data)
         return x + y, aux
     # jax.nn.gelu defaults to the tanh form
-    y = F.gelu(torch.matmul(h, weight(layer["w_in"], dt)).float(),
-               approximate="tanh").to(dt)
+    y = F.gelu(torch.matmul(copy_to(h, tp), weight(layer["w_in"], dt))
+               .float(), approximate="tanh").to(dt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + torch.matmul(y, weight(layer["w_out"], dt)), aux
+    return x + reduce_from(torch.matmul(y, weight(layer["w_out"], dt)),
+                           tp), aux
 
 
 def _moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
              w_out: torch.Tensor, top_k: int = 2,
-             capacity_factor: float = 1.25
+             capacity_factor: float = 1.25, data: Axis = NO_AXIS
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE with capacity, GShard-style (``lm.py:394-472``):
     static shapes, one-hot dispatch and combine einsums, each token
@@ -375,7 +470,11 @@ def _moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     Returns ``(y, aux)``: y (B, S, D) in x's dtype and the load-balance
     term ``E · Σ_e f_e · P_e`` (f_e: the share of tokens whose top-1
     choice is e; P_e: the mean router probability of e): 1 at perfect
-    balance, up to E when the router collapses onto one expert.
+    balance, up to E when the router collapses onto one expert. Both are
+    means over the whole batch: under a ``data`` axis each rank
+    holds a slice of the rows, so f_e and P_e are averaged over it before
+    the product (:func:`mean_over`), and the router's gradient, after
+    the data-axis gradient average, is the one-process gradient.
 
     Differences from the JAX code that change no value: ties in the
     top-k break toward the lower expert index, as ``jax.lax.top_k``
@@ -415,6 +514,7 @@ def _moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     y = torch.einsum("bskec,becd->bsd", comb.reshape(B, S, k, E, C), y_e)
     f_e = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
     p_e = gates.mean(dim=(0, 1))
+    f_e, p_e = mean_over(f_e, data), mean_over(p_e, data)
     aux = E * (f_e * p_e).sum()
     return y.to(dt), aux
 
@@ -452,29 +552,56 @@ def _layers(blocks: Params, n_layers: int):
     return split(blocks)
 
 
+def _vocab_parallel_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                           tp) -> torch.Tensor:
+    """Rows of a vocab-sharded ``(V / tp, D)`` embedding: each rank looks
+    up the tokens in its vocabulary block, zeroes the others, and the
+    blocks sum over ``model`` (one nonzero term per token: exact)."""
+    n = embed.shape[0]
+    local = tokens.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    return reduce_from(torch.where(inside[..., None], rows,
+                                   torch.zeros_like(rows)), tp)
+
+
 def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-          unembed_out: bool = True, return_aux: bool = False):
+          unembed_out: bool = True, return_aux: bool = False,
+          axes: MeshAxes = NO_MESH):
     """The full forward (``lm.py:484-568``): logits (B, S, vocab) fp32
     for ``tokens`` (B, S), or with ``unembed_out=False`` the final hidden
     states (B, S, D) in ``cfg.dtype`` (the hook of the chunked loss);
     ``return_aux`` adds the MoE load-balance term averaged over layers
-    (0.0 for a dense model) as a second output."""
+    (0.0 for a dense model) as a second output.
+
+    Under mesh ``axes`` the params are this rank's shards
+    (:func:`param_specs`) and ``tokens`` this rank's rows: the embedding
+    is looked up vocab-parallel, each block runs tensor-parallel, the
+    hidden states leave replicated over ``model``, and the logits are
+    gathered whole over it."""
     if cfg.ring_attention:
         raise NotImplementedError("ring attention is not ported")
+    check_mesh(cfg, axes)
+    tp = axes.model
     B, S = tokens.shape
-    x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
+    if tp.size > 1:
+        x = _vocab_parallel_lookup(params["embed"], tokens, tp)
+    else:
+        x = embed_lookup(params["embed"], tokens)
+    x = x.to(cfg.dtype)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     cos, sin = _rope_tables(positions, cfg.head_dim)
     auxes = []
     for layer in _layers(params["blocks"], cfg.n_layers):
         if cfg.remat:
             x, aux = _remat(_transformer_block, cfg.remat_policy, cfg, layer,
-                            x, cos, sin)
+                            x, cos, sin, axes)
         else:
-            x, aux = _transformer_block(cfg, layer, x, cos, sin)
+            x, aux = _transformer_block(cfg, layer, x, cos, sin, axes)
         auxes.append(aux)
     x = _rmsnorm(x, params["ln_f"]["scale"])
-    out = unembed(x, params["embed"], cfg.dtype) if unembed_out else x
+    out = (gather_from(unembed(copy_to(x, tp), params["embed"], cfg.dtype),
+                       tp) if unembed_out else x)
     if return_aux:
         return out, torch.stack(auxes).mean()
     return out
@@ -829,13 +956,12 @@ class TpuLM:
               unembed: bool = True, return_aux: bool = False):
         """Logits (B, S, vocab) fp32, or the final hidden states with
         ``unembed=False``; ``return_aux`` adds the layer-averaged MoE
-        load-balance term (0.0 for a dense model)."""
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported: the "
-                                      "forward runs on one card")
+        load-balance term (0.0 for a dense model). With ``mesh`` (a
+        ``DeviceMesh`` of :func:`~instaslice_tpu_torch.parallel.slice_mesh`)
+        ``params`` are this rank's shards and ``tokens`` its rows."""
         return apply(self.cfg, params, tokens, unembed_out=unembed,
-                     return_aux=return_aux)
+                     return_aux=return_aux, axes=mesh_axes(mesh))
 
     def apply_pipelined(self, *args, **kwargs):
-        raise NotImplementedError("pipeline parallelism is not ported: "
-                                  "the forward runs on one card")
+        raise NotImplementedError("pipeline parallelism is not ported "
+                                  "yet: ROADMAP queue A")

@@ -1298,3 +1298,49 @@ def test_failed_capture_raises_and_poisons_with_no_fallback(dev):
         e.recover()
     outs = [_run_blocks(e, (4,))[0] for e in (eng, ref)]
     assert outs[0] == outs[1]
+
+
+def test_world_size_one_nccl_step_is_bit_equal_to_the_meshless_step(
+        dev, tmp_path, monkeypatch):
+    """The parallel train step on a mesh of one rank over NCCL (a tiny
+    config at hd 128, so B5-B7 run) against the meshless step on the same
+    weights: 3 steps, losses and params bit-equal."""
+    import torch.distributed as dist
+
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.models.lm import ModelConfig, TpuLM
+    from instaslice_tpu_torch.models.train import leaves, make_train_step
+    from instaslice_tpu_torch.parallel import (
+        initialize_distributed,
+        slice_mesh,
+    )
+
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    cfg = ModelConfig(vocab_size=256, d_model=256, n_heads=2, n_layers=2,
+                      d_ff=512, dtype=torch.bfloat16,
+                      param_dtype=torch.float32, remat=False)
+    toks = torch.randint(0, 256, (2, 64), device=dev,
+                         generator=torch.Generator(dev).manual_seed(3))
+    assert initialize_distributed(
+        backend="nccl", init_method=f"file://{tmp_path / 'store'}",
+        device=dev)
+    try:
+        mesh = slice_mesh(device="cuda")
+        runs = []
+        for m in (None, mesh):
+            init_fn, step_fn = make_train_step(TpuLM(cfg), mesh=m,
+                                               grad_clip=1.0, device=dev)
+            state = init_fn(0)
+            ops.reset_launch_counts()
+            losses = []
+            for _ in range(3):
+                state, loss = step_fn(state, toks)
+                losses.append(float(loss))
+            assert ops.launch_counts()["flash_fwd"] == 2 * 3
+            runs.append((losses, [p.detach() for p in leaves(state.params)]))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    assert l0 == l1
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

@@ -114,17 +114,20 @@ def test_apply_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ring"):
         tlm.TpuLM(dataclasses.replace(tcfg, ring_attention=True)).apply(
             {}, toks)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tlm.TpuLM(tcfg).apply({}, toks, mesh=object())
     with pytest.raises(NotImplementedError, match="pipeline"):
         tlm.TpuLM(tcfg).apply_pipelined({}, toks, n_micro=2)
 
 
-@pytest.mark.parametrize("kw", [dict(zero1=True), dict(n_micro=2),
-                                dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(zero1=True, n_micro=2),
+                                dict(n_micro=2), dict(mesh=object())])
 def test_train_step_refuses_what_is_not_ported(kw):
+    """Pipeline parallelism is not ported; a mesh must be a torch
+    ``DeviceMesh`` (the parallel step's own tests are
+    ``tests/test_torch_parallel_*.py``)."""
     _, tcfg = configs("fp32")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError if "mesh" in kw else NotImplementedError):
         ttrain.make_train_step(tlm.TpuLM(tcfg), device="cpu", **kw)
 
 
@@ -300,10 +303,14 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
     assert line["steps"] == 4
 
 
-@pytest.mark.parametrize("flag", [["--ring"], ["--tp", "2"], ["--zero1"],
-                                  ["--from-env"],
-                                  ["--lora-rank", "4", "--zero1"]])
-def test_cli_refuses_unported_flags(flag):
+@pytest.mark.parametrize("flag", [["--ring"], ["--sp", "2"],
+                                  ["--n-experts", "4", "--tp", "2"],
+                                  ["--from-env"], ["--lora-rank", "4"]])
+def test_cli_refuses_unported_flags(flag, monkeypatch):
+    """Under torchrun at world size 2 (the refusals come before the
+    process group): ring attention, a seq axis, MoE experts over model,
+    multi-host, LoRA under a mesh."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit) as e:
         train_main.main(_TINY + ["--synthetic", "1000"] + flag)
     assert "ROADMAP" in str(e.value.code)
