@@ -184,7 +184,26 @@ control, which must miss the bound), and (dp 2, tp 1) with ZeRO-1, each 3
 steps against the one-process step on the same weights within
 ``PAR_TOL``, B5-B7 4 launches per rank a step, each ZeRO-1 moment holding
 numel / 2; the phase logs its seconds and the groups' backend. No run
-is a scaling number.
+is a scaling number;
+tp_serve (last): tensor-parallel serving with the driver/follower op
+stream. A mesh of one rank on NCCL around the 7B int8 engine (graph
+route) against the meshless engine over the same weights, the final
+norm's scale divided by 64 as in the graph phase: tokens, logprobs and
+a logits probe bit-equal, decode tok/s of both in turns; then, that 7B
+freed, the 7B int8 server at tp 2 as two spawned processes sharing the
+card over gloo on CUDA tensors, full width and depth (each rank 16 query
+heads, 4 KV heads, half of d_ff and of the vocabulary), each built by the
+server's own CLI wiring (``build_parser`` + ``build_engine`` with
+``--from-env`` inside the group the smoke started, then ``split_ranks``):
+rank 0 answers the serve phase's 8 completions over HTTP through
+``DistributedEngine`` and drives ``run_script``, rank 1 replays the op
+stream; the first ``TP_GREEDY`` tokens equal the meshless engine's and
+each logprob within ``TP_LOGPROB_TOL`` over the agreeing prefix, a
+logits probe within ``TP_LOGITS_TOL`` and the swapped-``wq`` control
+outside it, the follower's ``state_digest`` equal to the driver's, B1-B3
+launched on both ranks (the same counts, B1 once a layer a decode step);
+per rank its decode ms a step and tok/s at batch 8, its peak GiB while
+building and serving, and the phase's seconds.
 
 Then the ``kernels`` JSON line (launches, from the card's trace on the
 serving paths and from the wrappers on the training ones: B1-B3 from the
@@ -197,7 +216,8 @@ lora phase's server (B1-B4) and QLoRA steps (B5-B7), ``window_launches``
 and ``int4_launches`` from the window and int4 phases' servers;
 ``spec_detail`` holds B1-B3 at the 871M shapes; ``parallel_launches``
 from the parallel phase's world-size-1 mesh step and
-``parallel_rank_launches`` per rank of its two-process runs), the graph
+``parallel_rank_launches`` per rank of its two-process runs,
+``tp_serve_launches`` per rank of the tp 2 server), the graph
 phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
@@ -629,17 +649,20 @@ def phase_kernels(torch, cfg, qp, ops) -> list:
     return out
 
 
+#: B1's cases at batch 8 over a 1024-position cache: staggered depths,
+#: full depth, and the engine's prompt lengths (the longest cut to its
+#: bucket) at the engine's s_attn 256, as (label, lengths, s_attn)
+B1_S = 1024
+B1_SHAPES = (("staggered", [0, 1, 17, 128, 300, 511, 777, 1000], B1_S),
+             ("full depth", [B1_S] * 8, B1_S),
+             ("engine", [256, 200, 129, 100, 64, 33, 17, 5], 256))
+
+
 def check_b1(torch, cfg, fd, gen) -> dict:
-    """B1 against its plain version at batch 8 over a 1024-position cache
-    at three shapes (the first, timed since B1 was first ported, stays
-    the entry's top level): staggered depths, full depth, and the engine's
-    prompt lengths (the longest cut to its bucket) at the engine's
-    s_attn 256; timed at each; returns its ``kernels`` entry."""
-    S = 1024
-    shapes = (("staggered", [0, 1, 17, 128, 300, 511, 777, 1000], S),
-              ("full depth", [S] * 8, S),
-              ("engine", [256, 200, 129, 100, 64, 33, 17, 5], 256))
-    detail, e_max = b1_cases(torch, cfg, fd, gen, S, shapes, "")
+    """B1 against its plain version at :data:`B1_SHAPES` (the first,
+    timed since B1 was first ported, stays the entry's top level), timed
+    at each; returns its ``kernels`` entry."""
+    detail, e_max = b1_cases(torch, cfg, fd, gen, B1_S, B1_SHAPES, "")
     top = detail[0]
     return {
         "name": "quant_decode_attention", "route": "cuda",
@@ -1211,6 +1234,42 @@ def http_stream(url: str, body: dict, timeout: float = 600.0,
             "t_session": t_session}
 
 
+def http_burst(url: str, prompts: list, max_tokens: int):
+    """The serve phase's burst: one greedy completion a prompt with
+    logprobs, all sent together from their own threads, the even-indexed
+    ones streamed. Returns (results, errors): each result is the
+    completion's choice (a streamed one as :func:`http_stream` reads it,
+    with its first and last token's host clock) with the request's
+    ``t_send`` and ``t_done``."""
+    import threading
+
+    results, errors = [None] * len(prompts), []
+
+    def one(i):
+        body = {"prompt": prompts[i], "max_tokens": max_tokens,
+                "temperature": 0.0, "logprobs": True}
+        t_send = time.perf_counter()
+        try:
+            if i % 2 == 0:
+                r = http_stream(url + "/v1/completions",
+                                dict(body, stream=True))
+            else:
+                ch = http_json(url + "/v1/completions", body)["choices"][0]
+                r = dict(ch, t_first=None, t_last=None)
+            r["t_send"], r["t_done"] = t_send, time.perf_counter()
+            results[i] = r
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return results, errors
+
+
 def phase_serve(torch, ops) -> dict:
     """The server's main path: the port's own CLI wiring
     (``api_server.build_parser`` + ``build_engine``) at the 7B int8
@@ -1224,7 +1283,6 @@ def phase_serve(torch, ops) -> dict:
     tokens, logprobs and the logits of the prefill chunk after the
     matched head are held against the cold run's; the control shows the
     comparison can fail."""
-    import threading
     from collections import Counter
 
     from instaslice_tpu_torch.serving import api_server
@@ -1258,36 +1316,12 @@ def phase_serve(torch, ops) -> dict:
         gen = torch.Generator().manual_seed(17)
         prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
                    for n in SERVE_PLENS]
-        results, errors = [None] * len(prompts), []
-
-        def one(i):
-            body = {"prompt": prompts[i], "max_tokens": SERVE_NEW,
-                    "temperature": 0.0, "logprobs": True}
-            t_send = time.perf_counter()
-            try:
-                if i % 2 == 0:
-                    r = http_stream(url + "/v1/completions",
-                                    dict(body, stream=True))
-                else:
-                    ch = http_json(url + "/v1/completions",
-                                   body)["choices"][0]
-                    r = dict(ch, t_first=None, t_last=None)
-                r["t_send"], r["t_done"] = t_send, time.perf_counter()
-                results[i] = r
-            except Exception as e:  # noqa: BLE001 - reported below
-                errors.append(f"request {i}: {e!r}")
-
         st0 = http_json(url + "/v1/stats")
         steps0, chunks0 = eng.decode_steps, eng.prefill_dispatches
         fl.start()
         t0 = time.perf_counter()
         with Traced(torch, ops) as tr:
-            threads = [threading.Thread(target=one, args=(i,))
-                       for i in range(len(prompts))]
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join()
+            results, errors = http_burst(url, prompts, SERVE_NEW)
         wall = tr.t_end - t0
         fl.stop()
         counts = tr.counts
@@ -4486,6 +4520,555 @@ def phase_parallel(torch, ops) -> dict:
     return out
 
 
+#: tensor-parallel serving (the tp_serve phase): the 7B int8 server at tp
+#: 2 as two processes on the one card over gloo. Greedy tokens are held
+#: equal to the meshless engine's for the first TP_GREEDY of each
+#: completion (bf16 configs: short runs only), and each token's logprob
+#: within TP_LOGPROB_TOL over the prefix where the tokens agree; both
+#: engines serve the final norm's scale divided by 64, as the graph phase
+#: does, so that logprobs of the seeded weights read something. The
+#: meshless reference admits one prompt at a time (B2 on every 128-row
+#: chunk) and the server bursts (wide chunks through torch.matmul), as in
+#: the serve phase; the ranks sum their fp32 partial products in another
+#: order than one card's kernels
+TP_GREEDY = 4
+TP_LOGPROB_TOL = 5e-2
+#: the served decode steps' logits (:class:`DecodeRows`) and the logits
+#: probe (:func:`tp_logits_probe`) of the tp 2 engine against the
+#: meshless one: relative L2 over the vocabulary at each row, at most
+#: this; the swapped-shard control must miss it on both. The seeded
+#: weights' last token dominates its own logit, so a served logprob
+#: moves little even when half the heads are wrong (the control's stays
+#: within TP_LOGPROB_TOL): the logits say more
+TP_LOGITS_TOL = 3e-2
+#: the probe: the first prompt's first chunk, then greedy decode steps
+TP_PROBE_STEPS = 3
+#: the control (each rank serving the other's wq shard) decodes this many
+#: tokens of the first two prompts
+TP_CONTROL_NEW = 4
+#: the timed decode block of each rank: batch 8 of 64-token prompts
+TP_TPUT_STEPS = 16
+
+
+def tp_prompts(torch, V: int) -> list:
+    """The serve phase's 8 prompts (:data:`SERVE_PLENS`, seed 17)."""
+    gen = torch.Generator().manual_seed(17)
+    return [torch.randint(1, V, (n,), generator=gen).tolist()
+            for n in SERVE_PLENS]
+
+
+def tp_logits_probe(torch, eng, prompt):
+    """(1 + TP_PROBE_STEPS, vocab) fp32 logits on the host: one
+    prefill chunk of ``prompt`` (its first ``prefill_len`` tokens) into a
+    fresh one-row int8 cache through the engine's own model, weights and
+    mesh, the chunk's last row, then greedy decode steps."""
+    model, dev = eng.model, eng.device
+    cache = model.init_cache(1, 256, quant=True, device=dev, mesh=eng.mesh)
+    toks = torch.tensor([prompt[:eng.prefill_len]], device=dev)
+    lens = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = []
+    with torch.no_grad():
+        for _ in range(1 + TP_PROBE_STEPS):
+            logits, cache = model.apply_with_cache(eng.params, toks, cache,
+                                                   lens, mesh=eng.mesh)
+            out.append(logits[0, -1].float().cpu())
+            lens = lens + toks.shape[1]
+            toks = logits[:, -1].argmax(-1, keepdim=True)
+    return torch.stack(out)
+
+
+class DecodeRows:
+    """The logits of every eager decode step (a (B, 1) target forward)
+    an engine runs while it is open, on the host: each live slot's row,
+    keyed by (its prompt's index in ``prompts``, its position), through a
+    :class:`ForwardLog` tap. Rows of a slot whose prompt is not among
+    ``prompts`` are not kept. :meth:`close` unwraps the engine."""
+
+    def __init__(self, eng, prompts):
+        index = {tuple(p): i for i, p in enumerate(prompts)}
+        self.rows = {}
+
+        def tap(tokens, lengths, logits):
+            if tokens.shape[1] != 1:
+                return
+            lens = lengths.tolist()
+            for s, req in eng.slots.items():
+                i = index.get(tuple(req.prompt))
+                if i is not None:
+                    self.rows[(i, lens[s])] = logits[s, 0].float().cpu()
+
+        self.log = ForwardLog(eng, tap=tap)
+
+    def close(self) -> dict:
+        """Unwrap the engine; the rows as ``{"keys": [[i, position],
+        ...], "logits": (n, vocab)}``, which ``torch.save`` takes."""
+        import torch
+
+        self.log.close()
+        keys = sorted(self.rows)
+        return {"keys": [list(k) for k in keys],
+                "logits": torch.stack([self.rows[k] for k in keys])}
+
+
+def decode_err(torch, got: dict, want: dict, i: int, plen: int,
+               agree: int) -> float:
+    """The largest relative L2 error over the vocabulary of request
+    ``i``'s decode-step logits in ``got`` against ``want`` (each as
+    :meth:`DecodeRows.close` returns them) at the positions whose inputs
+    agree: a decode step at position n reads the prompt (``plen``
+    tokens) and the first n - plen + 1 generated tokens, so n < plen +
+    ``agree``. inf where no such step is in both."""
+    at = [{tuple(k): r for k, r in zip(d["keys"], d["logits"])}
+          for d in (got, want)]
+    errs = [rel_l2(at[0][(i, n)], at[1][(i, n)])
+            for n in range(plen, plen + agree)
+            if (i, n) in at[0] and (i, n) in at[1]]
+    return max(errs) if errs else math.inf
+
+
+def _tp_serve_http(torch, deng, args, prompts) -> dict:
+    """Rank 0: the port server over the driver's engine on port 0, the
+    serve phase's burst (:func:`http_burst`) with every decode step's
+    logits kept (:class:`DecodeRows`); each completion's tokens and
+    logprobs, the wall time, ``/v1/stats`` and the decode rows."""
+    from instaslice_tpu_torch.serving import api_server
+
+    rows = DecodeRows(deng.engine, prompts)
+    srv = api_server.ApiServer(deng, host=args.host, port=args.port).start()
+    try:
+        wait_ready(srv.url)
+        t0 = time.perf_counter()
+        results, errors = http_burst(srv.url, prompts, SERVE_NEW)
+        wall = time.perf_counter() - t0
+        stats = http_json(srv.url + "/v1/stats")
+    finally:
+        srv.stop()
+        decode = rows.close()
+    check(not errors, f"tp_serve: {errors}")
+    return {"results": [{k: r[k] for k in ("token_ids", "logprobs",
+                                           "finish_reason")}
+                        for r in results],
+            "wall_s": wall, "mesh": stats["mesh"],
+            "route": stats["engine"]["decode_graphs"]["route"],
+            "tokens_generated": stats["tokens_generated"]}, decode
+
+
+def _swap_wq_shards(torch, eng) -> None:
+    """The control: each rank serves the other rank's block of ``wq``'s
+    columns (both ranks gather the whole leaf over ``model``)."""
+    from instaslice_tpu_torch.models.quant import QuantizedTensor
+    from instaslice_tpu_torch.parallel import collectives as coll
+
+    ax = eng._axes
+    other = dataclasses.replace(ax, model=dataclasses.replace(
+        ax.model, rank=1 - ax.model.rank))
+    wq = eng.params["blocks"]["wq"]
+    spec = (None, None, "model")
+    eng.params["blocks"]["wq"] = QuantizedTensor(
+        coll.shard_leaf(coll.all_gather(wq.q, ax.model, 2), spec, other),
+        coll.shard_leaf(coll.all_gather(wq.s, ax.model, 2), spec, other))
+
+
+def tp_serve_child(rank: int, world: int, init_method: str, out: str,
+                   oplog_port: int) -> None:
+    """One rank of the tp 2 server (spawned): the smoke starts gloo, then
+    the port's own CLI wiring builds the engine (``build_parser`` +
+    ``build_engine`` with ``--from-env``, which finds the group started
+    and keeps it) and splits the ranks (``split_ranks``): rank 0 answers
+    the 8 completions over HTTP through ``DistributedEngine`` and then
+    drives ``run_script``; rank 1 replays the op stream. Launch counters
+    are zeroed after the warm-ups and read when the op stream closes.
+    Then, the same calls on both ranks: a timed decode block, and the
+    control with the two ranks' ``wq`` shards swapped. Writes
+    ``rank<r>.json``; rank 0 also ``probe.pt``: the logits probe's, the
+    served decode steps' and the control's (:class:`DecodeRows`)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.parallel import initialize_distributed
+    from instaslice_tpu_torch.serving import api_server
+    from instaslice_tpu_torch.serving.dcn_serve_smoke import (
+        run_script,
+        state_digest,
+    )
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    out = Path(out)
+    initialize_distributed(backend="gloo", init_method=init_method,
+                           device="cuda:0")
+    res = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        args = api_server.build_parser().parse_args(
+            SERVE_FLAGS.split() + ["--from-env", "--oplog-port",
+                                   str(oplog_port)])
+        eng = api_server.build_engine(args)
+        torch.cuda.synchronize()
+        res["build_s"] = time.perf_counter() - t0
+        res["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["weights_gib"] = tree_gib(eng.params)
+        res["route"] = eng.decode_route()
+        res["cache_heads"] = eng.cache["k"].shape[2]
+        res["kv_heads"], res["n_layers"] = args.n_kv_heads, args.n_layers
+        check(eng.mesh is not None and eng._axes.model.size == 2,
+              f"tp_serve rank {rank}: a model axis of 2")
+        with torch.no_grad():
+            # replicated on every rank (see TP_LOGPROB_TOL)
+            eng.params["ln_f"]["scale"].div_(math.sqrt(args.d_model))
+        prompts = tp_prompts(torch, args.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        deng = api_server.split_ranks(eng, args)
+        if deng is not None:
+            check(rank == 0, "the driver is rank 0")
+            try:
+                res["http"], served_rows = _tp_serve_http(
+                    torch, deng, args, prompts)
+                run_script(deng)
+            finally:
+                deng.shutdown()
+        torch.cuda.synchronize()
+        res["counts"] = ops.launch_counts()
+        res["serve_s"] = time.perf_counter() - t0
+        res["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["digest"] = state_digest(eng)
+        res["decode_steps"] = eng.decode_steps
+        # the same calls on both ranks from here
+        for s in list(eng.slots):
+            eng.evict_slot(s)
+        eng.finished.clear()
+        short = [p[:64] for p in prompts]
+        for p in short:
+            eng.add_request(p)
+        eng.decode_block(2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.decode_block(TP_TPUT_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        res["decode_ms_per_step"] = wall / TP_TPUT_STEPS * 1e3
+        res["decode_tok_s"] = len(short) * TP_TPUT_STEPS / wall
+        for s in list(eng.slots):
+            eng.evict_slot(s)
+        eng.finished.clear()
+        probe = tp_logits_probe(torch, eng, prompts[0])
+        _swap_wq_shards(torch, eng)
+        rows = DecodeRows(eng, prompts)
+        ctl = eng.generate(prompts[:2], TP_CONTROL_NEW)
+        ctl_rows = rows.close()
+        res["control"] = [{"token_ids": r.tokens} for r in ctl]
+        ctl_probe = tp_logits_probe(torch, eng, prompts[0])
+        if rank == 0:
+            torch.save({"probe": probe, "control": ctl_probe,
+                        "served_rows": served_rows,
+                        "control_rows": ctl_rows}, out / "probe.pt")
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def agreeing_prefix(got: list, want: list) -> int:
+    n = 0
+    while n < min(len(got), len(want)) and got[n] == want[n]:
+        n += 1
+    return n
+
+
+def logprob_err(got: dict, want) -> float:
+    """The largest logprob difference over the tokens where ``got`` and
+    ``want`` (a ``GenerationResult``) agree; inf where the first token
+    already differs."""
+    n = agreeing_prefix(got["token_ids"], want.tokens)
+    if n == 0:
+        return math.inf
+    return max(abs(a - b) for a, b in zip(got["logprobs"][:n],
+                                          want.logprobs[:n]))
+
+
+def tp_shard_kernels(torch, ops, cfg, qp) -> dict:
+    """B1-B3 against their plain versions at the shapes the tp 2 server
+    gives them, as :func:`phase_kernels` holds the meshless shapes: rank
+    0's leaves of the 7B int8 weights (``shard_params`` at a model axis of
+    2; rank 1's have the same shapes), B2 on the six projections and B3
+    on the 16000-row embedding at M = 1 ... 256 within QMM_TOL, B1 at
+    the rank's 16 query and 4 KV heads at :data:`B1_SHAPES` within its
+    1e-5 bounds, each timed. Returns each kernel's worst errors and
+    detail."""
+    from instaslice_tpu_torch.models.lm import param_specs
+    from instaslice_tpu_torch.models.quant import shard_params
+    from instaslice_tpu_torch.parallel.collectives import Axis, MeshAxes
+
+    fd, qm = ops.flash_decode, ops.quant_matmul
+    shards = shard_params(qp, param_specs(cfg),
+                          MeshAxes(model=Axis(None, 2, 0)))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    xs = (torch.bfloat16, torch.float32)
+    tag = "tp_serve rank 0 shards: "
+    out = {}
+    for name, detail in (
+            ("quant_matmul_stacked",
+             [b2_case(torch, qm, shards["blocks"][p], p, M, gen, xs, tag)
+              for M in QMM_MS for p in BIG]),
+            ("quant_matmul_t",
+             [b3_case(torch, qm, shards["embed"], M, gen, xs, tag)
+              for M in QMM_MS])):
+        errs = {}
+        for d in detail:
+            worse(errs, d)
+        out[name] = {"max_abs_err": errs["max_abs"],
+                     "rel_l2_err": errs["rel_l2"],
+                     "tile_rel_l2_err": errs["tile_rel_l2"],
+                     "detail": detail}
+    log_six(tag, out["quant_matmul_stacked"]["detail"], QMM_MS)
+    del shards
+    rank_cfg = dataclasses.replace(
+        cfg, d_model=cfg.d_model // 2, n_heads=cfg.n_heads // 2,
+        n_kv_heads=cfg.kv_heads // 2)
+    detail, e_max = b1_cases(torch, rank_cfg, fd, gen, B1_S, B1_SHAPES, tag)
+    out["quant_decode_attention"] = {"max_abs_err": e_max, "detail": detail}
+    return out
+
+
+def tp_one_rank(torch, ops, cfg, prompts) -> dict:
+    """(1) A mesh of one rank on NCCL around the 7B int8 engine against the
+    meshless engine over the same weights (the final norm's scale divided
+    by 64): greedy tokens and logprobs bit-equal on the graph route, and
+    each one's decode tok/s (batch 8 of 64-token prompts, in turns). The
+    meshless results, and its eager twin's decode-step logits on the same
+    prompts (:class:`DecodeRows`), are the reference of the two-process
+    run. First, B1-B3 at the tp 2 ranks' shapes
+    (:func:`tp_shard_kernels`)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from instaslice_tpu_torch.models.lm import TpuLM, init_params
+    from instaslice_tpu_torch.models.quant import quantize_params
+    from instaslice_tpu_torch.parallel import (
+        initialize_distributed,
+        slice_mesh,
+    )
+    from instaslice_tpu_torch.serving import ServingEngine
+
+    qp = quantize_params(init_params(cfg, 0, device="cuda"))
+    shard_kernels = tp_shard_kernels(torch, ops, cfg, qp)
+    qp["ln_f"]["scale"] = qp["ln_f"]["scale"] / math.sqrt(cfg.d_model)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(backend="nccl",
+                           init_method=f"tcp://127.0.0.1:{port}",
+                           device="cuda")
+    try:
+        mesh = slice_mesh(axes=("data", "seq", "model"),
+                          axis_sizes=(1, 1, -1), device="cuda")
+        opts = dict(max_batch=8, max_len=1024, prefill_len=128,
+                    kv_quant=True, device="cuda")
+        engs = {"meshless": ServingEngine(TpuLM(cfg), qp, **opts),
+                "mesh": ServingEngine(TpuLM(cfg), qp, mesh=mesh, **opts)}
+        out = {"backend": dist.get_backend(),
+               "mesh_shape": list(mesh.shape)}
+        for name, eng in engs.items():
+            check(eng.decode_route() == "cuda graphs",
+                  f"tp_serve {name}: the graph route")
+            eng.warm_prefill_buckets()
+            out[name] = {"results": eng.generate(prompts, SERVE_NEW),
+                         "probe": tp_logits_probe(torch, eng, prompts[0])}
+        twin = eager_twin(engs["meshless"])
+        rows = DecodeRows(twin, prompts)
+        out["decode_tokens"] = [r.tokens for r in
+                                twin.generate(prompts, SERVE_NEW)]
+        out["decode_rows"] = rows.close()
+        del twin
+        a, b = out["meshless"]["results"], out["mesh"]["results"]
+        same = ([r.tokens for r in a] == [r.tokens for r in b]
+                and [r.logprobs for r in a] == [r.logprobs for r in b]
+                and torch.equal(out["meshless"]["probe"],
+                                out["mesh"]["probe"]))
+        short = [p[:64] for p in prompts]
+        for name in ("meshless", "mesh", "mesh", "meshless"):
+            eng = engs[name]
+            for p in short:
+                eng.add_request(p)
+            eng.decode_block(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.decode_block(TP_TPUT_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[name].setdefault("tok_s", []).append(
+                len(short) * TP_TPUT_STEPS / wall)
+            for s in list(eng.slots):
+                eng.evict_slot(s)
+            eng.finished.clear()
+        del engs, eng, qp
+        free_memory(torch)
+    finally:
+        dist.destroy_process_group()
+    log(f"tp_serve one rank (NCCL, mesh {out['mesh_shape']}): tokens, "
+        f"logprobs and probe logits bit-equal to meshless {same}; decode "
+        f"tok/s mesh "
+        f"{out['mesh']['tok_s']} vs meshless {out['meshless']['tok_s']}")
+    check(same, "tp_serve: a mesh of one rank is bit-equal to meshless")
+    out["bit_equal"] = same
+    out["shard_kernels"] = shard_kernels
+    return out
+
+
+def tp_two_process(torch, one: dict, prompts) -> dict:
+    """(2) Two spawned processes on the one card over gloo on CUDA tensors,
+    each a rank of the 7B int8 server at tp 2 (:func:`tp_serve_child`):
+    the completions and the logits of every served decode step (batch 8)
+    against the meshless engine's (``one``, from :func:`tp_one_rank`),
+    the follower's digest against the driver's, B1-B3 launched on both
+    ranks, the swapped-shard control missing the logits bounds."""
+    import multiprocessing as mp
+    import shutil
+    import socket
+
+    out = HERE / "build" / "tp_serve"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_serve_child, args=(
+        r, 2, f"tcp://127.0.0.1:{ports[0]}", str(out), ports[1]))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             if (out / f"rank{r}.json").exists() else {} for r in range(2)]
+    probes = (torch.load(out / "probe.pt") if (out / "probe.pt").exists()
+              else None)
+    shutil.rmtree(out)
+    check(codes == [0, 0], f"tp_serve children exit codes {codes}")
+    r0, r1 = ranks
+    http = r0["http"]
+    ref, ref_probe = one["meshless"]["results"], one["meshless"]["probe"]
+    check(http["mesh"] == {"data": 1, "seq": 1, "model": 2},
+          f"tp_serve: /v1/stats mesh {http['mesh']}")
+    check(http["route"].startswith("eager (tensor parallel"),
+          f"tp_serve: route {http['route']}")
+    errs, greedy = [], []
+    for i, (got, want) in enumerate(zip(http["results"], ref)):
+        toks = got["token_ids"]
+        check(len(toks) == SERVE_NEW and got["finish_reason"]
+              == "max_new_tokens", f"tp_serve request {i}: {len(toks)} "
+              f"tokens, {got['finish_reason']}")
+        greedy.append(agreeing_prefix(toks, want.tokens))
+        errs.append(logprob_err(got, want))
+    served, served_ctl = (
+        [decode_err(torch, probes[key], one["decode_rows"], i,
+                    len(prompts[i]), agreeing_prefix(
+                        got["token_ids"], one["decode_tokens"][i]))
+         for i, got in enumerate(results)]
+        for key, results in (("served_rows", http["results"]),
+                             ("control_rows", r0["control"])))
+    probe_err = [rel_l2(g, w) for g, w in zip(probes["probe"], ref_probe)]
+    probe_ctl = [rel_l2(g, w) for g, w in zip(probes["control"], ref_probe)]
+    dig0, dig1 = r0["digest"], r1["digest"]
+    c0, c1 = r0["counts"], r1["counts"]
+    log(f"tp_serve two processes (gloo): greedy prefix agreeing with "
+        f"meshless {greedy}, logprob err over it {errs} (tol "
+        f"{TP_LOGPROB_TOL}); served decode steps' logits rel L2 "
+        f"{served}, control (swapped wq) {served_ctl}; probe "
+        f"logits rel L2 {probe_err}, control {probe_ctl} (tol "
+        f"{TP_LOGITS_TOL}); launches rank 0 "
+        f"{c0}, rank 1 {c1}; follower digest equal "
+        f"{dict(dig1, finished=[]) == dict(dig0, finished=[])}; decode ms "
+        f"a step {[r['decode_ms_per_step'] for r in ranks]}, tok/s "
+        f"{[r['decode_tok_s'] for r in ranks]}; peak GiB build "
+        f"{[r['build_peak_gib'] for r in ranks]}, serving "
+        f"{[r['serve_peak_gib'] for r in ranks]}; weights GiB "
+        f"{[r['weights_gib'] for r in ranks]}; HTTP {http['wall_s']:.2f} s")
+    check(all(n >= TP_GREEDY for n in greedy),
+          f"tp_serve: the first {TP_GREEDY} greedy tokens equal meshless")
+    check(max(errs) <= TP_LOGPROB_TOL, f"tp_serve: logprobs within "
+          f"{TP_LOGPROB_TOL} of meshless")
+    check(max(served) <= TP_LOGITS_TOL, f"tp_serve: the served decode "
+          f"steps' logits within {TP_LOGITS_TOL} of meshless")
+    check(max(probe_err) <= TP_LOGITS_TOL, f"tp_serve: probe logits "
+          f"within {TP_LOGITS_TOL} of meshless")
+    check(min(served_ctl) > TP_LOGITS_TOL and min(probe_ctl)
+          > TP_LOGITS_TOL, "tp_serve: the swapped-wq control misses the "
+          "logits bound, decode steps and probe")
+    check(dict(dig1, finished=[]) == dict(dig0, finished=[])
+          and dig0["live"], "tp_serve: the follower's digest is the "
+          "driver's")
+    for r, c in ((0, c0), (1, c1)):
+        for k in ("quant_decode_attention", "quant_matmul_stacked",
+                  "quant_matmul_t"):
+            check(c[k] > 0, f"tp_serve rank {r}: {k} launched")
+        check(c["quant_matmul"] == 0 and all(c[k] == 0 for k in FLASH),
+              f"tp_serve rank {r}: B4-B7 are not on this path")
+    check(c0 == c1, "tp_serve: both ranks launch the same kernels")
+    check(c0["quant_decode_attention"]
+          == r0["n_layers"] * r0["decode_steps"] > 0,
+          "tp_serve: B1 once a layer a decode step")
+    for r in ranks:
+        check(r["cache_heads"] == r["kv_heads"] // 2 and r["route"]
+              .startswith("eager (tensor parallel"),
+              "tp_serve: half the KV heads a rank, eager")
+    return {"ranks": [{k: r[k] for k in (
+        "build_s", "serve_s", "build_peak_gib", "serve_peak_gib",
+        "weights_gib", "decode_ms_per_step", "decode_tok_s", "counts",
+        "decode_steps")} for r in ranks],
+        "greedy_prefix": greedy, "logprob_err": errs,
+        "tol": TP_LOGPROB_TOL, "decode_rel_l2": served,
+        "decode_control_rel_l2": served_ctl, "probe_rel_l2": probe_err,
+        "probe_control_rel_l2": probe_ctl, "probe_tol": TP_LOGITS_TOL,
+        "http_wall_s": http["wall_s"],
+        "mesh": http["mesh"], "route": http["route"]}
+
+
+def phase_tp_serve(torch, ops, cfg) -> dict:
+    """Tensor-parallel serving with the driver/follower op stream: B1-B3
+    at a tp 2 rank's shard shapes (:func:`tp_shard_kernels`), (1) a
+    mesh of one rank on NCCL around the 7B int8 engine, bit-equal to the
+    meshless engine on the graph route (:func:`tp_one_rank`); then, its
+    7B freed, (2) the 7B int8 server at tp 2 as two processes sharing the
+    card over gloo, full width and depth (:func:`tp_two_process`). No
+    scaling number: one card, and gloo stages every collective through
+    host memory."""
+    # the training phases leave TF32 on; the plain versions of B1-B3 are
+    # fp32 products, held to 2e-5 of the kernels' as in phase_kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts = tp_prompts(torch, cfg.vocab_size)
+    t0 = time.perf_counter()
+    one = tp_one_rank(torch, ops, cfg, prompts)
+    t1 = time.perf_counter()
+    free_memory(torch)
+    two = tp_two_process(torch, one, prompts)
+    out = {"shard_kernels": one.pop("shard_kernels"),
+           "one_rank": {"bit_equal": one["bit_equal"],
+                        "backend": one["backend"],
+                        "tok_s": {k: one[k]["tok_s"]
+                                  for k in ("meshless", "mesh")}},
+           "two_process": two,
+           "seconds": {"one_rank": t1 - t0,
+                       "two_process": time.perf_counter() - t1}}
+    log(f"tp_serve: seconds by part {out['seconds']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4595,6 +5178,9 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel = phase_parallel(torch, ops)
     mark("parallel", t0)
+    t0 = time.perf_counter()
+    tp_serve = phase_tp_serve(torch, ops, cfg)
+    mark("tp_serve", t0)
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
@@ -4644,6 +5230,18 @@ def main() -> int:
         k["parallel_rank_launches"] = {
             run: [c[k["name"]] for c in r["counts"]]
             for run, r in parallel["two_process"]["runs"].items()}
+        # the tp 2 server's ranks (rank 0, rank 1): its HTTP completions
+        # and run_script over the op stream
+        k["tp_serve_launches"] = [
+            r["counts"][k["name"]]
+            for r in tp_serve["two_process"]["ranks"]]
+        # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
+        tp = tp_serve["shard_kernels"].get(k["name"])
+        if tp is not None:
+            k["tp_serve_detail"] = tp["detail"]
+            for key, err in tp.items():
+                if key != "detail":
+                    k[key] = max(k[key], err)
     for k in kernels:
         lib = k["library_ms"]
         log(f"kernel {k['name']} ({k['work']}): launches {k['launches']}, "
@@ -4687,6 +5285,8 @@ def main() -> int:
                     "cli": cli["line"], "bf16_cut": bf16_cut,
                     "train_cut": cut}))
     log(json.dumps({"card": card, "parallel": parallel}))
+    log(json.dumps({"card": card, "tp_serve": {
+        k: v for k, v in tp_serve.items() if k != "shard_kernels"}}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,10 +18,11 @@ leaves dequantize one layer at a time, the QLoRA base),
 or int8 KV cache, sliding windows through the banded cache read, int8 or
 int4 weights, multi-LoRA deltas per row). :func:`param_specs` and
 :func:`batch_spec` lay the tree and the batch over a ("data", "seq",
-"model") mesh as the reference's do; under a mesh :func:`apply` runs on
-this rank's shards (:meth:`TpuLM.apply` with ``mesh=``): heads, the
-dense FFN hidden dim and the vocabulary over ``model``, the MoE
-load-balance means over ``data``. Not yet ported, and raising
+"model") mesh as the reference's do; under a mesh :func:`apply` and
+:func:`apply_with_cache` run on this rank's shards (:meth:`TpuLM.apply`
+and :meth:`TpuLM.apply_with_cache` with ``mesh=``): heads, the dense FFN
+hidden dim and the vocabulary over ``model`` (and the KV cache's heads),
+the MoE load-balance means over ``data``. Not yet ported, and raising
 ``NotImplementedError``: ring and pipeline attention, and MoE experts over
 ``model``.
 """
@@ -247,10 +248,19 @@ def check_mesh(cfg: ModelConfig, axes: MeshAxes) -> None:
         return
     if cfg.n_experts:
         raise NotImplementedError(
-            "MoE experts over the model axis (expert parallelism) are not "
-            "ported yet: ROADMAP queue A")
-    for what, n in (("n_heads", cfg.n_heads), ("kv_heads", cfg.kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+            "MoE experts over the model axis (expert parallelism, in "
+            "training and serving) are not ported yet: ROADMAP queue A "
+            "item 1c")
+    # the reference's serving checks, with its messages
+    # (instaslice_tpu/serving/engine.py:600-615)
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} not divisible by the "
+                         f"mesh's model axis ({tp} devices)")
+    if cfg.kv_heads % tp:
+        raise ValueError(f"kv_heads={cfg.kv_heads} not divisible by the "
+                         f"mesh's model axis ({tp} devices) — the KV cache "
+                         "shards over heads")
+    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
         if n % tp:
             raise ValueError(f"{what}={n} does not divide over the model "
                              f"axis ({tp})")
@@ -552,15 +562,16 @@ def _layers(blocks: Params, n_layers: int):
     return split(blocks)
 
 
-def _vocab_parallel_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+def _vocab_parallel_lookup(embed, tokens: torch.Tensor,
                            tp) -> torch.Tensor:
-    """Rows of a vocab-sharded ``(V / tp, D)`` embedding: each rank looks
-    up the tokens in its vocabulary block, zeroes the others, and the
-    blocks sum over ``model`` (one nonzero term per token: exact)."""
+    """Rows of a vocab-sharded ``(V / tp, D)`` embedding leaf (a tensor,
+    or a quantized leaf dequantized after the gather): each rank looks up
+    the tokens in its vocabulary block, zeroes the others, and the blocks
+    sum over ``model`` (one nonzero term per token: exact)."""
     n = embed.shape[0]
     local = tokens.long() - tp.rank * n
     inside = (local >= 0) & (local < n)
-    rows = embed[local.clamp(0, n - 1)]
+    rows = embed_lookup(embed, local.clamp(0, n - 1))
     return reduce_from(torch.where(inside[..., None], rows,
                                    torch.zeros_like(rows)), tp)
 
@@ -619,12 +630,17 @@ def _kv_quantize(t: torch.Tensor):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               quant: bool = False, *, device="cuda") -> Params:
+               quant: bool = False, *, device="cuda",
+               axes: MeshAxes = NO_MESH) -> Params:
     """Zeroed head-major KV cache ``(L, B, Hkv, max_len, hd)``; with
     ``quant`` int8 values plus one fp32 scale per (layer, slot, head,
-    position)."""
+    position). Under mesh ``axes`` the cache holds this rank's
+    ``kv_heads / tp`` heads: the reference's cache sharded over ``model``
+    at axis 2 (``engine.py:620``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    check_mesh(cfg, axes)
+    shape = (cfg.n_layers, batch, cfg.kv_heads // axes.model.size, max_len,
+             cfg.head_dim)
     if quant:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -717,7 +733,8 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                      cache: Params, lengths: torch.Tensor,
                      attend_len: int = 0, lora: Optional[Params] = None,
                      adapter_idx: Optional[torch.Tensor] = None,
-                     single_adapter: bool = False
+                     single_adapter: bool = False,
+                     axes: MeshAxes = NO_MESH
                      ) -> Tuple[torch.Tensor, Params]:
     """Incremental forward: ``tokens`` (B, T) appended to each row at its
     own cache offset ``lengths`` (B,) int32. Covers prefill (T = chunk)
@@ -763,7 +780,28 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     index 0 is the all-zero adapter. ``single_adapter`` runs every row
     through ``adapter_idx[0]`` (the engine's fast path when its live
     slots agree), equal to the gathered path bit for bit.
+
+    Under a serving mesh (``axes``, the reference's ``mesh=``,
+    ``engine.py:594-633``) ``params`` are this rank's shards
+    (:func:`~instaslice_tpu_torch.models.quant.shard_params`) and
+    ``cache`` holds its ``kv_heads / tp`` heads (:func:`init_cache`):
+    the embedding is looked up vocab-parallel, the normed input enters the
+    column-parallel q/k/v and ``w_in`` products through :func:`copy_to`,
+    the row-parallel ``wo`` and ``w_out`` partial sums leave through
+    :func:`reduce_from` in fp32 (the meshless product's dtype, so the
+    rounding differs only by the order of summation), attention runs on
+    the rank's heads, and the rank's vocabulary block of the logits is
+    gathered whole over ``model``, so every rank holds the same logits.
+    The kernels run on each rank's shards as they do on the whole leaves:
+    a rank's product is a local dense product. Adapters under a mesh are
+    not ported (ROADMAP queue A item 1b).
     """
+    check_mesh(cfg, axes)
+    tp = axes.model
+    if tp.size > 1 and lora is not None:
+        raise NotImplementedError(
+            "multi-LoRA under a serving mesh (lora_specs) is not ported "
+            "yet: ROADMAP queue A item 1b")
     blocks = params["blocks"]
     moe = bool(cfg.n_experts)
     quant = "k_s" in cache
@@ -772,12 +810,17 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     S_cache = cache["k"].shape[3]
     S_max = attend_len or S_cache
     dt = cfg.dtype
-    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    H, Hkv, hd = cfg.n_heads // tp.size, cfg.kv_heads // tp.size, \
+        cfg.head_dim
     G = H // Hkv
     sm = hd ** -0.5
     lengths = lengths.to(device=dev, dtype=torch.int32)
 
-    x = embed_lookup(params["embed"], tokens).to(dt)
+    if tp.size > 1:
+        x = _vocab_parallel_lookup(params["embed"], tokens, tp)
+    else:
+        x = embed_lookup(params["embed"], tokens)
+    x = x.to(dt)
     t_idx = torch.arange(T, dtype=torch.int32, device=dev)
     positions = lengths[:, None] + t_idx                      # (B, T)
     cos, sin = _rope_tables(positions, hd)     # shared by every layer
@@ -847,7 +890,7 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                     y = y + d
             return y if out_fp32 else y.to(dt)
 
-        h = _rmsnorm(x, blocks["ln1"]["scale"][li])
+        h = copy_to(_rmsnorm(x, blocks["ln1"]["scale"][li]), tp)
         q = proj(h, "wq", True).to(dt).reshape(B, T, H, hd)
         k = proj(h, "wk", True).to(dt).reshape(B, T, Hkv, hd)
         v = proj(h, "wv", True).to(dt).reshape(B, T, Hkv, hd)
@@ -908,7 +951,7 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         if quant:
             _write_fresh(cache["k_s"], li, rows, wpos, k_sc)
             _write_fresh(cache["v_s"], li, rows, wpos, v_sc)
-        x = x + proj(attn, "wo")
+        x = x + reduce_from(proj(attn, "wo", True), tp).to(dt)
         h = _rmsnorm(x, blocks["ln2"]["scale"][li])
         if moe:
             y, _ = _moe_mlp(h, blocks["router"][li],
@@ -916,14 +959,15 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                             weight(at_layer("w_out", li), dt),
                             cfg.expert_top_k, cfg.expert_capacity_factor)
         else:
-            y = proj(h, "w_in", out_fp32=True)
+            y = proj(copy_to(h, tp), "w_in", out_fp32=True)
             # jax.nn.gelu defaults to the tanh form
-            y = proj(F.gelu(y, approximate="tanh").to(dt), "w_out")
+            y = reduce_from(proj(F.gelu(y, approximate="tanh").to(dt),
+                                 "w_out", True), tp).to(dt)
         x = x + y
-    x = _rmsnorm(x, params["ln_f"]["scale"])
+    x = copy_to(_rmsnorm(x, params["ln_f"]["scale"]), tp)
     logits = qdot(x.reshape(B * T, -1), params["embed"], compute_dtype=dt,
-                  transpose_w=True).reshape(B, T, -1)
-    return logits, cache
+                  transpose_w=True)
+    return gather_from(logits, tp).reshape(B, T, -1), cache
 
 
 class TpuLM:
@@ -938,19 +982,24 @@ class TpuLM:
         return init_params(self.cfg, seed, device=device)
 
     def init_cache(self, batch: int, max_len: int, quant: bool = False, *,
-                   device="cuda") -> Params:
-        return init_cache(self.cfg, batch, max_len, quant, device=device)
+                   device="cuda", mesh=None) -> Params:
+        """With ``mesh``, this rank's ``kv_heads / tp`` heads."""
+        return init_cache(self.cfg, batch, max_len, quant, device=device,
+                          axes=mesh_axes(mesh))
 
     def apply_with_cache(self, params: Params, tokens: torch.Tensor,
                          cache: Params, lengths: torch.Tensor,
                          attend_len: int = 0,
                          lora: Optional[Params] = None,
                          adapter_idx: Optional[torch.Tensor] = None,
-                         single_adapter: bool = False):
+                         single_adapter: bool = False, *, mesh=None):
+        """With ``mesh`` (a ``DeviceMesh``), ``params`` and ``cache`` are
+        this rank's shards; every rank gets the whole logits."""
         return apply_with_cache(self.cfg, params, tokens, cache, lengths,
                                 attend_len, lora=lora,
                                 adapter_idx=adapter_idx,
-                                single_adapter=single_adapter)
+                                single_adapter=single_adapter,
+                                axes=mesh_axes(mesh))
 
     def apply(self, params: Params, tokens: torch.Tensor, *, mesh=None,
               unembed: bool = True, return_aux: bool = False):

@@ -27,6 +27,7 @@ from instaslice_tpu_torch.ops.quant_matmul import (
     quant_matmul_stacked,
     quant_matmul_t,
 )
+from instaslice_tpu_torch.parallel.collectives import shard_leaf
 
 Params = Dict[str, Any]
 
@@ -233,6 +234,58 @@ def quantize_params(params: Params, bits: int = 8,
                               group)
 
     return walk(params)
+
+
+def shard_params(params: Params, specs: Params, axes) -> Params:
+    """This rank's leaves of a whole (possibly quantized) params tree laid
+    out by the :func:`~instaslice_tpu_torch.models.lm.param_specs`-shaped
+    ``specs`` over mesh ``axes`` (a ``MeshAxes``): the port's
+    ``shard_params`` (``quant.py:236-280``), where placing a leaf means
+    taking this rank's contiguous block of it. The reference's three rules:
+
+    - a :class:`QuantizedTensor`'s int8 values take the weight's spec;
+    - its scales take the same spec with every size-1 (reduced) axis left
+      whole;
+    - an :class:`Int4Tensor`'s packed values and group scales take the
+      weight's spec, its packed axis sharded only where each shard keeps
+      whole byte pairs and whole groups (else that axis stays whole).
+
+    Every slice is a contiguous copy (the w8a16 kernels read rows at
+    16-byte strides); a leaf no axis of its spec splits is returned as it
+    is."""
+    def size(names) -> int:
+        n = 1
+        for nm in ([names] if isinstance(names, str) else names or ()):
+            n *= axes.of(nm).size
+        return n
+
+    def place(leaf, spec):
+        spec = tuple(spec)
+        if isinstance(leaf, QuantizedTensor):
+            sspec = tuple(spec[d] if d < len(spec) and leaf.s.shape[d] != 1
+                          else None for d in range(leaf.s.dim()))
+            return QuantizedTensor(shard_leaf(leaf.q, spec, axes),
+                                   shard_leaf(leaf.s, sspec, axes))
+        if isinstance(leaf, Int4Tensor):
+            ax = leaf.pack_axis % leaf.p.dim()
+            names = spec[ax] if ax < len(spec) else None
+            D = size(names)
+            ok = names is None or (leaf.p.shape[ax] % D == 0
+                                   and (leaf.p.shape[ax] * 2 // D)
+                                   % leaf.group == 0)
+            pspec = tuple(spec[d] if d < len(spec) and (d != ax or ok)
+                          else None for d in range(leaf.p.dim()))
+            return Int4Tensor(shard_leaf(leaf.p, pspec, axes),
+                              shard_leaf(leaf.s, pspec, axes), leaf.group,
+                              leaf.pack_axis)
+        return shard_leaf(leaf, spec, axes)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], spec[k]) for k in tree}
+        return place(tree, spec)
+
+    return walk(params, specs)
 
 
 def weight(leaf, dtype=None) -> torch.Tensor:

@@ -51,8 +51,11 @@ on the device from a seeded init (or a port checkpoint; the draft of
 ``--lora`` adapter into the weights or serves several batched, and
 serves ``--window`` (sliding-window attention) and ``--quantize-bits 4``
 (group-wise int4 weights over an int8 KV cache), and refuses the flags
-whose paths are not ported yet (``--from-env``, an orbax checkpoint),
-each with its ROADMAP item. The TPU host lock (``utils/tpulock.py``) is a
+whose paths are not ported yet (an orbax checkpoint). ``--from-env``
+serves tensor-parallel over every rank of the process group
+(:func:`build_engine`, :func:`split_ranks`): rank 0 answers HTTP through
+:class:`~instaslice_tpu_torch.serving.distributed.DistributedEngine` and
+the other ranks replay its op stream on ``--oplog-port``. The TPU host lock (``utils/tpulock.py``) is a
 rule of the TPU host's runtime and is not copied. Run via
 ``tpuslice-gpu-serve`` or
 ``python -m instaslice_tpu_torch.serving.api_server``.
@@ -1089,9 +1092,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="build the TP mesh from the granted slice's "
                     "handoff env (TPU_* vars) instead of one device")
     ap.add_argument("--oplog-port", type=int, default=8478,
-                    help="multi-host grants: TCP port of the op stream "
-                         "(worker 0 serves HTTP and broadcasts; other "
-                         "workers replay; not ported: see --from-env)")
+                    help="--from-env: TCP port of the driver/follower op "
+                         "stream (rank 0 serves HTTP and broadcasts; the "
+                         "other ranks replay)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu "
                          "(the plain versions of the kernels)")
@@ -1109,9 +1112,12 @@ def _refuse_unported(args) -> None:
     """Exit non-zero on a flag whose path is not ported yet, naming its
     ROADMAP queue A item, and on a checkpoint directory that holds no
     checkpoint of the port's own format."""
-    if args.from_env:
-        raise SystemExit("--from-env is not ported yet (the parallel layer: "
-                         "ROADMAP queue A)")
+    if args.from_env and len(args.lora) > 1 and _world_size() > 1:
+        raise SystemExit(
+            "two or more --lora under --from-env at a world size above 1: "
+            "stacked adapters under a serving mesh are not ported yet "
+            "(ROADMAP queue A item 1b; one --lora merges into the weights "
+            "and serves)")
     from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
 
     def missing(path: str) -> bool:
@@ -1187,6 +1193,81 @@ def _load_adapters(args):
     return adapters, alphas, names
 
 
+def _world_size() -> int:
+    """The ranks ``--from-env`` will start: torchrun's ``WORLD_SIZE``, else
+    one per worker of the handoff env."""
+    from instaslice_tpu_torch.parallel.meshenv import SliceTopology
+
+    return int(os.environ.get("WORLD_SIZE",
+                              SliceTopology.from_env().num_workers))
+
+
+def _serving_mesh(dev):
+    """``--from-env``'s mesh (``api_server.py:1122-1139``): the process
+    group over torchrun's ``RANK``/``WORLD_SIZE`` where set, else over the
+    handoff env (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``) at
+    ``tcp://<hostnames[0]>:$TPUSLICE_COORDINATOR_PORT`` (default 8476, as
+    the reference's ``meshenv.py:112``); a group the caller already
+    started is used as it is. Every rank goes on ``model``."""
+    from instaslice_tpu_torch.parallel.meshenv import (
+        SliceTopology,
+        initialize_distributed,
+        slice_mesh,
+    )
+
+    topo = SliceTopology.from_env()
+    init = None
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        host = topo.hostnames[0] if topo.hostnames else "127.0.0.1"
+        port = os.environ.get("TPUSLICE_COORDINATOR_PORT", "8476")
+        init = f"tcp://{host}:{port}"
+    initialize_distributed(topo, init_method=init, device=dev)
+    return slice_mesh(axes=("data", "seq", "model"), axis_sizes=(1, 1, -1),
+                      device=dev, topo=topo)
+
+
+def _driver_host() -> str:
+    """Where rank 0 listens for followers: worker 0's hostname, as the
+    rendezvous names it (torchrun's ``MASTER_ADDR`` without a handoff
+    env)."""
+    from instaslice_tpu_torch.parallel.meshenv import SliceTopology
+
+    topo = SliceTopology.from_env()
+    return (topo.hostnames[0] if topo.hostnames
+            else os.environ.get("MASTER_ADDR", "127.0.0.1"))
+
+
+def split_ranks(engine: ServingEngine, args):
+    """The driver/follower split of a tensor-parallel server
+    (``api_server.py:1275-1305``): on a mesh of more than one rank, rank
+    0 gets its engine wrapped in a
+    :class:`~instaslice_tpu_torch.serving.distributed.DistributedEngine`
+    (which waits for every follower to connect), and every other rank
+    replays the op stream on ``args.oplog_port`` until the driver shuts it
+    down, then gets None. Without a mesh the engine comes back as it is."""
+    if not getattr(engine, "_multiproc", False):
+        return engine
+    import torch.distributed as dist
+
+    from instaslice_tpu_torch.serving.distributed import (
+        DistributedEngine,
+        run_follower,
+    )
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if rank != 0:
+        host = _driver_host()
+        log.info("rank %d following driver %s:%d", rank, host,
+                 args.oplog_port)
+        run_follower(engine, host, args.oplog_port)
+        log.info("driver closed the op stream; exiting")
+        return None
+    log.info("rank 0 driving %d followers on port %d", world - 1,
+             args.oplog_port)
+    return DistributedEngine(engine, n_followers=world - 1,
+                             port=args.oplog_port)
+
+
 def build_engine(args) -> ServingEngine:
     """Model + params (seeded init on the device, optionally restored
     from a port checkpoint, optionally int8- or int4-quantized with an
@@ -1197,8 +1278,12 @@ def build_engine(args) -> ServingEngine:
     BEFORE ``--quantize`` (int4 included; ``eng.merged_adapter`` names
     it); two or more serve batched as runtime adapters named by their
     directories' basenames, their deltas added to the dequantized
-    product over an int4 base. Split from
-    :func:`main` so tests and ``chip_smoke.py`` drive the exact CLI
+    product over an int4 base. With ``--from-env`` the engine serves this
+    rank's shards of the mesh over every rank of the process group
+    (:func:`_serving_mesh`); every rank builds the whole params from the
+    same seed, quantizes them, keeps its shards and runs the warm-ups,
+    whose forwards issue collectives, before :func:`split_ranks`. Split
+    from :func:`main` so tests and ``chip_smoke.py`` drive the exact CLI
     wiring."""
     import dataclasses
 
@@ -1215,6 +1300,9 @@ def build_engine(args) -> ServingEngine:
 
     _refuse_unported(args)
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = resolve_device(f"cuda:{os.environ['LOCAL_RANK']}")
+    mesh = _serving_mesh(dev) if args.from_env else None
     cfg = ModelConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
@@ -1269,8 +1357,10 @@ def build_engine(args) -> ServingEngine:
         lora_adapters=adapters or None, lora_alphas=alphas or None,
         lora_names=names or None,
         adapter_fastpath=not args.no_adapter_fastpath,
-        device=dev,
+        device=dev, mesh=mesh,
     )
+    # the engine keeps its shards: drop the whole trees before the warm-up
+    del params, draft_params
     #: a request naming the merged adapter gets the reference's 400 (it
     #: is always on: omit the field)
     eng.merged_adapter = merged_name
@@ -1290,7 +1380,9 @@ def main(argv=None) -> int:
         # arm BEFORE build_engine so warm-up builds land inside the
         # CompileWatch baseline, not as CompileObserved noise
         get_profiler().arm()
-    engine = build_engine(args)
+    engine = split_ranks(build_engine(args), args)
+    if engine is None:
+        return 0
     from instaslice_tpu_torch.faults import FaultPlan
 
     srv = ApiServer(engine, host=args.host, port=args.port,
@@ -1307,8 +1399,10 @@ def main(argv=None) -> int:
         start_metrics_server(
             srv.scheduler.metrics, args.metrics_port, host=args.host
         )
-    log.info("serving on %s (device=%s, quantized=%s)", srv.url,
-             engine.device, engine.kv_quant)
+    log.info("serving on %s (device=%s, mesh=%s, quantized=%s)", srv.url,
+             engine.device, engine.mesh and dict(
+                 zip(engine.mesh.mesh_dim_names, engine.mesh.shape)),
+             engine.kv_quant)
     # SIGTERM starts a drain instead of killing in-flight decodes:
     # readiness flips, in-flight requests finish inside the budget,
     # stragglers get a clean 503, then the process exits
@@ -1325,6 +1419,9 @@ def main(argv=None) -> int:
         srv.stop()
     except KeyboardInterrupt:
         srv.stop()
+    finally:
+        if hasattr(engine, "shutdown"):
+            engine.shutdown()          # release the followers
     return 0
 
 

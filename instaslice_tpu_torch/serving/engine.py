@@ -68,9 +68,31 @@ As in the JAX engine:
   (:class:`~instaslice_tpu_torch.models.quant.Int4Tensor`) serve like
   int8 ones, dequantized at each use.
 
-What the JAX engine has and this port does not yet: the mesh (tensor
-parallelism, ROADMAP queue A). The scheduler's guards keep it off
-(``mesh`` is None).
+**Tensor parallelism** (``mesh=``, a ``DeviceMesh`` of
+:func:`~instaslice_tpu_torch.parallel.slice_mesh` with a ``model`` axis;
+the reference's ``engine.py:594-633``): the engine takes the WHOLE params
+and keeps this rank's shards of them (:meth:`_shard_model_state`:
+:func:`~instaslice_tpu_torch.models.quant.shard_params` over
+:func:`~instaslice_tpu_torch.models.lm.param_specs`: heads, the FFN
+hidden dim and the vocabulary over ``model``), the KV caches hold the
+rank's ``kv_heads / tp`` heads, and the decode state (``lengths``,
+``last_token``, ``slot_adapter``, ``seen``, the generator) is replicated:
+every rank builds the same tensors and, since the gathered logits are
+identical on every rank, samples the same tokens. The target and the
+draft share one layout routine, so the two cannot drift. PyTorch is
+multi-controller: every rank is a process that must issue the same
+forwards in the same order, which
+:mod:`~instaslice_tpu_torch.serving.distributed`'s op stream arranges;
+so every port mesh above one rank is multi-process (``_multiproc``) and
+:meth:`ServingEngine.export_session` refuses there, as the reference does
+on a multi-process mesh. The reference turns its Pallas kernels off at
+mesh size > 1, because ``pallas_call`` does not auto-partition; here a
+rank's product is a local dense product on local shards, so B1, B2 and
+B3 run on each rank's shards and compute the same function. Decode
+blocks run eagerly at a model axis above 1 (a collective is not
+captured into a CUDA graph here: ROADMAP queue A), stacked adapters
+under a mesh are not ported (queue A item 1b), and a mixture-of-experts
+model under a mesh raises (queue A item 1c).
 
 Where the JAX engine compiles a ``lax.scan`` of decode steps (one
 program per static key), a CUDA engine captures ONE decode step as a CUDA
@@ -101,15 +123,22 @@ from typing import Dict, List, Optional
 import torch
 
 from instaslice_tpu_torch import resolve_device
-from instaslice_tpu_torch.models.lm import Params, TpuLM, window_band
+from instaslice_tpu_torch.models.lm import (
+    Params,
+    TpuLM,
+    param_specs,
+    window_band,
+)
 from instaslice_tpu_torch.models.lora import (
     _target_shapes,
     frozen,
     stack_adapters,
 )
+from instaslice_tpu_torch.models.quant import shard_params
 from instaslice_tpu_torch.obs.profiler import get_profiler, record_compile
 from instaslice_tpu_torch.ops import build
 from instaslice_tpu_torch.ops import flash_decode as _fd
+from instaslice_tpu_torch.parallel.collectives import mesh_axes, shard_leaf
 from instaslice_tpu_torch.serving.kvcache import (
     SESSION_WIRE_VERSION,
     BlockPoolExhausted,
@@ -203,6 +232,7 @@ class ServingEngine:
         temperature: float = 0.0,
         eos_id: Optional[int] = None,
         seed: int = 0,
+        mesh=None,
         kv_quant: bool = False,
         top_k: int = 0,
         top_p: float = 1.0,
@@ -245,8 +275,33 @@ class ServingEngine:
         plain versions of the kernels. ``decode_graphs`` (default: on
         for a CUDA engine) replays decode blocks and spec rounds as
         captured CUDA graphs; False runs the same steps eagerly (the
-        comparison route on the card; the CPU always runs them so)."""
+        comparison route on the card; the CPU always runs them so).
+        ``mesh`` (a ``DeviceMesh`` with a ``model`` axis) serves this
+        rank's shards of ``params`` (whole trees in; see the module
+        docstring); at a model axis above 1 ``decode_graphs`` resolves to
+        the eager route and True raises."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._axes = mesh_axes(mesh)
+        if mesh is not None and "model" not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"serving mesh needs a 'model' axis, got "
+                             f"{mesh.mesh_dim_names}")
+        #: every port mesh above one rank is a process per rank
+        self._multiproc = mesh is not None and mesh.size() > 1
+        tp = self._axes.model.size
+        if tp > 1:
+            if decode_graphs:
+                raise ValueError(
+                    "decode_graphs under tensor parallelism is not ported: "
+                    "a collective is not captured into a CUDA graph here "
+                    "(ROADMAP queue A); leave decode_graphs unset for the "
+                    "eager route")
+            decode_graphs = False
+            if lora_adapters:
+                raise NotImplementedError(
+                    "stacked LoRA adapters under a serving mesh "
+                    "(lora_specs) are not ported yet: ROADMAP queue A item "
+                    "1b (a --lora merged into the weights serves)")
         if decode_graphs is None:
             decode_graphs = self.device.type == "cuda"
         if decode_graphs and self.device.type != "cuda":
@@ -300,10 +355,6 @@ class ServingEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._next_id = 0
         self.kv_quant = kv_quant
-        # what the JAX engine's scheduler-facing surface reads and the
-        # port does not have yet: no mesh
-        self.mesh = None
-        self._multiproc = False
         self.lora: Optional[Params] = None
         self.n_adapters = 0
         if lora_adapters:
@@ -355,7 +406,7 @@ class ServingEngine:
         self.fastpath_rounds = 0       # decode rounds on the single-
         self.gathered_rounds = 0       # adapter path vs the gather
         self.cache = model.init_cache(max_batch, max_len, quant=kv_quant,
-                                      device=self.device)
+                                      device=self.device, mesh=mesh)
         self.lengths = torch.zeros(max_batch, dtype=torch.int32,
                                    device=self.device)
         self.last_token = torch.zeros(max_batch, dtype=torch.int64,
@@ -464,7 +515,10 @@ class ServingEngine:
                                  else draft_model.init(1,
                                                        device=self.device))
             self.draft_cache = draft_model.init_cache(max_batch, max_len,
-                                                      device=self.device)
+                                                      device=self.device,
+                                                      mesh=mesh)
+        if mesh is not None:
+            self._shard_over()
         #: the bounded k shape set: 0 (a plain, draft-cache-maintaining
         #: step: the graceful-degradation floor), the powers of two below
         #: spec_k, and spec_k itself; every dispatched k is a member
@@ -496,6 +550,28 @@ class ServingEngine:
     def repetition_penalty(self) -> float:
         return self._repetition_penalty
 
+    # ------------------------------------------------- tensor parallelism
+
+    def _shard_model_state(self, model: TpuLM, params: Params) -> Params:
+        """One model's tensor-parallel layout over the mesh's ``model``
+        axis (``engine.py:594-624``): this rank's shards of the whole
+        ``params`` per :func:`param_specs` (heads, FFN hidden dim and
+        vocabulary split, quant-aware). Its cache was built at the rank's
+        heads by ``init_cache(mesh=)``, which ran the reference's checks
+        (``check_mesh``)."""
+        return shard_params(params, param_specs(model.cfg), self._axes)
+
+    def _shard_over(self) -> None:
+        """The target's and the draft's shards through one routine, so
+        the two layouts cannot drift. The decode state needs nothing:
+        every rank builds the same tensors (replicated). :meth:`recover`
+        zeroes the sharded caches in place, so the layout survives it
+        (the reference re-shards there, ``engine.py:1612-1620``)."""
+        self.params = self._shard_model_state(self.model, self.params)
+        if self.draft_model is not None:
+            self.draft_params = self._shard_model_state(self.draft_model,
+                                                        self.draft_params)
+
     # ------------------------------------------------------------ device
 
     @contextlib.contextmanager
@@ -523,10 +599,12 @@ class ServingEngine:
         if self.lora is None or aidx is None:
             return self.model.apply_with_cache(self.params, tokens, cache,
                                                lengths,
-                                               attend_len=attend_len)
+                                               attend_len=attend_len,
+                                               mesh=self.mesh)
         return self.model.apply_with_cache(
             self.params, tokens, cache, lengths, attend_len=attend_len,
-            lora=self.lora, adapter_idx=aidx, single_adapter=single)
+            lora=self.lora, adapter_idx=aidx, single_adapter=single,
+            mesh=self.mesh)
 
     def _adapter_args(self):
         """(aidx, single) for this round's decode dispatch
@@ -563,7 +641,7 @@ class ServingEngine:
         cache): prefill chunks, catch-up and proposal steps."""
         return self.draft_model.apply_with_cache(
             self.draft_params, tokens, cache, lengths,
-            attend_len=attend_len)
+            attend_len=attend_len, mesh=self.mesh)
 
     def _prefill(self, tokens: List[int], slot: int, offset: int,
                  adapter: int = 0) -> torch.Tensor:
@@ -992,6 +1070,9 @@ class ServingEngine:
         "eager" and why."""
         if self.decode_graphs:
             return "cuda graphs"
+        if self._axes.model.size > 1:
+            return (f"eager (tensor parallel over {self._axes.model.size} "
+                    "ranks: collectives are not captured)")
         if self.device.type != "cuda":
             return "eager (cpu)"
         return "eager (decode_graphs=False)"
@@ -1265,7 +1346,17 @@ class ServingEngine:
         a port engine on the same device type adopts: sampled
         continuations replay bit for bit between like engines and stay
         distribution-preserving otherwise. Greedy continuations are the
-        same either way."""
+        same either way.
+
+        Refused over a mesh of more than one rank (each process holds
+        only its heads of the stripe; the reference refuses on a
+        multi-process mesh, ``engine.py:1396-1402``)."""
+        if self._multiproc:
+            raise RuntimeError(
+                "session export over a multi-process mesh is not "
+                "supported: the KV stripe is sharded across processes "
+                "and no single process holds it whole (migrate between "
+                "slices, not out of one)")
         parked = self.parked.get(rid)
         if parked is None:
             raise ValueError(
@@ -1328,8 +1419,10 @@ class ServingEngine:
         cache it will be written into: the same leaves and dtypes, one
         slot, at least ``length`` and at most ``max_len`` positions. A
         mismatch raises here, before registration, never later inside
-        the resume's cache write."""
+        the resume's cache write. Over a mesh the blob holds every head
+        and this rank keeps its own (axis 2)."""
         tree = wire_to_tree(obj)
+        tp = self._axes.model.size
         if not isinstance(tree, dict) or set(tree) != set(cache):
             raise ValueError(f"stripe leaves {sorted(tree)} != cache "
                              f"leaves {sorted(cache)}")
@@ -1337,14 +1430,15 @@ class ServingEngine:
         for k, c in cache.items():
             t = tree[k]
             S = t.shape[3] if t.dim() >= 4 else -1
-            want = (c.shape[0], 1, c.shape[2], S) + tuple(c.shape[4:])
+            want = (c.shape[0], 1, c.shape[2] * tp, S) + tuple(c.shape[4:])
             if (t.dtype != c.dtype or tuple(t.shape) != want
                     or not length <= S <= self.max_len):
                 raise ValueError(
                     f"stripe leaf {k!r}: {t.dtype} {tuple(t.shape)} does "
-                    f"not fit the cache's {c.dtype} {tuple(c.shape)} at "
-                    f"length {length}")
-            out[k] = t.to(self.device)
+                    f"not fit the cache's {c.dtype} {tuple(c.shape)} "
+                    f"(x{tp} heads) at length {length}")
+            out[k] = shard_leaf(t, (None, None, "model"),
+                                self._axes).to(self.device)
         return out
 
     def import_session(self, blob: dict) -> int:

@@ -2080,7 +2080,9 @@ class Scheduler(threading.Thread):
             "spec": (eng.spec_stats()
                      if hasattr(eng, "spec_stats")
                      else {"enabled": False}),
-            "mesh": dict(eng.mesh.shape) if eng.mesh is not None else None,
+            # a torch DeviceMesh: its axis names beside its sizes
+            "mesh": (dict(zip(eng.mesh.mesh_dim_names, eng.mesh.shape))
+                     if eng.mesh is not None else None),
             "prefixes": len(eng.prefixes),
             "prefix_hits": eng.prefix_hits,
             "prefix_tokens_saved": eng.prefix_tokens_saved,

@@ -102,6 +102,8 @@ SERVING_PLANE = {
     "instaslice_tpu_torch.serving.engine",
     "instaslice_tpu_torch.serving.kvcache",
     "instaslice_tpu_torch.serving.sampling",
+    "instaslice_tpu_torch.serving.distributed",
+    "instaslice_tpu_torch.serving.dcn_serve_smoke",
     "instaslice_tpu_torch.api.constants",
     "instaslice_tpu_torch.faults",
     "instaslice_tpu_torch.metrics.metrics",

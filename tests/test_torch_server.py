@@ -239,12 +239,17 @@ def test_session_routes_answer_like_the_reference(servers):
     (["--lora", "adapter"], "multi-LoRA"),
     (["--draft-n-layers", "1", "--draft-checkpoint", "EMPTY"],
      "orbax checkpoints are not read"),
-    (["--from-env"], "the parallel layer"),
+    # --from-env serves (a tp mesh over the process group); stacked
+    # adapters under a mesh of more than one rank are what it refuses
+    (["--from-env", "--lora", "a", "--lora", "b"], "queue A item 1b"),
     (["--checkpoint", "EMPTY"], "orbax checkpoints are not read"),
 ])
 def test_unported_flags_refuse_before_anything_is_built(flags, item,
-                                                        tmp_path):
+                                                        tmp_path,
+                                                        monkeypatch):
     from instaslice_tpu_torch.serving import api_server
+    if "--from-env" in flags:
+        monkeypatch.setenv("WORLD_SIZE", "2")
     flags = [str(tmp_path) if f == "EMPTY" else f for f in flags]
     args = api_server.build_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(SystemExit, match=item):

@@ -9,6 +9,11 @@ Widths are multiples of 128 so the JAX side takes its Pallas kernels
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +23,12 @@ from instaslice_tpu.models.lm import ModelConfig as JaxConfig
 from instaslice_tpu.models.quant import quantize_params as jax_quantize
 from instaslice_tpu_torch import bridge
 from instaslice_tpu_torch.models.lm import ModelConfig as TorchConfig
+from instaslice_tpu_torch.models.quant import Int4Tensor, QuantizedTensor
+
+TESTS = Path(__file__).resolve().parent
+REPO = TESTS.parent
+#: ranks of the worlds ``torch_serve_tp_worker.py`` runs
+WORLD = 2
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -107,3 +118,68 @@ def moe_drops(x, router, k, cf):
             drops += seen[e] >= C
             seen[e] += 1
     return drops
+
+
+def encode_tree(tree, prefix=""):
+    """A port tree as flat {path: tagged leaf} for torch.save."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(encode_tree(v, path + "/"))
+        elif isinstance(v, QuantizedTensor):
+            out[path] = ("q8", v.q, v.s)
+        elif isinstance(v, Int4Tensor):
+            out[path] = ("q4", v.p, v.s, v.group, v.pack_axis)
+        else:
+            out[path] = ("t", v)
+    return out
+
+
+class World:
+    """A spawned two-rank gloo world of ``torch_serve_tp_worker.py``: its
+    ranks run in the background while the tests compute their JAX side;
+    :meth:`result` waits for them once."""
+
+    def __init__(self, out: Path):
+        self.out = out
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([str(REPO), str(TESTS)]))
+        self.logs = [open(out / f"rank{r}.log", "w") for r in range(WORLD)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(TESTS / "torch_serve_tp_worker.py"),
+             str(r), str(WORLD), str(out)], env=env, stdout=self.logs[r],
+            stderr=subprocess.STDOUT) for r in range(WORLD)]
+        self.joined = False
+
+    def join(self) -> None:
+        if self.joined:
+            return
+        try:
+            for p in self.procs:
+                p.wait(timeout=240)
+        finally:
+            self.close()
+        tails = "\n".join((self.out / f"rank{r}.log").read_text()[-3000:]
+                          for r in range(WORLD))
+        assert all(p.returncode == 0 for p in self.procs), tails
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.logs:
+            f.close()
+        self.joined = True
+
+    def result(self, name: str, rank: int = 0) -> dict:
+        self.join()
+        return torch.load(self.out / f"{name}.rank{rank}.pt",
+                          weights_only=True)
+
+
+def spawn_world(out: Path, cases: list) -> World:
+    """Write ``cases`` for the worker and start its world."""
+    torch.save(cases, out / "cases.pt")
+    return World(out)
