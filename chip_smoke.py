@@ -203,7 +203,24 @@ logits probe within ``TP_LOGITS_TOL`` and the swapped-``wq`` control
 outside it, the follower's ``state_digest`` equal to the driver's, B1-B3
 launched on both ranks (the same counts, B1 once a layer a decode step);
 per rank its decode ms a step and tok/s at batch 8, its peak GiB while
-building and serving, and the phase's seconds.
+building and serving, and the phase's seconds;
+parallel_rest (last): the rest of the parallel layer, two processes
+sharing the card over gloo on CUDA tensors each time (no scaling
+number): (a) the MoE training configuration at 4 layers (8 experts, 4 a
+rank) in float32 at tp 2, 3 steps against the one-process step within
+``REST_MOE_TOL``, the swapped-experts control outside it, B5 24 and B6/B7
+12 per rank; (b) its int8 engine at tp 2 on 8 prompts: greedy tokens
+equal on both ranks and their first ``TP_GREEDY`` equal the meshless
+engine's, B4 4 a layer and B3 once a forward per rank; (c) the 7B int8
+server at tp 2 with 4 stacked adapters (``--from-env --lora`` x 4):
+the lora phase's 8 completions over HTTP from rank 0, rank 1 following,
+greedy tokens against the lora phase's meshless server, B1-B3 on both
+ranks; (d) ``--ring --sp 2`` through the training CLI under
+``torch.distributed.run`` (two ranks on one card: gloo) at
+the 871M widths, 4 layers, rows of 2048 tokens, against the same flags
+in one process (the ring runs no kernel); (e) GPipe at pipe 2, 4
+micro-batches, the 871M widths at 4 layers, 3 steps against the
+one-process step, B5-B7 10 a step per stage; the phase logs its seconds.
 
 Then the ``kernels`` JSON line (launches, from the card's trace on the
 serving paths and from the wrappers on the training ones: B1-B3 from the
@@ -217,7 +234,9 @@ and ``int4_launches`` from the window and int4 phases' servers;
 ``spec_detail`` holds B1-B3 at the 871M shapes; ``parallel_launches``
 from the parallel phase's world-size-1 mesh step and
 ``parallel_rank_launches`` per rank of its two-process runs,
-``tp_serve_launches`` per rank of the tp 2 server), the graph
+``tp_serve_launches`` per rank of the tp 2 server,
+``parallel_rest_launches`` per rank or stage of the parallel_rest
+phase's runs), the graph
 phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
@@ -2838,7 +2857,11 @@ def phase_lora_serve(torch, ops) -> dict:
                     if k not in ("text", "alone_runs")},
            "tok_s": tok_s, "device_ms_per_step": dev_ms,
            "serving_lora_overhead_pct": overhead,
-           "engine": eng_st}
+           "engine": eng_st,
+           # the served completions: the parallel_rest phase's tp 2
+           # adapter server is held against them
+           "served": [{k: r[k] for k in ("token_ids", "logprobs")}
+                      for r in results]}
     del eng, base_eng, srv, twin
     free_memory(torch)
     return out
@@ -5069,6 +5092,593 @@ def phase_tp_serve(torch, ops, cfg) -> dict:
     return out
 
 
+# ------------------------------------------------------------ parallel_rest
+
+#: the parallel_rest phase's training runs: the 871M widths at this depth,
+#: a (REST_B, REST_S) batch of seed 17, 3 AdamW steps at lr 3e-4, clip 1.0
+REST_LAYERS = 4
+REST_B, REST_S = 8, 1024
+#: GPipe at pipe 2 against the one-process step on the same weights (bf16
+#: over fp32 masters): the dense tp 2 bound of the parallel phase
+#: (PAR_TOL), whose in-bound readings there were ~10x below it
+REST_TOL = PAR_TOL
+#: MoE at tp 2 (experts over model) against the one-process step, both in
+#: float32 with TF32 off: top-2 routing is discontinuous, and in bf16 the
+#: two summation orders flipped enough choices to read loss 3.4e-3 and
+#: params 8.2e-3 (the router) on the H100, the noise of the rounding, not
+#: of the code. In float32 the orders differ by ~1e-6; the
+#: bound leaves room for a few flipped choices (one moves the ~1400-wide
+#: loss of one token of 8192, ~6e-5 of the loss). The control hands each
+#: rank the other rank's experts (``w_in`` and ``w_out``) and must miss it
+REST_MOE_TOL = {"loss": 5e-4, "params": 5e-3}
+#: GPipe's micro-batches (pipe 2: ticks M + P - 1 = 5 a step)
+REST_MICRO = 4
+#: new tokens of the MoE int8 engine's 8 prompts at tp 2
+REST_MOE_NEW = 16
+#: ring attention through the training CLI: the 871M widths at
+#: REST_LAYERS layers, rows of 2048 tokens, 2 rows, 2 steps; the
+#: two-rank run (--sp 2, gloo, both ranks on the card) against the same
+#: flags in one process, whose attention is B5-B7 and not the ring: the
+#: losses within REST_TOL["loss"]
+REST_RING_FLAGS = ("--synthetic 200000 --seq-len 2047 --global-batch 2 "
+                   "--steps 2 --n-layers 4 --log-every 1 --ring")
+
+
+def rest_tokens(torch, cfg, dev):
+    gen = torch.Generator(device=dev).manual_seed(17)
+    return torch.randint(0, cfg.vocab_size, (REST_B, REST_S), generator=gen,
+                         device=dev)
+
+
+def rest_moe_prompts(torch, V: int) -> list:
+    """The MoE engine phase's 8 prompt lengths (seed 11)."""
+    gen = torch.Generator().manual_seed(11)
+    return [torch.randint(1, V, (n,), generator=gen).tolist()
+            for n in (300, 200, 129, 100, 64, 33, 17, 5)]
+
+
+def rest_moe_engine_cfg(torch):
+    return moe_config(torch, n_layers=REST_LAYERS, param_dtype=None,
+                      remat=False)
+
+
+def rest_moe_train_cfg(torch):
+    """(a)'s configuration: the MoE training widths at REST_LAYERS layers
+    in float32 (see REST_MOE_TOL)."""
+    return moe_config(torch, n_layers=REST_LAYERS, dtype=torch.float32,
+                      param_dtype=None)
+
+
+def rest_references(torch, out: Path) -> dict:
+    """The one-process references of the two-process runs, on the card:
+    the MoE step (float32, TF32 off) and the dense step (bf16, TF32 on, as
+    the training CLI runs it); each 3 steps from seed 0, losses and final
+    params saved to ``out``; and the MoE int8 engine's greedy tokens
+    (eager, meshless, TF32 off)."""
+    from instaslice_tpu_torch.models.lm import TpuLM, init_params
+    from instaslice_tpu_torch.models.quant import quantize_params
+    from instaslice_tpu_torch.models.train import (
+        leaf_paths,
+        leaves,
+        make_train_step,
+    )
+    from instaslice_tpu_torch.serving import ServingEngine
+
+    refs = {}
+    for name, cfg, tf32 in (
+            ("moe", rest_moe_train_cfg(torch), False),
+            ("dense", train_config(torch, n_layers=REST_LAYERS), True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        init_fn, step_fn = make_train_step(TpuLM(cfg), learning_rate=3e-4,
+                                           grad_clip=1.0, device="cuda")
+        state = init_fn(0)
+        tokens = rest_tokens(torch, cfg, "cuda")
+        losses = []
+        for _ in range(3):
+            state, loss = step_fn(state, tokens)
+            losses.append(float(loss))
+        torch.save({"losses": losses, "params": {
+            p: t.detach().cpu() for p, t in zip(leaf_paths(state.params),
+                                                leaves(state.params))}},
+            out / f"{name}_ref.pt")
+        refs[name] = losses
+        del state, init_fn, step_fn
+        free_memory(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = rest_moe_engine_cfg(torch)
+    eng = ServingEngine(TpuLM(cfg), quantize_params(init_params(
+        cfg, 0, device="cuda")), max_batch=8, max_len=1024, prefill_len=128,
+                        kv_quant=True, device="cuda", decode_graphs=False)
+    res = eng.generate(rest_moe_prompts(torch, cfg.vocab_size),
+                       max_new_tokens=REST_MOE_NEW, block_size=16)
+    refs["moe_engine_tokens"] = [r.tokens for r in res]
+    del eng
+    free_memory(torch)
+    return refs
+
+
+def rest_train(torch, ops, cfg, mesh, rank: int, ref, tf32: bool,
+               swap=(), **opts) -> dict:
+    """One two-process training run (3 steps from seed 0 on the batch
+    of :func:`rest_tokens`, TF32 as its reference ran), its launches from
+    the card's trace; rank 0 holds the gathered params against the
+    reference's."""
+    from instaslice_tpu_torch.models.lm import TpuLM
+    from instaslice_tpu_torch.models.train import (
+        full_params,
+        leaf_paths,
+        leaves,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    init_fn, step_fn = make_train_step(TpuLM(cfg), mesh=mesh,
+                                       learning_rate=3e-4, grad_clip=1.0,
+                                       device="cuda:0", **opts)
+    state = init_fn(0)
+    for path in swap:
+        _swap_model_shards(torch, state, path)
+    tokens = rest_tokens(torch, cfg, "cuda:0")
+    losses = []
+    ops.reset_launch_counts()
+    with Traced(torch, ops) as tr:
+        for _ in range(3):
+            state, loss = step_fn(state, tokens)
+            losses.append(float(loss))
+    full = full_params(state)
+    r = {"losses": losses, "counts": tr.counts,
+         "wrapper_counts": ops.launch_counts(),
+         "seconds": time.perf_counter() - t0}
+    if rank == 0:
+        r["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                zip(losses, ref["losses"]))
+        r["params_rel_l2"] = {
+            p: rel_l2(t.detach().float().cpu(), ref["params"][p].float())
+            for p, t in zip(leaf_paths(full), leaves(full))}
+    del state, full, init_fn, step_fn
+    free_memory(torch)
+    return r
+
+
+def rest_moe_engine(torch, ops, mesh) -> dict:
+    """(b) The MoE int8 engine at tp 2 (each rank 4 of the 8 experts, 8
+    query heads, half the vocabulary), eager: 8 prompts to
+    :data:`REST_MOE_NEW` tokens through ``generate``, launches from the
+    card's trace."""
+    from instaslice_tpu_torch.models.lm import TpuLM, init_params
+    from instaslice_tpu_torch.models.quant import quantize_params
+    from instaslice_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = rest_moe_engine_cfg(torch)
+    eng = ServingEngine(TpuLM(cfg), quantize_params(init_params(
+        cfg, 0, device="cuda:0")), mesh=mesh, max_batch=8, max_len=1024,
+        prefill_len=128, kv_quant=True, device="cuda:0")
+    free_memory(torch)
+    prompts = rest_moe_prompts(torch, cfg.vocab_size)
+    eng.decode_steps = eng.prefill_dispatches = 0
+    with Traced(torch, ops, kn="quant_matmul") as tr:
+        res = eng.generate(prompts, max_new_tokens=REST_MOE_NEW,
+                           block_size=16)
+    out = {"tokens": [r.tokens for r in res], "counts": tr.counts,
+           "decode_steps": eng.decode_steps,
+           "prefill_chunks": eng.prefill_dispatches,
+           "experts_a_rank": eng.params["blocks"]["w_in"].q.shape[1],
+           "route": eng.decode_route(), "seconds": time.perf_counter() - t0}
+    del eng
+    free_memory(torch)
+    return out
+
+
+def rest_child(rank: int, world: int, init_method: str, out: str) -> None:
+    """One rank of the parallel_rest training and MoE-engine runs
+    (spawned; gloo on CUDA tensors): (a) the MoE at tp 2 and its
+    swapped-experts control, (b) the MoE int8 engine at tp 2, (e) GPipe
+    at pipe 2. Writes ``rank<r>.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.parallel import (
+        initialize_distributed,
+        slice_mesh,
+    )
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    out = Path(out)
+    initialize_distributed(backend="gloo", init_method=init_method,
+                           device="cuda:0")
+    res = {}
+    try:
+        def ref(name):
+            return (torch.load(out / f"{name}_ref.pt", mmap=True,
+                               weights_only=True) if rank == 0 else None)
+
+        tp2 = slice_mesh(axis_sizes=(-1, 1, 2), device="cuda")
+        moe = rest_moe_train_cfg(torch)
+        res["moe_tp2"] = rest_train(torch, ops, moe, tp2, rank, ref("moe"),
+                                    False)
+        res["moe_tp2_swapped_experts"] = rest_train(
+            torch, ops, moe, tp2, rank, ref("moe"), False,
+            swap=("blocks/w_in", "blocks/w_out"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        res["moe_engine_tp2"] = rest_moe_engine(torch, ops, tp2)
+        pipe = slice_mesh(("pipe", "data", "model"), (2, 1, 1),
+                          device="cuda")
+        res["gpipe"] = rest_train(
+            torch, ops, train_config(torch, n_layers=REST_LAYERS), pipe,
+            rank, ref("dense"), True, n_micro=REST_MICRO)
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def rest_spawn(target, out: Path, *args) -> list:
+    """Two spawned ranks of ``target(rank, 2, init_method, out, *args)``;
+    their ``rank<r>.json``."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(
+        r, 2, f"tcp://127.0.0.1:{port}", str(out)) + args) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             if (out / f"rank{r}.json").exists() else {} for r in range(2)]
+    check(codes == [0, 0], f"{target.__name__} exit codes {codes}")
+    return ranks
+
+
+def rest_check_train(name: str, ranks: list, control: bool,
+                     want: dict, tol: dict) -> dict:
+    """A two-process run against its reference (``tol``) and its launches
+    per rank against ``want`` (wrapper name -> count)."""
+    r0 = ranks[0][name]
+    worst = max(r0["params_rel_l2"].values())
+    counts = [rk[name]["counts"] for rk in ranks]
+    log(f"parallel_rest {name}: losses {r0['losses']}, loss rel err "
+        f"{r0['loss_rel_err']:.2e}, params rel L2 worst {worst:.2e} "
+        f"({max(r0['params_rel_l2'], key=r0['params_rel_l2'].get)}); "
+        f"launches per rank (trace) {[{k: c[k] for k in FLASH} for c in counts]}"
+        f"; {r0['seconds']:.1f} s")
+    within = r0["loss_rel_err"] <= tol["loss"] and worst <= tol["params"]
+    if control:
+        check(not within, f"parallel_rest {name}: the control misses {tol}")
+    else:
+        check(within, f"parallel_rest {name}: within {tol}")
+    for r, rk in enumerate(ranks):
+        c = rk[name]
+        check(c["counts"] == c["wrapper_counts"],
+              f"parallel_rest {name} rank {r}: the trace counts what the "
+              f"wrappers launched")
+        for k, n in want.items():
+            check(c["counts"][k] == n, f"parallel_rest {name} rank {r}: "
+                  f"{k} {c['counts'][k]} = {n}")
+    return {"losses": r0["losses"], "loss_rel_err": r0["loss_rel_err"],
+            "params_rel_l2_worst": worst, "counts": counts,
+            "seconds": r0["seconds"]}
+
+
+def rest_two_process(torch) -> dict:
+    """(a), (b) and (e): the references on the card, then two spawned
+    ranks (:func:`rest_child`)."""
+    import shutil
+
+    out = HERE / "build" / "parallel_rest"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    refs = rest_references(torch, out)
+    t_ref = time.perf_counter() - t0
+    free_memory(torch)
+    ranks = rest_spawn(rest_child, out)
+    shutil.rmtree(out)          # the references' params
+    L, steps = REST_LAYERS, 3
+    res = {"reference_s": t_ref}
+    # (a) remat "dots": B5 twice a layer (the recompute), B6/B7 once
+    moe_want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                "flash_bwd_dkv": L * steps}
+    res["moe_tp2"] = rest_check_train("moe_tp2", ranks, False, moe_want,
+                                      REST_MOE_TOL)
+    res["moe_tp2_swapped_experts"] = rest_check_train(
+        "moe_tp2_swapped_experts", ranks, True, moe_want, REST_MOE_TOL)
+    # (e) each stage runs its L / 2 layers on every one of M + P - 1 ticks
+    ticks = REST_MICRO + 1
+    res["gpipe"] = rest_check_train("gpipe", ranks, False, {
+        k: L // 2 * ticks * steps for k in FLASH}, REST_TOL)
+    # (b)
+    e0, e1 = ranks[0]["moe_engine_tp2"], ranks[1]["moe_engine_tp2"]
+    want = refs["moe_engine_tokens"]
+    greedy = [agreeing_prefix(g, w) for g, w in zip(e0["tokens"], want)]
+    forwards = e0["decode_steps"] + e0["prefill_chunks"]
+    log(f"parallel_rest moe_engine_tp2: {e0['experts_a_rank']} experts a "
+        f"rank, route {e0['route']}; greedy prefix agreeing with meshless "
+        f"{greedy} of {REST_MOE_NEW}; {forwards} forwards; launches per "
+        f"rank (trace) {[e['counts'] for e in (e0, e1)]}; "
+        f"{e0['seconds']:.1f} s")
+    check(e0["tokens"] == e1["tokens"], "parallel_rest moe engine: both "
+          "ranks sample the same tokens")
+    check(all(n >= TP_GREEDY for n in greedy), f"parallel_rest moe engine: "
+          f"the first {TP_GREEDY} greedy tokens equal meshless")
+    check(e0["experts_a_rank"] == 4, "parallel_rest moe engine: 4 experts "
+          "a rank")
+    for r, e in enumerate((e0, e1)):
+        c = e["counts"]
+        check(c["quant_matmul"] == 4 * L * forwards > 0,
+              f"parallel_rest moe engine rank {r}: B4 = 4 x layers x "
+              "forwards")
+        check(c["quant_matmul_t"] == forwards, f"parallel_rest moe engine "
+              f"rank {r}: B3 once a forward")
+        check(c["quant_matmul_stacked"] == 0
+              and c["quant_decode_attention"] == 0
+              and all(c[k] == 0 for k in FLASH),
+              f"parallel_rest moe engine rank {r}: B1, B2, B5-B7 none")
+    res["moe_engine_tp2"] = {"greedy_prefix": greedy,
+                             "counts": [e0["counts"], e1["counts"]],
+                             "forwards": forwards,
+                             "seconds": e0["seconds"]}
+    return res
+
+
+def rest_lora_child(rank: int, world: int, init_method: str, out: str,
+                    oplog_port: int, dirs: list) -> None:
+    """One rank of the 7B int8 server at tp 2 with 4 stacked adapters
+    (spawned): the port's own CLI wiring with ``--from-env`` and ``--lora``
+    x 4, then ``split_ranks``; rank 0 answers the lora phase's 8
+    completions (adapters i % 5) over HTTP, rank 1 follows. Launches from
+    the card's trace of each rank's serving. Writes ``rank<r>.json``."""
+    import os
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.parallel import initialize_distributed
+    from instaslice_tpu_torch.serving import api_server
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    out = Path(out)
+    initialize_distributed(backend="gloo", init_method=init_method,
+                           device="cuda:0")
+    res = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        flags = SERVE_FLAGS.split() + ["--from-env", "--oplog-port",
+                                       str(oplog_port)]
+        for d in dirs:
+            flags += ["--lora", d]
+        args = api_server.build_parser().parse_args(flags)
+        eng = api_server.build_engine(args)
+        res["build_s"] = time.perf_counter() - t0
+        check(eng.n_adapters == LORA_N and eng._axes.model.size == 2,
+              f"parallel_rest lora rank {rank}: 4 adapters at tp 2")
+        res["route"] = eng.decode_route()
+        gen = torch.Generator().manual_seed(31)
+        prompts = [torch.randint(1, args.vocab_size, (n,), generator=gen)
+                   .tolist() for n in LORA_PLENS]
+        adapters = [i % (LORA_N + 1) for i in range(len(prompts))]
+        names = [Path(d).name for d in dirs]
+        results, errors = [None] * len(prompts), []
+        g0, f0 = eng.gathered_rounds, eng.fastpath_rounds
+        # the warm-ups in build_engine launched kernels too
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with Traced(torch, ops) as tr:
+            deng = api_server.split_ranks(eng, args)
+            if deng is not None:
+                srv = api_server.ApiServer(deng, host=args.host,
+                                           port=args.port).start()
+                try:
+                    wait_ready(srv.url)
+
+                    def one(i):
+                        body = {"prompt": prompts[i], "max_tokens": LORA_NEW,
+                                "temperature": 0.0, "logprobs": True}
+                        if adapters[i]:
+                            body["adapter"] = names[adapters[i] - 1]
+                        try:
+                            results[i] = http_json(
+                                srv.url + "/v1/completions", body)[
+                                "choices"][0]
+                        except Exception as e:  # noqa: BLE001
+                            errors.append(f"request {i}: {e!r}")
+
+                    threads = [threading.Thread(target=one, args=(i,))
+                               for i in range(len(prompts))]
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join()
+                    res["mesh"] = http_json(srv.url + "/v1/stats")["mesh"]
+                finally:
+                    srv.stop()
+                    deng.shutdown()
+        res["serve_s"] = time.perf_counter() - t0
+        check(not errors, f"parallel_rest lora: {errors}")
+        res["counts"] = tr.counts
+        res["wrapper_counts"] = ops.launch_counts()
+        res["decode_steps"] = eng.decode_steps
+        res["rounds"] = [eng.gathered_rounds - g0, eng.fastpath_rounds - f0]
+        res["n_layers"] = args.n_layers
+        if rank == 0:
+            res["served"] = [{k: r[k] for k in ("token_ids", "logprobs")}
+                             for r in results]
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def rest_lora_serve(torch, meshless: list) -> dict:
+    """(c) The 7B int8 server at tp 2 with 4 stacked adapters: its served
+    tokens against the meshless adapter server's (the lora phase's
+    ``served``, the same weights, adapters, prompts and flags), B1-B3 on
+    both ranks."""
+    import shutil
+    import socket
+
+    from instaslice_tpu_torch.models.lm import ModelConfig
+    from instaslice_tpu_torch.serving import api_server
+
+    out = HERE / "build" / "parallel_rest_lora"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    a = api_server.build_parser().parse_args(SERVE_FLAGS.split())
+    cfg = ModelConfig(vocab_size=a.vocab_size, d_model=a.d_model,
+                      n_heads=a.n_heads, n_kv_heads=a.n_kv_heads,
+                      n_layers=a.n_layers, d_ff=a.d_ff,
+                      max_seq_len=a.max_len, dtype=torch.bfloat16,
+                      remat=False)
+    dirs = [str(d) for d in lora_adapter_dirs(torch, cfg, out / "adapters")]
+    free_memory(torch)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        oplog = s.getsockname()[1]
+    ranks = rest_spawn(rest_lora_child, out, oplog, dirs)
+    shutil.rmtree(out)
+    r0, r1 = ranks
+    greedy = [agreeing_prefix(g["token_ids"], w["token_ids"])
+              for g, w in zip(r0["served"], meshless)]
+    errs = [max([abs(x - y) for x, y in zip(
+        g["logprobs"][:n], w["logprobs"][:n])] or [0.0])
+        for g, w, n in zip(r0["served"], meshless, greedy)]
+    c0, c1 = r0["counts"], r1["counts"]
+    L, steps = r0["n_layers"], r0["decode_steps"]
+    log(f"parallel_rest lora_serve_tp2: mesh {r0['mesh']}, route "
+        f"{r0['route']}; greedy prefix agreeing with the meshless adapter "
+        f"server {greedy} of {LORA_NEW}, logprob err over it {errs}; "
+        f"gathered and single-adapter rounds {r0['rounds']}; {steps} "
+        f"decode steps; launches (trace) rank 0 {c0}, rank 1 {c1}; build "
+        f"{[r['build_s'] for r in ranks]} s, serve "
+        f"{[r['serve_s'] for r in ranks]} s")
+    check(r0["mesh"] == {"data": 1, "seq": 1, "model": 2},
+          f"parallel_rest lora: mesh {r0['mesh']}")
+    check(all(n >= TP_GREEDY for n in greedy), f"parallel_rest lora: the "
+          f"first {TP_GREEDY} greedy tokens equal the meshless server's")
+    check(max(errs) <= TP_LOGPROB_TOL, f"parallel_rest lora: logprobs "
+          f"within {TP_LOGPROB_TOL}")
+    check(c0 == c1, "parallel_rest lora: both ranks launch the same kernels")
+    for r, rk in enumerate(ranks):
+        c = rk["counts"]
+        check(c == rk["wrapper_counts"], f"parallel_rest lora rank {r}: the "
+              "trace counts what the wrappers launched (eager route)")
+        check(c["quant_decode_attention"] == L * steps > 0,
+              f"parallel_rest lora rank {r}: B1 once a layer a decode step")
+        check(c["quant_matmul_stacked"] > 0 and c["quant_matmul_t"] > 0,
+              f"parallel_rest lora rank {r}: B2 and B3 launched")
+        check(c["quant_matmul"] == 0 and all(c[k] == 0 for k in FLASH),
+              f"parallel_rest lora rank {r}: B4-B7 are not on this path")
+    check(r0["rounds"][0] > 0, "parallel_rest lora: mixed adapters take the "
+          "gathered path")
+    return {"greedy_prefix": greedy, "logprob_err": errs,
+            "counts": [c0, c1], "decode_steps": steps,
+            "rounds": r0["rounds"], "build_s": [r["build_s"] for r in ranks],
+            "serve_s": [r["serve_s"] for r in ranks]}
+
+
+def rest_ring_cli(torch) -> dict:
+    """(d) Ring attention through the training CLI: ``--ring --sp 2``
+    under ``torch.distributed.run`` (two ranks on the one card: the CLI
+    puts them in a gloo group) and the same flags in one process at once; the losses (the JSON lines' unrounded
+    ``losses``) within ``REST_TOL["loss"]``. The ring is plain PyTorch
+    (no TPU kernel computes it), so the two-rank run launches none of
+    B5-B7; the one-process run's attention is B5-B7."""
+    import os
+
+    flags = REST_RING_FLAGS.split()
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(var, None)
+    mod = ["-m", "instaslice_tpu_torch.cli.train_main"]
+    jobs = {
+        "sp2": [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", "2"] + mod + flags
+        + ["--sp", "2"],
+        "one": [sys.executable] + mod + flags,
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, cmd in jobs.items()}
+    lines = {}
+    try:
+        for k, p in procs.items():
+            o, e = p.communicate(timeout=600)
+            check(p.returncode == 0, f"parallel_rest ring CLI {k}: rc "
+                  f"{p.returncode}: {e[-2000:]}")
+            lines[k] = json.loads(o.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    got = [x for _, x in lines["sp2"]["losses"]]
+    want = [x for _, x in lines["one"]["losses"]]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    log(f"parallel_rest ring_cli: mesh {lines['sp2']['mesh']}, losses "
+        f"{got} vs one process {want}, rel err {err:.2e} (tol "
+        f"{REST_TOL['loss']}); {wall:.1f} s both")
+    check(lines["sp2"]["mesh"] == {"data": 1, "seq": 2, "model": 1},
+          "parallel_rest ring CLI: a seq axis of 2")
+    check(len(got) == len(want) == 2 and all(math.isfinite(x) for x in got),
+          "parallel_rest ring CLI: 2 finite losses")
+    check(err <= REST_TOL["loss"], f"parallel_rest ring CLI: losses within "
+          f"{REST_TOL['loss']} of one process")
+    return {"losses": got, "one_process_losses": want, "loss_rel_err": err,
+            "mesh": lines["sp2"]["mesh"], "seconds": wall}
+
+
+def phase_parallel_rest(torch, ops, lora_served: list) -> dict:
+    """The rest of the parallel layer on one card, two processes over gloo
+    on CUDA tensors each time (no scaling number): (a) the MoE at tp 2,
+    (b) the MoE int8 engine at tp 2, (e) GPipe at pipe 2
+    (:func:`rest_two_process`); (c) the 7B int8 server at tp 2 with 4
+    stacked adapters (:func:`rest_lora_serve`); (d) ring attention
+    through the training CLI (:func:`rest_ring_cli`)."""
+    secs, t0, out, failed = {}, time.perf_counter(), {}, []
+    # every part runs and logs; a part's failed check fails the phase
+    # after the others have run
+    for key, part, run in (
+            ("two_process", "a_b_e", lambda: rest_two_process(torch)),
+            ("lora_serve_tp2", "c",
+             lambda: rest_lora_serve(torch, lora_served)),
+            ("ring_cli", "d", lambda: rest_ring_cli(torch))):
+        t1 = time.perf_counter()
+        try:
+            out[key] = run()
+        except RuntimeError as e:
+            failed.append(f"{part}: {e}")
+            log(f"parallel_rest {part}: {e}")
+        secs[part] = time.perf_counter() - t1
+        free_memory(torch)
+    secs["total"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    log(f"parallel_rest: seconds by part {secs}")
+    check(not failed, f"parallel_rest: {failed}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5181,6 +5791,9 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_serve = phase_tp_serve(torch, ops, cfg)
     mark("tp_serve", t0)
+    t0 = time.perf_counter()
+    parallel_rest = phase_parallel_rest(torch, ops, lora_serve.pop("served"))
+    mark("parallel_rest", t0)
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
@@ -5235,6 +5848,16 @@ def main() -> int:
         k["tp_serve_launches"] = [
             r["counts"][k["name"]]
             for r in tp_serve["two_process"]["ranks"]]
+        # the parallel_rest phase per rank (rank 0, rank 1), or per stage
+        # for GPipe, from the card's trace; its ring run launches none
+        rest, two = parallel_rest, parallel_rest["two_process"]
+        k["parallel_rest_launches"] = {
+            "moe_tp2": [c[k["name"]] for c in two["moe_tp2"]["counts"]],
+            "moe_engine_tp2": [c[k["name"]] for c in
+                               two["moe_engine_tp2"]["counts"]],
+            "lora_serve_tp2": [c[k["name"]] for c in
+                               rest["lora_serve_tp2"]["counts"]],
+            "gpipe_pipe2": [c[k["name"]] for c in two["gpipe"]["counts"]]}
         # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
         tp = tp_serve["shard_kernels"].get(k["name"])
         if tp is not None:
@@ -5287,6 +5910,7 @@ def main() -> int:
     log(json.dumps({"card": card, "parallel": parallel}))
     log(json.dumps({"card": card, "tp_serve": {
         k: v for k, v in tp_serve.items() if k != "shard_kernels"}}))
+    log(json.dumps({"card": card, "parallel_rest": parallel_rest}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

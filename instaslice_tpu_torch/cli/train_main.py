@@ -33,15 +33,21 @@ keeps its unbatched matmul outputs).
 Under ``torchrun`` (``WORLD_SIZE`` set) each process joins the process
 group (NCCL on the card, gloo with ``--device cpu``) and the step runs
 over a ("data", "seq", "model") mesh: ``--tp`` ranks hold each model
-shard, ``data`` takes the rest, ``--global-batch`` splits over ``data``
-and each rank reads only its rows; ``--zero1`` slices the AdamW moments
-over ``data``. Rank 0 prints the JSON line and writes the checkpoints,
-which restore at any world size.
+shard (heads, FFN hidden dim, or with ``--n-experts`` a block of the
+experts), ``--sp`` ranks each block of the sequence (with ``--ring``:
+ring attention; ``seq_len + 1`` must divide by ``--sp``), ``data`` takes
+the rest, ``--global-batch`` splits over ``data`` and each rank reads
+only its rows; ``--zero1`` slices the AdamW moments over ``data``;
+``--lora-rank`` trains the adapters over the base's shards. With
+``--from-env`` the group comes from the node agent's handoff env
+instead (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``; the rendezvous at
+``tcp://<first hostname>:$TPUSLICE_COORDINATOR_PORT``, default 8476),
+torchrun's ``RANK``/``WORLD_SIZE`` where set, as the reference's
+``_build_mesh`` does. Rank r takes card ``LOCAL_RANK mod cards``; where
+more ranks than cards run on a host they share them over gloo (NCCL
+takes one rank a card). Rank 0 prints the JSON line and writes the
+checkpoints, which restore at any world size.
 
-Flags of the reference that the port does not run yet exit non-zero
-and name their ROADMAP queue-A item: ``--ring``, ``--sp`` > 1,
-``--from-env``, ``--n-experts`` with ``--tp`` > 1, and ``--lora-rank``
-at a world size above 1.
 Dataset rows are ``seq_len + 1`` tokens wide, so the model runs at S =
 seq_len + 1, which the flash kernels take as it is.
 """
@@ -90,10 +96,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sliding-window attention (0 = full causal)")
     ap.add_argument("--remat", default="none",
                     choices=("none", "dots", "full"))
-    ap.add_argument("--ring", action="store_true")
-    ap.add_argument("--from-env", action="store_true")
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--sp", type=int, default=1)
+    ap.add_argument("--ring", action="store_true",
+                    help="ring attention over the seq axis (long context; "
+                         "with --sp > 1)")
+    ap.add_argument("--from-env", action="store_true",
+                    help="the process group and mesh from the slice's "
+                         "handoff env (TPU_* vars)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis size (heads/ffn/experts sharding)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="seq-axis size (ring attention)")
     ap.add_argument("--param-dtype", default="float32",
                     choices=["float32", "same"],
                     help="weight storage dtype on the card (float32 = "
@@ -120,49 +132,48 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args, world: int) -> None:
-    """Exit non-zero on a flag whose path is not ported yet."""
-    unported = [
-        (args.ring, "--ring", "ring attention"),
-        (args.sp > 1, "--sp > 1", "ring attention"),
-        (args.from_env, "--from-env", "multi-host training"),
-        (args.n_experts and args.tp > 1, "--n-experts with --tp > 1",
-         "MoE experts over the model axis"),
-        (args.lora_rank and world > 1, "--lora-rank at world size > 1",
-         "LoRA/QLoRA under a mesh"),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise SystemExit(f"{flag} is not ported yet ({item}: ROADMAP "
-                             "queue A, training)")
-
-
-def _build_mesh(args, dev):
-    """The ("data", "seq", "model") mesh under torchrun
-    (``train_main.py:109-140``): the process group from torchrun's env,
-    ``--tp`` ranks on ``model``, the rest on ``data``. None in a plain
-    single process."""
-    if "WORLD_SIZE" not in os.environ:
-        if args.tp > 1:
-            raise SystemExit(f"--tp {args.tp} needs {args.tp} processes: "
-                             "run under python -m torch.distributed.run")
-        return None
+def _build_mesh(args, dev, backend=None):
+    """The ("data", "seq", "model") mesh (``train_main.py:109-140``):
+    ``--tp`` ranks on ``model``, ``--sp`` on ``seq``, the rest on
+    ``data``, over the process group from torchrun's env or, with
+    ``--from-env``, from the handoff env. None in a plain single
+    process."""
     from instaslice_tpu_torch.parallel import (
+        SliceTopology,
         initialize_distributed,
         slice_mesh,
     )
 
-    world = int(os.environ["WORLD_SIZE"])
-    if world % args.tp:
-        raise SystemExit(f"--tp {args.tp} does not divide the world size "
-                         f"{world}")
-    initialize_distributed(device=dev)
-    return slice_mesh(axis_sizes=(-1, 1, args.tp), device=dev)
+    torchrun = "WORLD_SIZE" in os.environ and "RANK" in os.environ
+    if not (args.from_env or torchrun):
+        if args.tp * args.sp > 1:
+            raise SystemExit(f"--tp {args.tp} --sp {args.sp} needs "
+                             f"{args.tp * args.sp} processes: run under "
+                             "python -m torch.distributed.run or with "
+                             "--from-env")
+        return None
+    topo = SliceTopology.from_env()
+    world = (int(os.environ["WORLD_SIZE"]) if torchrun
+             else topo.num_workers)
+    if world % (args.tp * args.sp):
+        raise SystemExit(f"{world} ranks not divisible by tp={args.tp} * "
+                         f"sp={args.sp}")
+    init = None
+    if not torchrun:
+        host = topo.hostnames[0] if topo.hostnames else "127.0.0.1"
+        init = "tcp://{}:{}".format(
+            host, os.environ.get("TPUSLICE_COORDINATOR_PORT", "8476"))
+    initialize_distributed(topo, backend=backend, init_method=init,
+                           device=dev)
+    return slice_mesh(axes=("data", "seq", "model"),
+                      axis_sizes=(-1, args.sp, args.tp), device=dev,
+                      topo=topo)
 
 
 def _lora_step(args, model, opts):
     """``make_lora_train_step`` over the frozen base the LoRA flags name
-    (``train_main.py:208-280``)."""
+    (``train_main.py:208-280``); every rank builds the whole base from the
+    seed (or the checkpoint) and keeps its shards."""
     from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
     from instaslice_tpu_torch.models.lora import (
         LoraConfig,
@@ -191,20 +202,34 @@ def _lora_step(args, model, opts):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    rank = int(os.environ.get("RANK", "0"))
-    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
-    _refuse_unported(args, world)
+    if args.ring and (args.seq_len + 1) % max(args.sp, 1):
+        # dataset rows are seq_len+1 wide and ring shards that dim over seq
+        raise SystemExit(
+            f"--ring shards (seq_len + 1) = {args.seq_len + 1} over "
+            f"sp={args.sp}, which does not divide; use a seq-len of "
+            f"(multiple of {args.sp}) - 1, e.g. "
+            f"{args.sp * ((args.seq_len + 1) // args.sp) - 1}")
 
+    import torch
     import torch.distributed as dist
 
     from instaslice_tpu_torch import resolve_device
 
     dev = resolve_device(args.device)
+    shared = False
     if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
-        dev = resolve_device(f"cuda:{os.environ['LOCAL_RANK']}")
-    # LoRA runs on one process (a larger world was refused above)
-    mesh = None if args.lora_rank else _build_mesh(args, dev)
+        # a rank a card, round robin: more local ranks than cards share
+        # them, and NCCL refuses two ranks on one card, so their group
+        # is gloo (collectives staged through host memory)
+        cards = torch.cuda.device_count()
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > cards
+        dev = resolve_device(f"cuda:{int(os.environ['LOCAL_RANK']) % cards}")
+    mesh = _build_mesh(args, dev, "gloo" if shared else None)
+    rank = dist.get_rank() if mesh is not None else 0
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
+    if shared:
+        log.warning("%s local ranks share %d card(s): gloo process group",
+                    os.environ["LOCAL_WORLD_SIZE"], torch.cuda.device_count())
     try:
         return _train(args, dev, mesh, rank)
     finally:
@@ -229,12 +254,12 @@ def _train(args, dev, mesh, rank: int) -> int:
     from instaslice_tpu_torch.parallel.collectives import mesh_axes
 
     axes = mesh_axes(mesh)
-    dp, tp = axes.data.size, axes.model.size
+    dp, sp, tp = axes.data.size, axes.seq.size, axes.model.size
     if args.global_batch % (dp * args.grad_accum):
         raise SystemExit(
             f"--global-batch {args.global_batch} must be divisible by the "
-            f"data-parallel axis ({dp} = world size / tp {tp}) times "
-            f"--grad-accum {args.grad_accum}")
+            f"data-parallel axis ({dp} = world size / tp {tp} / sp {sp}) "
+            f"times --grad-accum {args.grad_accum}")
     on_card = dev.type == "cuda"
     cfg = ModelConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
@@ -246,7 +271,7 @@ def _train(args, dev, mesh, rank: int) -> int:
         param_dtype=(torch.float32 if on_card
                      and args.param_dtype == "float32" else None),
         n_experts=args.n_experts, window=args.window,
-        remat=args.remat != "none",
+        ring_attention=args.ring, remat=args.remat != "none",
         remat_policy="dots" if args.remat == "dots" else "full",
     )
     # the fp32-output products (the unembedding) run on the tensor cores
@@ -260,7 +285,7 @@ def _train(args, dev, mesh, rank: int) -> int:
                 decay_steps=args.steps if args.warmup_steps else 0,
                 device=dev)
     if args.lora_rank:
-        init_fn, step_fn = _lora_step(args, model, opts)
+        init_fn, step_fn = _lora_step(args, model, dict(opts, mesh=mesh))
     else:
         init_fn, step_fn = make_train_step(model, mesh=mesh,
                                            zero1=args.zero1, **opts)
@@ -348,10 +373,9 @@ def _train(args, dev, mesh, rank: int) -> int:
         # [step, loss] of every logged step, unrounded
         "losses": logged,
         "params_m": round(sum(
-            p.numel() * (tp if lay is not None and lay.model_sharded(i)
-                         else 1)
+            p.numel() * (lay.n_blocks(i) if lay is not None else 1)
             for i, p in enumerate(leaves(state.params))) / 1e6, 1),
-        "mesh": {"data": dp, "seq": 1, "model": tp},
+        "mesh": {"data": dp, "seq": sp, "model": tp},
         "backend": dev.type,
     }), flush=True)
     return 0

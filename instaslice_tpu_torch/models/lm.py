@@ -16,15 +16,19 @@ remat "full" and "dots" as ``torch.utils.checkpoint``; int8 and int4
 leaves dequantize one layer at a time, the QLoRA base),
 :func:`init_cache` and :func:`apply_with_cache` (dense MLP or MoE, bf16
 or int8 KV cache, sliding windows through the banded cache read, int8 or
-int4 weights, multi-LoRA deltas per row). :func:`param_specs` and
-:func:`batch_spec` lay the tree and the batch over a ("data", "seq",
-"model") mesh as the reference's do; under a mesh :func:`apply` and
-:func:`apply_with_cache` run on this rank's shards (:meth:`TpuLM.apply`
-and :meth:`TpuLM.apply_with_cache` with ``mesh=``): heads, the dense FFN
-hidden dim and the vocabulary over ``model`` (and the KV cache's heads),
-the MoE load-balance means over ``data``. Not yet ported, and raising
-``NotImplementedError``: ring and pipeline attention, and MoE experts over
-``model``.
+int4 weights, multi-LoRA deltas per row).
+
+:func:`param_specs` and :func:`batch_spec` lay the tree and the batch
+over a ("data", "seq", "model") mesh, or a ("pipe", "data", "model")
+one, as the reference's do; under a mesh every forward runs on this
+rank's shards (``mesh=``): heads, the dense FFN hidden dim, the MoE
+experts (expert parallelism) and the vocabulary over ``model`` (and the
+KV cache's heads), the sequence over ``seq`` with ring attention
+(:mod:`~instaslice_tpu_torch.parallel.ring`), the layers over ``pipe``
+(:meth:`TpuLM.apply_pipelined`, GPipe), the MoE load-balance means over
+``data`` and ``seq``; multi-LoRA deltas take this rank's part of each
+adapter. What the reference refuses, this refuses: ring attention with a
+window, ring attention inside a pipeline stage.
 """
 
 from __future__ import annotations
@@ -64,12 +68,15 @@ from instaslice_tpu_torch.parallel.collectives import (
     NO_MESH,
     Axis,
     MeshAxes,
+    all_gather,
     copy_to,
     gather_from,
     mean_over,
     mesh_axes,
     reduce_from,
+    shard,
 )
+from instaslice_tpu_torch.parallel.ring import ring_attention
 
 Params = Dict[str, Any]
 
@@ -195,14 +202,15 @@ class ModelConfig:
 Spec = Tuple[Optional[str], ...]
 
 
-def param_specs(cfg: ModelConfig) -> Params:
+def param_specs(cfg: ModelConfig, pipe_axis: str = "") -> Params:
     """Axis-name tuples mirroring :func:`init_params`' tree
-    (``instaslice_tpu/models/lm.py:164-207`` without ``pipe_axis``):
-    attention heads over ``model`` (``wq``/``wk``/``wv`` by column, ``wo``
-    by row), the dense MLP's hidden dim over ``model`` (``w_in`` by
-    column, ``w_out`` by row), MoE experts over ``model``, the embedding's
-    vocabulary over ``model``; norm scales and the router replicated.
-    Stacked leaves lead with the unsharded layer axis."""
+    (``instaslice_tpu/models/lm.py:164-207``): attention heads over
+    ``model`` (``wq``/``wk``/``wv`` by column, ``wo`` by row), the dense
+    MLP's hidden dim over ``model`` (``w_in`` by column, ``w_out`` by
+    row), MoE experts over ``model`` (a contiguous block of E / tp experts
+    a rank), the embedding's vocabulary over ``model``; norm scales and
+    the router replicated. Stacked leaves lead with the layer axis:
+    unsharded, or with ``pipe_axis`` one stage of layers a rank."""
     block: Dict[str, Any] = {
         "ln1": {"scale": (None,)},
         "ln2": {"scale": (None,)},
@@ -220,7 +228,7 @@ def param_specs(cfg: ModelConfig) -> Params:
     def stack(node):
         if isinstance(node, dict):
             return {k: stack(v) for k, v in node.items()}
-        return (None, *node)
+        return (pipe_axis or None, *node)
 
     return {"embed": ("model", None), "blocks": stack(block),
             "ln_f": {"scale": (None,)}}
@@ -232,25 +240,23 @@ def batch_spec(cfg: ModelConfig) -> Spec:
     return ("data", "seq" if cfg.ring_attention else None)
 
 
+def ring_axis(cfg: ModelConfig, axes: MeshAxes) -> Axis:
+    """The ``seq`` axis where it splits the sequence: ring attention over
+    more than one rank (:data:`NO_AXIS` otherwise: a ``seq`` axis without
+    ring attention holds whole rows on every rank, as the reference's
+    ``batch_spec`` replicates them there)."""
+    return axes.seq if cfg.ring_attention and axes.seq.size > 1 else NO_AXIS
+
+
 def check_mesh(cfg: ModelConfig, axes: MeshAxes) -> None:
-    """Raise where ``cfg`` cannot run over ``axes``: what is not ported
-    (the ``seq`` axis, MoE experts over ``model``) and a ``model`` axis
-    that does not divide the heads, the KV heads, the FFN hidden dim or
-    the vocabulary (each rank takes a contiguous block of each: query
-    head ``h`` reads KV head ``h // G``, so a contiguous split keeps every
-    query head beside its KV group)."""
-    if axes.seq.size > 1:
-        raise NotImplementedError(
-            "a seq axis > 1 (ring attention) is not ported yet: ROADMAP "
-            "queue A")
+    """Raise where ``cfg`` cannot run over ``axes``: a ``model`` axis that
+    does not divide the heads, the KV heads, the dense FFN hidden dim,
+    the experts or the vocabulary (each rank takes a contiguous block of
+    each: query head ``h`` reads KV head ``h // G``, so a contiguous split
+    keeps every query head beside its KV group)."""
     tp = axes.model.size
     if tp == 1:
         return
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE experts over the model axis (expert parallelism, in "
-            "training and serving) are not ported yet: ROADMAP queue A "
-            "item 1c")
     # the reference's serving checks, with its messages
     # (instaslice_tpu/serving/engine.py:600-615)
     if cfg.n_heads % tp:
@@ -260,7 +266,9 @@ def check_mesh(cfg: ModelConfig, axes: MeshAxes) -> None:
         raise ValueError(f"kv_heads={cfg.kv_heads} not divisible by the "
                          f"mesh's model axis ({tp} devices) — the KV cache "
                          "shards over heads")
-    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+    split = (("n_experts", cfg.n_experts) if cfg.n_experts
+             else ("d_ff", cfg.d_ff))
+    for what, n in (split, ("vocab_size", cfg.vocab_size)):
         if n % tp:
             raise ValueError(f"{what}={n} does not divide over the model "
                              f"axis ({tp})")
@@ -431,7 +439,11 @@ def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     :func:`copy_to`, and each row-parallel product's partial sum leaves
     through :func:`reduce_from`, so ``x`` stays whole on every rank and
     attention runs on the rank's ``n_heads / tp`` query heads and
-    ``kv_heads / tp`` KV heads. On axes of size 1 both are the identity."""
+    ``kv_heads / tp`` KV heads; an MoE layer holds the rank's experts
+    (:func:`_moe_mlp`). On axes of size 1 both are the identity. Under a
+    ``seq`` axis ``x`` is this rank's block of the sequence (``cos``/
+    ``sin`` at its positions) and attention is :func:`ring_attention`,
+    K/V repeated to the query heads as at ``lm.py:529-536``."""
     dt = cfg.dtype
     B, S = x.shape[:2]
     tp = axes.model
@@ -443,14 +455,22 @@ def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     v = torch.matmul(h, weight(layer["wv"], dt)).reshape(B, S, Hkv, hd)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
-    attn = _attention(q, k, v, impl=cfg.attention_impl, window=cfg.window)
+    if axes.seq.size > 1:
+        if Hkv != H:
+            k = k.repeat_interleave(H // Hkv, dim=2)
+            v = v.repeat_interleave(H // Hkv, dim=2)
+        attn = ring_attention(q, k, v, axes.seq)
+    else:
+        attn = _attention(q, k, v, impl=cfg.attention_impl,
+                          window=cfg.window)
     attn = attn.reshape(B, S, H * hd)
     x = x + reduce_from(torch.matmul(attn, weight(layer["wo"], dt)), tp)
     h = _rmsnorm(x, layer["ln2"]["scale"])
     if cfg.n_experts:
         y, aux = _moe_mlp(h, layer["router"], weight(layer["w_in"], dt),
                           weight(layer["w_out"], dt), cfg.expert_top_k,
-                          cfg.expert_capacity_factor, data=axes.data)
+                          cfg.expert_capacity_factor, data=axes.data,
+                          model=tp, seq=axes.seq)
         return x + y, aux
     # jax.nn.gelu defaults to the tanh form
     y = F.gelu(torch.matmul(copy_to(h, tp), weight(layer["w_in"], dt))
@@ -460,9 +480,19 @@ def _transformer_block(cfg: ModelConfig, layer: Params, x: torch.Tensor,
                            tp), aux
 
 
+def _expert_gates(gates: torch.Tensor, tp: Axis) -> torch.Tensor:
+    """The router probabilities the rank's experts combine with, through
+    :func:`copy_to` over ``model``: each rank's combine reads only its
+    own experts' gates, so that part of their gradient is partial and
+    sums over ``model``, while the load-balance term, which every rank
+    computes whole, reads ``gates`` itself and counts once."""
+    return copy_to(gates, tp)
+
+
 def _moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
              w_out: torch.Tensor, top_k: int = 2,
-             capacity_factor: float = 1.25, data: Axis = NO_AXIS
+             capacity_factor: float = 1.25, data: Axis = NO_AXIS,
+             model: Axis = NO_AXIS, seq: Axis = NO_AXIS
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE with capacity, GShard-style (``lm.py:394-472``):
     static shapes, one-hot dispatch and combine einsums, each token
@@ -481,10 +511,25 @@ def _moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     term ``E · Σ_e f_e · P_e`` (f_e: the share of tokens whose top-1
     choice is e; P_e: the mean router probability of e): 1 at perfect
     balance, up to E when the router collapses onto one expert. Both are
-    means over the whole batch: under a ``data`` axis each rank
-    holds a slice of the rows, so f_e and P_e are averaged over it before
-    the product (:func:`mean_over`), and the router's gradient, after
-    the data-axis gradient average, is the one-process gradient.
+    means over the whole batch: under a ``data`` (or ``seq``) axis each
+    rank holds a slice of the rows (or positions), so f_e and P_e are
+    averaged over it before the product (:func:`mean_over`), and the
+    router's gradient, after the gradient average, is the one-process
+    gradient.
+
+    Expert parallelism (``model``, ``lm.py:180-188``): ``w_in``/``w_out``
+    hold this rank's contiguous block of E / tp experts. Every rank
+    routes every token as the meshless code does (the replicated fp32
+    router, top-k, capacity), then dispatches to, runs and combines only
+    its own experts; the input enters the dispatch through
+    :func:`copy_to` and the combine's partial sum leaves through
+    :func:`reduce_from` in fp32, as the dense block's do, and the gates
+    the combine reads pass :func:`_expert_gates`. Under a ``seq`` axis x
+    is this rank's block of each row: the capacity counts the whole row
+    (S · n positions) and each pair's place in its expert's buffer adds
+    the pairs the earlier blocks of the row sent there (an all-gather of
+    each block's counts), so the same pairs are dropped as on one
+    process.
 
     Differences from the JAX code that change no value: ties in the
     top-k break toward the lower expert index, as ``jax.lax.top_k``
@@ -502,29 +547,43 @@ def _moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     E = router_w.shape[-1]
     k = min(top_k, E)
     N = S * k
-    C = max(1, int(math.ceil(capacity_factor * k * S / E)))
+    C = max(1, int(math.ceil(capacity_factor * k * S * seq.size / E)))
     dt = x.dtype
     gates = torch.softmax(torch.matmul(x.float(), router_w.float()), dim=-1)
-    ranked, order = torch.sort(gates, dim=-1, descending=True, stable=True)
+    ranked, order = torch.sort(_expert_gates(gates, model), dim=-1,
+                               descending=True, stable=True)
     topv, topi = ranked[..., :k], order[..., :k]             # (B, S, k)
     if k > 1:
         topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     sel = F.one_hot(topi, E).float().reshape(B, N, E)
     # position of each (token, choice) pair in its expert's buffer
-    pos = ((torch.cumsum(sel, dim=1) - sel) * sel).sum(-1).long()  # (B, N)
+    pos = ((torch.cumsum(sel, dim=1) - sel) * sel).sum(-1)   # (B, N)
+    if seq.size > 1:
+        # the pairs the row's earlier blocks sent to each expert
+        counts = all_gather(sel.sum(1)[None], seq, 0)        # (n, B, E)
+        pos = pos + (counts[:seq.rank].sum(0)[:, None, :] * sel).sum(-1)
+    pos = pos.long()
+    El = w_in.shape[0]
+    sel = sel[..., model.rank * El:(model.rank + 1) * El]   # this rank's
     slot = (pos[..., None] == torch.arange(C, device=x.device)).to(dt)
-    disp = sel.to(dt)[:, :, :, None] * slot[:, :, None, :]   # (B, N, E, C)
+    disp = sel.to(dt)[:, :, :, None] * slot[:, :, None, :]   # (B, N, El, C)
     comb = disp * topv.reshape(B, N)[:, :, None, None].to(dt)
     # contract over (s, choice) against x itself, not x repeated k times
     expert_in = torch.einsum("bskec,bsd->becd",
-                             disp.reshape(B, S, k, E, C), x)
+                             disp.reshape(B, S, k, El, C), copy_to(x, model))
     h = torch.einsum("becd,edf->becf", expert_in, w_in)
     h = F.gelu(h.float(), approximate="tanh").to(dt)
     y_e = torch.einsum("becf,efd->becd", h, w_out)
-    y = torch.einsum("bskec,becd->bsd", comb.reshape(B, S, k, E, C), y_e)
+    comb = comb.reshape(B, S, k, El, C)
+    if model.size > 1:
+        y = reduce_from(torch.einsum("bskec,becd->bsd", comb.float(),
+                                     y_e.float()), model)
+    else:
+        y = torch.einsum("bskec,becd->bsd", comb, y_e)
     f_e = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
     p_e = gates.mean(dim=(0, 1))
-    f_e, p_e = mean_over(f_e, data), mean_over(p_e, data)
+    for ax in (seq, data):
+        f_e, p_e = mean_over(f_e, ax), mean_over(p_e, ax)
     aux = E * (f_e * p_e).sum()
     return y.to(dt), aux
 
@@ -576,6 +635,28 @@ def _vocab_parallel_lookup(embed, tokens: torch.Tensor,
                                    torch.zeros_like(rows)), tp)
 
 
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           tp: Axis) -> torch.Tensor:
+    """The tokens' embedding rows in ``cfg.dtype`` (vocab-parallel under a
+    ``model`` axis)."""
+    if tp.size > 1:
+        x = _vocab_parallel_lookup(params["embed"], tokens, tp)
+    else:
+        x = embed_lookup(params["embed"], tokens)
+    return x.to(cfg.dtype)
+
+
+def _finish(cfg: ModelConfig, params: Params, x: torch.Tensor, tp: Axis,
+            unembed_out: bool):
+    """The final norm, then the logits gathered whole over ``model`` (or,
+    without ``unembed_out``, the normed hidden states)."""
+    x = _rmsnorm(x, params["ln_f"]["scale"])
+    if not unembed_out:
+        return x
+    return gather_from(unembed(copy_to(x, tp), params["embed"], cfg.dtype),
+                       tp)
+
+
 def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           unembed_out: bool = True, return_aux: bool = False,
           axes: MeshAxes = NO_MESH):
@@ -587,20 +668,20 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
     Under mesh ``axes`` the params are this rank's shards
     (:func:`param_specs`) and ``tokens`` this rank's rows: the embedding
-    is looked up vocab-parallel, each block runs tensor-parallel, the
-    hidden states leave replicated over ``model``, and the logits are
-    gathered whole over it."""
-    if cfg.ring_attention:
-        raise NotImplementedError("ring attention is not ported")
+    is looked up vocab-parallel, each block runs tensor-parallel (experts
+    over ``model`` for an MoE), the hidden states leave replicated over
+    ``model``, and the logits are gathered whole over it. With
+    ``cfg.ring_attention`` and a ``seq`` axis above 1, ``tokens`` are this
+    rank's block of each row (positions from ``rank * S``), attention is
+    :func:`ring_attention`, and the outputs are the block's
+    (:func:`ring_axis`)."""
     check_mesh(cfg, axes)
+    axes = dataclasses.replace(axes, seq=ring_axis(cfg, axes))
     tp = axes.model
     B, S = tokens.shape
-    if tp.size > 1:
-        x = _vocab_parallel_lookup(params["embed"], tokens, tp)
-    else:
-        x = embed_lookup(params["embed"], tokens)
-    x = x.to(cfg.dtype)
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = _embed(cfg, params, tokens, tp)
+    positions = axes.seq.rank * S + torch.arange(
+        S, dtype=torch.int32, device=tokens.device)
     cos, sin = _rope_tables(positions, cfg.head_dim)
     auxes = []
     for layer in _layers(params["blocks"], cfg.n_layers):
@@ -610,12 +691,53 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         else:
             x, aux = _transformer_block(cfg, layer, x, cos, sin, axes)
         auxes.append(aux)
-    x = _rmsnorm(x, params["ln_f"]["scale"])
-    out = (gather_from(unembed(copy_to(x, tp), params["embed"], cfg.dtype),
-                       tp) if unembed_out else x)
+    out = _finish(cfg, params, x, tp, unembed_out)
     if return_aux:
         return out, torch.stack(auxes).mean()
     return out
+
+
+def apply_pipelined(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                    *, axes: MeshAxes, n_micro: int, axis_name: str = "pipe",
+                    unembed_out: bool = True, return_aux: bool = False):
+    """The pipeline-parallel forward (``lm.py:570-623``): this stage's
+    layers (``params["blocks"]`` holds its ``L / P`` of them, laid out by
+    ``param_specs(cfg, pipe_axis)``) run as GPipe stages over the
+    ``axis_name`` axis with ``n_micro`` micro-batches
+    (:func:`~instaslice_tpu_torch.parallel.pipeline.pipeline_blocks`);
+    the embedding and the unembedding run outside the pipeline on every
+    stage. Composes with ``model`` inside a stage; ring attention inside
+    a stage is refused, as the reference refuses it. ``return_aux`` adds
+    the MoE load-balance term of the valid ticks, averaged over layers
+    and micro-batches."""
+    from instaslice_tpu_torch.parallel.pipeline import pipeline_blocks
+
+    if cfg.ring_attention:
+        raise ValueError(
+            "ring_attention cannot run inside a pipeline stage (nested "
+            "manual mesh axes); use sequence parallelism OR pipeline "
+            "parallelism for this model, not both")
+    n_pipe = axes.of(axis_name).size
+    if cfg.n_layers % n_pipe:
+        raise ValueError(f"{cfg.n_layers} layers not divisible by pipe "
+                         f"axis size {n_pipe}")
+    check_mesh(cfg, axes)
+    axes = dataclasses.replace(axes, seq=NO_AXIS)
+    tp = axes.model
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens, tp)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    cos, sin = _rope_tables(positions, cfg.head_dim)
+
+    def block_fn(layer, xb):
+        return _transformer_block(cfg, layer, xb, cos, sin, axes)
+
+    x, aux = pipeline_blocks(block_fn, params["blocks"], x, axes=axes,
+                             n_micro=n_micro, axis_name=axis_name,
+                             remat=cfg.remat,
+                             remat_policy=cfg.remat_policy)
+    out = _finish(cfg, params, x, tp, unembed_out)
+    return (out, aux) if return_aux else out
 
 
 def _kv_quantize(t: torch.Tensor):
@@ -675,7 +797,7 @@ def _write_fresh(c: torch.Tensor, li: int, rows: torch.Tensor,
 
 
 def _lora_deltas(cfg: ModelConfig, lora: Params, adapter_idx: torch.Tensor,
-                 single: bool, B: int):
+                 single: bool, B: int, tp: Axis = NO_AXIS):
     """Per-row adapter deltas (``lm.py:736-775``) as ``delta(h_in, name,
     li)`` -> (B, T, out) fp32, or None for an unadapted target.
 
@@ -692,8 +814,19 @@ def _lora_deltas(cfg: ModelConfig, lora: Params, adapter_idx: torch.Tensor,
     layer); each of its elements is one product rounded once to
     ``cfg.dtype``, the reference's value, and so is the single path's, so
     the two paths agree bit for bit. Then ``xa = h_in @ a`` with fp32
-    sums, cast to ``cfg.dtype``, and ``xa @ b`` with fp32 sums."""
+    sums, cast to ``cfg.dtype``, and ``xa @ b`` with fp32 sums.
+
+    Under a ``model`` axis the stacks are whole on every rank (the
+    reference replicates them, ``engine.py:637-643``) and each delta
+    takes this rank's part: a column-parallel target (``wq``, ``wk``,
+    ``wv``, dense ``w_in``) the rank's columns of ``b``, whose product
+    is the rank's columns of the delta; a row-parallel one (``wo``, dense
+    ``w_out``) the rank's rows of ``a`` against its slice of the input,
+    a partial delta that the caller adds to the partial product before
+    :func:`reduce_from` (the delta is linear, so the sum is the whole
+    delta)."""
     dt = cfg.dtype
+    specs = param_specs(cfg)["blocks"]
     aidx = adapter_idx.reshape(-1).to(torch.int64)
     scales = lora["scales"].to(dt)
     pairs = {}
@@ -720,6 +853,11 @@ def _lora_deltas(cfg: ModelConfig, lora: Params, adapter_idx: torch.Tensor,
             return None
         a, b = pairs[name]
         a, b = a[li], b[li]
+        if tp.size > 1:
+            if specs[name][-1] == "model":
+                b = shard(b, tp, b.dim() - 1)
+            elif specs[name][-2] == "model":
+                a = shard(a, tp, a.dim() - 2)
         if single:
             a = a.expand(B, -1, -1)
             b = b.expand(B, -1, -1)
@@ -793,15 +931,13 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     the rank's heads, and the rank's vocabulary block of the logits is
     gathered whole over ``model``, so every rank holds the same logits.
     The kernels run on each rank's shards as they do on the whole leaves:
-    a rank's product is a local dense product. Adapters under a mesh are
-    not ported (ROADMAP queue A item 1b).
+    a rank's product is a local dense product. An MoE layer runs the
+    rank's experts (:func:`_moe_mlp`, dequantizing only its own expert
+    stacks); stacked adapters add the rank's part of each delta
+    (:func:`_lora_deltas`).
     """
     check_mesh(cfg, axes)
     tp = axes.model
-    if tp.size > 1 and lora is not None:
-        raise NotImplementedError(
-            "multi-LoRA under a serving mesh (lora_specs) is not ported "
-            "yet: ROADMAP queue A item 1b")
     blocks = params["blocks"]
     moe = bool(cfg.n_experts)
     quant = "k_s" in cache
@@ -867,7 +1003,7 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     wpos = starts[:, None] + t_idx                            # (B, T)
     rows = torch.arange(B, device=dev)[:, None]
     lora_delta = (_lora_deltas(cfg, lora, adapter_idx.to(dev),
-                               single_adapter, B)
+                               single_adapter, B, tp)
                   if lora is not None and adapter_idx is not None else None)
 
     def at_layer(name: str, li: int):
@@ -957,7 +1093,8 @@ def apply_with_cache(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             y, _ = _moe_mlp(h, blocks["router"][li],
                             weight(at_layer("w_in", li), dt),
                             weight(at_layer("w_out", li), dt),
-                            cfg.expert_top_k, cfg.expert_capacity_factor)
+                            cfg.expert_top_k, cfg.expert_capacity_factor,
+                            model=tp)
         else:
             y = proj(copy_to(h, tp), "w_in", out_fp32=True)
             # jax.nn.gelu defaults to the tanh form
@@ -1007,10 +1144,18 @@ class TpuLM:
         ``unembed=False``; ``return_aux`` adds the layer-averaged MoE
         load-balance term (0.0 for a dense model). With ``mesh`` (a
         ``DeviceMesh`` of :func:`~instaslice_tpu_torch.parallel.slice_mesh`)
-        ``params`` are this rank's shards and ``tokens`` its rows."""
+        ``params`` are this rank's shards and ``tokens`` its rows (its
+        block of each row under ring attention over ``seq``)."""
         return apply(self.cfg, params, tokens, unembed_out=unembed,
                      return_aux=return_aux, axes=mesh_axes(mesh))
 
-    def apply_pipelined(self, *args, **kwargs):
-        raise NotImplementedError("pipeline parallelism is not ported "
-                                  "yet: ROADMAP queue A")
+    def apply_pipelined(self, params: Params, tokens: torch.Tensor, *,
+                        mesh, n_micro: int, axis_name: str = "pipe",
+                        unembed: bool = True, return_aux: bool = False):
+        """GPipe over ``mesh``'s ``axis_name`` axis (:func:`apply_pipelined`):
+        ``params`` are this rank's shards (its stage's layers), ``tokens``
+        its rows; every stage gets the whole output."""
+        return apply_pipelined(self.cfg, params, tokens,
+                               axes=mesh_axes(mesh), n_micro=n_micro,
+                               axis_name=axis_name, unembed_out=unembed,
+                               return_aux=return_aux)

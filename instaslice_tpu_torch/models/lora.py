@@ -26,9 +26,10 @@ As in the JAX package:
   :func:`~instaslice_tpu_torch.models.lm.apply_with_cache`).
 
 The deltas are plain ``torch.einsum`` products, as the JAX package
-computes them outside any Pallas kernel. ``lora_specs`` (the adapter
-tree's sharding over a device mesh) has no meaning on one card and is
-not ported, as the train step has no mesh.
+computes them outside any Pallas kernel. Under a mesh (``mesh=`` of
+:func:`make_lora_train_step`) the adapter tree is laid out by
+:func:`lora_specs` and each rank merges its shards of the base
+(:func:`merge_lora` with ``axes``).
 """
 
 from __future__ import annotations
@@ -39,8 +40,23 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from instaslice_tpu_torch import resolve_device
-from instaslice_tpu_torch.models.lm import ModelConfig, _generator
-from instaslice_tpu_torch.models.quant import QUANT_TYPES, weight
+from instaslice_tpu_torch.models.lm import (
+    ModelConfig,
+    _generator,
+    param_specs,
+)
+from instaslice_tpu_torch.models.quant import (
+    QUANT_TYPES,
+    shard_params,
+    weight,
+)
+from instaslice_tpu_torch.parallel.collectives import (
+    NO_MESH,
+    MeshAxes,
+    copy_to,
+    mesh_axes,
+    shard,
+)
 
 Params = Dict[str, Any]
 
@@ -116,20 +132,48 @@ def init_lora(seed: Union[int, torch.Generator], cfg: ModelConfig,
     return {"blocks": blocks}
 
 
+def lora_specs(cfg: ModelConfig, lcfg: LoraConfig) -> Params:
+    """The adapter tree's layout over a mesh (``lora.py:127-141``):
+    ``b``'s output dim follows the base weight's output axis (``model``
+    for the column-parallel ``wq``/``wk``/``wv`` and dense ``w_in``), ``a``
+    is replicated, and so is ``b`` of the row-parallel ``wo`` and dense
+    ``w_out``."""
+    base = param_specs(cfg)["blocks"]
+    return {"blocks": {t: {"a": (None, None, None),
+                           "b": (None, None, base[t][-1])}
+                       for t in sorted(lcfg.targets)}}
+
+
 def merge_lora(params: Params, lora: Params, cfg: ModelConfig,
-               lcfg: LoraConfig) -> Params:
+               lcfg: LoraConfig, axes: MeshAxes = NO_MESH) -> Params:
     """Base params with every adapted leaf replaced by ``weight(w) +
     scale · a @ b`` in ``cfg.dtype`` (an int8 or int4 base dequantizes
     here: QLoRA). The products and the sum are fp32, as the reference's
     ``preferred_element_type=float32``. Differentiable in ``lora``; the
     other leaves are the base's own objects, and the returned tree feeds
-    the unmodified forward and loss."""
+    the unmodified forward and loss.
+
+    Under a ``model`` axis ``params`` are this rank's shards and ``lora``
+    is laid out by :func:`lora_specs`; each merge is built on shards: a
+    column-parallel target takes ``a @ b`` with ``b`` its columns, a
+    row-parallel one ``a[rank's rows] @ b``. The replicated leaves a rank
+    reads only in part (``a`` of every target, ``b`` of the row-parallel
+    ones) enter through :func:`copy_to`, so their gradients, partial on
+    each rank, are summed over ``model``."""
+    tp = axes.model
+    specs = param_specs(cfg)["blocks"]
     merged = dict(params)
     merged["blocks"] = dict(params["blocks"])
     for t, ab in lora["blocks"].items():
         w = weight(params["blocks"][t], cfg.dtype)
-        delta = torch.einsum("lir,lro->lio", ab["a"].float(),
-                             ab["b"].float()) * lcfg.scale
+        a, b = ab["a"], ab["b"]
+        if tp.size > 1:
+            a = copy_to(a, tp)
+            if specs[t][-2] == "model":
+                a = shard(a, tp, 1)
+                b = copy_to(b, tp)
+        delta = torch.einsum("lir,lro->lio", a.float(), b.float()) \
+            * lcfg.scale
         merged["blocks"][t] = (w.float() + delta).to(cfg.dtype)
     return merged
 
@@ -197,32 +241,50 @@ def make_lora_train_step(
     warmup_steps: int = 0,
     decay_steps: int = 0,
     device="cuda",
+    mesh=None,
 ) -> Tuple[Callable, Callable]:
-    """``(init_fn, step_fn)`` training ONLY the adapter tree on one card
-    (``lora.py:214-293`` without the mesh).
+    """``(init_fn, step_fn)`` training ONLY the adapter tree
+    (``lora.py:214-293``), on one card or, with ``mesh``, SPMD over a
+    ("data", "seq", "model") ``DeviceMesh``.
 
-    ``base_params`` is captured frozen on the device (its leaves may be
-    int8). ``init_fn(seed=0, lora=None) -> TrainState`` holds the
-    adapters (:func:`init_lora` from ``seed``, or the given tree moved to
-    the device) and their optimizer: the port's
+    ``base_params`` (the whole tree; its leaves may be int8) is captured
+    frozen on the device, under a mesh as this rank's shards
+    (:func:`~instaslice_tpu_torch.models.quant.shard_params`, int8 values
+    and scales split alike). ``init_fn(seed=0, lora=None) -> TrainState``
+    holds the adapters (:func:`init_lora` from ``seed``, or the given
+    tree moved to the device; under a mesh this rank's block by
+    :func:`lora_specs`) and their optimizer: the port's
     :class:`~instaslice_tpu_torch.models.train.Optimizer` at
     ``weight_decay=0.0`` (decaying A/B would shrink the delta toward the
-    base). ``step_fn(state, tokens) -> (state, loss)`` takes the
-    existing ``loss_fn`` over :func:`merge_lora` of the base and the
-    adapters, through the shared ``accumulated_grads``; ``grad_accum``,
-    ``grad_clip`` and the warmup-cosine schedule behave as in
-    ``make_train_step``."""
+    base). ``step_fn(state, tokens, *, local=False) -> (state, loss)``
+    takes the existing ``loss_fn`` over :func:`merge_lora` of the base and
+    the adapters, through the shared ``accumulated_grads``; under a mesh
+    each rank takes its ``data`` rows and the adapters' gradients (whole
+    on each rank after the merge's ``copy_to``) average over ``data``
+    before the clip, whose norm counts ``b``'s column shards over
+    ``model``. ``grad_accum``, ``grad_clip`` and the warmup-cosine
+    schedule behave as in ``make_train_step``."""
+    from instaslice_tpu_torch.models.data import data_rows
+    from instaslice_tpu_torch.models.lm import check_mesh
     from instaslice_tpu_torch.models.train import (
+        Layout,
         Optimizer,
         TrainState,
         accumulated_grads,
+        average_grads,
         leaves,
         loss_fn,
+        map_tree,
     )
 
     cfg = model.cfg
     dev = resolve_device(device)
+    axes = mesh_axes(mesh)
+    check_mesh(cfg, axes)
     base = frozen(base_params, dev)
+    if mesh is not None:
+        base = shard_params(base, param_specs(cfg), axes)
+    specs = lora_specs(cfg, lcfg)
 
     def init_fn(seed: Union[int, torch.Generator] = 0,
                 lora: Optional[Params] = None) -> TrainState:
@@ -232,20 +294,32 @@ def make_lora_train_step(
             lora = {"blocks": {t: {k: v.clone() for k, v in ab.items()}
                                for t, ab in frozen(lora, dev)["blocks"]
                                .items()}}
+        layout = None
+        if mesh is not None:
+            layout = Layout(cfg, axes, lora, specs=specs)
+            lora = map_tree(
+                lambda path, t: layout.shard(layout.paths.index(path), t),
+                lora)
         for p in leaves(lora):
             p.requires_grad_(True)
         opt = Optimizer(leaves(lora), learning_rate, grad_clip=grad_clip,
                         warmup_steps=warmup_steps, decay_steps=decay_steps,
-                        weight_decay=0.0)
-        return TrainState(step=0, params=lora, opt_state=opt)
+                        weight_decay=0.0, layout=layout)
+        return TrainState(step=0, params=lora, opt_state=opt, layout=layout)
 
     def loss_of(lora, toks):
-        return loss_fn(model, merge_lora(base, lora, cfg, lcfg), toks,
-                       loss_chunk=loss_chunk)
+        return loss_fn(model, merge_lora(base, lora, cfg, lcfg, axes), toks,
+                       mesh, loss_chunk=loss_chunk)
 
-    def step_fn(state: TrainState, tokens: torch.Tensor):
+    def step_fn(state: TrainState, tokens: torch.Tensor, *,
+                local: bool = False):
         tokens = torch.as_tensor(tokens).to(dev)
+        dp = axes.data
+        if dp.size > 1 and not local:
+            rows = data_rows(tokens.shape[0], dp.size, dp.rank, grad_accum)
+            tokens = tokens[torch.tensor(rows, device=dev)]
         loss = accumulated_grads(loss_of, state.params, tokens, grad_accum)
+        loss = average_grads(state.params, loss, axes)
         state.opt_state.step()
         state.step += 1
         return state, loss

@@ -15,15 +15,16 @@ process per rank (``train.py:314-422`` with the partitioner's
 collectives written out): each rank takes its ``data`` rows of the
 batch (:func:`~instaslice_tpu_torch.models.data.data_rows`), holds its
 ``model`` shards of the params (:func:`~instaslice_tpu_torch.models.lm.
-param_specs`), computes the vocab-parallel loss, averages the gradients
-over ``data``, clips by the norm of the whole gradient, and with
-``zero1`` updates only its ``data`` slice of each moment (ZeRO-1,
-``state_shardings`` ``:153-214``) before all-gathering the params. The
-step's math is the one-process step's at every mesh shape, and a mesh of
-one rank runs exactly the meshless step.
-
-Not ported, and raising ``NotImplementedError``: pipeline parallelism
-(``n_micro``), a ``seq`` axis, MoE experts over ``model``.
+param_specs`: heads, FFN hidden dim or experts, vocabulary), computes the
+vocab-parallel loss, averages the gradients over ``data``, clips by the
+norm of the whole gradient, and with ``zero1`` updates only its ``data``
+slice of each moment (ZeRO-1, ``state_shardings`` ``:153-214``) before
+all-gathering the params. With ring attention each rank of ``seq`` runs
+its block of every row and the gradients average over ``seq`` too. With
+``n_micro`` over a ("pipe", "data", "model") mesh the forward is GPipe
+and each rank holds its stage's layers. The step's math is the
+one-process step's at every mesh shape, and a mesh of one rank runs
+exactly the meshless step.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from instaslice_tpu_torch.models.lm import (
     TpuLM,
     check_mesh,
     param_specs,
+    ring_axis,
     unembed,
 )
 from instaslice_tpu_torch.parallel.collectives import (
@@ -175,12 +177,15 @@ def _chunked_xent(embed_leaf, hidden, targets, mask,
 
 
 def loss_fn(model: TpuLM, params: Params, tokens: torch.Tensor,
-            mesh=None, loss_chunk: int = DEFAULT_LOSS_CHUNK,
+            mesh=None, n_micro: int = 0, pipe_axis: str = "pipe",
+            loss_chunk: int = DEFAULT_LOSS_CHUNK,
             moe_aux_weight: float = DEFAULT_MOE_AUX_WEIGHT) -> torch.Tensor:
-    """Next-token cross-entropy (``train.py:94-150``, no pipeline):
-    tokens (B, S) predict ``roll(tokens, -1)``, the last position has no
-    target. ``loss_chunk`` > 0 takes the chunked loss, 0 the one-shot
-    log-softmax over the full logits. An MoE model with
+    """Next-token cross-entropy (``train.py:94-150``): tokens (B, S)
+    predict ``roll(tokens, -1)``, the last position has no target.
+    ``loss_chunk`` > 0 takes the chunked loss, 0 the one-shot
+    log-softmax over the full logits; ring attention always takes the
+    one-shot loss, as the reference does. ``n_micro`` > 0 runs the
+    forward as GPipe over the mesh's ``pipe_axis``. An MoE model with
     ``moe_aux_weight`` > 0 adds that weight times the layer-averaged
     load-balance term (without it top-k routing collapses onto a few
     experts and the capacity drops eat the batch).
@@ -189,29 +194,54 @@ def loss_fn(model: TpuLM, params: Params, tokens: torch.Tensor,
     rows; the loss is the mean over those rows (the data-axis gradient
     average makes it the whole batch's). Under a ``model`` axis the
     cross-entropy is vocab-parallel (:func:`_vocab_parallel_nll`), one
-    chunk at a time or, at ``loss_chunk`` 0, over the whole sequence."""
-    tp = mesh_axes(mesh).model
+    chunk at a time or, at ``loss_chunk`` 0, over the whole sequence.
+    Under ring attention over a ``seq`` axis of n ranks the rows arrive
+    whole: the targets roll over the whole row, as the reference rolls
+    its (S + 1)-wide row (each block's last target is the next block's
+    first token, and only the last block masks its last position), then
+    each rank keeps its block of tokens, targets and mask, and its loss
+    is ``n`` times its block's share of the row's cross-entropy (plus the
+    aux term, whole on every rank): the mean over ``seq`` of the ranks'
+    losses is the row's loss, so the gradient average over ``seq`` sums
+    the blocks' parts."""
+    axes = mesh_axes(mesh)
+    tp = axes.model
+    cfg = model.cfg
     targets = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32,
                       device=tokens.device)
     mask[:, -1] = 0.0
-    chunked = loss_chunk > 0
-    want_aux = bool(model.cfg.n_experts) and moe_aux_weight > 0
-    out = model.apply(params, tokens, mesh=mesh,
-                      unembed=not chunked and tp.size == 1,
-                      return_aux=want_aux)
+    count = mask.sum()
+    sq = ring_axis(cfg, axes)
+    if sq.size > 1:
+        tokens, targets, mask = (shard(t, sq, 1)
+                                 for t in (tokens, targets, mask))
+    chunked = loss_chunk > 0 and not cfg.ring_attention
+    want_aux = bool(cfg.n_experts) and moe_aux_weight > 0
+    unembed_here = not chunked and tp.size == 1
+    if n_micro:
+        if mesh is None:
+            raise ValueError("pipeline-parallel loss (n_micro > 0) needs "
+                             "the mesh carrying the pipe axis")
+        out = model.apply_pipelined(params, tokens, mesh=mesh,
+                                    n_micro=n_micro, axis_name=pipe_axis,
+                                    unembed=unembed_here,
+                                    return_aux=want_aux)
+    else:
+        out = model.apply(params, tokens, mesh=mesh, unembed=unembed_here,
+                          return_aux=want_aux)
     if want_aux:
         out, aux = out
     if chunked:
-        xent = _chunked_xent(params["embed"], out, targets, mask,
-                             loss_chunk, tp) / mask.sum()
+        total = _chunked_xent(params["embed"], out, targets, mask,
+                              loss_chunk, tp)
     elif tp.size > 1:
-        xent = _vocab_parallel_nll(params["embed"], out, targets, mask,
-                                   tp) / mask.sum()
+        total = _vocab_parallel_nll(params["embed"], out, targets, mask, tp)
     else:
         logp = torch.log_softmax(out, dim=-1)
         nll = -logp.gather(-1, targets[..., None].long())[..., 0]
-        xent = (nll * mask).sum() / mask.sum()
+        total = (nll * mask).sum()
+    xent = total * sq.size / count
     return xent + moe_aux_weight * aux if want_aux else xent
 
 
@@ -237,25 +267,38 @@ def warmup_cosine(peak: float, warmup_steps: int,
 class Layout:
     """Where each leaf of a params tree lies on the mesh: its
     :func:`~instaslice_tpu_torch.models.lm.param_specs` entry (the
-    ``model`` shards) and, with ``zero1``, the dim its moments are sliced
+    ``model`` shards, and the ``pipe`` stage of a pipelined step's
+    stacked leaves) or, for an adapter tree, its ``lora_specs`` entry
+    (``specs``) and, with ``zero1``, the dim its moments are sliced
     along over ``data`` (:func:`zero1_dim`, from the leaf's shape on this
     rank). Built by ``make_train_step``'s ``init_fn`` for a mesh."""
 
     def __init__(self, cfg, axes: MeshAxes, params: Params,
-                 zero1: bool = False):
+                 zero1: bool = False, specs: Optional[Params] = None,
+                 pipe_axis: str = ""):
         self.axes = axes
-        specs = param_specs(cfg)
+        if specs is None:
+            specs = param_specs(cfg, pipe_axis)
         self.paths = leaf_paths(params)
         self.specs = [spec_at(specs, p) for p in self.paths]
         dp = axes.data.size if zero1 else 1
         self.zero_dims = [zero1_dim(sp, t.shape, dp)
                           for sp, t in zip(self.specs, leaves(params))]
 
-    def model_sharded(self, i: int) -> bool:
-        return "model" in self.specs[i] and self.axes.model.size > 1
+    def split_over(self, i: int) -> Tuple[str, ...]:
+        """The axes (of more than one rank) leaf ``i`` is split over."""
+        return tuple(a for a in self.specs[i]
+                     if a is not None and self.axes.of(a).size > 1)
+
+    def n_blocks(self, i: int) -> int:
+        """How many ranks' blocks make leaf ``i`` whole."""
+        n = 1
+        for a in self.split_over(i):
+            n *= self.axes.of(a).size
+        return n
 
     def shard(self, i: int, full: torch.Tensor) -> torch.Tensor:
-        """This rank's ``model`` block of leaf ``i`` (a contiguous copy)."""
+        """This rank's block of leaf ``i`` (a contiguous copy)."""
         return shard_leaf(full, self.specs[i], self.axes)
 
     def gather(self, i: int, local: torch.Tensor) -> torch.Tensor:
@@ -286,9 +329,9 @@ class Optimizer:
     of updates before this one, as optax's count does: the first update
     runs at lr 0 when warmup is on.
 
-    With a :class:`Layout` the params are this rank's ``model`` shards:
-    the clip's norm adds the squares of the sharded leaves over ``model``
-    and counts the replicated ones once. A leaf the layout slices for
+    With a :class:`Layout` the params are this rank's shards: the clip's
+    norm adds the squares of each sharded leaf over the axes it is split
+    over (``model``, ``pipe``) and counts the replicated ones once. A leaf the layout slices for
     ZeRO-1 is updated through a slice of its own: AdamW holds moments for
     the slice only, updates it from the same slice of the (data-averaged,
     clipped) gradient, and the ranks' slices are all-gathered into the
@@ -324,14 +367,18 @@ class Optimizer:
     def clip_(self) -> None:
         grads = [p.grad for p in self.params]
         sq = [(g.float() * g.float()).sum() for g in grads]
-        sharded = [self.layout is not None and self.layout.model_sharded(i)
-                   for i in range(len(sq))]
-        if any(sharded):
-            total = all_reduce_(sum(q for q, s in zip(sq, sharded) if s),
-                                self.layout.axes.model) + sum(
-                q for q, s in zip(sq, sharded) if not s)
-        else:
-            total = sum(sq)
+        lay = self.layout
+        groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for i, q in enumerate(sq):
+            groups.setdefault(lay.split_over(i) if lay is not None else (),
+                              []).append(q)
+        total = sum(groups.pop((), []))
+        # each split leaf's squares summed over its axes, in a fixed order
+        for names in sorted(groups):
+            part = sum(groups[names])
+            for name in names:
+                part = all_reduce_(part, lay.axes.of(name))
+            total = total + part
         norm = torch.sqrt(total)
         self.grad_norm = norm.detach()
         coef = torch.where(norm < self.grad_clip, torch.ones_like(norm),
@@ -445,6 +492,20 @@ def full_params(state: TrainState) -> Params:
                     state.params)
 
 
+def average_grads(params: Params, loss: torch.Tensor,
+                  axes: MeshAxes) -> torch.Tensor:
+    """Every leaf's ``.grad`` and the loss averaged over ``data`` and
+    ``seq`` (each rank's loss is an estimate of the whole step's: its
+    rows, or n times its block's share of them under ring attention);
+    returns the averaged loss."""
+    for ax in (axes.data, axes.seq):
+        if ax.size > 1:
+            for p in leaves(params):
+                p.grad = all_reduce_(p.grad.contiguous(), ax) / ax.size
+            loss = all_reduce_(loss.clone(), ax) / ax.size
+    return loss
+
+
 def make_train_step(
     model: TpuLM,
     *,
@@ -458,6 +519,7 @@ def make_train_step(
     device="cuda",
     zero1: bool = False,
     n_micro: int = 0,
+    pipe_axis: str = "pipe",
     mesh=None,
 ) -> Tuple[Callable, Callable]:
     """``(init_fn, step_fn)`` (``train.py:314-422``), on one device or,
@@ -467,21 +529,37 @@ def make_train_step(
     ``init_fn(seed=0, params=None) -> TrainState``: random weights from
     ``seed`` in ``cfg.param_dtype`` (fp32 masters) or, given ``params``,
     those (moved to the device); under a mesh each rank keeps its
-    ``model`` shards of the same whole tree. ``step_fn(state, tokens, *,
+    shards of the same whole tree. ``step_fn(state, tokens, *,
     local=False) -> (state, loss)``: tokens (B, S) int, the step's global
     batch, of which each rank takes its ``data`` rows (``local=True``:
     ``tokens`` are already this rank's rows, as
     :class:`~instaslice_tpu_torch.models.data.HostShardedTokens` reads
-    them); the loss is the global batch's, a 0-dim tensor on the device
-    (no host sync). ``zero1`` slices the AdamW moments over ``data``
-    (see :class:`Optimizer`; a no-op without a ``data`` axis)."""
-    if n_micro:
-        raise NotImplementedError(
-            "pipeline parallelism (n_micro) is not ported yet: ROADMAP "
-            "queue A")
+    them; whole rows, also under ring attention); the loss is the global
+    batch's, a 0-dim tensor on the device (no host sync). ``zero1``
+    slices the AdamW moments over ``data`` (see :class:`Optimizer`; a
+    no-op without a ``data`` axis). ``n_micro`` > 0 runs GPipe over the
+    mesh's ``pipe_axis`` with that many micro-batches, each rank holding
+    its stage's layers (and their moments); a data rank then takes its
+    share of each of the global batch's ``n_micro`` micro-batches. The
+    reference's checks: ``n_micro`` needs a mesh with ``pipe_axis``, and
+    does not combine with ``grad_accum``."""
     dev = resolve_device(device)
     axes = mesh_axes(mesh)
+    if n_micro and (mesh is None
+                    or pipe_axis not in (mesh.mesh_dim_names or ())):
+        raise ValueError(
+            f"n_micro={n_micro} but mesh has no {pipe_axis!r} axis (axes: "
+            f"{None if mesh is None else mesh.mesh_dim_names})")
+    if grad_accum > 1 and n_micro:
+        raise ValueError(
+            "grad_accum and n_micro are both micro-batching schemes; "
+            "pipeline parallelism already accumulates over its "
+            "microbatches — use one or the other")
     check_mesh(model.cfg, axes)
+    if n_micro and model.cfg.n_layers % axes.of(pipe_axis).size:
+        raise ValueError(
+            f"{model.cfg.n_layers} layers not divisible by pipe axis size "
+            f"{axes.of(pipe_axis).size}")
     if mesh is not None and mesh.device_type != dev.type:
         raise ValueError(f"the mesh is over {mesh.device_type} devices, "
                          f"the step runs on {dev}")
@@ -495,7 +573,8 @@ def make_train_step(
             params = _to_device(params, dev)
         layout = None
         if mesh is not None:
-            layout = Layout(model.cfg, axes, params, zero1)
+            layout = Layout(model.cfg, axes, params, zero1,
+                            pipe_axis=pipe_axis if n_micro else "")
             params = map_tree(
                 lambda path, t: layout.shard(layout.paths.index(path), t),
                 params)
@@ -508,21 +587,19 @@ def make_train_step(
                           layout=layout)
 
     def loss_of(p, toks):
-        return loss_fn(model, p, toks, mesh, loss_chunk=loss_chunk,
+        return loss_fn(model, p, toks, mesh, n_micro=n_micro,
+                       pipe_axis=pipe_axis, loss_chunk=loss_chunk,
                        moe_aux_weight=moe_aux_weight)
 
     def step_fn(state: TrainState, tokens: torch.Tensor, *,
                 local: bool = False):
         tokens = torch.as_tensor(tokens).to(dev)
         if dp.size > 1 and not local:
-            rows = data_rows(tokens.shape[0], dp.size, dp.rank, grad_accum)
+            rows = data_rows(tokens.shape[0], dp.size, dp.rank,
+                             max(grad_accum, n_micro, 1))
             tokens = tokens[torch.tensor(rows, device=dev)]
         loss = accumulated_grads(loss_of, state.params, tokens, grad_accum)
-        if dp.size > 1:
-            # the mean over the global batch: all-reduce, then divide
-            for p in leaves(state.params):
-                p.grad = all_reduce_(p.grad.contiguous(), dp) / dp.size
-            loss = all_reduce_(loss.clone(), dp) / dp.size
+        loss = average_grads(state.params, loss, axes)
         state.opt_state.step()
         state.step += 1
         return state, loss

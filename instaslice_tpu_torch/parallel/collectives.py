@@ -15,13 +15,20 @@ rank, so the port issues them itself:
   divide both ways;
 - :func:`all_reduce_` in place with no autograd (gradient averaging, the
   clip norm, the vocab-parallel max), :func:`all_gather` and
-  :func:`shard` for ZeRO-1 and for checkpoints.
+  :func:`shard` for ZeRO-1 and for checkpoints;
+- :func:`ring_shift`: every rank's block to the next rank of the axis
+  (``lax.ppermute`` with the permutation ``j -> j + 1``), whose backward
+  is the reverse rotation, as ``ppermute`` transposes: ring attention's
+  K/V hops over ``seq`` and GPipe's stage-to-stage activations over
+  ``pipe``.
 
 On an axis of size 1 every op returns its input and issues nothing, so a
 mesh of one rank computes exactly the meshless step. gloo runs each op
 used here on CUDA tensors too (all-reduce by sum and max, fp32 and bf16,
 and the all-gather, in the card's PyTorch 2.11), so two processes can
-share one card over gloo with nothing staged by hand.
+share one card over gloo with nothing staged by hand; gloo's
+point-to-point ops take host tensors only, so :func:`ring_shift` stages a
+CUDA tensor through host memory under gloo.
 """
 
 from __future__ import annotations
@@ -55,18 +62,23 @@ NO_AXIS = Axis()
 
 @dataclasses.dataclass(frozen=True)
 class MeshAxes:
-    """The three axes of a ("data", "seq", "model") mesh; an axis the
-    mesh lacks, or of size 1, is :data:`NO_AXIS`."""
+    """The axes of a ("data", "seq", "model") mesh, and GPipe's ``pipe``
+    (the reference's ("pipe", "data", "model") meshes); an axis the mesh
+    lacks, or of size 1, is :data:`NO_AXIS`."""
 
     data: Axis = NO_AXIS
     seq: Axis = NO_AXIS
     model: Axis = NO_AXIS
+    pipe: Axis = NO_AXIS
 
     def of(self, name: str) -> Axis:
         return getattr(self, name)
 
 
 NO_MESH = MeshAxes()
+
+#: the axis names a port mesh may carry
+AXIS_NAMES = ("pipe", "data", "seq", "model")
 
 
 def mesh_axes(mesh) -> MeshAxes:
@@ -79,10 +91,10 @@ def mesh_axes(mesh) -> MeshAxes:
         raise TypeError(f"mesh must be a torch DeviceMesh (slice_mesh), "
                         f"not {type(mesh).__name__}")
     names = tuple(mesh.mesh_dim_names or ())
-    unknown = set(names) - {"data", "seq", "model"}
+    unknown = set(names) - set(AXIS_NAMES)
     if unknown:
         raise ValueError(f"mesh axes {names}: {sorted(unknown)} are not "
-                         "among ('data', 'seq', 'model')")
+                         f"among {AXIS_NAMES}")
     if mesh.get_coordinate() is None:
         raise ValueError("this rank is not in the mesh")
     axes = {}
@@ -123,6 +135,37 @@ def shard(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide "
                          f"over {ax.size} ranks")
     return t.narrow(dim, ax.rank * n, n)
+
+
+def _rotate(t: torch.Tensor, ax: Axis, shift: int) -> torch.Tensor:
+    """Every rank's ``t`` sent ``shift`` ranks on along ``ax`` (cyclic);
+    returns what the rank ``shift`` before this one sent. One send and
+    one receive per rank; under gloo a CUDA tensor goes through host
+    memory (gloo's point-to-point ops take host tensors only)."""
+    n, r = ax.size, ax.rank
+    dst = dist.get_global_rank(ax.group, (r + shift) % n)
+    src = dist.get_global_rank(ax.group, (r - shift) % n)
+    staged = t.detach().contiguous()
+    if ax.backend == "gloo" and staged.is_cuda:
+        staged = staged.cpu()
+    got = torch.empty_like(staged)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, staged, dst, ax.group),
+        dist.P2POp(dist.irecv, got, src, ax.group)])
+    for req in reqs:
+        req.wait()
+    return got.to(t.device)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _rotate(x, ax, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rotate(g, ctx.ax, -1), None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -193,6 +236,15 @@ def mean_over(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     it: the gradient is the mean of the ranks' gradients, so that after
     the data-axis gradient average each rank's share is its own term's."""
     return x if ax.size == 1 else _MeanOver.apply(x, ax)
+
+
+def ring_shift(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The block of the rank before this one along ``ax`` (rank ``j``'s
+    ``x`` goes to rank ``j + 1 mod n``, ``lax.ppermute`` with the
+    reference's ``perm``); the gradient goes back the other way round.
+    Every rank of the axis must call it, and, under autograd, use its
+    output, so that every rank's backward issues the reverse rotation."""
+    return x if ax.size == 1 else _RingShift.apply(x, ax)
 
 
 def shard_leaf(t: torch.Tensor, spec: Sequence[Optional[str]],

@@ -52,8 +52,9 @@ on the device from a seeded init (or a port checkpoint; the draft of
 serves ``--window`` (sliding-window attention) and ``--quantize-bits 4``
 (group-wise int4 weights over an int8 KV cache), and refuses the flags
 whose paths are not ported yet (an orbax checkpoint). ``--from-env``
-serves tensor-parallel over every rank of the process group
-(:func:`build_engine`, :func:`split_ranks`): rank 0 answers HTTP through
+serves tensor-parallel over every rank of the process group, stacked
+``--lora`` adapters included (:func:`build_engine`,
+:func:`split_ranks`): rank 0 answers HTTP through
 :class:`~instaslice_tpu_torch.serving.distributed.DistributedEngine` and
 the other ranks replay its op stream on ``--oplog-port``. The TPU host lock (``utils/tpulock.py``) is a
 rule of the TPU host's runtime and is not copied. Run via
@@ -1109,15 +1110,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Exit non-zero on a flag whose path is not ported yet, naming its
-    ROADMAP queue A item, and on a checkpoint directory that holds no
-    checkpoint of the port's own format."""
-    if args.from_env and len(args.lora) > 1 and _world_size() > 1:
-        raise SystemExit(
-            "two or more --lora under --from-env at a world size above 1: "
-            "stacked adapters under a serving mesh are not ported yet "
-            "(ROADMAP queue A item 1b; one --lora merges into the weights "
-            "and serves)")
+    """Exit non-zero on a checkpoint directory that holds no checkpoint
+    of the port's own format."""
     from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
 
     def missing(path: str) -> bool:
@@ -1191,15 +1185,6 @@ def _load_adapters(args):
         alphas.append(alpha)
         adapters.append(lora)
     return adapters, alphas, names
-
-
-def _world_size() -> int:
-    """The ranks ``--from-env`` will start: torchrun's ``WORLD_SIZE``, else
-    one per worker of the handoff env."""
-    from instaslice_tpu_torch.parallel.meshenv import SliceTopology
-
-    return int(os.environ.get("WORLD_SIZE",
-                              SliceTopology.from_env().num_workers))
 
 
 def _serving_mesh(dev):

@@ -88,11 +88,14 @@ so every port mesh above one rank is multi-process (``_multiproc``) and
 on a multi-process mesh. The reference turns its Pallas kernels off at
 mesh size > 1, because ``pallas_call`` does not auto-partition; here a
 rank's product is a local dense product on local shards, so B1, B2 and
-B3 run on each rank's shards and compute the same function. Decode
-blocks run eagerly at a model axis above 1 (a collective is not
-captured into a CUDA graph here: ROADMAP queue A), stacked adapters
-under a mesh are not ported (queue A item 1b), and a mixture-of-experts
-model under a mesh raises (queue A item 1c).
+B3 run on each rank's shards and compute the same function. A
+mixture-of-experts model serves its experts over ``model`` (each rank
+holds E / tp of them and dequantizes only those; B4 runs on its
+attention heads), and stacked adapters stay whole on every rank, as the
+reference replicates them, each rank adding its part of every delta
+(the fast path and the gathered rounds as on one card). Decode blocks
+run eagerly at a model axis above 1 (a collective is not captured into a
+CUDA graph here: ROADMAP queue A item 1a).
 
 Where the JAX engine compiles a ``lax.scan`` of decode steps (one
 program per static key), a CUDA engine captures ONE decode step as a CUDA
@@ -294,14 +297,9 @@ class ServingEngine:
                 raise ValueError(
                     "decode_graphs under tensor parallelism is not ported: "
                     "a collective is not captured into a CUDA graph here "
-                    "(ROADMAP queue A); leave decode_graphs unset for the "
-                    "eager route")
+                    "(ROADMAP queue A item 1a); leave decode_graphs unset "
+                    "for the eager route")
             decode_graphs = False
-            if lora_adapters:
-                raise NotImplementedError(
-                    "stacked LoRA adapters under a serving mesh "
-                    "(lora_specs) are not ported yet: ROADMAP queue A item "
-                    "1b (a --lora merged into the weights serves)")
         if decode_graphs is None:
             decode_graphs = self.device.type == "cuda"
         if decode_graphs and self.device.type != "cuda":

@@ -96,19 +96,22 @@ def test_slice_mesh_needs_a_process_group():
 
 
 def test_unported_parallel_names_and_bad_meshes_raise():
+    """GPipe and ring attention are exported by the parallel package;
+    what the reference refuses still raises: a mesh that is not a torch
+    ``DeviceMesh``, a model axis that does not divide the experts or the
+    heads. A seq axis and MoE experts over model are accepted."""
     import instaslice_tpu_torch.parallel as par
+    from instaslice_tpu_torch.parallel import pipeline, ring
 
-    for name in ("pipeline_blocks", "ring_attention"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(par, name)
+    assert par.pipeline_blocks is pipeline.pipeline_blocks
+    assert par.ring_attention is ring.ring_attention
     with pytest.raises(TypeError, match="DeviceMesh"):
         coll.mesh_axes(object())
-    cfg = tlm.ModelConfig(n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.check_mesh(cfg, coll.MeshAxes(model=coll.Axis(size=2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.check_mesh(tlm.ModelConfig(),
-                       coll.MeshAxes(seq=coll.Axis(size=2)))
+    tp2 = coll.MeshAxes(model=coll.Axis(size=2))
+    tlm.check_mesh(tlm.ModelConfig(n_experts=4), tp2)
+    tlm.check_mesh(tlm.ModelConfig(), coll.MeshAxes(seq=coll.Axis(size=2)))
+    with pytest.raises(ValueError, match="n_experts"):
+        tlm.check_mesh(tlm.ModelConfig(n_experts=3), tp2)
     with pytest.raises(ValueError, match="n_heads"):
         tlm.check_mesh(tlm.ModelConfig(n_heads=6, d_model=384),
                        coll.MeshAxes(model=coll.Axis(size=4)))

@@ -120,6 +120,8 @@ PARALLEL = {
     "instaslice_tpu_torch.parallel",
     "instaslice_tpu_torch.parallel.collectives",
     "instaslice_tpu_torch.parallel.meshenv",
+    "instaslice_tpu_torch.parallel.pipeline",
+    "instaslice_tpu_torch.parallel.ring",
 }
 
 

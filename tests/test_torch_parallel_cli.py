@@ -1,7 +1,10 @@
 """The port's training CLI under ``python -m torch.distributed.run`` on
 the CPU (gloo): ``--tp 2`` and ``--zero1`` at dp 2, two processes each,
 against ``--tp 1`` in one process; a checkpoint the two-process run wrote
-resumed by one process; the flags still refused.
+resumed by one process; ``--ring --sp 2``, ``--n-experts 4 --tp 2`` and
+``--lora-rank 4 --tp 2`` against the same flags in one process; and
+``--from-env`` at world 2 (two processes under the handoff env, no
+torchrun) against the same run under torchrun; the flags still refused.
 
 Losses are the CLI's JSON ``losses`` ([step, loss] per logged step,
 unrounded), held within 1e-5 relative (fp32; the partitioned sums run in
@@ -18,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from conftest import free_port
 from instaslice_tpu_torch.cli import train_main
 
 REPO = Path(__file__).resolve().parents[1]
@@ -49,16 +53,30 @@ def runs(tmp_path_factory):
         "zero1": launch + TINY + ["--steps", "3", "--zero1", "--checkpoint",
                                   str(out / "ck")],
     }
+    for name, (flags, mesh) in PARITY.items():
+        jobs[name] = launch + TINY + ["--steps", "3"] + flags + mesh
     procs = {k: subprocess.Popen(cmd, cwd=out, env=env, text=True,
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE)
              for k, cmd in jobs.items()}
+    # --from-env: two plain processes under the handoff env
+    port = free_port()
+    for r in range(2):
+        renv = dict(env, TPU_WORKER_ID=str(r),
+                    TPU_WORKER_HOSTNAMES="127.0.0.1,127.0.0.1",
+                    TPUSLICE_COORDINATOR_PORT=str(port))
+        procs[f"from_env{r}"] = subprocess.Popen(
+            [sys.executable, "-m", "instaslice_tpu_torch.cli.train_main"]
+            + TINY + ["--steps", "3", "--tp", "2", "--from-env"], cwd=out,
+            env=renv, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
     res = {}
     try:
         for k, p in procs.items():
             o, e = p.communicate(timeout=240)
             assert p.returncode == 0, (k, e[-3000:])
-            res[k] = _json(o)
+            if k != "from_env1":        # rank 0 prints the JSON line
+                res[k] = _json(o)
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -66,6 +84,16 @@ def runs(tmp_path_factory):
                 p.communicate()
     res["out"] = out
     return res
+
+
+#: flags held against the same flags in one process: (the flags, the
+#: two-process job's mesh)
+PARITY = {
+    "ring_sp2": (["--ring"], ["--sp", "2"]),
+    "moe_tp2": (["--n-experts", "4"], ["--tp", "2"]),
+    "lora_tp2": (["--lora-rank", "4", "--lora-targets", "wq,wv,wo"],
+                 ["--tp", "2"]),
+}
 
 
 def _one_process(args, capsys) -> dict:
@@ -96,6 +124,39 @@ def test_two_process_checkpoint_resumes_in_one_process(runs, capsys):
     assert resumed["losses"][0][0] == 4
     np.testing.assert_allclose(resumed["losses"][0][1], one["losses"][3][1],
                                rtol=REL)
+
+
+@pytest.mark.parametrize("job", list(PARITY))
+def test_new_mesh_flags_match_one_process(runs, capsys, job):
+    """``--ring --sp 2`` (each rank a block of every 16-token row, ring
+    attention, the one-shot loss), ``--n-experts 4 --tp 2`` (two experts a
+    rank) and ``--lora-rank 4 --tp 2`` (adapters over the base's shards)
+    give the one-process losses of the same flags step by step."""
+    one = _one_process(["--steps", "3"] + PARITY[job][0], capsys)
+    got = runs[job]
+    sp, tp = (2, 1) if job == "ring_sp2" else (1, 2)
+    assert got["mesh"] == {"data": 1, "seq": sp, "model": tp}
+    assert got["params_m"] == one["params_m"]
+    np.testing.assert_allclose([x for _, x in got["losses"]],
+                               [x for _, x in one["losses"]], rtol=REL)
+
+
+def test_from_env_matches_torchrun(runs):
+    """``--from-env --tp 2`` in two processes whose group comes from the
+    handoff env (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``,
+    ``TPUSLICE_COORDINATOR_PORT``) gives the torchrun run's mesh and
+    losses bit for bit."""
+    got, want = runs["from_env0"], runs["tp2"]
+    assert got["mesh"] == want["mesh"] == {"data": 1, "seq": 1, "model": 2}
+    assert got["losses"] == want["losses"]
+
+
+def test_ring_seq_len_must_divide_over_sp(monkeypatch):
+    """The reference's check: dataset rows are seq_len + 1 wide and ring
+    shards them over sp."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="does not divide"):
+        train_main.main(TINY + ["--ring", "--sp", "3"])
 
 
 def test_tp_outside_torchrun_and_lora_zero1_exit(monkeypatch):

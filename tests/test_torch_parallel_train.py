@@ -22,19 +22,16 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh
 
 from instaslice_tpu.models import lm as jlm
-from instaslice_tpu.models import train as jtrain
 from instaslice_tpu_torch.models import lm as tlm
 from instaslice_tpu_torch.models import train as ttrain
 from instaslice_tpu_torch.models.checkpoint import TrainCheckpointer
-from torch_port_util import numpy_params
+from torch_port_util import flat_np, jax_mesh_run, numpy_params, rel_l2
 
 TESTS = Path(__file__).resolve().parent
 REPO = TESTS.parent
@@ -86,15 +83,6 @@ def _batches(name):
         np.int32) for _ in range(3)]
 
 
-def _flat_np(tree, prefix=""):
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flat_np(v, f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: np.asarray(tree, np.float32)}
-
-
 def _meshless_run(name, steps, ckpt_dir=None):
     """The port's meshless step over ``name``'s weights and batches
     (optionally restored from ``ckpt_dir`` first); (losses, params)."""
@@ -102,7 +90,7 @@ def _meshless_run(name, steps, ckpt_dir=None):
     opts = {k: v for k, v in SPEC[name][4].items() if k != "zero1"}
     init_fn, step_fn = ttrain.make_train_step(
         tlm.TpuLM(cfg), device="cpu", **OPTS, **opts)
-    state = init_fn(params=_tree(_flat_np(_np_params(name))))
+    state = init_fn(params=_tree(flat_np(_np_params(name))))
     if ckpt_dir is not None:
         assert TrainCheckpointer(ckpt_dir).restore(state) is not None
     losses = []
@@ -176,7 +164,7 @@ def world(tmp_path_factory):
         case = {"name": name, "dp": dp, "tp": tp, "cfg": _cfg(name),
                 "opts": dict(OPTS, **opts),
                 "params": {p: torch.from_numpy(a) for p, a in
-                           _flat_np(_np_params(name)).items()},
+                           flat_np(_np_params(name)).items()},
                 "batches": [torch.from_numpy(t) for t in _batches(name)],
                 "meshless": extra.get("meshless", False),
                 "per_rank_aux": extra.get("per_rank_aux", False)}
@@ -198,46 +186,16 @@ def _jax_run(name, grads_at_start=False):
     _, dp, tp, _, opts, _ = SPEC[name]
     jcfg = jlm.ModelConfig(dtype=jnp.float32, attention_impl="xla",
                            **_cfg(name))
-    jax.clear_caches()
-    mesh = Mesh(np.array(jax.devices()[:dp * tp]).reshape(dp, 1, tp),
-                ("data", "seq", "model"))
-    model = jlm.TpuLM(jcfg)
-    _, jstep = jtrain.make_train_step(model, mesh, **OPTS, **opts)
-    # the initial state as init_fn lays it out, without compiling init_fn
-    params = jax.tree.map(jnp.asarray, _np_params(name))
-    tx = jtrain.make_optimizer(OPTS["learning_rate"], OPTS["grad_clip"],
-                               OPTS["warmup_steps"], OPTS["decay_steps"])
-    state = jtrain.TrainState(jnp.zeros((), jnp.int32), params,
-                              tx.init(params))
-    state = jax.device_put(state, jtrain.state_shardings(
-        mesh, jcfg, state.opt_state, zero1=opts.get("zero1", False)))
-    params = state.params
-    grads = None
-    batches = _batches(name)
-    if grads_at_start:
-        keep = {k: v for k, v in opts.items()
-                if k in ("loss_chunk", "moe_aux_weight")}
-        grads = _flat_np(jax.device_get(jax.grad(
-            lambda p: jtrain.loss_fn(model, p, jnp.asarray(batches[0]),
-                                     mesh, **keep))(params)))
-    losses = []
-    for toks in batches:
-        state, loss = jstep(state, jnp.asarray(toks))
-        losses.append(float(loss))
-    return losses, _flat_np(jax.device_get(state.params)), grads
-
-
-def _rel_l2(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
-                                                 1e-30))
+    return jax_mesh_run(jcfg, _np_params(name), _batches(name),
+                        ("data", "seq", "model"), (dp, 1, tp),
+                        dict(OPTS, **opts), grads_at_start)
 
 
 def _assert_matches(res, losses, params):
     np.testing.assert_allclose(res["losses"], losses, rtol=REL)
     assert res["params"].keys() == params.keys()
     for path, want in params.items():
-        err = _rel_l2(res["params"][path].numpy(), want)
+        err = rel_l2(res["params"][path].numpy(), want)
         assert err <= REL, (path, err)
 
 
@@ -284,10 +242,10 @@ def test_moe_load_balance_over_data_matches_jax(world):
     res = world.result("moe")
     _assert_matches(res, losses, params)
     router = "blocks/router"
-    err = _rel_l2(res["grads0"][router].numpy(), grads[router])
+    err = rel_l2(res["grads0"][router].numpy(), grads[router])
     assert err <= REL, err
     ctl = world.result("moe_per_rank_aux")
-    ctl_err = _rel_l2(ctl["grads0"][router].numpy(), grads[router])
+    ctl_err = rel_l2(ctl["grads0"][router].numpy(), grads[router])
     assert ctl_err > 10 * REL, ctl_err
 
 
@@ -322,8 +280,8 @@ def test_checkpoints_cross_mesh_shapes(world):
     np.testing.assert_allclose(res["losses"], want[1:], rtol=REL)
     ref = ttrain.leaves(ref_state.params)
     for path, t in zip(ttrain.leaf_paths(ref_state.params), ref):
-        assert _rel_l2(res["params"][path].numpy(),
+        assert rel_l2(res["params"][path].numpy(),
                        t.detach().numpy()) <= REL, path
-        assert _rel_l2(ttrain.leaves(state.params)[
+        assert rel_l2(ttrain.leaves(state.params)[
             ttrain.leaf_paths(state.params).index(path)].detach().numpy(),
             t.detach().numpy()) <= REL, path

@@ -239,9 +239,10 @@ def test_session_routes_answer_like_the_reference(servers):
     (["--lora", "adapter"], "multi-LoRA"),
     (["--draft-n-layers", "1", "--draft-checkpoint", "EMPTY"],
      "orbax checkpoints are not read"),
-    # --from-env serves (a tp mesh over the process group); stacked
-    # adapters under a mesh of more than one rank are what it refuses
-    (["--from-env", "--lora", "a", "--lora", "b"], "queue A item 1b"),
+    # --from-env serves stacked adapters over a tp mesh; adapter dirs
+    # that hold no port checkpoint are refused before the process group
+    (["--from-env", "--lora", "a", "--lora", "b"],
+     "no multi-LoRA adapter checkpoint"),
     (["--checkpoint", "EMPTY"], "orbax checkpoints are not read"),
 ])
 def test_unported_flags_refuse_before_anything_is_built(flags, item,

@@ -109,25 +109,30 @@ def test_apply_hidden_states_and_window():
 
 
 def test_apply_refuses_what_is_not_ported():
+    """What the reference refuses: ring attention with a window (at
+    construction) and inside a pipeline stage; a mesh that is not a torch
+    ``DeviceMesh``."""
     toks = torch.zeros((1, 4), dtype=torch.long)
     _, tcfg = configs("fp32")
-    with pytest.raises(NotImplementedError, match="ring"):
-        tlm.TpuLM(dataclasses.replace(tcfg, ring_attention=True)).apply(
-            {}, toks)
+    with pytest.raises(ValueError, match="ring"):
+        dataclasses.replace(tcfg, ring_attention=True, window=4)
     with pytest.raises(TypeError, match="mesh"):
         tlm.TpuLM(tcfg).apply({}, toks, mesh=object())
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        tlm.TpuLM(tcfg).apply_pipelined({}, toks, n_micro=2)
+    with pytest.raises(ValueError, match="pipeline stage"):
+        tlm.TpuLM(dataclasses.replace(tcfg, ring_attention=True)
+                  ).apply_pipelined({}, toks, mesh=None, n_micro=2)
 
 
 @pytest.mark.parametrize("kw", [dict(zero1=True, n_micro=2),
                                 dict(n_micro=2), dict(mesh=object())])
 def test_train_step_refuses_what_is_not_ported(kw):
-    """Pipeline parallelism is not ported; a mesh must be a torch
-    ``DeviceMesh`` (the parallel step's own tests are
-    ``tests/test_torch_parallel_*.py``)."""
+    """``n_micro`` without a mesh carrying the pipe axis is refused with
+    the reference's message; a mesh must be a torch ``DeviceMesh`` (the
+    parallel step's own tests are ``tests/test_torch_parallel_*.py`` and
+    ``tests/test_torch_pipeline.py``)."""
     _, tcfg = configs("fp32")
-    with pytest.raises(TypeError if "mesh" in kw else NotImplementedError):
+    with pytest.raises(TypeError if "mesh" in kw else ValueError,
+                       match="DeviceMesh" if "mesh" in kw else "pipe"):
         ttrain.make_train_step(tlm.TpuLM(tcfg), device="cpu", **kw)
 
 
@@ -301,16 +306,3 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
                                          ck]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["steps"] == 4
-
-
-@pytest.mark.parametrize("flag", [["--ring"], ["--sp", "2"],
-                                  ["--n-experts", "4", "--tp", "2"],
-                                  ["--from-env"], ["--lora-rank", "4"]])
-def test_cli_refuses_unported_flags(flag, monkeypatch):
-    """Under torchrun at world size 2 (the refusals come before the
-    process group): ring attention, a seq axis, MoE experts over model,
-    multi-host, LoRA under a mesh."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit) as e:
-        train_main.main(_TINY + ["--synthetic", "1000"] + flag)
-    assert "ROADMAP" in str(e.value.code)

@@ -137,19 +137,22 @@ def encode_tree(tree, prefix=""):
 
 
 class World:
-    """A spawned two-rank gloo world of ``torch_serve_tp_worker.py``: its
-    ranks run in the background while the tests compute their JAX side;
-    :meth:`result` waits for them once."""
+    """A spawned gloo world of ``worker`` (two ranks of
+    ``torch_serve_tp_worker.py`` by default): its ranks run in the
+    background while the tests compute their JAX side; :meth:`result`
+    waits for them once."""
 
-    def __init__(self, out: Path):
+    def __init__(self, out: Path, worker: str = "torch_serve_tp_worker.py",
+                 world: int = WORLD):
         self.out = out
+        self.world = world
         env = dict(os.environ, OMP_NUM_THREADS="1",
                    PYTHONPATH=os.pathsep.join([str(REPO), str(TESTS)]))
-        self.logs = [open(out / f"rank{r}.log", "w") for r in range(WORLD)]
+        self.logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
         self.procs = [subprocess.Popen(
-            [sys.executable, str(TESTS / "torch_serve_tp_worker.py"),
-             str(r), str(WORLD), str(out)], env=env, stdout=self.logs[r],
-            stderr=subprocess.STDOUT) for r in range(WORLD)]
+            [sys.executable, str(TESTS / worker), str(r), str(world),
+             str(out)], env=env, stdout=self.logs[r],
+            stderr=subprocess.STDOUT) for r in range(world)]
         self.joined = False
 
     def join(self) -> None:
@@ -161,7 +164,7 @@ class World:
         finally:
             self.close()
         tails = "\n".join((self.out / f"rank{r}.log").read_text()[-3000:]
-                          for r in range(WORLD))
+                          for r in range(self.world))
         assert all(p.returncode == 0 for p in self.procs), tails
 
     def close(self) -> None:
@@ -179,7 +182,78 @@ class World:
                           weights_only=True)
 
 
-def spawn_world(out: Path, cases: list) -> World:
+def spawn_world(out: Path, cases: list,
+                worker: str = "torch_serve_tp_worker.py",
+                world: int = WORLD) -> World:
     """Write ``cases`` for the worker and start its world."""
     torch.save(cases, out / "cases.pt")
-    return World(out)
+    return World(out, worker, world)
+
+
+def flat_np(tree, prefix: str = "") -> dict:
+    """A numpy (or JAX) tree as flat {path: fp32 array}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_np(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree, np.float32)}
+
+
+def rel_l2(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                 1e-30))
+
+
+def jax_mesh_run(jcfg, np_params, batches, names, shape, opts,
+                 grads_at_start=False):
+    """(losses, final params flat, grads at the initial weights or None)
+    of the JAX package's ``make_train_step`` over a virtual CPU mesh of
+    ``shape`` with axis ``names``, from ``np_params`` (the state laid out
+    as its ``init_fn`` lays it, without compiling ``init_fn``)."""
+    from jax.sharding import Mesh
+
+    from instaslice_tpu.models import lm as jlm
+    from instaslice_tpu.models import train as jtrain
+
+    jax.clear_caches()
+    n = int(np.prod(shape))
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(shape), tuple(names))
+    model = jlm.TpuLM(jcfg)
+    step_opts = {k: v for k, v in opts.items()
+                 if k not in ("grad_clip", "warmup_steps", "decay_steps",
+                              "learning_rate")}
+    sched = dict(learning_rate=opts.get("learning_rate", 3e-4),
+                 grad_clip=opts.get("grad_clip", 0.0),
+                 warmup_steps=opts.get("warmup_steps", 0),
+                 decay_steps=opts.get("decay_steps", 0))
+    _, jstep = jtrain.make_train_step(model, mesh, **sched, **step_opts)
+    params = jax.tree.map(jnp.asarray, np_params)
+    tx = jtrain.make_optimizer(sched["learning_rate"], sched["grad_clip"],
+                               sched["warmup_steps"], sched["decay_steps"])
+    state = jtrain.TrainState(jnp.zeros((), jnp.int32), params,
+                              tx.init(params))
+    n_micro = opts.get("n_micro", 0)
+    state = jax.device_put(state, jtrain.state_shardings(
+        mesh, jcfg, state.opt_state,
+        pipe_axis="pipe" if n_micro else "",
+        zero1=opts.get("zero1", False)))
+    grads = None
+    if grads_at_start:
+        keep = {k: v for k, v in opts.items()
+                if k in ("loss_chunk", "moe_aux_weight", "n_micro")}
+        grads = flat_np(jax.device_get(jax.grad(
+            lambda p: jtrain.loss_fn(model, p, jnp.asarray(batches[0]),
+                                     mesh, **keep))(state.params)))
+    losses = []
+    for toks in batches:
+        state, loss = jstep(state, jnp.asarray(toks))
+        losses.append(float(loss))
+    return losses, flat_np(jax.device_get(state.params)), grads
+
+
+def torch_flat(flat: dict) -> dict:
+    """{path: numpy array} -> the worker's {path: ("t", tensor)}."""
+    return {p: ("t", torch.from_numpy(np.array(a))) for p, a in flat.items()}

@@ -12,12 +12,17 @@ mesh of (1, 1, 2); each rank writes what the test compares to
   greedy decode steps through ``apply_with_cache(mesh=)``) and a
   tensor-parallel engine's burst admission and decode block; rank 0
   also runs the same on a meshless engine. ``swap_wq`` gives rank 1
-  rank 0's ``wq`` shard (the control);
+  rank 0's ``wq`` shard (the control). A case with ``lora`` serves
+  those adapters stacked (each prompt on its entry of ``adapters``, the
+  cache forward's rows too), one with ``n_experts`` in its config an
+  MoE model with its experts over ``model``;
 - ``refusals``: what a tp 2 engine must refuse, each error's text;
 - ``oplog``: ``run_script`` over ``DistributedEngine`` on rank 0 and
   ``run_follower`` on rank 1, each rank's ``state_digest`` after it;
 - ``session``: preempt/resume and an ``import_session`` through the op
-  stream, and ``export_session`` refused.
+  stream, and ``export_session`` refused;
+- ``oplog_lora``: :func:`adapter_script` over ``DistributedEngine`` on
+  rank 0 and ``run_follower`` on rank 1, each rank's digest after it.
 
 It imports the port and torch only, never JAX.
 """
@@ -82,6 +87,8 @@ def model_of(case) -> tlm.TpuLM:
 def engine(case, mesh, **kw) -> ServingEngine:
     model = model_of(case)
     params = unflat(case["params"])
+    if case.get("lora"):
+        kw.update(lora_adapters=[unflat(a) for a in case["lora"]])
     if case.get("self_draft"):
         kw.update(draft_model=model, draft_params=params, spec_k=3)
     return ServingEngine(model, params, mesh=mesh, device="cpu",
@@ -89,12 +96,17 @@ def engine(case, mesh, **kw) -> ServingEngine:
                          **ENGINE, **kw)
 
 
-def cache_forward(eng: ServingEngine, prompts, steps: int) -> torch.Tensor:
+def cache_forward(eng: ServingEngine, prompts, steps: int,
+                  adapters=None) -> torch.Tensor:
     """(1 + steps, B, vocab) logits: one prefill chunk of ``prompts`` (B,
     P) from an empty cache, then ``steps`` greedy decode steps, through
     the engine's model, weights and mesh, over a cache in the model's
-    dtype (an int8 cache's rounding steps are held at the engine)."""
+    dtype (an int8 cache's rounding steps are held at the engine); with
+    the engine's adapters, row ``b`` through adapter ``adapters[b]``."""
     model, B = eng.model, len(prompts)
+    kw = {}
+    if eng.lora is not None:
+        kw = dict(lora=eng.lora, adapter_idx=torch.tensor(adapters[:B]))
     cache = model.init_cache(B, ENGINE["max_len"], device="cpu",
                              mesh=eng.mesh)
     toks = torch.tensor(prompts, dtype=torch.int64)
@@ -103,20 +115,21 @@ def cache_forward(eng: ServingEngine, prompts, steps: int) -> torch.Tensor:
     with torch.no_grad():
         for _ in range(1 + steps):
             logits, cache = model.apply_with_cache(
-                eng.params, toks, cache, lens, mesh=eng.mesh)
+                eng.params, toks, cache, lens, mesh=eng.mesh, **kw)
             out.append(logits[:, -1])
             lens = lens + toks.shape[1]
             toks = logits[:, -1].argmax(-1, keepdim=True)
     return torch.stack(out)
 
 
-def serve(eng: ServingEngine, prompts, n_new: int) -> dict:
-    """A burst admission of ``prompts``, then one decode block: each
-    request's tokens and logprobs by request id."""
+def serve(eng: ServingEngine, prompts, n_new: int, adapters=None) -> dict:
+    """A burst admission of ``prompts`` (each on its adapter), then one
+    decode block: each request's tokens and logprobs by request id."""
     from instaslice_tpu_torch.serving import AdmissionRequest
 
+    adapters = adapters or [0] * len(prompts)
     rids = [r[0] for r in eng.add_requests(
-        [AdmissionRequest(p) for p in prompts])]
+        [AdmissionRequest(p, adapter=a) for p, a in zip(prompts, adapters)])]
     eng.decode_block(n_new)
     by_rid = {req.request_id: req for req in eng.slots.values()}
     return {"tokens": [by_rid[r].generated for r in rids],
@@ -136,15 +149,17 @@ def run_forward(case, mesh, rank: int) -> dict:
                 shard_leaf(whole.s, spec, rank0))
         else:
             eng.params["blocks"]["wq"] = shard_leaf(whole, spec, rank0)
-    out = {"logits": cache_forward(eng, case["chunk"], case["steps"]),
+    ads = case.get("adapters")
+    out = {"logits": cache_forward(eng, case["chunk"], case["steps"], ads),
            "route": eng.decode_route(),
            "cache_heads": eng.cache["k"].shape[2]}
-    out.update(serve(eng, case["prompts"], case["n_new"]))
+    out.update(serve(eng, case["prompts"], case["n_new"], ads))
+    out["rounds"] = (eng.fastpath_rounds, eng.gathered_rounds)
     if rank == 0:
         one = engine(case, None)
         out["meshless_logits"] = cache_forward(one, case["chunk"],
-                                               case["steps"])
-        out["meshless"] = serve(one, case["prompts"], case["n_new"])
+                                               case["steps"], ads)
+        out["meshless"] = serve(one, case["prompts"], case["n_new"], ads)
     return out
 
 
@@ -159,8 +174,9 @@ def run_refusals(case, mesh, rank: int) -> dict:
             errs[name] = f"{type(e).__name__}: {e}"
 
     attempt("decode_graphs", lambda: engine(case, mesh, decode_graphs=True))
-    lora = {"blocks": {"wq": {"a": torch.zeros(2, 32, 4),
-                              "b": torch.zeros(2, 4, 32)}}}
+    D = case["cfg"]["d_model"]
+    lora = {"blocks": {"wq": {"a": torch.zeros(2, D, 4),
+                              "b": torch.zeros(2, 4, D)}}}
     attempt("lora", lambda: engine(case, mesh, lora_adapters=[lora]))
     moe = dict(case, cfg=dict(case["cfg"], n_experts=4))
     attempt("moe", lambda: ServingEngine(model_of(moe), mesh=mesh,
@@ -221,8 +237,33 @@ def run_session(case, mesh, rank: int) -> dict:
         lambda deng: {"export": session_script(deng, case["blob"])})
 
 
+def adapter_script(eng) -> None:
+    """Admissions on adapters 1, 2 and the base, a burst, block decodes
+    (gathered rounds, then the single-adapter path once only adapter 2's
+    slot is live), a preempt/resume of an adapter request (the test
+    replays it on the JAX mesh engine)."""
+    from instaslice_tpu_torch.serving import AdmissionRequest
+
+    eng.add_request([5, 9, 2, 7], adapter=1)
+    eng.add_request([11, 3, 8], adapter=0)
+    eng.decode_block(3)
+    eng.add_requests([AdmissionRequest([4, 4, 6, 1, 9], adapter=2)])
+    eng.decode_block(2)
+    eng.finish_slot(0, n_keep=3)
+    eng.finish_slot(1, n_keep=2)
+    eng.decode_block(2)
+    rid = eng.preempt_slot(2)
+    eng.resume_request(rid)
+    eng.decode_block(2)
+
+
+def run_oplog_lora(case, mesh, rank: int) -> dict:
+    return over_op_stream(case, mesh, rank, adapter_script)
+
+
 RUN = {"forward": run_forward, "refusals": run_refusals,
-       "oplog": run_oplog, "session": run_session}
+       "oplog": run_oplog, "session": run_session,
+       "oplog_lora": run_oplog_lora}
 
 
 def main(rank: int, world: int, out: Path) -> None:
