@@ -221,6 +221,23 @@ the 871M widths, 4 layers, rows of 2048 tokens, against the same flags
 in one process (the ring runs no kernel); (e) GPipe at pipe 2, 4
 micro-batches, the 871M widths at 4 layers, 3 steps against the
 one-process step, B5-B7 10 a step per stage; the phase logs its seconds.
+slice (last): the slice/device layer on the card, from discovery to a
+granted device that serves and back (``phase_slice``): the NVML
+backend's ctypes struct layouts against the toolkit's ``nvml.h``
+(``device/nvml_layout.c``); ``select_backend("auto")`` is the NVML
+backend; its inventory (name, UUID, memory, power limit beside
+``nvidia-smi``, MIG mode current and pending, NVML's profile table
+against the fixed H100 80GB catalog); first-fit places a 3g.40gb where
+MIG is on and creating it is allowed, else the whole GPU (the refusal
+printed by its NVML name); the reservation, which a second process lists
+and is refused (``ChipsBusy``); ``slice_env`` for one pod, and the 7B
+int8 server (full depth) in a fresh process whose environment is this
+one's without ``CUDA_VISIBLE_DEVICES``/``NVIDIA_VISIBLE_DEVICES`` plus
+the handoff's: torch sees one device, the granted UUID, the serve
+phase's 8 completions answered with B1-B3 on the card's trace; then the
+release, after which no reservation and no MIG instance of the phase's
+is left. The registry is a temporary directory of the phase's own; MIG
+mode is read, never changed.
 
 Then the ``kernels`` JSON line (launches, from the card's trace on the
 serving paths and from the wrappers on the training ones: B1-B3 from the
@@ -236,7 +253,7 @@ from the parallel phase's world-size-1 mesh step and
 ``parallel_rank_launches`` per rank of its two-process runs,
 ``tp_serve_launches`` per rank of the tp 2 server,
 ``parallel_rest_launches`` per rank or stage of the parallel_rest
-phase's runs), the graph
+phase's runs, ``slice_launches`` from the slice phase's workload), the graph
 phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
@@ -1503,6 +1520,8 @@ def phase_serve(torch, ops) -> dict:
         "hit_cold_logprob_diff": lp_diff, "served_logprob_diff": served_lp,
         "chunk_rel_l2": errs,
         "radix": st["radix"], "kv": st["kv"], "engine": st["engine"],
+        "served": [{"token_ids": r["token_ids"], "logprobs": r["logprobs"]}
+                   for r in results],
     }
     log(f"serve: {gen_tok} tokens in {wall:.2f} s = {out['tok_s']:.1f} "
         f"tok/s over HTTP, one burst of 8 requests; TTFT p50 "
@@ -5679,6 +5698,339 @@ def phase_parallel_rest(torch, ops, lora_served: list) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ slice
+
+#: the workload the granted device runs: the serve phase's 7B int8 server
+#: from its own CLI wiring, at full width and depth (no cut)
+SLICE_FLAGS = SERVE_FLAGS
+#: the MIG profile the workload asks for when the card has MIG on: 40 GB,
+#: room for the 7B int8 weights (6.4 GiB) and its KV cache
+SLICE_MIG_PROFILE = "3g.40gb"
+#: the smoke's own registry: a process of its own must see it
+_SLICE_PROBE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from instaslice_tpu_torch.device import ChipsBusy, NvmlBackend
+b = NvmlBackend(registry_dir=sys.argv[2])
+out = {"list": [[r.slice_uuid, r.profile, list(r.device_uuids)]
+                for r in b.list_reservations()]}
+try:
+    b.reserve("intruder", [int(sys.argv[3])])
+    out["reserve"] = "granted"
+    b.release("intruder")
+except ChipsBusy as e:
+    out["reserve"] = "ChipsBusy: " + str(e)
+print(json.dumps(out))
+"""
+
+
+def nvml_layout_check(work: Path) -> dict:
+    """``device/nvml_layout.c`` built against the toolkit's ``nvml.h``:
+    every struct's size and offsets and the v2 version word, against the
+    ctypes layouts of ``device/nvml.py``."""
+    from instaslice_tpu_torch.device import nvml
+
+    exe = work / "nvml_layout"
+    src = HERE / "instaslice_tpu_torch" / "device" / "nvml_layout.c"
+    subprocess.run(["cc", "-I/usr/local/cuda/include", "-o", str(exe),
+                    str(src)], check=True, capture_output=True, timeout=120)
+    header = json.loads(subprocess.run(
+        [str(exe)], check=True, capture_output=True, text=True,
+        timeout=60).stdout)
+    mine = nvml.struct_layout()
+    diff = {k: (header.get(k), v) for k, v in mine.items()
+            if header.get(k) != v}
+    check(not diff, f"slice: nvml.h layouts differ from ctypes: {diff}")
+    return header
+
+
+def slice_child(out: str) -> int:
+    """The workload on the granted device, in a fresh process whose
+    environment the handoff decided: the 7B int8 server from its CLI
+    wiring (``SLICE_FLAGS``), the serve phase's 8 completions over HTTP
+    (their tokens and logprobs kept, for the serve phase's to be held
+    against) with the card's trace counting B1-B3 (``Traced``: the
+    single-device engine replays CUDA graphs), the wrappers' counts
+    beside it, then a
+    burst of 8 new prompts untraced (the warm tok/s); what torch sees
+    and the slice topology the env gives. Writes ``out``."""
+    import os
+
+    import torch
+
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.parallel.meshenv import SliceTopology
+    from instaslice_tpu_torch.serving import api_server
+
+    topo = SliceTopology.from_env()
+    res = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "count": torch.cuda.device_count(),
+           "uuid": str(torch.cuda.get_device_properties(0).uuid),
+           "name": torch.cuda.get_device_name(0),
+           "topology": {"num_chips": topo.num_chips,
+                        "num_workers": topo.num_workers,
+                        "profile": topo.profile}}
+    t0 = time.perf_counter()
+    args = api_server.build_parser().parse_args(SLICE_FLAGS.split())
+    eng = api_server.build_engine(args)
+    srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
+    res["build_s"] = time.perf_counter() - t0
+    res["n_layers"], res["route"] = args.n_layers, eng.decode_route()
+    try:
+        wait_ready(srv.url)
+        gen = torch.Generator().manual_seed(17)
+        prompts = [torch.randint(1, args.vocab_size, (n,),
+                                 generator=gen).tolist()
+                   for n in SERVE_PLENS]
+        ops.reset_launch_counts()
+        steps0 = eng.decode_steps
+        t0 = time.perf_counter()
+        with Traced(torch, ops) as tr:
+            results, errors = http_burst(srv.url, prompts, SERVE_NEW)
+        res["wall_s"] = tr.t_end - t0
+        res["counts"], res["wrapper_counts"] = tr.counts, ops.launch_counts()
+        res["decode_steps"] = eng.decode_steps - steps0
+        res["errors"] = errors
+        res["completions"] = [
+            {"n": len(r["token_ids"]), "finish": r["finish_reason"],
+             "in_range": all(0 <= t < args.vocab_size
+                             for t in r["token_ids"])}
+            for r in results if r is not None]
+        res["served"] = [r and {"token_ids": r["token_ids"],
+                                "logprobs": r["logprobs"]} for r in results]
+        res["tok_s"] = sum(c["n"] for c in res["completions"]) / res["wall_s"]
+        # a second burst of new prompts (no radix hit) at the same
+        # lengths: the first paid the fresh process's one-time costs (the
+        # serve phase's burst runs in a warm one)
+        fresh = [torch.randint(1, args.vocab_size, (n,),
+                               generator=gen).tolist() for n in SERVE_PLENS]
+        t0 = time.perf_counter()
+        again, errors = http_burst(srv.url, fresh, SERVE_NEW)
+        res["warm_wall_s"] = time.perf_counter() - t0
+        res["errors"] += errors
+        res["warm_tok_s"] = sum(len(r["token_ids"]) for r in again
+                                if r is not None) / res["warm_wall_s"]
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        srv.stop()
+        Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def phase_slice(torch, card: str, served: list) -> dict:
+    """The slice/device layer from discovery to a granted device that
+    serves, and back: (a) ``select_backend("auto")`` is the NVML backend
+    (its struct layouts held against the toolkit's ``nvml.h`` first);
+    the inventory beside ``nvidia-smi``, MIG mode, NVML's profile table
+    against the fixed H100 80GB catalog; (b) first-fit places
+    ``SLICE_MIG_PROFILE`` where MIG is on (a refused create, printed by
+    its NVML name, fails the phase: a GPU with MIG on is granted only by
+    MIG slices), else the whole GPU; (c) the reservation, held by a
+    second process, which must list it (restart safety) and be refused
+    the same GPU (``ChipsBusy``); (d) ``slice_env`` for one pod and the
+    workload (:func:`slice_child`) in a fresh process whose
+    ``CUDA_VISIBLE_DEVICES``/``NVIDIA_VISIBLE_DEVICES`` are the
+    handoff's alone: one device, the granted UUID, B1-B3 launched, and 8
+    completions whose tokens equal ``served`` (the serve phase's, from
+    the same weights, prompts and greedy decoding in the parent) and
+    whose logprobs lie within ``SERVE_LOGPROB_TOL`` of them; (e) the
+    release: no reservation left, and no MIG instance
+    of ours. The registry lives in a temporary directory of the phase's
+    own; nothing changes MIG mode or touches an instance the phase did
+    not make."""
+    import os
+    import shutil
+    import tempfile
+
+    from instaslice_tpu_torch.agent.handoff import slice_env
+    from instaslice_tpu_torch.api.types import (
+        AllocationDetails,
+        PodRef,
+        slice_uuid_for,
+    )
+    from instaslice_tpu_torch.device import NvmlBackend, NvmlError
+    from instaslice_tpu_torch.device import select_backend
+    from instaslice_tpu_torch.topology import Occupancy, get_policy, mig
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="slice-"))
+    out = {}
+    backend = res = None
+    try:
+        # (a) discovery
+        out["layout"] = nvml_layout_check(work)
+        backend = select_backend("auto", registry_dir=str(work / "reg"))
+        check(isinstance(backend, NvmlBackend),
+              f"slice: auto gave {type(backend).__name__}")
+        inv = backend.discover()
+        g = inv.gpus[0]
+        check(inv.chip_count == torch.cuda.device_count()
+              and g.uuid == f"GPU-{torch.cuda.get_device_properties(0).uuid}",
+              "slice: NVML's GPUs are torch's")
+        diff = mig.compare_catalog(g.profiles) if g.profiles else []
+        out["inventory"] = {
+            "generation": inv.generation, "count": inv.chip_count,
+            "name": g.name, "uuid": g.uuid,
+            "memory_gib": g.memory_bytes / 2 ** 30,
+            "power_limit_w": g.power_limit_w,
+            "mig": [g.mig_current, g.mig_pending],
+            "profiles": list(g.profiles), "profiles_error": g.profiles_error,
+            "catalog_diff": diff, "mig_devices": list(g.mig_devices)}
+        log(f"slice (a): select_backend('auto') -> {type(backend).__name__}"
+            f"; nvml.h layouts equal ctypes'; {inv.chip_count} GPU(s), "
+            f"GPU 0 {g.name} {g.uuid}, {g.memory_bytes / 2 ** 30:.2f} GiB, "
+            f"power limit {g.power_limit_w:.2f} W (nvidia-smi: {card}); MIG "
+            f"current {g.mig_current} pending {g.mig_pending}; profile "
+            f"table: " + (f"{len(g.profiles)} profiles, catalog diff {diff}"
+                          if g.profiles else f"refused, {g.profiles_error}"))
+        check(not diff, f"slice: NVML's profile table differs from the "
+              f"fixed H100 80GB catalog: {diff}")
+        before = backend.list_reservations()
+        before_inst = {r.device_uuids for r in backend.instances()}
+        # (b) placement with InstaSlice's policy
+        group = mig.gpu_group(inv.chip_count)
+        occ = Occupancy(group)
+        for r in before + backend.dangling():
+            for c in r.chip_ids:
+                occ.occupy(mig.slot_box(c, *r.slots))
+        ff = get_policy("first-fit")
+        pod = PodRef("smoke-pod-uid", "smoke-pod", "default")
+        refusal = ""
+        if g.mig_current == 1:
+            # a GPU with MIG on is granted only by MIG slices: a refused
+            # create fails the phase
+            want = mig.parse_mig_profile(SLICE_MIG_PROFILE)
+        else:
+            want = mig.whole_gpu(inv.generation)
+            refusal = (f"MIG mode current {g.mig_current} (profile table: "
+                       f"{g.profiles_error or 'read'})")
+        pl = ff.choose(group, want, occ)
+        check(pl is not None, f"slice: no free {want.name}")
+        alloc = AllocationDetails.from_placement(pl, [pod])
+        gpu, start = mig.box_gpu_start(pl.box)
+        try:
+            t0 = time.perf_counter()
+            res = (backend.reserve(slice_uuid_for(alloc.alloc_id), [gpu],
+                                   want.name, start)
+                   if g.mig_current == 1 else
+                   backend.reserve(slice_uuid_for(alloc.alloc_id), [gpu]))
+            out["reserve_ms"] = (time.perf_counter() - t0) * 1e3
+        except NvmlError as e:
+            check(False, f"slice: {e.call} refused {want.name} on GPU "
+                  f"{gpu}: {e.code_name}")
+        out["route"] = "mig" if res.profile else "whole gpu"
+        out["refusal"] = refusal
+        log(f"slice (b): first-fit placed {alloc.profile} at "
+            f"{pl.box.key()} (GPU {gpu}); route {out['route']}"
+            + (f", MIG refused: {refusal}" if refusal else ""))
+        # (c) the reservation, seen from another process
+        log(f"slice (c): reserved {res.slice_uuid} -> {res.device_uuids} "
+            f"in {out['reserve_ms']:.1f} ms")
+        t0 = time.perf_counter()
+        probe = subprocess.run(
+            [sys.executable, "-c", _SLICE_PROBE, str(HERE),
+             str(work / "reg"), str(gpu)], capture_output=True, text=True,
+            timeout=300, cwd=HERE)
+        out["probe_s"] = time.perf_counter() - t0
+        check(probe.returncode == 0, f"slice: probe failed {probe.stderr}")
+        seen = json.loads(probe.stdout.strip().splitlines()[-1])
+        out["probe"] = seen
+        log(f"slice (c): a new process lists {seen['list']}, and its "
+            f"reserve of GPU {gpu}: {seen['reserve']} "
+            f"({out['probe_s']:.1f} s)")
+        check([res.slice_uuid, res.profile, list(res.device_uuids)]
+              in seen["list"], "slice: the reservation survives into a "
+              "new process")
+        check(seen["reserve"].startswith("ChipsBusy"),
+              "slice: a second reserve of the device is refused")
+        # (d) the handoff and the workload on the granted device alone
+        env = slice_env(alloc, pod, "smoke-node", inv.generation,
+                        res.device_uuids)
+        out["env"] = env
+        child_env = {k: v for k, v in os.environ.items()
+                     if k not in ("CUDA_VISIBLE_DEVICES",
+                                  "NVIDIA_VISIBLE_DEVICES")}
+        child_env.update(env)
+        result = work / "child.json"
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             f"{str(HERE)!r}); import chip_smoke; "
+             f"sys.exit(chip_smoke.slice_child({str(result)!r}))"],
+            env=child_env, cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        out["workload_s"] = time.perf_counter() - t0
+        check(run.returncode == 0 and result.exists(),
+              f"slice: the workload failed ({run.returncode}): "
+              f"{run.stderr[-3000:]}")
+        w = json.loads(result.read_text())
+        out["workload"] = {k: v for k, v in w.items() if k != "served"}
+        c = w["counts"]
+        log(f"slice (d): CUDA_VISIBLE_DEVICES={w['visible']}: torch sees "
+            f"{w['count']} device, uuid {w['uuid']} ({w['name']}); topology "
+            f"{w['topology']}; 7B int8 server, {w['n_layers']} layers (no "
+            f"cut), built in {w['build_s']:.1f} s, route {w['route']}; 8 "
+            f"completions x {SERVE_NEW} in {w['wall_s']:.2f} s = "
+            f"{w['tok_s']:.1f} tok/s over HTTP on {card} (a second burst, "
+            f"new prompts: {w['warm_tok_s']:.1f} tok/s); {w['decode_steps']}"
+            f" decode steps; launches on the card's trace {c}, wrappers "
+            f"{w['wrapper_counts']}; peak {w['peak_gib']:.2f} GiB; the "
+            f"process {out['workload_s']:.1f} s")
+        granted = res.device_uuids[0]
+        check(w["count"] == 1 and w["visible"] == granted,
+              "slice: the workload sees exactly the granted device")
+        check(granted.endswith(w["uuid"]),
+              f"slice: torch's device is the granted {granted}")
+        check(w["topology"]["num_chips"] == 1
+              and w["topology"]["profile"] == alloc.profile,
+              "slice: the handoff env's topology is one device")
+        check(not w["errors"] and len(w["completions"]) == len(SERVE_PLENS)
+              and all(x["n"] == SERVE_NEW and x["in_range"]
+                      and x["finish"] == "max_new_tokens"
+                      for x in w["completions"]),
+              f"slice: the completions ({w['errors']})")
+        same = [a is not None and a["token_ids"] == b["token_ids"]
+                for a, b in zip(w["served"], served)]
+        lp = max((abs(x - y) for a, b in zip(w["served"], served) if a
+                  for x, y in zip(a["logprobs"], b["logprobs"])),
+                 default=float("inf"))
+        out["served_equal"], out["served_logprob_diff"] = same, lp
+        log(f"slice (d): tokens equal to the serve phase's, by request "
+            f"{same}; largest logprob difference {lp:.3g} (tol "
+            f"{SERVE_LOGPROB_TOL})")
+        check(len(same) == len(served) and all(same),
+              "slice: the granted device serves the serve phase's tokens")
+        check(lp <= SERVE_LOGPROB_TOL,
+              f"slice: logprobs differ from the serve phase's by {lp}")
+        for k in ("quant_decode_attention", "quant_matmul_stacked",
+                  "quant_matmul_t"):
+            check(c[k] > 0, f"slice: {k} launched on the granted device")
+        check(c["quant_decode_attention"]
+              == w["n_layers"] * w["decode_steps"],
+              "slice: B1 once a layer a decode step")
+        # (e) release
+        t0 = time.perf_counter()
+        backend.release(res.slice_uuid)
+        out["release_ms"] = (time.perf_counter() - t0) * 1e3
+        res = None
+        after = backend.list_reservations()
+        left = {r.device_uuids for r in backend.instances()}
+        log(f"slice (e): released in {out['release_ms']:.1f} ms; "
+            f"reservations {after}; MIG instances left {sorted(left)}")
+        check(after == before, "slice: no reservation left")
+        check(left == before_inst, "slice: no MIG instance of ours left")
+    finally:
+        # a failed step still gives back what the phase made
+        if res is not None:
+            backend.release(res.slice_uuid)
+        if backend is not None:
+            backend.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"slice: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5794,6 +6146,9 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel_rest = phase_parallel_rest(torch, ops, lora_serve.pop("served"))
     mark("parallel_rest", t0)
+    t0 = time.perf_counter()
+    slice_ = phase_slice(torch, card, serve.pop("served"))
+    mark("slice", t0)
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
@@ -5858,6 +6213,9 @@ def main() -> int:
             "lora_serve_tp2": [c[k["name"]] for c in
                                rest["lora_serve_tp2"]["counts"]],
             "gpipe_pipe2": [c[k["name"]] for c in two["gpipe"]["counts"]]}
+        # the workload on the granted device (the slice phase's child),
+        # from the card's trace
+        k["slice_launches"] = slice_["workload"]["counts"][k["name"]]
         # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
         tp = tp_serve["shard_kernels"].get(k["name"])
         if tp is not None:
@@ -5911,6 +6269,7 @@ def main() -> int:
     log(json.dumps({"card": card, "tp_serve": {
         k: v for k, v in tp_serve.items() if k != "shard_kernels"}}))
     log(json.dumps({"card": card, "parallel_rest": parallel_rest}))
+    log(json.dumps({"card": card, "slice": slice_}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,2 @@
-"""Constants of the port's serving plane, copied from
+"""Constants and allocation records of the port, copied from
 ``instaslice_tpu/api``."""

@@ -1,12 +1,36 @@
-"""The serving plane's flight-recorder ``reason`` catalog.
+"""The flight-recorder ``reason`` catalog of the serving plane and of
+allocations, and the label the handoff ConfigMap carries.
 
-A copy of the serving reasons of ``instaslice_tpu/api/constants.py``
-(the ones the scheduler, the profiler and the journal of the port emit,
-the session-migration reasons among them): the port imports nothing of
-the JAX package. Every journal event names
+A copy of the serving and allocation reasons of
+``instaslice_tpu/api/constants.py`` (the ones the scheduler, the
+profiler, the journal and ``api/types.py`` of the port emit, the
+session-migration reasons among them) and of its ``GROUP`` and
+``POD_UID_LABEL``: the port imports nothing of the JAX package. Every journal event names
 its reason from HERE, so dashboards and validators keyed on the
 reference's catalog read the port's events unchanged.
 """
+
+#: API group of the ``TpuSlice`` resource and its labels
+GROUP = "tpu.instaslice.dev"
+#: Handoff ConfigMap owner label (garbage collection + discovery)
+POD_UID_LABEL = f"{GROUP}/pod-uid"
+
+# allocation lifecycle (api/types.py AllocationDetails.set_status): one
+# reason per status an allocation enters
+REASON_SLICE_CREATING = "SliceCreating"
+REASON_SLICE_CREATED = "SliceCreated"
+REASON_SLICE_UNGATED = "SliceUngated"
+REASON_SLICE_FAILED = "SliceFailed"
+REASON_SLICE_DELETED = "SliceDeleted"
+
+#: allocation status -> the reason its transition records
+TRANSITION_REASONS = {
+    "creating": REASON_SLICE_CREATING,
+    "created": REASON_SLICE_CREATED,
+    "ungated": REASON_SLICE_UNGATED,
+    "failed": REASON_SLICE_FAILED,
+    "deleted": REASON_SLICE_DELETED,
+}
 
 # serving data plane
 REASON_DRAIN_BEGIN = "DrainBegin"
@@ -36,6 +60,7 @@ REASON_SESSION_IMPORTED = "SessionImported"
 
 #: every reason the port's journal accepts without a warning
 EVENT_REASONS = frozenset({
+    *TRANSITION_REASONS.values(),
     REASON_DRAIN_BEGIN, REASON_DRAIN_END, REASON_SHED, REASON_DRAINED,
     REASON_PREEMPTED, REASON_RESUMED, REASON_SLO_MISSED,
     REASON_COMPILE_OBSERVED,

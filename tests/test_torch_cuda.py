@@ -1344,3 +1344,25 @@ def test_world_size_one_nccl_step_is_bit_equal_to_the_meshless_step(
     (l0, p0), (l1, p1) = runs
     assert l0 == l1
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def test_nvml_backend_agrees_with_torch(dev, tmp_path):
+    """The NVML backend's count, names and UUIDs are torch.cuda's (NVML
+    sees every GPU of the host, so the card's torch must see them all:
+    no CUDA_VISIBLE_DEVICES)."""
+    import os
+
+    from instaslice_tpu_torch.device import NvmlBackend, select_backend
+
+    if os.environ.get("CUDA_VISIBLE_DEVICES"):
+        pytest.skip("CUDA_VISIBLE_DEVICES hides GPUs from torch")
+    b = select_backend("auto", registry_dir=str(tmp_path))
+    assert isinstance(b, NvmlBackend)
+    inv = b.discover()
+    assert inv.chip_count == torch.cuda.device_count()
+    for g in inv.gpus:
+        props = torch.cuda.get_device_properties(g.index)
+        assert g.name == props.name
+        assert g.uuid == f"GPU-{props.uuid}"
+        assert g.memory_bytes == props.total_memory or \
+            abs(g.memory_bytes - props.total_memory) < 2 ** 30
