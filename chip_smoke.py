@@ -230,14 +230,27 @@ backend; its inventory (name, UUID, memory, power limit beside
 against the fixed H100 80GB catalog); first-fit places a 3g.40gb where
 MIG is on and creating it is allowed, else the whole GPU (the refusal
 printed by its NVML name); the reservation, which a second process lists
-and is refused (``ChipsBusy``); ``slice_env`` for one pod, and the 7B
-int8 server (full depth) in a fresh process whose environment is this
-one's without ``CUDA_VISIBLE_DEVICES``/``NVIDIA_VISIBLE_DEVICES`` plus
-the handoff's: torch sees one device, the granted UUID, the serve
-phase's 8 completions answered with B1-B3 on the card's trace; then the
-release, after which no reservation and no MIG instance of the phase's
-is left. The registry is a temporary directory of the phase's own; MIG
-mode is read, never changed.
+and is refused (``ChipsBusy``); the device plugin over that reservation,
+driven as the kubelet drives it through the port's hand-written gRPC
+wire only (``plugin_exchange``: the slice manager registers with a
+kubelet of the port's wire, ListAndWatch lists exactly the slice,
+Healthy, a health mark and its clearing each pushed within 1 s,
+GetPreferredAllocation, Allocate, the controls ``slice-nope`` NOT_FOUND
+and ``gpu-0`` INVALID_ARGUMENT, and the plugin's socket removed: a
+second Register within the poll period; Register ms, Allocate's round
+trip and the health-update latency printed); ``slice_env`` for one pod,
+overlaid with Allocate's envs as the kubelet overlays them (the two
+agree on every key they share, and every DeviceSpec's host path
+exists), and the 7B int8 server (full depth) in a fresh process whose
+environment is this one's without
+``CUDA_VISIBLE_DEVICES``/``NVIDIA_VISIBLE_DEVICES`` plus those: torch
+sees one device, the granted UUID, the serve phase's 8 completions
+answered with B1-B3 on the card's trace; ``parallel/dcn_smoke.py`` in
+two processes of a two-worker grant's handoff env on the granted device
+(gloo), both printing ``psum_total`` 3.0; then the release, after which
+no reservation and no MIG instance of the phase's is left. The registry
+is a temporary directory of the phase's own; MIG mode is read, never
+changed.
 
 Then the ``kernels`` JSON line (launches, from the card's trace on the
 serving paths and from the wrappers on the training ones: B1-B3 from the
@@ -5817,6 +5830,220 @@ def slice_child(out: str) -> int:
     return 0
 
 
+#: the slice manager's poll period (and its plugins' health poll): a
+#: removed plugin socket is served and registered again within it
+PLUGIN_POLL_S = 0.5
+
+
+class SmokeKubelet:
+    """The kubelet's Registration service on the port's own wire: records
+    each ``Register`` and when it arrived."""
+
+    def __init__(self, plugin_dir: str) -> None:
+        import os
+        import threading
+
+        from instaslice_tpu_torch.deviceplugin.wire import (
+            KUBELET_SOCKET,
+            Server,
+            registration_handler,
+        )
+
+        self.registrations = []
+        self.cv = threading.Condition()
+        self._server = Server(name="smoke-kubelet")
+        self._server.add_handlers(registration_handler(self))
+        self._server.start(os.path.join(plugin_dir, KUBELET_SOCKET))
+
+    def Register(self, request, context):
+        from instaslice_tpu_torch.deviceplugin import proto
+
+        with self.cv:
+            self.registrations.append((time.perf_counter(), request))
+            self.cv.notify_all()
+        return proto.Empty()
+
+    def wait_for(self, n: int, timeout: float) -> float:
+        """The time of the ``n``-th registration; raises after
+        ``timeout`` seconds without it."""
+        with self.cv:
+            check(self.cv.wait_for(lambda: len(self.registrations) >= n,
+                                   timeout),
+                  f"slice: registration {n} within {timeout} s")
+            return self.registrations[n - 1][0]
+
+    def stop(self) -> None:
+        self._server.stop(grace=0.5)
+
+
+def plugin_exchange(backend, res, gpu: int) -> dict:
+    """The device plugin on the card's reservation, driven as the
+    kubelet drives it, through the port's wire only: the slice manager
+    over ``backend``, registered with a kubelet of the port's wire; on
+    one connection the options, the first ListAndWatch update (exactly
+    ``slice-<uuid>``, Healthy), GPU ``gpu`` marked unhealthy and healed
+    (each update within 1 s), GetPreferredAllocation, Allocate; the
+    controls (``slice-nope`` NOT_FOUND, ``gpu-0`` INVALID_ARGUMENT, the
+    plugin's socket removed: a second Register within the poll period).
+    Returns the readings and Allocate's container response."""
+    import os
+    import shutil
+    import tempfile
+
+    from instaslice_tpu_torch.deviceplugin.server import (
+        SlicePluginManager,
+        profile_resource,
+        reservation_profile,
+    )
+    from instaslice_tpu_torch.deviceplugin.wire import (
+        HEALTHY,
+        UNHEALTHY,
+        Channel,
+        DevicePluginClient,
+        RpcError,
+        StatusCode,
+    )
+
+    # a short directory: unix socket paths stop at 107 characters
+    pdir = tempfile.mkdtemp(prefix="dp", dir="/tmp")
+    kubelet = SmokeKubelet(pdir)
+    mgr = None
+    out = {}
+    try:
+        profile = reservation_profile(res)
+        dev_id = f"slice-{res.slice_uuid}"
+        t0 = time.perf_counter()
+        mgr = SlicePluginManager(backend, plugin_dir=pdir,
+                                 poll_seconds=PLUGIN_POLL_S).start()
+        out["register_ms"] = (kubelet.wait_for(1, 30) - t0) * 1e3
+        reg = kubelet.registrations[0][1]
+        out["registration"] = {"version": reg.version,
+                               "endpoint": reg.endpoint,
+                               "resource": reg.resource_name}
+        check((reg.version, reg.resource_name, reg.endpoint) == (
+            "v1beta1", profile_resource(profile),
+            f"tpuslice-{profile}.sock"),
+            f"slice: the plugin's registration {out['registration']}")
+        # the manager records a plugin once its start() has registered
+        deadline = time.monotonic() + 10
+        while profile not in mgr.plugins:
+            check(time.monotonic() < deadline, "slice: the manager's plugin")
+            time.sleep(0.01)
+        plugin = mgr.plugins[profile]
+        with Channel(plugin.socket_path) as ch:
+            c = DevicePluginClient(ch)
+            check(c.options().get_preferred_allocation_available,
+                  "slice: the plugin offers GetPreferredAllocation")
+            stream = c.list_and_watch(timeout=60)
+            first = stream.next(timeout=5)
+            out["advertised"] = [(d.ID, d.health) for d in first.devices]
+            check(out["advertised"] == [(dev_id, HEALTHY)],
+                  f"slice: ListAndWatch lists {out['advertised']}")
+            health_ms = []
+            for healthy, want in ((False, UNHEALTHY), (True, HEALTHY)):
+                t1 = time.perf_counter()
+                plugin.set_chip_health(gpu, healthy)
+                upd = stream.next(timeout=1.0)
+                health_ms.append((time.perf_counter() - t1) * 1e3)
+                check([(d.ID, d.health) for d in upd.devices]
+                      == [(dev_id, want)], f"slice: health update {want}")
+            out["health_update_ms"] = health_ms
+            pref = c.preferred([dev_id], 1)
+            check(list(pref.container_responses[0].deviceIDs) == [dev_id],
+                  "slice: GetPreferredAllocation")
+            t1 = time.perf_counter()
+            (cresp,) = c.allocate([dev_id]).container_responses
+            out["allocate_ms"] = (time.perf_counter() - t1) * 1e3
+            codes = {}
+            for bad, want in (("slice-nope", StatusCode.NOT_FOUND),
+                              ("gpu-0", StatusCode.INVALID_ARGUMENT)):
+                try:
+                    c.allocate([bad])
+                    codes[bad] = "OK"
+                except RpcError as e:
+                    codes[bad] = e.code().name
+                check(codes[bad] == want.name,
+                      f"slice: Allocate {bad} gave {codes[bad]}")
+            out["controls"] = codes
+            stream.cancel()
+        t1 = time.perf_counter()
+        os.unlink(plugin.socket_path)
+        out["reregister_ms"] = (kubelet.wait_for(2, 10) - t1) * 1e3
+        # found within one poll, then served and registered anew
+        check(out["reregister_ms"] <= (PLUGIN_POLL_S + 0.5) * 1e3,
+              f"slice: re-registered in {out['reregister_ms']:.0f} ms")
+    finally:
+        if mgr is not None:
+            mgr.stop()
+        kubelet.stop()
+        shutil.rmtree(pdir, ignore_errors=True)
+    out["allocate"] = {"envs": dict(cresp.envs),
+                       "devices": [d.host_path for d in cresp.devices],
+                       "annotations": dict(cresp.annotations)}
+    return out
+
+
+def dcn_smoke_on_card(res) -> dict:
+    """``parallel/dcn_smoke.py`` on the granted device: two workers of a
+    two-worker grant's handoff env (a v5e-4x4 over two hosts, the
+    reference test's grant, its ``CUDA_VISIBLE_DEVICES`` the granted
+    UUID), two processes sharing the card over gloo by name."""
+    import os
+    import socket
+
+    from instaslice_tpu_torch.agent.handoff import slice_env
+    from instaslice_tpu_torch.api.types import AllocationDetails, PodRef
+    from instaslice_tpu_torch.topology.grid import (
+        NodeGrid,
+        TorusGroup,
+        get_generation,
+    )
+    from instaslice_tpu_torch.topology.placement import legal_placements
+    from instaslice_tpu_torch.topology.profiles import parse_profile_name
+
+    gen = get_generation("v5e")
+    group = TorusGroup("g", gen, (4, 4, 1), {
+        "node-0": NodeGrid(gen, host_offset=(0, 0, 0), torus_group="g"),
+        "node-1": NodeGrid(gen, host_offset=(2, 0, 0), torus_group="g")})
+    pl = legal_placements(group, parse_profile_name("v5e-4x4"))[0]
+    pods = [PodRef(f"uid-{p.worker_id}", f"worker-{p.worker_id}",
+                   "default", worker_id=p.worker_id) for p in pl.parts]
+    alloc = AllocationDetails.from_placement(pl, pods)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for i, pod in enumerate(pods):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES")}
+        env.update(slice_env(alloc, pod, pl.parts[i].node_name, "v5e",
+                             res.device_uuids))
+        env.update(TPU_WORKER_HOSTNAMES="127.0.0.1,127.0.0.1",
+                   TPUSLICE_SMOKE_PORT=str(port),
+                   TPUSLICE_SMOKE_BACKEND="gloo")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "instaslice_tpu_torch.parallel.dcn_smoke"],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=180)
+            check(p.returncode == 0, f"slice: dcn_smoke failed: {e[-2000:]}")
+            outs.append(json.loads(o.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    for o in outs:
+        check(o["psum_total"] == 3.0 and o["processes_seen"] == 2
+              and o["local_devices"] == 1,
+              f"slice: dcn_smoke worker {o}")
+    return {"workers": outs, "seconds": time.perf_counter() - t0}
+
+
 def phase_slice(torch, card: str, served: list) -> dict:
     """The slice/device layer from discovery to a granted device that
     serves, and back: (a) ``select_backend("auto")`` is the NVML backend
@@ -5827,17 +6054,20 @@ def phase_slice(torch, card: str, served: list) -> dict:
     its NVML name, fails the phase: a GPU with MIG on is granted only by
     MIG slices), else the whole GPU; (c) the reservation, held by a
     second process, which must list it (restart safety) and be refused
-    the same GPU (``ChipsBusy``); (d) ``slice_env`` for one pod and the
-    workload (:func:`slice_child`) in a fresh process whose
-    ``CUDA_VISIBLE_DEVICES``/``NVIDIA_VISIBLE_DEVICES`` are the
-    handoff's alone: one device, the granted UUID, B1-B3 launched, and 8
-    completions whose tokens equal ``served`` (the serve phase's, from
-    the same weights, prompts and greedy decoding in the parent) and
-    whose logprobs lie within ``SERVE_LOGPROB_TOL`` of them; (e) the
-    release: no reservation left, and no MIG instance
-    of ours. The registry lives in a temporary directory of the phase's
-    own; nothing changes MIG mode or touches an instance the phase did
-    not make."""
+    the same GPU (``ChipsBusy``); (c2) the device plugin over it, as the
+    kubelet drives it (:func:`plugin_exchange`); (d) ``slice_env`` for
+    one pod, overlaid with Allocate's envs (equal on every shared key,
+    every DeviceSpec's host path present), and the workload
+    (:func:`slice_child`) in a fresh process whose
+    ``CUDA_VISIBLE_DEVICES``/``NVIDIA_VISIBLE_DEVICES`` are those alone:
+    one device, the granted UUID, B1-B3 launched, and 8 completions whose
+    tokens equal ``served`` (the serve phase's, from the same weights,
+    prompts and greedy decoding in the parent) and whose logprobs lie
+    within ``SERVE_LOGPROB_TOL`` of them; (d2) the rendezvous smoke of a
+    two-worker grant on the device (:func:`dcn_smoke_on_card`); (e) the
+    release: no reservation left, and no MIG instance of ours. The
+    registry lives in a temporary directory of the phase's own; nothing
+    changes MIG mode or touches an instance the phase did not make."""
     import os
     import shutil
     import tempfile
@@ -5943,14 +6173,44 @@ def phase_slice(torch, card: str, served: list) -> dict:
               "new process")
         check(seen["reserve"].startswith("ChipsBusy"),
               "slice: a second reserve of the device is refused")
-        # (d) the handoff and the workload on the granted device alone
+        # (c2) the device plugin, driven as the kubelet drives it
+        t0 = time.perf_counter()
+        dp = plugin_exchange(backend, res, gpu)
+        dp["seconds"] = time.perf_counter() - t0
+        out["plugin"] = dp
+        log(f"slice (c2): the plugin registered {dp['registration']} in "
+            f"{dp['register_ms']:.1f} ms; ListAndWatch {dp['advertised']}; "
+            f"health updates (unhealthy, healed) in "
+            f"{[round(x, 2) for x in dp['health_update_ms']]} ms; Allocate "
+            f"round trip {dp['allocate_ms']:.2f} ms; controls "
+            f"{dp['controls']}; socket removed: registered again in "
+            f"{dp['reregister_ms']:.1f} ms (poll {PLUGIN_POLL_S} s); "
+            f"{dp['seconds']:.1f} s")
+        # (d) the handoff, overlaid with Allocate's envs as the kubelet
+        # overlays them on envFrom, and the workload on the granted
+        # device alone
         env = slice_env(alloc, pod, "smoke-node", inv.generation,
                         res.device_uuids)
         out["env"] = env
+        granted_env = dp["allocate"]["envs"]
+        shared = sorted(set(env) & set(granted_env))
+        out["shared_env"] = shared
+        check({"CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES",
+               "TPU_VISIBLE_CHIPS"} <= set(shared)
+              and all(env[k] == granted_env[k] for k in shared),
+              f"slice: Allocate's env {granted_env} agrees with slice_env "
+              f"on {shared}")
+        missing = [p for p in dp["allocate"]["devices"]
+                   if not os.path.exists(p)]
+        check(not missing and dp["allocate"]["devices"],
+              f"slice: Allocate's device nodes exist (missing {missing})")
+        log(f"slice (d): Allocate's env agrees with slice_env on {shared}; "
+            f"its device nodes {dp['allocate']['devices']} exist")
         child_env = {k: v for k, v in os.environ.items()
                      if k not in ("CUDA_VISIBLE_DEVICES",
                                   "NVIDIA_VISIBLE_DEVICES")}
         child_env.update(env)
+        child_env.update(granted_env)
         result = work / "child.json"
         t0 = time.perf_counter()
         run = subprocess.run(
@@ -6008,6 +6268,11 @@ def phase_slice(torch, card: str, served: list) -> dict:
         check(c["quant_decode_attention"]
               == w["n_layers"] * w["decode_steps"],
               "slice: B1 once a layer a decode step")
+        # (d2) the rendezvous smoke of a two-worker grant on the device
+        out["dcn_smoke"] = dcn_smoke_on_card(res)
+        log(f"slice (d2): dcn_smoke, two workers over gloo on the granted "
+            f"device: {out['dcn_smoke']['workers']} "
+            f"({out['dcn_smoke']['seconds']:.1f} s)")
         # (e) release
         t0 = time.perf_counter()
         backend.release(res.slice_uuid)

@@ -1,11 +1,16 @@
-"""The flight-recorder ``reason`` catalog of the serving plane and of
-allocations, and the label the handoff ConfigMap carries.
+"""The flight-recorder ``reason`` catalog of the serving plane, of
+allocations and of the device plugin, the label the handoff ConfigMap
+carries, and the resources and annotations of the device plugin.
 
-A copy of the serving and allocation reasons of
+A copy of the serving, allocation and chip-health reasons of
 ``instaslice_tpu/api/constants.py`` (the ones the scheduler, the
-profiler, the journal and ``api/types.py`` of the port emit, the
-session-migration reasons among them) and of its ``GROUP`` and
-``POD_UID_LABEL``: the port imports nothing of the JAX package. Every journal event names
+profiler, the journal, ``api/types.py`` and ``deviceplugin/server.py``
+of the port emit, the session-migration reasons among them) and of its
+``GROUP``, ``POD_UID_LABEL`` and allocate-response annotations: the
+port imports nothing of the JAX package. Its ``TPU_RESOURCE`` and
+``TPU_PROFILE_RESOURCE_PREFIX`` become NVIDIA's resource names, the
+ones InstaSlice's pods request (``samples/test-pod.yaml``) and
+``topology/mig.py``'s ``parse_mig_profile`` reads. Every journal event names
 its reason from HERE, so dashboards and validators keyed on the
 reference's catalog read the port's events unchanged.
 """
@@ -14,6 +19,18 @@ reference's catalog read the port's events unchanged.
 GROUP = "tpu.instaslice.dev"
 #: Handoff ConfigMap owner label (garbage collection + discovery)
 POD_UID_LABEL = f"{GROUP}/pod-uid"
+
+#: Extended resource of a whole GPU, advertised by the device plugin in
+#: chips mode and by the slice manager for whole-GPU reservations
+GPU_RESOURCE = "nvidia.com/gpu"
+#: Per-profile MIG resources (``nvidia.com/mig-3g.40gb``) advertised by
+#: the slice device-plugin manager and requested in pod limits
+MIG_RESOURCE_PREFIX = "nvidia.com/mig-"
+
+#: Device-plugin allocate-response annotations (surfaced on the pod by
+#: the kubelet)
+CHIPS_ANNOTATION = f"{GROUP}/chips"
+SLICE_DEVICE_ANNOTATION = f"{GROUP}/slice-device"
 
 # allocation lifecycle (api/types.py AllocationDetails.set_status): one
 # reason per status an allocation enters
@@ -58,6 +75,10 @@ REASON_COMPILE_OBSERVED = "CompileObserved"
 REASON_SESSION_EXPORTED = "SessionExported"
 REASON_SESSION_IMPORTED = "SessionImported"
 
+# device plugin: a chip's health mark flipped
+REASON_CHIP_UNHEALTHY = "ChipUnhealthy"
+REASON_CHIP_HEALED = "ChipHealed"
+
 #: every reason the port's journal accepts without a warning
 EVENT_REASONS = frozenset({
     *TRANSITION_REASONS.values(),
@@ -65,4 +86,5 @@ EVENT_REASONS = frozenset({
     REASON_PREEMPTED, REASON_RESUMED, REASON_SLO_MISSED,
     REASON_COMPILE_OBSERVED,
     REASON_SESSION_EXPORTED, REASON_SESSION_IMPORTED,
+    REASON_CHIP_UNHEALTHY, REASON_CHIP_HEALED,
 })

@@ -5,7 +5,8 @@ reference's ``NativeBackend`` (ctypes over its C++ ``libtpuslice.so``)
 and of InstaSlice's go-nvml calls (``instaslice_daemonset.go:149-194,
 323-364, 588-748``):
 
-- ``discover`` reads the GPU count and, per GPU, its index, UUID, name,
+- ``discover`` reads the GPU count and, per GPU, its index, device
+  node (by its minor number), UUID, name,
   memory, power limit, MIG mode (current and pending), NVML's GPU
   instance profile table with each profile's possible placements where
   NVML answers, and the MIG devices that exist;
@@ -53,6 +54,7 @@ from instaslice_tpu_torch.device.registry import (
 )
 from instaslice_tpu_torch.topology.mig import (
     H100_80GB,
+    compare_catalog,
     mig_catalog,
     parse_mig_profile,
 )
@@ -83,7 +85,7 @@ NVML_ERRORS = {
     27: "NVML_ERROR_NOT_READY", 28: "NVML_ERROR_GPU_NOT_FOUND",
     29: "NVML_ERROR_INVALID_STATE", 999: "NVML_ERROR_UNKNOWN",
 }
-NOT_SUPPORTED, NOT_FOUND = 3, 6
+INVALID_ARGUMENT, NOT_SUPPORTED, NOT_FOUND = 2, 3, 6
 #: NVML_GPU_INSTANCE_PROFILE_* indexes a profile query walks (0x0-0x9)
 GI_PROFILES = range(10)
 #: NVML_COMPUTE_INSTANCE_PROFILE_* of a compute instance over a whole GPU
@@ -190,6 +192,7 @@ _SIGNATURES = {
     "nvmlDeviceGetCount_v2": [_P(_U)],
     "nvmlDeviceGetHandleByIndex_v2": [_U, _P(_H)],
     "nvmlDeviceGetIndex": [_H, _P(_U)],
+    "nvmlDeviceGetMinorNumber": [_H, _P(_U)],
     "nvmlDeviceGetUUID": [_H, ctypes.c_char_p, _U],
     "nvmlDeviceGetName": [_H, ctypes.c_char_p, _U],
     "nvmlDeviceGetMemoryInfo": [_H, _P(Memory)],
@@ -202,6 +205,7 @@ _SIGNATURES = {
     "nvmlDeviceCreateGpuInstanceWithPlacement": [
         _H, _U, _P(Placement), _P(_H)],
     "nvmlDeviceGetGpuInstanceById": [_H, _U, _P(_H)],
+    "nvmlDeviceGetGpuInstances": [_H, _U, _P(_H), _P(_U)],
     "nvmlGpuInstanceGetInfo": [_H, _P(GpuInstanceInfo)],
     "nvmlGpuInstanceGetComputeInstanceProfileInfo": [
         _H, _U, _U, _P(ComputeInstanceProfileInfo)],
@@ -217,12 +221,24 @@ _SIGNATURES = {
 }
 
 
-def generation_of(name: str, memory_bytes: int) -> str:
+#: the memory NVML reports of an H100 80GB lies in [75, 85) GiB (79.6
+#: GiB); the H100 NVL's 94 GB (93.6 GiB) lies above it
+_H100_80GB_GIB = (75, 85)
+
+
+def generation_of(name: str, memory_bytes: int, profiles=()) -> str:
     """The MIG grid of a card by NVML's name and memory: the H100 80GB
-    (SXM "HBM3" and PCIe alike), else "" (no catalog: whole GPUs only)."""
-    if "H100" in name and memory_bytes >= 75 * 2 ** 30:
-        return H100_80GB
-    return ""
+    (SXM "HBM3" and PCIe alike), else "" (no catalog: whole GPUs only).
+    ``profiles``, NVML's GPU instance profile table where it answered,
+    must agree with the catalog (:func:`compare_catalog`): a card whose
+    table names other profiles (an H100 NVL's 1g.12gb ... 7g.94gb) has
+    another grid."""
+    lo, hi = _H100_80GB_GIB
+    if "H100" not in name or not lo * 2 ** 30 <= memory_bytes < hi * 2 ** 30:
+        return ""
+    if profiles and compare_catalog(profiles, H100_80GB):
+        return ""
+    return H100_80GB
 
 
 class NvmlBackend(DeviceBackend):
@@ -280,15 +296,17 @@ class NvmlBackend(DeviceBackend):
         return h
 
     def _read_generation(self) -> str:
-        """The MIG grid of the first GPU that answers, "" when none
-        does."""
+        """The MIG grid of the first GPU that answers (its profile table
+        too where MIG is on), "" when none does."""
         for i in range(self.gpu_count()):
             try:
                 h = self._handle(i)
                 mem = Memory()
                 self._call("nvmlDeviceGetMemoryInfo", h, ctypes.byref(mem))
+                table = (self._profile_table(h)[0]
+                         if self._mig_mode(h) == 1 else ())
                 return generation_of(self._text("nvmlDeviceGetName", h),
-                                     mem.total)
+                                     mem.total, table)
             except NvmlError:
                 continue
         return ""
@@ -392,10 +410,23 @@ class NvmlBackend(DeviceBackend):
         self._registry.save_inventory({g.index: g.uuid for g in gpus})
         return NodeInventory(
             generation=self.generation,
-            chip_paths={g.index: f"/dev/nvidia{g.index}" for g in gpus},
+            chip_paths={g.index: self._device_node(g.index) for g in gpus},
             source="nvml",
             gpus=gpus,
         )
+
+    def _device_node(self, index: int) -> str:
+        """``/dev/nvidia<minor>``: the node's minor number is the
+        driver's, which need not be NVML's index (a container may hold
+        a host's third card alone)."""
+        try:
+            minor = self._uint("nvmlDeviceGetMinorNumber",
+                               self._handle(index))
+        except NvmlError as e:
+            if e.code != NOT_SUPPORTED:
+                raise
+            minor = index
+        return f"/dev/nvidia{minor}"
 
     def reserve(self, slice_uuid: str, chip_ids: List[int],
                 profile: str = "", start: int = -1) -> Reservation:
@@ -414,7 +445,10 @@ class NvmlBackend(DeviceBackend):
         if other is not None:
             raise ChipsBusy(
                 f"GPU {other.gpu} holds an unrecorded instance "
-                f"{other.profile}@{other.start} ({other.device_uuids[0]})")
+                f"{other.profile}@{other.start} (GPU instance "
+                f"{other.gpu_instance}, "
+                + (f"{other.device_uuids[0]})" if other.device_uuids
+                   else "no compute instance)"))
         if not res.profile:
             # whole GPUs: the reads are the health check
             handles = [self._handle(c) for c in res.chip_ids]
@@ -504,11 +538,16 @@ class NvmlBackend(DeviceBackend):
         return self._registry.list()
 
     def instances(self, records=None) -> List[Reservation]:
-        """Every MIG instance on the node's GPUs with MIG on, as a
+        """Every GPU instance on the node's GPUs with MIG on, as a
         reservation: the slice uuid of its record in ``records`` (the
         registry's when None), or "" when none; its slots are NVML's
         placement, and a profile outside the catalog (1g.10gb+me) is
-        named ``profile-<NVML profile id>``."""
+        named ``profile-<NVML profile id>``. The instances are listed
+        per profile of NVML's table (``nvmlDeviceGetGpuInstances``), so
+        one without a compute instance (left by a crash between the two
+        creates, or made by ``nvidia-smi mig -cgi`` without ``-C``) is
+        listed too, with ``compute_instance`` -1 and no UUID: NVML has a
+        MIG device handle only for a compute instance."""
         if records is None:
             records = self._registry.list()
         recorded = {(r.gpu, r.gpu_instance): r.slice_uuid
@@ -520,17 +559,38 @@ class NvmlBackend(DeviceBackend):
             h = self._handle(g)
             if self._mig_mode(h) != 1:
                 continue
-            for d in self._mig_devices(h):
-                gi, info = ctypes.c_void_p(), GpuInstanceInfo()
-                self._call("nvmlDeviceGetGpuInstanceById", h, d["gi"],
-                           ctypes.byref(gi))
-                self._call("nvmlGpuInstanceGetInfo", gi, ctypes.byref(info))
-                p = by_id.get(info.profileId)
+            cis = {d["gi"]: d for d in self._mig_devices(h)}
+            for info in self._gpu_instances(h):
+                p, d = by_id.get(info.profileId), cis.get(info.id)
                 out.append(Reservation(
-                    recorded.get((g, d["gi"]), ""), (g,), (d["uuid"],),
+                    recorded.get((g, info.id), ""), (g,),
+                    (d["uuid"],) if d else (),
                     p.name if p else f"profile-{info.profileId}",
-                    info.placement.start, d["gi"], d["ci"],
+                    info.placement.start, info.id, d["ci"] if d else -1,
                     info.placement.size))
+        return sorted(out, key=lambda r: (r.gpu, r.gpu_instance))
+
+    def _gpu_instances(self, h) -> List[GpuInstanceInfo]:
+        """The GPU instances of GPU handle ``h``, each profile of NVML's
+        table asked in turn (a profile NVML does not support is
+        skipped)."""
+        out = []
+        for p in GI_PROFILES:
+            try:
+                info = self._profile_info(h, p)
+            except NvmlError as e:
+                if e.code not in (INVALID_ARGUMENT, NOT_SUPPORTED):
+                    raise
+                continue
+            n = ctypes.c_uint(max(1, info.instanceCount))
+            arr = (ctypes.c_void_p * n.value)()
+            self._call("nvmlDeviceGetGpuInstances", h, info.id, arr,
+                       ctypes.byref(n))
+            for gi in arr[:n.value]:
+                gi_info = GpuInstanceInfo()
+                self._call("nvmlGpuInstanceGetInfo", ctypes.c_void_p(gi),
+                           ctypes.byref(gi_info))
+                out.append(gi_info)
         return out
 
     def dangling(self) -> List[Reservation]:

@@ -36,6 +36,7 @@ Wire format (one JSON object per line)::
     {"op": "resume_request", "rid": 7}
     {"op": "drop_parked", "rid": 7}
     {"op": "import_session", "blob": {...session wire format...}}
+    {"op": "recover"}
     {"op": "shutdown"}
 
 Usage: driver (rank 0)::
@@ -54,11 +55,14 @@ only through the ops this wrapper broadcasts. What the scheduler calls
 besides them is rank-local: host-side reads and checks
 (``can_admit``, ``_match_prefix``, the stats), ``cache_poisoned()``
 and ``_drain_pending()`` (the driver's readback of a block its
-followers replay synchronously). ``recover()`` is the gap this module
-does not close (ROADMAP queue C 2, shared with the reference): it
-issues no collective, so it cannot deadlock, but the op list has no
-recover op, so after the scheduler recovers the driver alone the
-followers keep their slots and the replicas diverge. The warm-ups
+followers replay synchronously). ``recover()`` rides the op stream
+(the reference's op list has no such op, so after its scheduler
+recovers the driver alone, the followers keep their slots and the
+replicas diverge): it issues no collective, and every rank drops the
+same slots, so the next admissions land in the same slots everywhere.
+A fault that keeps the driver from an op it has already broadcast
+leaves the followers in collectives it never joins: such a rank is
+lost, as a failed chip's is. The warm-ups
 (``warm_prefill_buckets``, ``warm_spec_programs``) issue forwards, so
 every rank runs them before the driver/follower split
 (``api_server.build_engine``). Not copied: the reference's
@@ -305,6 +309,12 @@ class DistributedEngine:
         self._bcast({"op": "import_session", "blob": blob})
         return self.engine.import_session(blob)
 
+    def recover(self) -> List[int]:
+        """Every replica drops its live slots and zeroes its caches, as
+        the driver does (the scheduler's ``_recover_engine``)."""
+        self._bcast({"op": "recover"})
+        return self.engine.recover()
+
     def generate(self, prompts, max_new_tokens, block_size: int = 32,
                  stop=None):
         # ServingEngine.generate drives everything through the public
@@ -372,7 +382,7 @@ def run_follower(engine: ServingEngine, driver_host: str, port: int,
                             "spec_step", "register_prefix",
                             "drop_prefix", "finish_slot", "evict_slot",
                             "preempt_slot", "resume_request",
-                            "drop_parked", "import_session"):
+                            "drop_parked", "import_session", "recover"):
                 # a protocol mismatch is NOT deterministic-skip
                 # territory: replicas are about to diverge — die loudly
                 raise RuntimeError(f"unknown op {kind!r} in op stream")
@@ -418,6 +428,8 @@ def run_follower(engine: ServingEngine, driver_host: str, port: int,
                     engine.drop_parked(op["rid"])
                 elif kind == "import_session":
                     engine.import_session(op["blob"])
+                elif kind == "recover":
+                    engine.recover()
             except (ValueError, KeyError, RuntimeError) as e:
                 # deterministic host-side validation failure: the
                 # driver hit (or pre-screened) the exact same error, so

@@ -29,9 +29,9 @@ ever taken under it).
 
 A copy of ``instaslice_tpu/utils/lockcheck.py`` (the port imports
 nothing of the JAX package), trimmed to what the port's server uses:
-:func:`named_lock` and :func:`debug_locks_payload`. Left out: the
-re-entrant and condition factories (``named_rlock``,
-``named_condition``), arming from code (``arm``/``disarm``/``armed``),
+:func:`named_lock`, :func:`debug_locks_payload`, and
+:func:`named_condition` (the device plugin's health condition). Left
+out: the re-entrant factory (``named_rlock``), arming from code (``arm``/``disarm``/``armed``),
 the test-isolation helpers (``reset``/``snapshot``/``restore``) and the
 session gate (``assert_clean``, ``LockOrderError``).
 """
@@ -292,3 +292,65 @@ def named_lock(name: str) -> _InstrumentedLock:
     """A ``threading.Lock`` analog carrying ``name`` in the detector's
     acquisition graph."""
     return _InstrumentedLock(name)
+
+
+class _InstrumentedCondition(threading.Condition):
+    """``threading.Condition`` over its usual raw lock, with the
+    enter/exit/wait surface instrumented at the condition level. The
+    held-set entry is *suspended* across ``wait()`` — the lock really is
+    released for the wait's duration, and modeling it as held would
+    fabricate ordering edges from locks taken by other code while this
+    thread sleeps."""
+
+    def __init__(self, name: str, lock=None) -> None:
+        super().__init__(lock)
+        self.name = name
+        # the base __init__ binds self.acquire/self.release as INSTANCE
+        # attributes pointing straight at the raw lock; re-bind them to
+        # the instrumented versions or explicit cv.acquire() calls would
+        # bypass the detector entirely
+        self.acquire = self._acquire_instrumented
+        self.release = self._release_instrumented
+
+    def _acquire_instrumented(self, *args, **kwargs) -> bool:
+        if _armed:
+            _before_acquire(self.name, id(self))
+        ok = self._lock.acquire(*args, **kwargs)
+        if ok and _armed:
+            _after_acquire(self.name, id(self))
+        return ok
+
+    def _release_instrumented(self) -> None:
+        if _armed:
+            _on_release(self.name, id(self))
+        self._lock.release()
+
+    def __enter__(self):
+        self._acquire_instrumented()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._release_instrumented()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        suspended = None
+        if _armed:
+            st = _held()
+            suspended = _find(st, id(self))
+            if suspended is not None:
+                st.remove(suspended)
+        try:
+            return super().wait(timeout)
+        finally:
+            if suspended is not None:
+                # re-acquired: fresh hold clock (the wait was not a hold)
+                suspended[2] = time.monotonic()
+                _held().append(suspended)
+
+    # wait_for() delegates to wait(); notify/notify_all need no hooks
+
+
+def named_condition(name: str, lock=None) -> _InstrumentedCondition:
+    """A ``threading.Condition`` analog; ``wait()`` suspends the held
+    entry so condition waits never fabricate ordering edges."""
+    return _InstrumentedCondition(name, lock)

@@ -1349,7 +1349,8 @@ def test_world_size_one_nccl_step_is_bit_equal_to_the_meshless_step(
 def test_nvml_backend_agrees_with_torch(dev, tmp_path):
     """The NVML backend's count, names and UUIDs are torch.cuda's (NVML
     sees every GPU of the host, so the card's torch must see them all:
-    no CUDA_VISIBLE_DEVICES)."""
+    no CUDA_VISIBLE_DEVICES), and each GPU's device node (by its minor
+    number) exists."""
     import os
 
     from instaslice_tpu_torch.device import NvmlBackend, select_backend
@@ -1360,6 +1361,7 @@ def test_nvml_backend_agrees_with_torch(dev, tmp_path):
     assert isinstance(b, NvmlBackend)
     inv = b.discover()
     assert inv.chip_count == torch.cuda.device_count()
+    assert all(os.path.exists(p) for p in inv.chip_paths.values())
     for g in inv.gpus:
         props = torch.cuda.get_device_properties(g.index)
         assert g.name == props.name

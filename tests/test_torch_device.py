@@ -332,6 +332,29 @@ class TestDangling:
         assert b.reserve("z", [0], "1g.10gb", 2).slots == (2, 1)
         assert b.dangling() == [d]
 
+    @pytest.mark.parametrize("ci", [-1, 0])
+    def test_nvml_gpu_instance_without_compute_instance(self, stub, ci):
+        # a 3g.40gb at slot 4 of GPU 0, left without a compute instance
+        # (a crash between the two creates, or nvidia-smi mig -cgi
+        # without -C); the control has its compute instance 0
+        b = stub(f"gpus 2\nnext 7\ngi 0 5 9 4 4 {ci}\n")
+        (d,) = b.dangling()
+        assert (d.slice_uuid, d.gpu, d.profile, d.start, d.size,
+                d.gpu_instance, d.compute_instance) == \
+            ("", 0, "3g.40gb", 4, 4, 5, ci)
+        assert len(d.device_uuids) == (0 if ci < 0 else 1)
+        with pytest.raises(ChipsBusy, match="unrecorded"):
+            b.reserve("x", [0], "3g.40gb", 4)
+        with pytest.raises(ChipsBusy, match="unrecorded"):
+            b.reserve("y", [0], "1g.10gb", 6)
+        # the slots beside it are free, on both
+        assert b.reserve("x", [0], "3g.40gb", 0).slots == (0, 4)
+        assert {(i.slice_uuid, i.gpu_instance, i.compute_instance)
+                for i in b.instances()} == {("", 5, ci), ("x", 7, 0)}
+        b.release("x")
+        assert b.dangling() == [d] and f"gi 0 5 9 4 4 {ci}" in \
+            stub.state.read_text()
+
     def test_fake_restore_leaves_a_dangling_instance(self):
         b = FakeGpuBackend(gpu_count=2)
         b.reserve("a", [0], "1g.10gb", 0)
@@ -454,6 +477,50 @@ class TestSelect:
         b = stub("gpus 2\n")
         assert b.generation == b.discover().generation == mig.H100_80GB
         assert b.reserve("m", [1], "3g.40gb", 4).slots == (4, 4)
+
+
+class TestGeneration:
+    """The MIG catalog goes to an H100 80GB alone: an H100 NVL (94 GB,
+    profiles 1g.12gb ... 7g.94gb) gets none, and is granted whole GPUs
+    only."""
+
+    NVL = "name NVIDIA H100 NVL\nmemory 100485038080\ntable nvl\n"
+
+    def test_h100_nvl_gets_no_catalog(self, stub):
+        b = stub("gpus 2\n" + self.NVL)
+        assert b.generation == b.discover().generation == ""
+        assert [p["name"] for p in b.discover().gpus[0].profiles][:2] == \
+            ["MIG 1g.12gb", "MIG 2g.24gb"]
+        with pytest.raises(DeviceError, match="catalog"):
+            b.reserve("m", [0], "3g.40gb", 4)
+        assert b.list_reservations() == [] and b.instances() == []
+
+    def test_h100_80gb_gets_the_catalog(self, stub):
+        # the control: the 80 GB card's own name, memory and table
+        b = stub("gpus 2\nname NVIDIA H100 80GB HBM3\n"
+                 "memory 85520809984\n")
+        assert b.generation == mig.H100_80GB
+        assert b.reserve("m", [0], "3g.40gb", 4).slots == (4, 4)
+
+    def test_a_table_that_disagrees_withholds_the_catalog(self, stub):
+        # an 80 GB name and memory whose NVML table is another card's:
+        # the table decides; with MIG off it cannot be read, and the
+        # name and memory decide
+        assert stub("gpus 1\ntable nvl\n").generation == ""
+        assert stub("gpus 1\ntable nvl\nmig 0 0 0\n").generation == \
+            mig.H100_80GB
+
+    @pytest.mark.parametrize("name,gib,want", [
+        ("NVIDIA H100 80GB HBM3", 79.6, mig.H100_80GB),
+        ("NVIDIA H100 PCIe", 79.6, mig.H100_80GB),
+        ("NVIDIA H100 NVL", 93.6, ""),
+        ("NVIDIA H100 80GB HBM3", 70.0, ""),
+        ("NVIDIA A100-SXM4-80GB", 79.2, ""),
+    ])
+    def test_generation_of(self, name, gib, want):
+        from instaslice_tpu_torch.device.nvml import generation_of
+
+        assert generation_of(name, int(gib * 2 ** 30)) == want
 
 
 class TestRegistryFiles:

@@ -146,8 +146,25 @@ DEVICE_LAYER = {
 }
 
 
+#: the device plugin and its hand-written wire, the rendezvous smoke and
+#: the plugin's CLI: both checks below must reach them too, and none of
+#: them may import grpc or google.protobuf
+DEVICE_PLUGIN = {
+    "instaslice_tpu_torch.deviceplugin",
+    "instaslice_tpu_torch.deviceplugin.proto",
+    "instaslice_tpu_torch.deviceplugin.hpack",
+    "instaslice_tpu_torch.deviceplugin.h2",
+    "instaslice_tpu_torch.deviceplugin.wire",
+    "instaslice_tpu_torch.deviceplugin.server",
+    "instaslice_tpu_torch.parallel.dcn_smoke",
+    "instaslice_tpu_torch.cli.deviceplugin_main",
+    "instaslice_tpu_torch.cli.runtime",
+}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER <= set(_port_modules())
+    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN <= \
+        set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -155,7 +172,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'instaslice_tpu'\n"
         "             or m.startswith('instaslice_tpu.')\n"
-        "             or m.split('.')[0] == 'ml_dtypes')\n"
+        "             or m.split('.')[0] in ('ml_dtypes', 'grpc')\n"
+        "             or m == 'google.protobuf'\n"
+        "             or m.startswith('google.protobuf.'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -170,12 +189,15 @@ def test_port_sources_never_name_jax_or_the_jax_package():
     # that needs it, which the import check above never calls
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib)(?:\.|\s|$)"
                      r"|^(?:import|from)\s+ml_dtypes(?:\.|\s|$)"
+                     r"|^\s*(?:import|from)\s+(?:grpc|google\.protobuf)"
+                     r"(?:\.|\s|$)"
                      r"|instaslice_tpu\.|import instaslice_tpu(?:\s|$)",
                      re.M)
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     scanned = {".".join(f.relative_to(REPO).with_suffix("").parts)
                .removesuffix(".__init__") for f in files}
-    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER <= scanned
+    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN <= \
+        scanned
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
     assert len(files) > 10 and not hits, hits

@@ -42,6 +42,7 @@ from instaslice_tpu.models.quant import quantize_params as jax_quantize
 from instaslice_tpu.models.quant import shard_params as jax_shard_params
 from instaslice_tpu.serving import AdmissionRequest as JaxAdmission
 from instaslice_tpu.serving import ServingEngine as JaxEngine
+from conftest import free_port
 from instaslice_tpu_torch import bridge
 from instaslice_tpu_torch.models import lm as tlm
 from instaslice_tpu_torch.models.quant import (
@@ -107,6 +108,11 @@ def world(tmp_path_factory):
                       "prompts": PROMPTS, "n_new": N_NEW})
     cases.append({"kind": "refusals", "name": "refusals", "cfg": SMALL,
                   "params": encode_tree(_trees(None)[1]), "kv_quant": False})
+    for name, control in (("recover", False), ("recover_control", True)):
+        cases.append({"kind": "recover", "name": name, "cfg": SMALL,
+                      "params": encode_tree(_trees(None)[1]),
+                      "kv_quant": False, "control": control,
+                      "port": free_port()})
     w = spawn_world(out, cases)
     try:
         yield w
@@ -263,3 +269,28 @@ def test_tp2_refusals(world):
                                      "multi-process mesh")
     assert res["multiproc"] is True
     assert world.result("refusals", 1)["errors"] == errs
+
+
+def test_recovery_rides_the_op_stream(world):
+    """A chip failure injected into the driver mid-decode: the scheduler
+    over ``DistributedEngine`` recovers (both requests fail with the
+    recovery's error), ``recover`` rides the op stream, and the follower
+    lands in the driver's state: digests equal, and the next two
+    admissions take the same slots, 0 and 1, on both ranks."""
+    d, f = world.result("recover", 0), world.result("recover", 1)
+    assert len(d["fired"]) == 1 and f["applied"] > 0
+    assert all(e.startswith("engine recovered after device failure")
+               for e in d["errors"])
+    assert dict(f["digest"], finished=[]) == dict(d["digest"], finished=[])
+    assert d["slots"] == f["slots"] == dict(zip((0, 1), d["new"]))
+
+
+def test_recovery_by_the_driver_alone_diverges(world):
+    """The control: the driver recovers alone (no ``recover`` op). The
+    follower keeps the failed requests' slots, the next admissions land
+    in slots 2 and 3 there, and the digests differ."""
+    d, f = (world.result("recover_control", r) for r in (0, 1))
+    assert len(d["fired"]) == 1
+    assert d["slots"] == dict(zip((0, 1), d["new"]))
+    assert f["slots"] != d["slots"] and len(f["slots"]) == 4
+    assert f["digest"]["live"] != d["digest"]["live"]

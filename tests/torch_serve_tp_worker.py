@@ -22,7 +22,11 @@ mesh of (1, 1, 2); each rank writes what the test compares to
 - ``session``: preempt/resume and an ``import_session`` through the op
   stream, and ``export_session`` refused;
 - ``oplog_lora``: :func:`adapter_script` over ``DistributedEngine`` on
-  rank 0 and ``run_follower`` on rank 1, each rank's digest after it.
+  rank 0 and ``run_follower`` on rank 1, each rank's digest after it;
+- ``recover``: :func:`recover_script`, a scheduler over
+  ``DistributedEngine`` that recovers from a chip failure injected into
+  the driver mid-decode; with ``control`` the driver recovers alone
+  (``recover()`` kept off the op stream). Each rank's digest and slots.
 
 It imports the port and torch only, never JAX.
 """
@@ -190,13 +194,15 @@ def run_refusals(case, mesh, rank: int) -> dict:
             "multiproc": eng._multiproc}
 
 
-def over_op_stream(case, mesh, rank: int, drive) -> dict:
-    """``drive(deng)`` on rank 0 through a DistributedEngine; rank 1
-    follows. Each rank's digest after, the driver's extra results too."""
+def over_op_stream(case, mesh, rank: int, drive,
+                   driver=DistributedEngine) -> dict:
+    """``drive(deng)`` on rank 0 through a ``driver`` (a
+    DistributedEngine); rank 1 follows. Each rank's digest and slots
+    after, the driver's extra results too."""
     eng = engine(case, mesh)
     out = {}
     if rank == 0:
-        deng = DistributedEngine(eng, n_followers=1, port=case["port"])
+        deng = driver(eng, n_followers=1, port=case["port"])
         try:
             out.update(drive(deng) or {})
         finally:
@@ -205,6 +211,7 @@ def over_op_stream(case, mesh, rank: int, drive) -> dict:
         out["applied"] = run_follower(eng, "127.0.0.1", case["port"])
     out["digest"] = state_digest(eng)
     out["parked"] = sorted(eng.parked)
+    out["slots"] = {s: r.request_id for s, r in sorted(eng.slots.items())}
     return out
 
 
@@ -261,9 +268,60 @@ def run_oplog_lora(case, mesh, rank: int) -> dict:
     return over_op_stream(case, mesh, rank, adapter_script)
 
 
+class DriverRecoversAlone(DistributedEngine):
+    """The control: ``recover()`` on the driver alone, as before the op
+    stream carried it."""
+
+    def recover(self):
+        return self.engine.recover()
+
+
+def recover_script(deng) -> dict:
+    """Two requests served by a :class:`Scheduler` over ``deng``; a chip
+    failure injected into the driver mid-decode (its cache poisoned at
+    the start of a round once it has decoded, before that round's op is
+    broadcast) makes the scheduler recover and fail both; then two
+    admissions and a block decode through ``deng``. Returns the errors,
+    the number of faults fired and the new requests' ids."""
+    from instaslice_tpu_torch.faults import FaultError, poison_cache
+    from instaslice_tpu_torch.serving.scheduler import Pending, Scheduler
+
+    fired = []
+
+    def hook():
+        eng = deng.engine
+        if eng.slots and eng.tokens_generated >= 4 and not fired:
+            fired.append(eng.tokens_generated)
+            poison_cache(eng)
+            raise FaultError("injected chip failure mid-decode")
+
+    sched = Scheduler(deng, block_size=2, fault_hook=hook, overlap=False)
+    pend = [Pending(p, 16) for p in ([5, 9, 2, 7], [11, 3, 8])]
+    sched.start()
+    try:
+        for p in pend:
+            sched.submit(p)
+        done = [p.done.wait(120) for p in pend]
+    finally:
+        sched.stop_flag.set()
+        sched.join(60)
+    if not all(done) or sched.is_alive():
+        raise RuntimeError(f"scheduler stuck: done {done}")
+    rids = [deng.add_request(p) for p in ([4, 4, 6, 1], [12, 40, 7])]
+    deng.decode_block(2)
+    return {"errors": [p.error for p in pend], "fired": fired,
+            "new": rids}
+
+
+def run_recover(case, mesh, rank: int) -> dict:
+    return over_op_stream(
+        case, mesh, rank, recover_script,
+        DriverRecoversAlone if case.get("control") else DistributedEngine)
+
+
 RUN = {"forward": run_forward, "refusals": run_refusals,
        "oplog": run_oplog, "session": run_session,
-       "oplog_lora": run_oplog_lora}
+       "oplog_lora": run_oplog_lora, "recover": run_recover}
 
 
 def main(rank: int, world: int, out: Path) -> None:
