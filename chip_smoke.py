@@ -221,7 +221,7 @@ the 871M widths, 4 layers, rows of 2048 tokens, against the same flags
 in one process (the ring runs no kernel); (e) GPipe at pipe 2, 4
 micro-batches, the 871M widths at 4 layers, 3 steps against the
 one-process step, B5-B7 10 a step per stage; the phase logs its seconds.
-slice (last): the slice/device layer on the card, from discovery to a
+slice: the slice/device layer on the card, from discovery to a
 granted device that serves and back (``phase_slice``): the NVML
 backend's ctypes struct layouts against the toolkit's ``nvml.h``
 (``device/nvml_layout.c``); ``select_backend("auto")`` is the NVML
@@ -252,6 +252,26 @@ no reservation and no MIG instance of the phase's is left. The registry
 is a temporary directory of the phase's own; MIG mode is read, never
 changed.
 
+agent (last): the node agent on the card (``phase_agent``): the port's
+``kube/httptest`` serves a ``FakeKube`` on 127.0.0.1 behind a bearer
+token and a JSON kubeconfig; the agent in a fresh process
+(``agent_child``: ``tpuslice-gpu-agent``'s parser and runner over the
+real HTTP client and the NVML backend) publishes the node's CR (the
+card's grid, one chip a GPU, its profiles plus ``gpu``) and answers
+``/healthz`` and ``/readyz``; the smoke writes, as the controller, a
+``creating`` allocation placed first-fit (3g.40gb where MIG is on,
+else the whole GPU), and the agent realizes it: the pod's ConfigMap
+with the granted UUID alone, ``realized_on`` and ``prepared`` under
+the part key, the Node's per-pod resource, the reservation listed by
+another process; the 7B int8 server in a fresh process on the
+ConfigMap's env serves the serve phase's tokens with B1-B3 on the
+card's trace; two health sweeps leave ``unhealthyChips`` empty; the
+allocation flipped to ``deleted`` is torn down to nothing; an agent
+armed to crash at ``agent.realize`` dies with its reservation
+unrecorded, and a restarted agent reaps that orphan (``OrphanReaped``
+on its ``/v1/debug/events``). Boot to CR, realize and teardown
+latency and the first burst's tok/s are printed beside the card.
+
 Then the ``kernels`` JSON line (launches, from the card's trace on the
 serving paths and from the wrappers on the training ones: B1-B3 from the
 serve phase, B4 from the moe phase's engine (its times at that path's 2048 x 2048,
@@ -266,7 +286,8 @@ from the parallel phase's world-size-1 mesh step and
 ``parallel_rank_launches`` per rank of its two-process runs,
 ``tp_serve_launches`` per rank of the tp 2 server,
 ``parallel_rest_launches`` per rank or stage of the parallel_rest
-phase's runs, ``slice_launches`` from the slice phase's workload), the graph
+phase's runs, ``slice_launches`` from the slice phase's workload,
+``agent_launches`` from the agent phase's workload), the graph
 phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
@@ -6118,7 +6139,7 @@ def phase_slice(torch, card: str, served: list) -> dict:
         before = backend.list_reservations()
         before_inst = {r.device_uuids for r in backend.instances()}
         # (b) placement with InstaSlice's policy
-        group = mig.gpu_group(inv.chip_count)
+        group = mig.gpu_group(inv.chip_count, inv.generation)
         occ = Occupancy(group)
         for r in before + backend.dangling():
             for c in r.chip_ids:
@@ -6296,6 +6317,486 @@ def phase_slice(torch, card: str, served: list) -> dict:
     return out
 
 
+#: the agent's health sweep period in the agent phase (the CLI's default
+#: is 10 s; the phase waits for two sweeps)
+AGENT_HEALTH_S = 0.5
+#: the longest the agent phase waits for one step of the agent
+AGENT_WAIT_S = 120.0
+#: the bearer token the phase's apiserver takes
+AGENT_TOKEN = "agent-smoke-token"
+AGENT_NODE = "smoke-node"
+_AGENT_PROBE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from instaslice_tpu_torch.device import NvmlBackend
+b = NvmlBackend(registry_dir=sys.argv[2])
+print(json.dumps([[r.slice_uuid, r.profile, list(r.device_uuids)]
+                  for r in b.list_reservations()]))
+"""
+
+
+def agent_child(kubeconfig: str, registry: str, probe: str) -> int:
+    """The node agent as ``tpuslice-gpu-agent --backend nvml`` runs it:
+    ``agent_main``'s parser, and the :class:`AgentRunner` that
+    ``run_agent`` starts, built as its ``from_args`` builds it, but with
+    the NVML backend on the phase's own registry directory (the CLI has
+    no flag for it, as the reference's has none) and a health sweep every
+    ``AGENT_HEALTH_S``. ``TPUSLICE_CRASH_AT`` in the environment arms its
+    crash points."""
+    from instaslice_tpu_torch.agent.runner import AgentRunner
+    from instaslice_tpu_torch.cli import agent_main
+    from instaslice_tpu_torch.device import select_backend
+    from instaslice_tpu_torch.kube.real import build_client
+
+    args = agent_main.build_parser().parse_args([
+        "--node-name", AGENT_NODE, "--backend", "nvml",
+        "--kubeconfig", kubeconfig, "--health-probe-bind-address", probe,
+        "--metrics-bind-address", "127.0.0.1:0"])
+    runner = AgentRunner(
+        build_client(args.kubeconfig),
+        select_backend(args.backend, registry_dir=registry),
+        node_name=args.node_name, namespace=args.namespace,
+        metrics_bind_address=args.metrics_bind_address,
+        health_probe_bind_address=args.health_probe_bind_address)
+    runner.agent.health_interval = AGENT_HEALTH_S
+    return runner.run()
+
+
+def http_get(url: str):
+    """(status, parsed JSON or text) of a GET; (0, None) while nothing
+    listens."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            code, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    except (urllib.error.URLError, ConnectionError):
+        return 0, None
+    try:
+        return code, json.loads(body)
+    except ValueError:
+        return code, body.decode(errors="replace")
+
+
+def wait_until(fn, what: str, timeout: float = AGENT_WAIT_S,
+               poll: float = 0.01):
+    """``fn()``'s first truthy value, polled; fails the phase after
+    ``timeout`` seconds without one."""
+    end = time.perf_counter() + timeout
+    while True:
+        val = fn()
+        if val:
+            return val
+        check(time.perf_counter() < end, f"agent: {what} within {timeout} s")
+        time.sleep(poll)
+
+
+class AgentProcess:
+    """One run of :func:`agent_child` in a fresh process, its output in
+    ``log``."""
+
+    def __init__(self, work: Path, n: int, crash_at: str = "") -> None:
+        import os
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.url = f"http://127.0.0.1:{port}"
+        env = dict(os.environ)
+        env.pop("TPUSLICE_CRASH_AT", None)
+        if crash_at:
+            env.update(TPUSLICE_CRASH_AT=crash_at, TPUSLICE_CRASH_HARD="1")
+        self.log = work / f"agent{n}.log"
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys; sys.path.insert(0, "
+                 f"{str(HERE)!r}); import chip_smoke; sys.exit(chip_smoke."
+                 f"agent_child({str(work / 'kubeconfig.json')!r}, "
+                 f"{str(work / 'reg')!r}, '127.0.0.1:{port}'))"],
+                env=env, cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+
+    def tail(self) -> str:
+        return self.log.read_text()[-3000:]
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def stop(self) -> int:
+        """SIGTERM, as the kubelet stops a pod; the exit code."""
+        if self.alive():
+            self.proc.terminate()
+        try:
+            return self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait()
+
+
+def phase_agent(torch, card: str, served: list) -> dict:
+    """The node agent on the card, from an allocation record to a pod's
+    device and back: (a) the port's ``kube/httptest`` serves a port
+    ``FakeKube`` on 127.0.0.1 behind a bearer token, with a JSON
+    kubeconfig and a ``Node``; (b) the agent (:func:`agent_child`) in a
+    fresh process over the real HTTP client and the NVML backend
+    publishes the node's CR (the card's grid, one chip a GPU, its
+    catalog), and its ``/healthz`` and ``/readyz`` answer 200; (c) the
+    smoke, as the controller, writes a ``creating`` allocation for one
+    pod, placed first-fit on the CR's grid (``SLICE_MIG_PROFILE`` where
+    MIG is on, else the whole GPU), and the agent realizes it: the pod's
+    ConfigMap with the granted UUID alone in ``CUDA_VISIBLE_DEVICES``,
+    ``realized_on`` and ``prepared`` under the part's key, the Node's
+    per-pod resource, the reservation listed by another process; (d)
+    the workload (:func:`slice_child`) in a fresh process on the
+    ConfigMap's env, as ``envFrom`` gives it: one device, the granted
+    UUID, the serve phase's tokens, B1-B3 on the card's trace; (e) two
+    health sweeps leave ``status.unhealthyChips`` at ``[]``; (g) the
+    allocation flipped to ``deleted`` is torn down: reservation,
+    ConfigMap, Node resource and record gone; (f), after (g) so that it
+    runs on a card of one GPU with MIG off too, an agent armed to crash
+    hard at ``agent.realize`` dies on a second allocation with its
+    reservation made and unrecorded; that allocation removed from the
+    CR, a restarted agent's boot sweep reaps the orphan (released, no
+    MIG instance of ours left, ``OrphanReaped`` on its
+    ``/v1/debug/events``). The phase reads MIG mode and never sets it."""
+    import os
+    import shutil
+    import tempfile
+
+    from instaslice_tpu_torch.api.constants import (
+        POD_RESOURCE_PREFIX,
+        REASON_ORPHAN_REAPED,
+    )
+    from instaslice_tpu_torch.api.types import (
+        AllocationDetails,
+        AllocationStatus,
+        PodRef,
+        TpuSlice,
+        slice_uuid_for,
+    )
+    from instaslice_tpu_torch.device import NvmlBackend
+    from instaslice_tpu_torch.kube import FakeKube, NotFound
+    from instaslice_tpu_torch.kube.client import update_with_retry
+    from instaslice_tpu_torch.kube.httptest import FakeApiServer
+    from instaslice_tpu_torch.topology import Occupancy, get_policy, mig
+    from instaslice_tpu_torch.topology.placement import Box
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="agent-"))
+    ns = "instaslice-tpu-system"
+    out = {}
+    kube = FakeKube()
+    srv = agents = backend = None
+    try:
+        # (a) the apiserver, its kubeconfig and the Node
+        srv = FakeApiServer(kube).start()
+        srv.handler.token_validator = lambda t: t == AGENT_TOKEN
+        (work / "kubeconfig.json").write_text(json.dumps({
+            "apiVersion": "v1", "kind": "Config",
+            "current-context": "smoke",
+            "clusters": [{"name": "smoke", "cluster": {"server": srv.url}}],
+            "users": [{"name": "smoke", "user": {"token": AGENT_TOKEN}}],
+            "contexts": [{"name": "smoke", "context": {
+                "cluster": "smoke", "user": "smoke"}}]}))
+        kube.create("Node", {"apiVersion": "v1", "kind": "Node",
+                             "metadata": {"name": AGENT_NODE},
+                             "status": {"capacity": {}, "allocatable": {}}})
+        backend = NvmlBackend(registry_dir=str(work / "reg"))
+        inv = backend.discover()
+        g = inv.gpus[0]
+        mig_on = g.mig_current == 1
+        before_inst = {r.device_uuids for r in backend.instances()}
+        log(f"agent (a): apiserver {srv.url} (bearer token), Node "
+            f"{AGENT_NODE}; NVML: {inv.chip_count} GPU(s), generation "
+            f"{inv.generation!r}, MIG current {g.mig_current}")
+
+        def cr():
+            try:
+                return TpuSlice.from_manifest(kube.get("TpuSlice", ns,
+                                                       AGENT_NODE))
+            except NotFound:
+                return None
+
+        # (b) the agent in a fresh process
+        agents = [AgentProcess(work, 0)]
+        a = agents[0]
+        ts = wait_until(lambda: cr() or (not a.alive() and check(
+            False, f"agent: the agent exited ({a.proc.returncode}): "
+            f"{a.tail()}")), "the agent's CR")
+        out["boot_to_cr_s"] = time.perf_counter() - a.t0
+        gen = mig.grid_generation(inv.generation)
+        catalog = [p.name for p in mig.mig_catalog(gen)]
+        if mig.whole_gpu(gen).name not in catalog:
+            catalog.append(mig.whole_gpu(gen).name)
+        check(ts.spec.generation == gen, f"agent: CR generation "
+              f"{ts.spec.generation!r}, the card's grid {gen!r}")
+        check(ts.spec.chips == {str(i): p for i, p in
+                                inv.chip_paths.items()},
+              f"agent: CR chips {ts.spec.chips}")
+        check([p["name"] for p in ts.spec.profiles] == catalog,
+              f"agent: CR profiles {ts.spec.profiles}")
+        probes = wait_until(lambda: all(
+            http_get(f"{a.url}/{p}")[0] == 200 for p in ("healthz",
+                                                         "readyz")),
+            "/healthz and /readyz 200", poll=0.05)
+        log(f"agent (b): the agent process published TpuSlice "
+            f"{ns}/{AGENT_NODE} {out['boot_to_cr_s']:.2f} s after its "
+            f"start: generation {gen}, chips {ts.spec.chips}, profiles "
+            f"{catalog}; /healthz and /readyz 200: {probes}")
+
+        # (c) the controller's write, and the agent's realize
+        group = mig.gpu_group(len(ts.spec.chips), ts.spec.generation)
+        occ = Occupancy(group)
+        for prep in ts.spec.prepared.values():
+            occ.occupy(Box.from_key(prep.box))
+        want = (mig.parse_mig_profile(SLICE_MIG_PROFILE, gen) if mig_on
+                else mig.whole_gpu(gen))
+        ff = get_policy("first-fit")
+        pl = ff.choose(group, want, occ)
+        check(pl is not None, f"agent: no free {want.name}")
+        pod = PodRef("agent-pod-uid", "agent-pod", "default")
+        alloc = AllocationDetails.from_placement(pl, [pod])
+        key = next(iter(alloc.parts))
+        suid = slice_uuid_for(alloc.alloc_id)
+
+        def write(fn):
+            def mut(obj):
+                t = TpuSlice.from_manifest(obj)
+                fn(t)
+                return t.to_manifest()
+            update_with_retry(kube, "TpuSlice", ns, AGENT_NODE, mut)
+
+        def configmap():
+            try:
+                return kube.get("ConfigMap", "default", pod.pod_name)
+            except NotFound:
+                return None
+
+        t0 = time.perf_counter()
+        write(lambda t: t.spec.allocations.__setitem__(alloc.alloc_id,
+                                                       alloc))
+        cm = wait_until(configmap, "the pod's ConfigMap")
+        out["realize_configmap_ms"] = (time.perf_counter() - t0) * 1e3
+        ts = wait_until(lambda: (lambda t: t if key in t.spec.allocations[
+            alloc.alloc_id].realized_on else None)(cr()), "realized_on")
+        out["realize_ms"] = (time.perf_counter() - t0) * 1e3
+        res = [r for r in backend.list_reservations()
+               if r.slice_uuid == suid]
+        check(len(res) == 1, f"agent: one reservation {suid}: {res}")
+        res = res[0]
+        gpu, start = mig.box_gpu_start(pl.box)
+        granted = cm["data"]["CUDA_VISIBLE_DEVICES"]
+        check(res.chip_ids == (gpu,) and granted == res.device_uuids[0]
+              and len(res.device_uuids) == 1
+              and cm["data"]["NVIDIA_VISIBLE_DEVICES"] == granted,
+              f"agent: the ConfigMap grants {granted}, the reservation "
+              f"{res}")
+        check(res.profile == ("" if want.name == mig.WHOLE_GPU
+                              else want.name)
+              and (not res.profile or res.start == start),
+              f"agent: reserved {res.profile}@{res.start}, placed "
+              f"{want.name}@{start}")
+        prep = ts.spec.prepared.get(suid)
+        check(prep is not None and list(prep.parts) == [key]
+              and prep.parts[key].chip_ids == [gpu]
+              and prep.pod_uuid == pod.pod_uuid,
+              f"agent: prepared {prep and prep.to_dict()}")
+        node = kube.get("Node", "", AGENT_NODE)["status"]
+        resname = POD_RESOURCE_PREFIX + pod.pod_name
+        check(node["capacity"].get(resname) == "1"
+              and node["allocatable"].get(resname) == "1",
+              f"agent: the Node's {resname}: {node}")
+        probe = subprocess.run(
+            [sys.executable, "-c", _AGENT_PROBE, str(HERE),
+             str(work / "reg")], capture_output=True, text=True,
+            timeout=300, cwd=HERE)
+        check(probe.returncode == 0, f"agent: probe failed {probe.stderr}")
+        seen = json.loads(probe.stdout.strip().splitlines()[-1])
+        check([suid, res.profile, list(res.device_uuids)] in seen,
+              f"agent: another process lists {seen}")
+        out["grant"] = {"key": key, "box": alloc.box, "profile": want.name,
+                        "reservation": [res.profile, res.start,
+                                        list(res.device_uuids)]}
+        log(f"agent (c): first-fit placed {want.name} at {alloc.box} "
+            f"(part {key}); ConfigMap {out['realize_configmap_ms']:.1f} ms "
+            f"and realized_on {out['realize_ms']:.1f} ms after the write; "
+            f"CUDA_VISIBLE_DEVICES={granted}; prepared[{suid}] under {key}; "
+            f"Node {resname}=1; another process lists {seen}")
+        write(lambda t: t.spec.allocations[alloc.alloc_id].set_status(
+            AllocationStatus.CREATED))
+        write(lambda t: t.spec.allocations[alloc.alloc_id].set_status(
+            AllocationStatus.UNGATED))
+
+        # (d) the workload on the ConfigMap's env alone
+        child_env = {k: v for k, v in os.environ.items()
+                     if k not in ("CUDA_VISIBLE_DEVICES",
+                                  "NVIDIA_VISIBLE_DEVICES")}
+        child_env.update(cm["data"])
+        result = work / "child.json"
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             f"{str(HERE)!r}); import chip_smoke; "
+             f"sys.exit(chip_smoke.slice_child({str(result)!r}))"],
+            env=child_env, cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        out["workload_s"] = time.perf_counter() - t0
+        check(run.returncode == 0 and result.exists(),
+              f"agent: the workload failed ({run.returncode}): "
+              f"{run.stderr[-3000:]}")
+        w = json.loads(result.read_text())
+        out["workload"] = {k: v for k, v in w.items() if k != "served"}
+        c = w["counts"]
+        check(w["count"] == 1 and w["visible"] == granted
+              and granted.endswith(w["uuid"]),
+              f"agent: the workload sees {w['count']} device(s), "
+              f"{w['visible']} / {w['uuid']}, not the granted {granted}")
+        check(not w["errors"] and len(w["completions"]) == len(SERVE_PLENS)
+              and all(x["n"] == SERVE_NEW and x["in_range"]
+                      and x["finish"] == "max_new_tokens"
+                      for x in w["completions"]),
+              f"agent: the completions ({w['errors']})")
+        same = [r is not None and r["token_ids"] == s["token_ids"]
+                for r, s in zip(w["served"], served)]
+        lp = max((abs(x - y) for r, s in zip(w["served"], served) if r
+                  for x, y in zip(r["logprobs"], s["logprobs"])),
+                 default=float("inf"))
+        out["served_equal"], out["served_logprob_diff"] = same, lp
+        check(len(same) == len(served) and all(same),
+              "agent: the granted device serves the serve phase's tokens")
+        check(lp <= SERVE_LOGPROB_TOL,
+              f"agent: logprobs differ from the serve phase's by {lp}")
+        for k in ("quant_decode_attention", "quant_matmul_stacked",
+                  "quant_matmul_t"):
+            check(c[k] > 0, f"agent: {k} launched on the granted device")
+        check(c["quant_decode_attention"]
+              == w["n_layers"] * w["decode_steps"],
+              "agent: B1 once a layer a decode step")
+        log(f"agent (d): the workload on the ConfigMap's env: "
+            f"CUDA_VISIBLE_DEVICES={w['visible']}, torch sees {w['count']} "
+            f"device, uuid {w['uuid']}; 7B int8, {w['n_layers']} layers, "
+            f"built in {w['build_s']:.1f} s; first burst 8 x {SERVE_NEW} in "
+            f"{w['wall_s']:.2f} s = {w['tok_s']:.1f} tok/s on {card} (second "
+            f"burst {w['warm_tok_s']:.1f} tok/s); tokens equal to the serve "
+            f"phase's {same}, largest logprob difference {lp:.3g} (tol "
+            f"{SERVE_LOGPROB_TOL}); launches on the card's trace {c}; the "
+            f"process {out['workload_s']:.1f} s")
+
+        # (e) the health sweep on a healthy card
+        def sweeps():
+            """The agent's health sweeps, once there are two, from the
+            reconcile spans on its ``/v1/debug/trace``."""
+            code, tr = http_get(f"{a.url}/v1/debug/trace?n=4096")
+            n = code == 200 and sum(
+                1 for s in tr["recent"]
+                if s["name"] == f"agent-{AGENT_NODE}.reconcile"
+                and s.get("attrs", {}).get("key") == "#health")
+            return n if n >= 2 else None
+        n_sweeps = wait_until(sweeps, "two health sweeps", poll=0.1)
+        ts = cr()
+        check(ts.status.unhealthy_chips == [],
+              f"agent: unhealthyChips {ts.status.unhealthy_chips}")
+        out["health_sweeps"] = n_sweeps
+        log(f"agent (e): {n_sweeps} health sweeps, unhealthyChips "
+            f"{ts.status.unhealthy_chips}")
+
+        # (g) teardown
+        t0 = time.perf_counter()
+        write(lambda t: t.spec.allocations[alloc.alloc_id].set_status(
+            AllocationStatus.DELETED))
+        wait_until(lambda: alloc.alloc_id not in cr().spec.allocations,
+                   "the erased allocation record")
+        out["teardown_ms"] = (time.perf_counter() - t0) * 1e3
+        ts = cr()
+        node = kube.get("Node", "", AGENT_NODE)["status"]
+        check(configmap() is None, "agent: the ConfigMap is deleted")
+        check(resname not in node["capacity"]
+              and resname not in node["allocatable"],
+              f"agent: the Node's {resname} is removed: {node}")
+        check(suid not in ts.spec.prepared, "agent: prepared is cleared")
+        check(not backend.list_reservations(), "agent: no reservation left")
+        left = {r.device_uuids for r in backend.instances()}
+        check(left == before_inst, f"agent: MIG instances left {left}")
+        log(f"agent (g): deleted -> record erased in "
+            f"{out['teardown_ms']:.1f} ms; ConfigMap, Node resource, "
+            f"reservation gone; MIG instances {sorted(left)}")
+        code = a.stop()
+        check(code == 0, f"agent: SIGTERM exit {code}: {a.tail()}")
+
+        # (f) a crash at agent.realize, and the restart's orphan reap
+        crasher = AgentProcess(work, 1, crash_at="agent.realize")
+        agents.append(crasher)
+        wait_until(lambda: http_get(f"{crasher.url}/readyz")[0] == 200
+                   if crasher.alive() else None,
+                   "the armed agent's readiness", poll=0.05)
+        pod2 = PodRef("agent-pod2-uid", "agent-pod2", "default")
+        alloc2 = AllocationDetails.from_placement(pl, [pod2])
+        suid2 = slice_uuid_for(alloc2.alloc_id)
+        write(lambda t: t.spec.allocations.__setitem__(alloc2.alloc_id,
+                                                       alloc2))
+        code = crasher.proc.wait(timeout=AGENT_WAIT_S)
+        check(code == 17, f"agent: the armed agent exit {code} (want 17): "
+              f"{crasher.tail()}")
+        orphan = [r for r in backend.list_reservations()
+                  if r.slice_uuid == suid2]
+        ts = cr()
+        check(len(orphan) == 1 and suid2 not in ts.spec.prepared
+              and not ts.spec.allocations[alloc2.alloc_id].realized_on,
+              f"agent: the crash left {orphan}, recorded "
+              f"{suid2 in ts.spec.prepared}")
+        write(lambda t: t.spec.allocations.pop(alloc2.alloc_id))
+        t0 = time.perf_counter()
+        b = AgentProcess(work, 2)
+        agents.append(b)
+        wait_until(lambda: not backend.list_reservations(),
+                   "the orphan's release", poll=0.05)
+        out["orphan_reap_s"] = time.perf_counter() - t0
+        left = {r.device_uuids for r in backend.instances()}
+        check(left == before_inst, f"agent: MIG instances left {left}")
+        evs = wait_until(lambda: (lambda r: r[0] == 200 and r[1]["events"])(
+            http_get(f"{b.url}/v1/debug/events?reason="
+                     f"{REASON_ORPHAN_REAPED}")), "OrphanReaped", poll=0.05)
+        check(any(e["objectRef"] == f"slice/{suid2}" for e in evs),
+              f"agent: OrphanReaped events {evs}")
+        code = b.stop()
+        check(code == 0, f"agent: SIGTERM exit {code}: {b.tail()}")
+        out["orphan"] = {"reservation": [orphan[0].profile, orphan[0].start,
+                                         list(orphan[0].device_uuids)],
+                         "events": [e["message"] for e in evs]}
+        log(f"agent (f): armed at agent.realize, the agent exited 17 with "
+            f"{suid2} reserved and unrecorded; the allocation removed, a "
+            f"restarted agent reaped it {out['orphan_reap_s']:.2f} s after "
+            f"its start; MIG instances {sorted(left)}; /v1/debug/events: "
+            f"{out['orphan']['events']}")
+        out["numbers"] = {
+            "card": card, "boot_to_cr_s": out["boot_to_cr_s"],
+            "realize_configmap_ms": out["realize_configmap_ms"],
+            "realize_ms": out["realize_ms"],
+            "teardown_ms": out["teardown_ms"],
+            "first_burst_tok_s": w["tok_s"],
+            "second_burst_tok_s": w["warm_tok_s"]}
+        log("agent: " + json.dumps(out["numbers"]))
+    finally:
+        # a failed step still stops what the phase started and gives
+        # back what it reserved
+        for p in agents or ():
+            p.stop()
+        if backend is not None:
+            for r in backend.list_reservations():
+                backend.release(r.slice_uuid)
+            backend.close()
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"agent: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6411,9 +6912,13 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel_rest = phase_parallel_rest(torch, ops, lora_serve.pop("served"))
     mark("parallel_rest", t0)
+    served = serve.pop("served")
     t0 = time.perf_counter()
-    slice_ = phase_slice(torch, card, serve.pop("served"))
+    slice_ = phase_slice(torch, card, served)
     mark("slice", t0)
+    t0 = time.perf_counter()
+    agent = phase_agent(torch, card, served)
+    mark("agent", t0)
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
@@ -6481,6 +6986,9 @@ def main() -> int:
         # the workload on the granted device (the slice phase's child),
         # from the card's trace
         k["slice_launches"] = slice_["workload"]["counts"][k["name"]]
+        # the workload on the grant the node agent made (the agent
+        # phase's child), from the card's trace
+        k["agent_launches"] = agent["workload"]["counts"][k["name"]]
         # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
         tp = tp_serve["shard_kernels"].get(k["name"])
         if tp is not None:
@@ -6535,6 +7043,7 @@ def main() -> int:
         k: v for k, v in tp_serve.items() if k != "shard_kernels"}}))
     log(json.dumps({"card": card, "parallel_rest": parallel_rest}))
     log(json.dumps({"card": card, "slice": slice_}))
+    log(json.dumps({"card": card, "agent": agent}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
 """The flight-recorder ``reason`` catalog of the serving plane, of
-allocations and of the device plugin, the label the handoff ConfigMap
-carries, and the resources and annotations of the device plugin.
+allocations, of the device plugin, of the node agent and of the kube
+layer, the ``TpuSlice`` resource's names, the label the handoff
+ConfigMap carries, and the resources and annotations of the device
+plugin, the agent and the leader lease.
 
-A copy of the serving, allocation and chip-health reasons of
-``instaslice_tpu/api/constants.py`` (the ones the scheduler, the
-profiler, the journal, ``api/types.py`` and ``deviceplugin/server.py``
-of the port emit, the session-migration reasons among them) and of its
-``GROUP``, ``POD_UID_LABEL`` and allocate-response annotations: the
-port imports nothing of the JAX package. Its ``TPU_RESOURCE`` and
+A copy of the serving, allocation, chip-health, agent and kube reasons
+of ``instaslice_tpu/api/constants.py`` (the ones the scheduler, the
+profiler, the journal, ``api/types.py``, ``deviceplugin/server.py``,
+``agent/`` and ``kube/`` of the port emit) and of its ``GROUP``,
+``VERSION``, ``API_VERSION``, ``KIND``, ``PLURAL``,
+``POD_RESOURCE_PREFIX``, ``POD_UID_LABEL`` and annotations, with the
+reference's values: the port imports nothing of the JAX package. Its ``TPU_RESOURCE`` and
 ``TPU_PROFILE_RESOURCE_PREFIX`` become NVIDIA's resource names, the
 ones InstaSlice's pods request (``samples/test-pod.yaml``) and
 ``topology/mig.py``'s ``parse_mig_profile`` reads. Every journal event names
@@ -17,6 +20,18 @@ reference's catalog read the port's events unchanged.
 
 #: API group of the ``TpuSlice`` resource and its labels
 GROUP = "tpu.instaslice.dev"
+VERSION = "v1alpha1"
+API_VERSION = f"{GROUP}/{VERSION}"
+KIND = "TpuSlice"
+PLURAL = "tpuslices"
+
+#: Per-pod extended resource the node agent advertises on its Node (the
+#: pod's handoff name follows the prefix): what pins a granted pod to
+#: the node that realized its slice
+POD_RESOURCE_PREFIX = f"{GROUP}/"
+#: Trace id of a grant, on the Kubernetes Events that mirror its journal
+#: events
+TRACE_ID_ANNOTATION = f"{GROUP}/trace-id"
 #: Handoff ConfigMap owner label (garbage collection + discovery)
 POD_UID_LABEL = f"{GROUP}/pod-uid"
 
@@ -79,6 +94,28 @@ REASON_SESSION_IMPORTED = "SessionImported"
 REASON_CHIP_UNHEALTHY = "ChipUnhealthy"
 REASON_CHIP_HEALED = "ChipHealed"
 
+# node agent (agent/): a part realized on the device, a reserve the
+# device refused, a part released, and a device slice no CR epoch claims
+# released at boot
+REASON_REALIZED = "SliceRealized"
+REASON_REALIZE_FAILED = "SliceRealizeFailed"
+REASON_TORN_DOWN = "SliceTornDown"
+REASON_ORPHAN_REAPED = "OrphanReaped"
+
+# kube client resilience (kube/real.py): the circuit breaker opened, a
+# retryable status backed off, a watch stream re-established
+REASON_BREAKER_OPEN = "KubeBreakerOpen"
+REASON_BACKOFF = "KubeBackoff"
+REASON_WATCH_RECONNECT = "KubeWatchReconnect"
+
+# partitions: the agent lost the apiserver at the transport level and
+# serves its frozen device state (static mode) until a probe heals it;
+# a write refused because its writer's lease was deposed
+REASON_APISERVER_UNREACHABLE = "ApiServerUnreachable"
+REASON_DEGRADED_ENTERED = "DegradedModeEntered"
+REASON_DEGRADED_EXITED = "DegradedModeExited"
+REASON_WRITE_FENCED = "WriteFenced"
+
 #: every reason the port's journal accepts without a warning
 EVENT_REASONS = frozenset({
     *TRANSITION_REASONS.values(),
@@ -87,4 +124,14 @@ EVENT_REASONS = frozenset({
     REASON_COMPILE_OBSERVED,
     REASON_SESSION_EXPORTED, REASON_SESSION_IMPORTED,
     REASON_CHIP_UNHEALTHY, REASON_CHIP_HEALED,
+    REASON_REALIZED, REASON_REALIZE_FAILED, REASON_TORN_DOWN,
+    REASON_ORPHAN_REAPED,
+    REASON_BREAKER_OPEN, REASON_BACKOFF, REASON_WATCH_RECONNECT,
+    REASON_APISERVER_UNREACHABLE, REASON_DEGRADED_ENTERED,
+    REASON_DEGRADED_EXITED, REASON_WRITE_FENCED,
 })
+
+#: Leader lease: its duration in ms, stamped for the standby electors
+LEASE_DURATION_MS_ANNOTATION = f"{GROUP}/lease-duration-ms"
+#: The lease epoch of the writer that landed a fenced write
+WRITER_EPOCH_ANNOTATION = f"{GROUP}/writer-epoch"

@@ -2,11 +2,14 @@
 device handoff and the backend need.
 
 A copy of ``instaslice_tpu/api/types.py`` (the port imports nothing of
-the JAX package), cut to :class:`AllocationStatus` and its transitions
-(:func:`check_transition`), :class:`PodRef`, :class:`AllocationDetails`
-and :func:`slice_uuid_for`. The rest of that file (``PreparedPart``,
-``PreparedDetails``, ``TpuSliceSpec``/``Status``, ``TpuSlice``) comes
-with the control plane.
+the JAX package): :class:`AllocationStatus` and its transitions
+(:func:`check_transition`), :class:`PodRef`, :class:`AllocationDetails`,
+:func:`slice_uuid_for`, and the per-node CR the agent publishes and
+reconciles (:class:`PreparedPart`, :class:`PreparedDetails`,
+:class:`TpuSliceSpec`, :class:`TpuSliceStatus`, :class:`TpuSlice`).
+On a MIG or whole-GPU grid a part's ``chip_ids`` are GPU indices and
+its key is the grid's host ``gpu<i>`` (``agent/reconciler.py``);
+:meth:`TpuSlice.profile_objects` reads such a grid's catalog.
 """
 
 from __future__ import annotations
@@ -16,9 +19,22 @@ import enum
 import time
 from typing import Dict, List, Optional, Tuple
 
-from instaslice_tpu_torch.api.constants import TRANSITION_REASONS
-from instaslice_tpu_torch.topology.grid import Shape
+from instaslice_tpu_torch.api.constants import (
+    API_VERSION,
+    KIND,
+    TRANSITION_REASONS,
+)
+from instaslice_tpu_torch.topology.grid import (
+    Coord,
+    NodeGrid,
+    Shape,
+    get_generation,
+)
 from instaslice_tpu_torch.topology.placement import Box, Placement
+from instaslice_tpu_torch.topology.profiles import (
+    TopologyProfile,
+    parse_profile_name,
+)
 
 
 class AllocationStatus(str, enum.Enum):
@@ -323,6 +339,39 @@ class AllocationDetails:
         return alloc
 
 
+@dataclasses.dataclass
+class PreparedPart:
+    """One node's realized share of a slice (reference:
+    ``PreparedDetails`` carries parent/gi/ci ids per MIG UUID,
+    instaslice_types.go:89-95; ours carries local chip ids + the device
+    handle returned by the device layer)."""
+
+    node_name: str
+    worker_id: int
+    local_box: str                  # Box.key() in host-local coords
+    chip_ids: List[int]             # local chip ids (TPU_VISIBLE_CHIPS)
+    device_handle: str = ""         # backend-specific reservation handle
+
+    def to_dict(self) -> dict:
+        return {
+            "nodeName": self.node_name,
+            "workerId": self.worker_id,
+            "localBox": self.local_box,
+            "chipIds": list(self.chip_ids),
+            "deviceHandle": self.device_handle,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "PreparedPart":
+        return PreparedPart(
+            node_name=d["nodeName"],
+            worker_id=d["workerId"],
+            local_box=d["localBox"],
+            chip_ids=list(d["chipIds"]),
+            device_handle=d.get("deviceHandle", ""),
+        )
+
+
 def slice_uuid_for(alloc_id: str, multihost: bool = False) -> str:
     """Deterministic per-allocation slice uuid — every agent serving a
     multi-host allocation derives the same id with no rendezvous, and the
@@ -338,3 +387,188 @@ def slice_uuid_for(alloc_id: str, multihost: bool = False) -> str:
 
 def is_multihost_slice_uuid(suid: str) -> bool:
     return suid.startswith("sl-mh-")
+
+
+@dataclasses.dataclass
+class PreparedDetails:
+    """A realized slice, keyed by slice UUID in ``spec.prepared``.
+
+    ``pod_uuid == ""`` marks a dangling slice adopted at boot discovery —
+    same convention as the reference (``discoverDanglingSlices`` records
+    ``PodUUID: ""``, instaslice_daemonset.go:666-748, and the placement
+    engine counts those as occupied, instaslice_controller.go:312-320).
+    """
+
+    slice_uuid: str
+    pod_uuid: str
+    profile: str
+    box: str                        # global Box.key()
+    parts: Dict[str, PreparedPart]  # node name → part
+
+    def to_dict(self) -> dict:
+        return {
+            "sliceUUID": self.slice_uuid,
+            "podUUID": self.pod_uuid,
+            "profile": self.profile,
+            "box": self.box,
+            "parts": {n: p.to_dict() for n, p in sorted(self.parts.items())},
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "PreparedDetails":
+        return PreparedDetails(
+            slice_uuid=d["sliceUUID"],
+            pod_uuid=d.get("podUUID", ""),
+            profile=d["profile"],
+            box=d["box"],
+            parts={
+                n: PreparedPart.from_dict(p)
+                for n, p in d.get("parts", {}).items()
+            },
+        )
+
+
+@dataclasses.dataclass
+class TpuSliceSpec:
+    """Per-node spec (reference: ``InstasliceSpec``,
+    instaslice_types.go:64-72)."""
+
+    generation: str = ""             # e.g. "v5e"
+    host_offset: Coord = (0, 0, 0)   # this host's corner in its torus group
+    torus_group: str = ""            # hosts sharing a physical mesh
+    chips: Dict[str, str] = dataclasses.field(default_factory=dict)
+    #   local chip id (str for k8s map keys) → device path ("/dev/accel0")
+    profiles: List[dict] = dataclasses.field(default_factory=list)
+    #   published catalog entries: {"name": ..., attrs...}
+    allocations: Dict[str, AllocationDetails] = dataclasses.field(
+        default_factory=dict
+    )                                # pod UUID → desired
+    prepared: Dict[str, PreparedDetails] = dataclasses.field(
+        default_factory=dict
+    )                                # slice UUID → realized
+
+    def to_dict(self) -> dict:
+        return {
+            "generation": self.generation,
+            "hostOffset": list(self.host_offset),
+            "torusGroup": self.torus_group,
+            "chips": dict(sorted(self.chips.items())),
+            "profiles": list(self.profiles),
+            "allocations": {
+                k: v.to_dict() for k, v in sorted(self.allocations.items())
+            },
+            "prepared": {
+                k: v.to_dict() for k, v in sorted(self.prepared.items())
+            },
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "TpuSliceSpec":
+        off = d.get("hostOffset", [0, 0, 0])
+        return TpuSliceSpec(
+            generation=d.get("generation", ""),
+            host_offset=(int(off[0]), int(off[1]), int(off[2])),
+            torus_group=d.get("torusGroup", ""),
+            chips=dict(d.get("chips", {})),
+            profiles=list(d.get("profiles", [])),
+            allocations={
+                k: AllocationDetails.from_dict(v)
+                for k, v in d.get("allocations", {}).items()
+            },
+            prepared={
+                k: PreparedDetails.from_dict(v)
+                for k, v in d.get("prepared", {}).items()
+            },
+        )
+
+    def node_grid(self) -> NodeGrid:
+        return NodeGrid(
+            generation=get_generation(self.generation),
+            host_offset=self.host_offset,
+            torus_group=self.torus_group,
+        )
+
+
+@dataclasses.dataclass
+class TpuSliceStatus:
+    """Reference: ``InstasliceStatus.Processed`` (instaslice_types.go:97)
+    — a string "true"; here a bool plus an observability surface.
+
+    ``unhealthy_chips`` is the node agent's published per-chip health
+    (local chip ids currently failed); the controller's placement engine
+    treats them as occupied. No reference analog — SURVEY.md §5 flags "no
+    health monitoring of slices" as a gap to close."""
+
+    processed: bool = False
+    conditions: List[dict] = dataclasses.field(default_factory=list)
+    unhealthy_chips: List[int] = dataclasses.field(default_factory=list)
+
+    def to_dict(self) -> dict:
+        return {
+            "processed": self.processed,
+            "conditions": list(self.conditions),
+            "unhealthyChips": sorted(self.unhealthy_chips),
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "TpuSliceStatus":
+        return TpuSliceStatus(
+            processed=bool(d.get("processed", False)),
+            conditions=list(d.get("conditions", [])),
+            unhealthy_chips=[int(c) for c in d.get("unhealthyChips", [])],
+        )
+
+
+@dataclasses.dataclass
+class TpuSlice:
+    """The full CR: one per node, named after the node (reference creates
+    the CR named ``$NODE_NAME``, instaslice_daemonset.go:567-582)."""
+
+    name: str
+    namespace: str
+    spec: TpuSliceSpec = dataclasses.field(default_factory=TpuSliceSpec)
+    status: TpuSliceStatus = dataclasses.field(default_factory=TpuSliceStatus)
+    resource_version: str = ""
+
+    def to_manifest(self) -> dict:
+        return {
+            "apiVersion": API_VERSION,
+            "kind": KIND,
+            "metadata": {
+                "name": self.name,
+                "namespace": self.namespace,
+                **(
+                    {"resourceVersion": self.resource_version}
+                    if self.resource_version
+                    else {}
+                ),
+            },
+            "spec": self.spec.to_dict(),
+            "status": self.status.to_dict(),
+        }
+
+    @staticmethod
+    def from_manifest(m: dict) -> "TpuSlice":
+        md = m.get("metadata", {})
+        return TpuSlice(
+            name=md.get("name", ""),
+            namespace=md.get("namespace", ""),
+            spec=TpuSliceSpec.from_dict(m.get("spec", {})),
+            status=TpuSliceStatus.from_dict(m.get("status", {})),
+            resource_version=md.get("resourceVersion", ""),
+        )
+
+    def profile_objects(self) -> List[TopologyProfile]:
+        """The published catalog as profiles: TPU names through
+        ``parse_profile_name``, a MIG or whole-GPU grid's through its
+        catalog (:func:`~instaslice_tpu_torch.topology.mig.parse_mig_profile`)."""
+        from instaslice_tpu_torch.topology.mig import (
+            mig_catalog,
+            parse_mig_profile,
+        )
+
+        gen = self.spec.generation
+        if mig_catalog(gen) is not None:
+            return [parse_mig_profile(p["name"], gen)
+                    for p in self.spec.profiles]
+        return [parse_profile_name(p["name"]) for p in self.spec.profiles]

@@ -1,10 +1,19 @@
 """Runtime wiring for the port's CLI entry points (a copy of
-``run_deviceplugin``, ``instaslice_tpu/cli/runtime.py:31-37``; the
-controller and the agent are not ported yet)."""
+``run_agent`` and ``run_deviceplugin``, ``instaslice_tpu/cli/runtime.py:22-37``;
+the controller is not ported yet)."""
 
 from __future__ import annotations
 
 import sys
+
+
+def run_agent(args) -> int:
+    try:
+        from instaslice_tpu_torch.agent.runner import AgentRunner
+    except ImportError as e:
+        print(f"agent unavailable: {e}", file=sys.stderr)
+        return 1
+    return AgentRunner.from_args(args).run()
 
 
 def run_deviceplugin(args) -> int:

@@ -3,8 +3,9 @@ go-nvml ships a mock DGX-A100 and the reference's only real unit test
 monkeypatches nvml onto it).
 
 A port of ``instaslice_tpu/device/fake.py``'s ``FakeTpuBackend`` to a
-node of H100 80GB cards: whole GPUs, and MIG slices from the fixed
-catalog (:mod:`~instaslice_tpu_torch.topology.mig`), each a fake GPU
+node of H100 80GB cards (or, with ``generation=""``, of cards without a
+MIG catalog, granted whole only): whole GPUs, and MIG slices from the
+fixed catalog (:mod:`~instaslice_tpu_torch.topology.mig`), each a fake GPU
 instance and compute instance with a ``MIG-`` UUID. It keeps the
 reference fake's test API (``inject_failures``, ``fail_chip``/
 ``heal_chip``, ``seed_dangling``, ``snapshot``/``restore``, ``calls``)
@@ -52,19 +53,29 @@ class FakeGpuBackend(DeviceBackend):
         gpu_count: int = 8,
         mig: Union[bool, Iterable[int]] = True,
         registry_dir: str = "",
+        generation: str = H100_80GB,
     ) -> None:
         """``mig``: MIG mode on every GPU (True), on none (False), or on
-        the GPU indices listed."""
+        the GPU indices listed. ``generation`` "" is a card without a MIG
+        catalog (an H100 NVL's 94 GB: ``generation_of`` gives it no
+        grid), whose GPUs have no MIG and are granted whole only."""
+        if generation not in ("", H100_80GB):
+            raise ValueError(
+                f"generation {generation!r}: the fake is an H100 80GB "
+                "(h100-80gb) or a card without a MIG catalog ('')")
+        if isinstance(mig, bool):
+            mig = range(gpu_count) if mig and generation else ()
+        if set(mig) and not generation:
+            raise ValueError("a card without a MIG catalog has no MIG mode")
         table = tuple(
             {"name": f"MIG {p.name}", "id": p.profile_id,
              "slices": p.compute_slices, "memory_mb": p.memory_gb * 1000,
              "starts": list(p.starts), "size": p.memory_slices}
             for p in mig_catalog(H100_80GB))
-        if isinstance(mig, bool):
-            mig = range(gpu_count) if mig else ()
+        self._generation = generation
         self._mig_on = set(mig)
         self._inventory = NodeInventory(
-            generation=H100_80GB,
+            generation=generation,
             chip_paths={i: f"/dev/nvidia{i}" for i in range(gpu_count)},
             source="fake",
             gpus=tuple(self._gpu(i, table) for i in range(gpu_count)),
@@ -111,7 +122,8 @@ class FakeGpuBackend(DeviceBackend):
         ``discoverDanglingSlices``, instaslice_daemonset.go:666-748):
         recorded as if an earlier agent had reserved it, its MIG
         instance made, no check applied."""
-        res = make_request(slice_uuid, chip_ids, profile, start, H100_80GB)
+        res = make_request(slice_uuid, chip_ids, profile, start,
+                           self._generation)
         with self._lock, self._registry.locked():
             self._registry._write(self._create(res) if profile else res)
 
@@ -134,6 +146,10 @@ class FakeGpuBackend(DeviceBackend):
     # ------------------------------------------------------- fake device
 
     def _gpu(self, i: int, table) -> GpuInfo:
+        if not self._generation:
+            return GpuInfo(i, fake_gpu_uuid(i), "NVIDIA H100 NVL (fake)",
+                           94 * 10 ** 9, 400.0, None, None, (),
+                           "NVML_ERROR_NOT_SUPPORTED")
         on = i in self._mig_on
         return GpuInfo(i, fake_gpu_uuid(i), "NVIDIA H100 80GB HBM3 (fake)",
                        80 * 2 ** 30, 700.0, int(on), int(on),
@@ -199,7 +215,7 @@ class FakeGpuBackend(DeviceBackend):
                 if c not in self._inventory.chip_paths:
                     raise DeviceError(f"chip {c} not on this host")
             res = make_request(slice_uuid, chip_ids, profile, start,
-                               H100_80GB)
+                               self._generation)
             return self._registry.reserve(
                 res, self._realize, self._destroy if profile else None)
 

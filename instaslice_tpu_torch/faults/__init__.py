@@ -8,10 +8,15 @@ scheduler lets kill its thread), the engine hook
 :class:`~instaslice_tpu_torch.serving.engine.ServingEngine` before every
 device dispatch), the scheduler round hook, and the crash-point plan
 (:class:`CrashPlan`, ``TPUSLICE_CRASH_AT``, :func:`maybe_crash`), whose
-serving site is the session export (``serve.export``). The port imports
-nothing of the JAX package. The kube and device-backend wrappers and the
-network nemesis stay with the reference, whose control plane the port
-does not have.
+serving site is the session export (``serve.export``), and the agent's
+are ``agent.realize`` and ``agent.teardown``. The kube and device
+wrappers are copied too: :class:`FaultyKubeClient` (transient API
+failures in every verb, disconnects mid-watch) and
+:class:`FaultyBackend` (device errors, delays, chip failures in front of
+a :class:`~instaslice_tpu_torch.device.backend.DeviceBackend`, whose
+``reserve`` takes the port's ``profile`` and ``start``). The port
+imports nothing of the JAX package; the network nemesis
+(``faults/netchaos.py``) stays with the reference.
 
 Plans are built in tests or parsed from ``TPUSLICE_FAULT_PLAN``::
 
@@ -34,8 +39,9 @@ import os
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+from instaslice_tpu_torch.kube.client import ApiError, KubeClient, WatchEvent
 from instaslice_tpu_torch.utils.lockcheck import named_lock
 
 
@@ -170,6 +176,10 @@ def maybe_crash(site: str) -> None:
         plan.check(site)
 
 
+class InjectedApiError(ApiError):
+    """An injected kube API failure; ``code`` carries the HTTP status."""
+
+
 @dataclass
 class SiteSpec:
     """How one site misbehaves. ``kinds`` is sampled uniformly when the
@@ -296,6 +306,155 @@ class FaultPlan:
         for site, kw in specs:
             plan.site(site, **kw)
         return plan
+
+
+# --------------------------------------------------------------- kube
+
+class FaultyKubeClient(KubeClient):
+    """Injects API flakiness between a consumer and any
+    :class:`KubeClient`. Sites:
+
+    - ``kube.request`` — every verb. Kinds: ``http-503``/``http-500``
+      (InjectedApiError with that code), ``http-429`` (too many
+      requests), ``conn-reset`` (ConnectionResetError — what a dropped
+      TCP session surfaces after the real client's retries give up),
+      ``delay`` (slow API server).
+    - ``kube.watch`` — consulted per watch **event**. Kind
+      ``disconnect`` truncates the stream mid-flight (the consumer must
+      re-establish and resume); ``delay`` stalls delivery.
+
+    The wrapper injects at the KubeClient interface, so it composes
+    with both the in-process fake and :class:`RealKubeClient` (where it
+    models failures that survive the client's own retry layer)."""
+
+    def __init__(self, inner: KubeClient, plan: FaultPlan) -> None:
+        self.inner = inner
+        self.plan = plan
+        # forward the watch-pacing hint so wrapped Managers behave
+        pref = getattr(inner, "preferred_watch_timeout", None)
+        if pref is not None:
+            self.preferred_watch_timeout = pref
+
+    def _maybe_fail(self) -> None:
+        kind = self.plan.fire("kube.request")
+        if kind is None:
+            return
+        if kind == "delay":
+            time.sleep(self.plan.sites["kube.request"].delay_s)
+            return
+        if kind == "conn-reset":
+            raise ConnectionResetError("injected: connection reset")
+        code = {"http-429": 429, "http-500": 500}.get(kind, 503)
+        err = InjectedApiError(f"injected: HTTP {code}")
+        err.code = code
+        raise err
+
+    def create(self, kind: str, obj: dict) -> dict:
+        self._maybe_fail()
+        return self.inner.create(kind, obj)
+
+    def get(self, kind: str, namespace: str, name: str) -> dict:
+        self._maybe_fail()
+        return self.inner.get(kind, namespace, name)
+
+    def list(self, kind, namespace=None, label_selector=None):
+        self._maybe_fail()
+        return self.inner.list(kind, namespace=namespace,
+                               label_selector=label_selector)
+
+    def update(self, kind: str, obj: dict) -> dict:
+        self._maybe_fail()
+        return self.inner.update(kind, obj)
+
+    def patch(self, kind, namespace, name, patch):
+        self._maybe_fail()
+        return self.inner.patch(kind, namespace, name, patch)
+
+    def patch_status(self, kind, namespace, name, patch):
+        self._maybe_fail()
+        return self.inner.patch_status(kind, namespace, name, patch)
+
+    def delete(self, kind: str, namespace: str, name: str) -> None:
+        self._maybe_fail()
+        self.inner.delete(kind, namespace, name)
+
+    def watch(self, kind, namespace=None, replay=True, timeout=None,
+              resource_version=None) -> Iterator[WatchEvent]:
+        stream = self.inner.watch(
+            kind, namespace=namespace, replay=replay, timeout=timeout,
+            resource_version=resource_version,
+        )
+
+        def _faulty() -> Iterator[WatchEvent]:
+            for ev in stream:
+                fault = self.plan.fire("kube.watch")
+                if fault == "disconnect":
+                    return  # stream cut mid-flight; consumer resumes
+                if fault == "delay":
+                    # the injected stall is the fault being modeled
+                    time.sleep(  # slicelint: disable=sleep-in-loop
+                        self.plan.sites["kube.watch"].delay_s)
+                yield ev
+
+        return _faulty()
+
+
+# ------------------------------------------------------------- device
+
+class FaultyBackend:
+    """Injects device flakiness in front of a
+    :class:`~instaslice_tpu_torch.device.backend.DeviceBackend`. Sites
+    ``device.<op>`` for op in reserve/release/list/discover/health;
+    kinds: ``error`` (DeviceError), ``delay`` (slow ioctl), and
+    ``chip-fail`` (marks a random chip unhealthy through the inner
+    backend's ``fail_chip`` — the health sweep then sees it, exactly
+    like a GPU fallen off the bus). ``reserve`` passes the port's
+    ``profile`` and ``start`` through."""
+
+    def __init__(self, inner, plan: FaultPlan) -> None:
+        self._inner = inner
+        self._plan = plan
+
+    def __getattr__(self, name):  # passthrough (test helpers included)
+        return getattr(self._inner, name)
+
+    def _maybe_fail(self, op: str) -> None:
+        from instaslice_tpu_torch.device.backend import DeviceError
+
+        kind = self._plan.fire(f"device.{op}")
+        if kind is None:
+            return
+        if kind == "delay":
+            time.sleep(self._plan.sites[f"device.{op}"].delay_s)
+            return
+        if kind == "chip-fail":
+            fail = getattr(self._inner, "fail_chip", None)
+            if fail is not None:
+                inv = self._inner.discover()
+                chips = sorted(inv.chip_paths)
+                fail(chips[self._plan.randrange(len(chips))])
+            return
+        raise DeviceError(f"injected device.{op} failure")
+
+    def discover(self):
+        self._maybe_fail("discover")
+        return self._inner.discover()
+
+    def reserve(self, slice_uuid, chip_ids, profile="", start=-1):
+        self._maybe_fail("reserve")
+        return self._inner.reserve(slice_uuid, chip_ids, profile, start)
+
+    def release(self, slice_uuid):
+        self._maybe_fail("release")
+        return self._inner.release(slice_uuid)
+
+    def list_reservations(self):
+        self._maybe_fail("list")
+        return self._inner.list_reservations()
+
+    def chip_health(self):
+        self._maybe_fail("health")
+        return self._inner.chip_health()
 
 
 # ------------------------------------------------------------- engine

@@ -1,13 +1,14 @@
-"""Prometheus metrics of the port's serving plane.
+"""Prometheus metrics of the port's serving plane and node agent.
 
-A copy of ``ServingMetrics``, ``EventMetrics``, ``render``,
-``observe_with_exemplar`` and ``start_metrics_server`` from
-``instaslice_tpu/metrics/metrics.py`` (the operator, router and fleet
-holders stay with the reference): the port imports nothing of the JAX
-package. A session exported off the server counts under the requests
-counter's ``migrated`` outcome; the router's migration counter
-(``RouterMetrics.migrations``) stays with the reference's router, which
-drives the port's servers from its own process. Without ``prometheus_client`` every metric is a no-op.
+A copy of ``OperatorMetrics`` (the node agent's), ``ServingMetrics``,
+``EventMetrics``, ``render``, ``observe_with_exemplar`` and
+``start_metrics_server`` from ``instaslice_tpu/metrics/metrics.py``
+(the router and fleet holders stay with the reference): the port
+imports nothing of the JAX package. A session exported off the server
+counts under the requests counter's ``migrated`` outcome; the router's
+migration counter (``RouterMetrics.migrations``) stays with the
+reference's router, which drives the port's servers from its own
+process. Without ``prometheus_client`` every metric is a no-op.
 """
 
 from __future__ import annotations
@@ -126,6 +127,71 @@ class EventMetrics:
             "tpuslice_last_event_timestamp_seconds",
             "Unix timestamp of the most recent journal event",
             ["component"],
+            registry=self.registry,
+        )
+
+
+class OperatorMetrics:
+    """One instance per process; inject into Controller / NodeAgent."""
+
+    def __init__(self, registry: Optional["CollectorRegistry"] = None):
+        if not _PROM:
+            _warn_no_prom()
+            self.slice_grant_seconds = _NoopMetric()
+            self.reserve_seconds = _NoopMetric()
+            self.device_errors = _NoopMetric()
+            self.allocations = _NoopMetric()
+            self.pending_pods = _NoopMetric()
+            self.reconciles = _NoopMetric()
+            self.unhealthy_chips = _NoopMetric()
+            self.health_evictions = _NoopMetric()
+            self.registry = None
+            return
+        self.registry = registry or CollectorRegistry()
+        # The north-star metric: request (allocation write) → pod ungated.
+        self.slice_grant_seconds = Histogram(
+            "tpuslice_grant_seconds",
+            "Latency from allocation creation to pod ungate",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120),
+            registry=self.registry,
+        )
+        self.reserve_seconds = Histogram(
+            "tpuslice_device_reserve_seconds",
+            "Device-backend chip reservation latency",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5),
+            registry=self.registry,
+        )
+        self.device_errors = Counter(
+            "tpuslice_device_errors_total",
+            "Device-backend operation failures",
+            registry=self.registry,
+        )
+        self.allocations = Counter(
+            "tpuslice_allocations_total",
+            "Allocation state transitions",
+            ["status"],
+            registry=self.registry,
+        )
+        self.pending_pods = Gauge(
+            "tpuslice_pending_pods",
+            "Gated pods awaiting a slice",
+            registry=self.registry,
+        )
+        self.reconciles = Counter(
+            "tpuslice_reconciles_total",
+            "Reconcile invocations",
+            ["component"],
+            registry=self.registry,
+        )
+        self.unhealthy_chips = Gauge(
+            "tpuslice_unhealthy_chips",
+            "Chips the health sweep currently reports failed",
+            ["node"],
+            registry=self.registry,
+        )
+        self.health_evictions = Counter(
+            "tpuslice_health_evictions_total",
+            "Pods evicted because their granted chips went unhealthy",
             registry=self.registry,
         )
 

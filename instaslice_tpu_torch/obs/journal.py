@@ -25,22 +25,28 @@ records) — the journal observes the serving loop, it never wedges it.
 A copy of ``instaslice_tpu/obs/journal.py`` (the port imports nothing
 of the JAX package), trimmed to what the port's server uses:
 :class:`Journal` (``emit``, ``events``, ``counts``), :func:`get_journal`
-and :func:`debug_events_payload`. Left out: the JSONL sink
-(``TPUSLICE_EVENT_FILE`` and its rotation), the Kubernetes Event mirror
-(``emit_pod_event``), runner-attached metrics holders
-(``attach_metrics``/``detach_metrics``), ``Event.from_dict``,
+and :func:`debug_events_payload`, the Kubernetes Event mirror of the
+node agent's pod-scoped decisions (:func:`emit_pod_event`) and the
+runner-attached metrics holders (:func:`attach_metrics`/
+:func:`detach_metrics`). Left out: the JSONL sink
+(``TPUSLICE_EVENT_FILE`` and its rotation), ``Event.from_dict``,
 ``Journal.tail``/``clear``/``close`` and ``reset_journal``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import time
+import uuid
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
-from instaslice_tpu_torch.api.constants import EVENT_REASONS
+from instaslice_tpu_torch.api.constants import (
+    EVENT_REASONS,
+    TRACE_ID_ANNOTATION,
+)
 from instaslice_tpu_torch.utils.lockcheck import named_lock
 
 log = logging.getLogger("instaslice_tpu_torch.obs")
@@ -136,8 +142,9 @@ class Journal:
             )
             self._events.append(ev)
             self._counts[reason] = self._counts.get(reason, 0) + 1
-        self.metrics.events.labels(component=component, reason=reason).inc()
-        self.metrics.last_event_ts.labels(component=component).set(ev.ts)
+        for m in [self.metrics] + attached_metrics():
+            m.events.labels(component=component, reason=reason).inc()
+            m.last_event_ts.labels(component=component).set(ev.ts)
         return ev
 
     # ------------------------------------------------------------ querying
@@ -167,6 +174,40 @@ class Journal:
             return dict(self._counts)
 
 
+#: Runner-attached metrics holders, MODULE-level so they follow the
+#: process rather than one Journal instance: reset_journal() (test
+#: isolation / env rebinding) swaps the default journal, and a runner's
+#: /metrics counters must keep counting on the new one — the same
+#: resolve-per-use hazard utils/reconcile.py documents for tracers.
+_attached_metrics: List = []
+_attach_lock = named_lock("journal.attach")
+
+
+def attach_metrics(holder) -> None:
+    """Count every journal emit (any instance, across resets) on
+    ``holder`` too — an ``EventMetrics`` bound to a runner's /metrics
+    registry. Attach, not replace: a process hosting both a controller
+    and an agent runner keeps ``tpuslice_events_total`` on BOTH scrape
+    registries. Counts start at attach time; detach on shutdown."""
+    with _attach_lock:
+        _attached_metrics.append(holder)
+
+
+def detach_metrics(holder) -> None:
+    """Undo :func:`attach_metrics` (runner shutdown). Without the
+    detach, re-created runners (leader-election churn, test sessions)
+    would accumulate dead registries that every later emit still pays
+    to increment."""
+    with _attach_lock:
+        if holder in _attached_metrics:
+            _attached_metrics.remove(holder)
+
+
+def attached_metrics() -> List:
+    with _attach_lock:
+        return list(_attached_metrics)
+
+
 _default: Optional[Journal] = None
 _default_lock = named_lock("journal.default")
 
@@ -178,6 +219,73 @@ def get_journal() -> Journal:
         if _default is None:
             _default = Journal()
         return _default
+
+
+# ------------------------------------------------------- debug endpoint
+
+
+# --------------------------------------------------- kubernetes mirroring
+
+
+def _rfc3339(ts: float) -> str:
+    return (
+        datetime.datetime.fromtimestamp(ts, datetime.timezone.utc)
+        .strftime("%Y-%m-%dT%H:%M:%S.%f") + "Z"
+    )
+
+
+def emit_pod_event(client, namespace: str, pod_name: str, *, reason: str,
+                   message: str, component: str, pod_uid: str = "",
+                   trace_id: str = "", event_type: str = "Normal",
+                   journal: Optional[Journal] = None, **attrs) -> Event:
+    """Journal a pod-scoped decision AND mirror it as a Kubernetes
+    ``Event`` on the pod (fake and real clients both route the ``Event``
+    kind), so ``kubectl describe pod`` explains the wait. The mirror is
+    best-effort: an API failure is logged and dropped — an event write
+    must never wedge the reconcile that emitted it.
+
+    The mirror is deliberately synchronous (callers and tests observe
+    the Event immediately; no queue/thread lifecycle to manage). Under
+    a degraded API server the real client's retry backoff makes the
+    first few mirrors slow, but its circuit breaker then fails the rest
+    fast (CircuitOpen) until the server recovers — the stall is bounded
+    and the events are dropped, not queued into a thundering herd."""
+    j = journal or get_journal()
+    ev = j.emit(
+        component, reason=reason,
+        object_ref=f"Pod/{namespace}/{pod_name}",
+        message=message, trace_id=trace_id, **attrs,
+    )
+    manifest = {
+        "apiVersion": "v1",
+        "kind": "Event",
+        "metadata": {
+            "name": f"{pod_name}.{uuid.uuid4().hex[:12]}",
+            "namespace": namespace,
+            **({"annotations": {TRACE_ID_ANNOTATION: trace_id}}
+               if trace_id else {}),
+        },
+        "involvedObject": {
+            "kind": "Pod",
+            "namespace": namespace,
+            "name": pod_name,
+            **({"uid": pod_uid} if pod_uid else {}),
+        },
+        "reason": reason,
+        "message": message[:1024],
+        "type": event_type,
+        "source": {"component": component},
+        "firstTimestamp": _rfc3339(ev.ts),
+        "lastTimestamp": _rfc3339(ev.ts),
+        "count": 1,
+    }
+    try:
+        client.create("Event", manifest)
+    except Exception:
+        # best-effort by contract (injected kube faults land here too)
+        log.debug("failed to mirror %s event for pod %s/%s",
+                  reason, namespace, pod_name, exc_info=True)
+    return ev
 
 
 # ------------------------------------------------------- debug endpoint

@@ -47,6 +47,7 @@ from instaslice_tpu_torch.topology.frag import (
 from instaslice_tpu_torch.topology.mig import (
     MigProfile,
     gpu_group,
+    grid_generation,
     mig_catalog,
     parse_mig_profile,
     whole_gpu,

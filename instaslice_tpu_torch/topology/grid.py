@@ -88,6 +88,11 @@ GENERATIONS: Dict[str, Generation] = {
         # "host" of 8 memory slots of 10 GB (topology/mig.py, whose
         # catalog places it)
         Generation("h100-80gb", as3((8,)), 1, 10, 1, as3((8,))),
+        # Not a TPU: the grid of a card with no MIG catalog (an H100 NVL,
+        # any other NVIDIA card), granted only whole: one GPU a "host" of
+        # the same 8 slots, whose one profile is the whole GPU
+        # (topology/mig.py); its memory is the card's, not the grid's
+        Generation("nvidia-gpu", as3((8,)), 1, 0, 1, as3((8,))),
     ]
 }
 

@@ -28,6 +28,12 @@ H100 placement figure of NVIDIA's *Multi-Instance GPU User Guide*
 ``profile_id`` the id NVML answers with (``nvidia-smi mig -lgip``), the
 one its placement and create calls take. On a card with MIG on, the NVML
 backend reads the same table and the smoke compares the two.
+
+A card without that catalog (an H100 NVL, any other NVIDIA card: the
+node inventory's generation ``""``) is placed on the grid
+:data:`WHOLE_GPU_GRID`, the same 8 slots a GPU, whose one profile is the
+whole GPU; :func:`grid_generation` names it, and :func:`whole_gpu` and
+:func:`gpu_group` take ``""`` for it.
 """
 
 from __future__ import annotations
@@ -53,6 +59,10 @@ H100_80GB = "h100-80gb"
 #: the profile name of a whole-GPU reservation (MIG off, or a workload
 #: that takes the card): the 7g.80gb box, granted without a partition
 WHOLE_GPU = "gpu"
+#: the generation name of the grid of a card with no MIG catalog (the
+#: node inventory's generation ""): its GPUs are granted whole only, its
+#: catalog is :data:`WHOLE_GPU` alone
+WHOLE_GPU_GRID = "nvidia-gpu"
 
 _MIG_NAME_RE = re.compile(r"(\d+g\.\d+gb)")
 
@@ -100,21 +110,36 @@ H100_80GB_PROFILES: Tuple[MigProfile, ...] = (
 )
 
 _WHOLE = _profile(WHOLE_GPU, SLOTS, COMPUTE_SLICES, 80, (0,), None, None)
+# the whole GPU of a card whose compute and memory the grid does not fix
+_WHOLE_ONLY = MigProfile(
+    generation=WHOLE_GPU_GRID, shape=(SLOTS, 1, 1), mig_name=WHOLE_GPU,
+    starts=(0,))
 
-_CATALOGS: Dict[str, Tuple[MigProfile, ...]] = {H100_80GB: H100_80GB_PROFILES}
+_CATALOGS: Dict[str, Tuple[MigProfile, ...]] = {
+    H100_80GB: H100_80GB_PROFILES, WHOLE_GPU_GRID: (_WHOLE_ONLY,)}
+_WHOLES = {H100_80GB: _WHOLE, WHOLE_GPU_GRID: _WHOLE_ONLY}
+
+
+def grid_generation(inventory_generation: str) -> str:
+    """The grid a node inventory's generation names: its own, or
+    :data:`WHOLE_GPU_GRID` for a card without a MIG catalog (``""``)."""
+    return inventory_generation or WHOLE_GPU_GRID
 
 
 def mig_catalog(gen_name: str) -> Optional[Tuple[MigProfile, ...]]:
-    """The generation's MIG profiles, or None for a generation without
-    MIG (every TPU generation)."""
+    """The profiles of a GPU grid (the H100 80GB's MIG profiles; the
+    whole GPU alone on :data:`WHOLE_GPU_GRID`), or None for a
+    generation that is not a GPU grid (every TPU generation)."""
     return _CATALOGS.get(gen_name)
 
 
 def whole_gpu(gen_name: str = H100_80GB) -> MigProfile:
-    """The whole-GPU profile of a MIG generation."""
-    if gen_name not in _CATALOGS:
+    """The whole-GPU profile of a GPU grid; ``""`` (a card without a MIG
+    catalog) names :data:`WHOLE_GPU_GRID`."""
+    gen_name = grid_generation(gen_name)
+    if gen_name not in _WHOLES:
         raise KeyError(f"{gen_name!r} has no MIG catalog")
-    return _WHOLE
+    return _WHOLES[gen_name]
 
 
 def parse_mig_profile(name: str, gen_name: str = H100_80GB) -> MigProfile:
@@ -128,7 +153,7 @@ def parse_mig_profile(name: str, gen_name: str = H100_80GB) -> MigProfile:
         raise ValueError(f"generation {gen_name!r} has no MIG catalog")
     stripped = name.strip()
     if stripped in (WHOLE_GPU, "nvidia.com/gpu"):
-        return _WHOLE
+        return whole_gpu(gen_name)
     m = _MIG_NAME_RE.search(stripped)
     if not m:
         raise ValueError(
@@ -145,8 +170,9 @@ def parse_mig_profile(name: str, gen_name: str = H100_80GB) -> MigProfile:
 def gpu_group(gpu_count: int, gen_name: str = H100_80GB,
               group_id: str = "") -> TorusGroup:
     """The grid of a node's ``gpu_count`` GPUs: bounds ``(8, n, 1)``,
-    one host per GPU named ``gpu<index>``."""
-    gen = get_generation(gen_name)
+    one host per GPU named ``gpu<index>``; ``""`` (a card without a MIG
+    catalog) names :data:`WHOLE_GPU_GRID`."""
+    gen = get_generation(grid_generation(gen_name))
     if gpu_count < 1:
         raise ValueError(f"gpu_count must be positive, got {gpu_count}")
     return TorusGroup(

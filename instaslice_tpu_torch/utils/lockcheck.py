@@ -29,9 +29,10 @@ ever taken under it).
 
 A copy of ``instaslice_tpu/utils/lockcheck.py`` (the port imports
 nothing of the JAX package), trimmed to what the port's server uses:
-:func:`named_lock`, :func:`debug_locks_payload`, and
-:func:`named_condition` (the device plugin's health condition). Left
-out: the re-entrant factory (``named_rlock``), arming from code (``arm``/``disarm``/``armed``),
+:func:`named_lock`, :func:`debug_locks_payload`,
+:func:`named_condition` (the device plugin's health condition) and the
+re-entrant :func:`named_rlock` (the fake apiserver's store). Left
+out: arming from code (``arm``/``disarm``/``armed``),
 the test-isolation helpers (``reset``/``snapshot``/``restore``) and the
 session gate (``assert_clean``, ``LockOrderError``).
 """
@@ -160,20 +161,22 @@ def _find(st: list, key: int) -> Optional[list]:
     return None
 
 
-def _before_acquire(name: str, key: int) -> None:
+def _before_acquire(name: str, key: int, reentrant: bool = False) -> None:
     """Record ordering edges held-lock -> name; detect cycles the moment
-    an edge closes one. Re-entry (same instance already held) is a
-    guaranteed self-deadlock, reported as the degenerate cycle
-    ``name -> name`` BEFORE the thread blocks on it."""
+    an edge closes one. Re-entry (same instance already held) records
+    nothing for an RLock — its second acquire imposes no new order — but
+    for a plain Lock it is a guaranteed self-deadlock, reported as the
+    degenerate cycle ``name -> name`` BEFORE the thread blocks on it."""
     st = _held()
     if _find(st, key) is not None:
-        me = threading.current_thread().name
-        with _state_lock:
-            _cycles.append({"chain": [name, name], "threads": [me]})
-        log.error(
-            "self-deadlock: thread %s re-acquiring non-reentrant "
-            "lock %s it already holds", me, name,
-        )
+        if not reentrant:
+            me = threading.current_thread().name
+            with _state_lock:
+                _cycles.append({"chain": [name, name], "threads": [me]})
+            log.error(
+                "self-deadlock: thread %s re-acquiring non-reentrant "
+                "lock %s it already holds", me, name,
+            )
         return
     me = threading.current_thread().name
     for entry in st:
@@ -225,13 +228,21 @@ def _cycle_path(src: str, dst: str) -> Optional[List[str]]:
 
 
 def _after_acquire(name: str, key: int) -> None:
-    _held().append([name, key, time.monotonic(), 1])
+    st = _held()
+    entry = _find(st, key)
+    if entry is not None:
+        entry[3] += 1          # RLock re-entry
+        return
+    st.append([name, key, time.monotonic(), 1])
 
 
 def _on_release(name: str, key: int) -> None:
     st = _held()
     entry = _find(st, key)
     if entry is None:
+        return
+    entry[3] -= 1
+    if entry[3] > 0:
         return
     st.remove(entry)
     held_for = time.monotonic() - entry[2]
@@ -254,13 +265,16 @@ class _InstrumentedLock:
     full lock protocol incl. ``with``; instrumentation is a no-op while
     disarmed."""
 
+    _inner_factory = staticmethod(threading.Lock)
+    _reentrant = False
+
     def __init__(self, name: str) -> None:
         self.name = name
-        self._inner = threading.Lock()
+        self._inner = self._inner_factory()
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
         if _armed:
-            _before_acquire(self.name, id(self))
+            _before_acquire(self.name, id(self), self._reentrant)
         ok = self._inner.acquire(blocking, timeout)
         if ok and _armed:
             _after_acquire(self.name, id(self))
@@ -292,6 +306,27 @@ def named_lock(name: str) -> _InstrumentedLock:
     """A ``threading.Lock`` analog carrying ``name`` in the detector's
     acquisition graph."""
     return _InstrumentedLock(name)
+
+
+class _InstrumentedRLock(_InstrumentedLock):
+    _inner_factory = staticmethod(threading.RLock)
+    _reentrant = True
+
+    def locked(self) -> bool:  # RLock has no .locked() before 3.12
+        locked = getattr(self._inner, "locked", None)
+        if locked is not None:
+            return locked()
+        if self._inner._is_owned():
+            return True  # held by US — a try-acquire would just recurse
+        if self._inner.acquire(blocking=False):
+            self._inner.release()
+            return False
+        return True
+
+
+def named_rlock(name: str) -> _InstrumentedRLock:
+    """Re-entrant variant; re-entry records no ordering edges."""
+    return _InstrumentedRLock(name)
 
 
 class _InstrumentedCondition(threading.Condition):

@@ -162,9 +162,34 @@ DEVICE_PLUGIN = {
 }
 
 
+#: the node agent and the Kubernetes layer it runs on: both checks below
+#: must reach them too, and none of them may import yaml (the card's
+#: machine has no PyYAML; kubeconfigs are read by kube/kubeconfig.py)
+AGENT_LAYER = {
+    "instaslice_tpu_torch.kube",
+    "instaslice_tpu_torch.kube.client",
+    "instaslice_tpu_torch.kube.fake",
+    "instaslice_tpu_torch.kube.informer",
+    "instaslice_tpu_torch.kube.coalesce",
+    "instaslice_tpu_torch.kube.kubeconfig",
+    "instaslice_tpu_torch.kube.real",
+    "instaslice_tpu_torch.kube.httptest",
+    "instaslice_tpu_torch.utils.election",
+    "instaslice_tpu_torch.utils.reconcile",
+    "instaslice_tpu_torch.utils.probes",
+    "instaslice_tpu_torch.utils.timeutil",
+    "instaslice_tpu_torch.utils.envutil",
+    "instaslice_tpu_torch.agent.discovery",
+    "instaslice_tpu_torch.agent.gpugrid",
+    "instaslice_tpu_torch.agent.reconciler",
+    "instaslice_tpu_torch.agent.runner",
+    "instaslice_tpu_torch.cli.agent_main",
+}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN <= \
-        set(_port_modules())
+    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN | \
+        AGENT_LAYER <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -172,7 +197,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'instaslice_tpu'\n"
         "             or m.startswith('instaslice_tpu.')\n"
-        "             or m.split('.')[0] in ('ml_dtypes', 'grpc')\n"
+        "             or m.split('.')[0] in ('ml_dtypes', 'grpc', 'yaml')\n"
         "             or m == 'google.protobuf'\n"
         "             or m.startswith('google.protobuf.'))\n"
         "print(len(sys.modules), bad)\n"
@@ -189,15 +214,15 @@ def test_port_sources_never_name_jax_or_the_jax_package():
     # that needs it, which the import check above never calls
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib)(?:\.|\s|$)"
                      r"|^(?:import|from)\s+ml_dtypes(?:\.|\s|$)"
-                     r"|^\s*(?:import|from)\s+(?:grpc|google\.protobuf)"
+                     r"|^\s*(?:import|from)\s+(?:grpc|google\.protobuf|yaml)"
                      r"(?:\.|\s|$)"
                      r"|instaslice_tpu\.|import instaslice_tpu(?:\s|$)",
                      re.M)
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     scanned = {".".join(f.relative_to(REPO).with_suffix("").parts)
                .removesuffix(".__init__") for f in files}
-    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN <= \
-        scanned
+    assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN | \
+        AGENT_LAYER <= scanned
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
     assert len(files) > 10 and not hits, hits
