@@ -6382,7 +6382,7 @@ def http_get(url: str):
 
 
 def wait_until(fn, what: str, timeout: float = AGENT_WAIT_S,
-               poll: float = 0.01):
+               poll: float = 0.01, phase: str = "agent"):
     """``fn()``'s first truthy value, polled; fails the phase after
     ``timeout`` seconds without one."""
     end = time.perf_counter() + timeout
@@ -6390,15 +6390,17 @@ def wait_until(fn, what: str, timeout: float = AGENT_WAIT_S,
         val = fn()
         if val:
             return val
-        check(time.perf_counter() < end, f"agent: {what} within {timeout} s")
+        check(time.perf_counter() < end, f"{phase}: {what} within {timeout} s")
         time.sleep(poll)
 
 
 class AgentProcess:
-    """One run of :func:`agent_child` in a fresh process, its output in
+    """One run of :func:`agent_child` (or, with ``child="controller"``,
+    of :func:`controller_child`) in a fresh process, its output in
     ``log``."""
 
-    def __init__(self, work: Path, n: int, crash_at: str = "") -> None:
+    def __init__(self, work: Path, n: int, crash_at: str = "",
+                 child: str = "agent") -> None:
         import os
         import socket
 
@@ -6410,14 +6412,17 @@ class AgentProcess:
         env.pop("TPUSLICE_CRASH_AT", None)
         if crash_at:
             env.update(TPUSLICE_CRASH_AT=crash_at, TPUSLICE_CRASH_HARD="1")
-        self.log = work / f"agent{n}.log"
+        self.log = work / f"{child}{n}.log"
+        kubeconfig = str(work / "kubeconfig.json")
+        call = (f"agent_child({kubeconfig!r}, {str(work / 'reg')!r}, "
+                f"'127.0.0.1:{port}')" if child == "agent" else
+                f"controller_child({kubeconfig!r}, '127.0.0.1:{port}')")
         self.t0 = time.perf_counter()
         with open(self.log, "w") as out:
             self.proc = subprocess.Popen(
                 [sys.executable, "-c", "import sys; sys.path.insert(0, "
                  f"{str(HERE)!r}); import chip_smoke; sys.exit(chip_smoke."
-                 f"agent_child({str(work / 'kubeconfig.json')!r}, "
-                 f"{str(work / 'reg')!r}, '127.0.0.1:{port}'))"],
+                 f"{call})"],
                 env=env, cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
 
     def tail(self) -> str:
@@ -6435,6 +6440,66 @@ class AgentProcess:
         except subprocess.TimeoutExpired:
             self.proc.kill()
             return self.proc.wait()
+
+
+def granted_workload(out: dict, work: Path, cm_data: dict, granted: str,
+                     served: list, phase: str):
+    """The workload (:func:`slice_child`) in a fresh process on the
+    parent's environment less ``CUDA_VISIBLE_DEVICES`` and
+    ``NVIDIA_VISIBLE_DEVICES``, plus a handoff ConfigMap's data, as
+    ``envFrom`` gives it: one device, the ``granted`` UUID, the serve
+    phase's 8 completions (tokens equal, logprobs within
+    ``SERVE_LOGPROB_TOL``), B1-B3 on the card's trace. Fills ``out``'s
+    ``workload_s``, ``workload``, ``served_equal`` and
+    ``served_logprob_diff``; returns the child's result, the per-row
+    token equality and the largest logprob difference."""
+    import os
+
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in ("CUDA_VISIBLE_DEVICES",
+                              "NVIDIA_VISIBLE_DEVICES")}
+    child_env.update(cm_data)
+    result = work / "child.json"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         f"{str(HERE)!r}); import chip_smoke; "
+         f"sys.exit(chip_smoke.slice_child({str(result)!r}))"],
+        env=child_env, cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    out["workload_s"] = time.perf_counter() - t0
+    check(run.returncode == 0 and result.exists(),
+          f"{phase}: the workload failed ({run.returncode}): "
+          f"{run.stderr[-3000:]}")
+    w = json.loads(result.read_text())
+    out["workload"] = {k: v for k, v in w.items() if k != "served"}
+    c = w["counts"]
+    check(w["count"] == 1 and w["visible"] == granted
+          and granted.endswith(w["uuid"]),
+          f"{phase}: the workload sees {w['count']} device(s), "
+          f"{w['visible']} / {w['uuid']}, not the granted {granted}")
+    check(not w["errors"] and len(w["completions"]) == len(SERVE_PLENS)
+          and all(x["n"] == SERVE_NEW and x["in_range"]
+                  and x["finish"] == "max_new_tokens"
+                  for x in w["completions"]),
+          f"{phase}: the completions ({w['errors']})")
+    same = [r is not None and r["token_ids"] == s["token_ids"]
+            for r, s in zip(w["served"], served)]
+    lp = max((abs(x - y) for r, s in zip(w["served"], served) if r
+              for x, y in zip(r["logprobs"], s["logprobs"])),
+             default=float("inf"))
+    out["served_equal"], out["served_logprob_diff"] = same, lp
+    check(len(same) == len(served) and all(same),
+          f"{phase}: the granted device serves the serve phase's tokens")
+    check(lp <= SERVE_LOGPROB_TOL,
+          f"{phase}: logprobs differ from the serve phase's by {lp}")
+    for k in ("quant_decode_attention", "quant_matmul_stacked",
+              "quant_matmul_t"):
+        check(c[k] > 0, f"{phase}: {k} launched on the granted device")
+    check(c["quant_decode_attention"]
+          == w["n_layers"] * w["decode_steps"],
+          f"{phase}: B1 once a layer a decode step")
+    return w, same, lp
 
 
 def phase_agent(torch, card: str, served: list) -> dict:
@@ -6463,7 +6528,6 @@ def phase_agent(torch, card: str, served: list) -> dict:
     CR, a restarted agent's boot sweep reaps the orphan (released, no
     MIG instance of ours left, ``OrphanReaped`` on its
     ``/v1/debug/events``). The phase reads MIG mode and never sets it."""
-    import os
     import shutil
     import tempfile
 
@@ -6632,50 +6696,9 @@ def phase_agent(torch, card: str, served: list) -> dict:
             AllocationStatus.UNGATED))
 
         # (d) the workload on the ConfigMap's env alone
-        child_env = {k: v for k, v in os.environ.items()
-                     if k not in ("CUDA_VISIBLE_DEVICES",
-                                  "NVIDIA_VISIBLE_DEVICES")}
-        child_env.update(cm["data"])
-        result = work / "child.json"
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, "
-             f"{str(HERE)!r}); import chip_smoke; "
-             f"sys.exit(chip_smoke.slice_child({str(result)!r}))"],
-            env=child_env, cwd=HERE, capture_output=True, text=True,
-            timeout=600)
-        out["workload_s"] = time.perf_counter() - t0
-        check(run.returncode == 0 and result.exists(),
-              f"agent: the workload failed ({run.returncode}): "
-              f"{run.stderr[-3000:]}")
-        w = json.loads(result.read_text())
-        out["workload"] = {k: v for k, v in w.items() if k != "served"}
+        w, same, lp = granted_workload(out, work, cm["data"], granted,
+                                       served, "agent")
         c = w["counts"]
-        check(w["count"] == 1 and w["visible"] == granted
-              and granted.endswith(w["uuid"]),
-              f"agent: the workload sees {w['count']} device(s), "
-              f"{w['visible']} / {w['uuid']}, not the granted {granted}")
-        check(not w["errors"] and len(w["completions"]) == len(SERVE_PLENS)
-              and all(x["n"] == SERVE_NEW and x["in_range"]
-                      and x["finish"] == "max_new_tokens"
-                      for x in w["completions"]),
-              f"agent: the completions ({w['errors']})")
-        same = [r is not None and r["token_ids"] == s["token_ids"]
-                for r, s in zip(w["served"], served)]
-        lp = max((abs(x - y) for r, s in zip(w["served"], served) if r
-                  for x, y in zip(r["logprobs"], s["logprobs"])),
-                 default=float("inf"))
-        out["served_equal"], out["served_logprob_diff"] = same, lp
-        check(len(same) == len(served) and all(same),
-              "agent: the granted device serves the serve phase's tokens")
-        check(lp <= SERVE_LOGPROB_TOL,
-              f"agent: logprobs differ from the serve phase's by {lp}")
-        for k in ("quant_decode_attention", "quant_matmul_stacked",
-                  "quant_matmul_t"):
-            check(c[k] > 0, f"agent: {k} launched on the granted device")
-        check(c["quant_decode_attention"]
-              == w["n_layers"] * w["decode_steps"],
-              "agent: B1 once a layer a decode step")
         log(f"agent (d): the workload on the ConfigMap's env: "
             f"CUDA_VISIBLE_DEVICES={w['visible']}, torch sees {w['count']} "
             f"device, uuid {w['uuid']}; 7B int8, {w['n_layers']} layers, "
@@ -6794,6 +6817,432 @@ def phase_agent(torch, card: str, served: list) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"agent: {out['seconds']:.1f} s")
+    return out
+
+
+#: the deletion grace the controller phase's controller runs with (the
+#: CLI's default is 30 s)
+CONTROLLER_GRACE_S = 1.0
+#: how often the controller phase polls the apiserver for a step's effect
+CONTROLLER_POLL_S = 0.002
+
+
+def controller_child(kubeconfig: str, probe: str) -> int:
+    """The controller as ``tpuslice-gpu-controller`` runs it:
+    ``controller_main.main`` -> ``run_controller`` ->
+    ``ControllerRunner.from_args`` over the port's HTTP client, leader
+    elected on its Lease, with a deletion grace of ``CONTROLLER_GRACE_S``
+    and its probes on ``probe``. ``TPUSLICE_CRASH_AT`` in the
+    environment arms its crash points."""
+    from instaslice_tpu_torch.cli import controller_main
+
+    return controller_main.main([
+        "--kubeconfig", kubeconfig, "--leader-elect",
+        "--deletion-grace-seconds", str(CONTROLLER_GRACE_S),
+        "--health-probe-bind-address", probe,
+        "--metrics-bind-address", "127.0.0.1:0"])
+
+
+def first_times(conds: dict, what: str, t0: float,
+                timeout: float = AGENT_WAIT_S) -> dict:
+    """Seconds from ``t0`` to the first poll at which each of ``conds``
+    (name -> predicate) held, polling every ``CONTROLLER_POLL_S`` until
+    all have; fails the phase after ``timeout`` seconds."""
+    got: dict = {}
+    end = time.perf_counter() + timeout
+    while len(got) < len(conds):
+        for name, fn in conds.items():
+            if name not in got and fn():
+                got[name] = time.perf_counter() - t0
+        check(time.perf_counter() < end,
+              f"controller: {what} within {timeout} s (held: {sorted(got)})")
+        time.sleep(CONTROLLER_POLL_S)
+    return got
+
+
+def phase_controller(torch, card: str, served: list) -> dict:
+    """InstaSlice's whole pod loop on the card, the port's controller and
+    node agent each in a process of its own over HTTP, the agent over
+    NVML: (a) the port's ``kube/httptest`` serves a ``FakeKube`` on
+    127.0.0.1 behind a bearer token, with a JSON kubeconfig, a ``Node``
+    and the ``TpuSlice`` CRD; (b) the agent (:func:`agent_child`)
+    publishes the node's CR, and the controller (:func:`controller_child`,
+    ``tpuslice-gpu-controller --leader-elect``) takes the Lease; both
+    probes answer 200; (c) a gated pod built as InstaSlice's sample pod
+    (the gate, the finalizer, ``nvidia.com/mig-3g.40gb: 1`` where MIG is
+    on, else ``nvidia.com/gpu: 1``, the per-pod resource, ``envFrom`` its
+    ConfigMap) is placed first-fit on ``gpu0`` in the node's CR, realized
+    and ungated by the two processes alone, with ``Admitted``,
+    ``Placed`` and ``Ungated`` in the controller's journal; (d) the smoke,
+    as the scheduler, finds the pod's resource on the Node and binds the
+    pod, and the workload (:func:`granted_workload`) serves the serve
+    phase's tokens on the ConfigMap's env; (e) a second pod that cannot
+    fit beside it (``nvidia.com/gpu`` with MIG off, ``7g.80gb`` with MIG
+    on) waits with ``NoCapacity`` and no record; (f) the first pod
+    deleted is torn down after the grace (record deleted, then erased by
+    the agent; ConfigMap, Node resource, reservation and pod gone) and the
+    waiting pod is granted; (g) the controller is replaced by one armed to
+    crash hard at ``controller.ungate``; the second pod deleted, a third
+    is placed and realized, and the armed controller dies with its gate
+    removed and its record ``created``; a new controller takes the Lease
+    once the dead one's expires and brings the record to ``ungated``
+    without a second placement or reservation (its journal: ``Ungated``
+    for the pod, no ``Admitted`` or ``Placed``). The third pod deleted,
+    nothing of the phase's is left: no reservation, MIG instance,
+    ConfigMap or record. The phase reads MIG mode and never sets it; the
+    device plugin stays out of this chain."""
+    import shutil
+    import tempfile
+
+    from instaslice_tpu_torch.api.constants import (
+        FINALIZER,
+        GATE_NAME,
+        GPU_RESOURCE,
+        MIG_RESOURCE_PREFIX,
+        POD_RESOURCE_PREFIX,
+        REASON_ADMITTED,
+        REASON_NO_CAPACITY,
+        REASON_PLACED,
+        REASON_UNGATED,
+    )
+    from instaslice_tpu_torch.api.crd import crd_manifest
+    from instaslice_tpu_torch.api.types import (
+        AllocationStatus,
+        TpuSlice,
+        slice_uuid_for,
+    )
+    from instaslice_tpu_torch.controller.runner import LEASE_NAME
+    from instaslice_tpu_torch.device import NvmlBackend
+    from instaslice_tpu_torch.kube import FakeKube, NotFound
+    from instaslice_tpu_torch.kube.client import update_with_retry
+    from instaslice_tpu_torch.kube.httptest import FakeApiServer
+    from instaslice_tpu_torch.topology import Occupancy, get_policy, mig
+    from instaslice_tpu_torch.topology.placement import Box
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="controller-"))
+    ns = "instaslice-tpu-system"
+    out = {}
+    kube = FakeKube()
+    srv = backend = None
+    procs = []
+
+    def get(kind, namespace, name):
+        try:
+            return kube.get(kind, namespace, name)
+        except NotFound:
+            return None
+
+    def cr():
+        obj = get("TpuSlice", ns, AGENT_NODE)
+        return obj and TpuSlice.from_manifest(obj)
+
+    def record(pod):
+        """The pod's allocation record in the node's CR, or None."""
+        ts = cr()
+        found = [a for a in ts.spec.allocations.values()
+                 if a.pods and a.pods[0].pod_name == pod] if ts else []
+        return found[0] if found else None
+
+    def gates(pod):
+        obj = get("Pod", "default", pod)
+        return obj and obj["spec"].get("schedulingGates")
+
+    def events(proc, pod, reason=""):
+        code, body = http_get(
+            f"{proc.url}/v1/debug/events?n=1000&object=Pod/default/{pod}"
+            + (f"&reason={reason}" if reason else ""))
+        return [e["reason"] for e in body["events"]] if code == 200 else []
+
+    def lease_holder():
+        lease = get("Lease", ns, LEASE_NAME)
+        return lease and lease["spec"].get("holderIdentity")
+
+    def holds_lease(proc):
+        return (lease_holder() or "").endswith(f"-{proc.proc.pid}")
+
+    def controller(n, crash_at=""):
+        p = AgentProcess(work, n, crash_at=crash_at, child="controller")
+        procs.append(p)
+        return p
+
+    def wait(fn, what, poll=0.01):
+        return wait_until(fn, what, poll=poll, phase="controller")
+
+    def pod_manifest(name, request):
+        """InstaSlice's sample pod (``samples/test-pod.yaml``) with the
+        port's gate, finalizer and resources."""
+        return {
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": "default",
+                         "finalizers": [FINALIZER]},
+            "spec": {
+                "schedulingGates": [{"name": GATE_NAME}],
+                "containers": [{
+                    "name": "server",
+                    "resources": {"limits": {
+                        request: "1", f"{POD_RESOURCE_PREFIX}{name}": "1"}},
+                    "envFrom": [{"configMapRef": {"name": name}}]}]},
+            "status": {"phase": "Pending"}}
+
+    try:
+        # (a) the apiserver, its kubeconfig, the Node and the CRD
+        srv = FakeApiServer(kube).start()
+        srv.handler.token_validator = lambda t: t == AGENT_TOKEN
+        (work / "kubeconfig.json").write_text(json.dumps({
+            "apiVersion": "v1", "kind": "Config",
+            "current-context": "smoke",
+            "clusters": [{"name": "smoke", "cluster": {"server": srv.url}}],
+            "users": [{"name": "smoke", "user": {"token": AGENT_TOKEN}}],
+            "contexts": [{"name": "smoke", "context": {
+                "cluster": "smoke", "user": "smoke"}}]}))
+        kube.create("Node", {"apiVersion": "v1", "kind": "Node",
+                             "metadata": {"name": AGENT_NODE},
+                             "status": {"capacity": {}, "allocatable": {}}})
+        kube.create("CustomResourceDefinition", crd_manifest())
+        backend = NvmlBackend(registry_dir=str(work / "reg"))
+        inv = backend.discover()
+        mig_on = inv.gpus[0].mig_current == 1
+        before_inst = {r.device_uuids for r in backend.instances()}
+        gen = mig.grid_generation(inv.generation)
+        request = (MIG_RESOURCE_PREFIX + SLICE_MIG_PROFILE if mig_on
+                   else GPU_RESOURCE)
+        blocker = MIG_RESOURCE_PREFIX + "7g.80gb" if mig_on else GPU_RESOURCE
+        log(f"controller (a): apiserver {srv.url} (bearer token), Node "
+            f"{AGENT_NODE}, CRD {crd_manifest()['metadata']['name']}; "
+            f"NVML: {inv.chip_count} GPU(s), generation {inv.generation!r}, "
+            f"MIG current {inv.gpus[0].mig_current}; the pods ask for "
+            f"{request}, the waiting one for {blocker}")
+
+        # (b) the agent and the controller, each in a fresh process
+        agent = AgentProcess(work, 0)
+        procs.append(agent)
+        ctl = controller(1)
+        ts = wait(lambda: cr() or (not agent.alive() and check(
+            False, f"controller: the agent exited: {agent.tail()}")),
+            "the agent's CR")
+        wait(lambda: holds_lease(ctl) or (not ctl.alive() and check(
+            False, f"controller: the controller exited: {ctl.tail()}")),
+            "the controller's Lease")
+        out["boot_to_lease_s"] = time.perf_counter() - ctl.t0
+        for p in (agent, ctl):
+            wait(lambda p=p: all(http_get(f"{p.url}/{x}")[0] == 200
+                                 for x in ("healthz", "readyz")),
+                 "/healthz and /readyz 200", poll=0.05)
+        check(ts.spec.generation == gen and ts.spec.torus_group == AGENT_NODE,
+              f"controller: CR {ts.spec.generation} {ts.spec.torus_group}")
+        log(f"controller (b): the agent's CR {ns}/{AGENT_NODE} ({gen}, "
+            f"chips {ts.spec.chips}); the controller (pid "
+            f"{ctl.proc.pid}) holds Lease {LEASE_NAME} "
+            f"{out['boot_to_lease_s']:.2f} s after its start; both "
+            "processes' /healthz and /readyz 200")
+
+        # (c) a gated pod, granted by the two processes alone
+        group = mig.gpu_group(len(ts.spec.chips), gen, group_id=AGENT_NODE)
+        occ = Occupancy(group)
+        for prep in ts.spec.prepared.values():
+            occ.occupy(Box.from_key(prep.box))
+        want = mig.parse_mig_profile(request, gen)
+        pl = get_policy("first-fit").choose(group, want, occ)
+        check(pl is not None, f"controller: no free {want.name}")
+        t0 = time.perf_counter()
+        kube.create("Pod", pod_manifest("ctl-pod", request))
+        t = first_times({
+            "record": lambda: record("ctl-pod") is not None,
+            "configmap": lambda: get("ConfigMap", "default", "ctl-pod"),
+            "ungate": lambda: gates("ctl-pod") == []}, "the grant", t0)
+        out["create_to_record_ms"] = t["record"] * 1e3
+        out["create_to_configmap_ms"] = t["configmap"] * 1e3
+        out["time_to_grant_ms"] = t["ungate"] * 1e3
+        a = wait(lambda: (lambda r: r if r and r.status
+                          == AllocationStatus.UNGATED else None)(
+            record("ctl-pod")), "the record ungated")
+        check(list(a.parts) == ["gpu0"] and a.box == pl.box.key()
+              and a.profile == want.name and a.realized_on == ["gpu0"]
+              and a.torus_group == AGENT_NODE,
+              f"controller: record {a.to_dict()}, first-fit {pl.box.key()}")
+        suid = slice_uuid_for(a.alloc_id)
+        (res,) = [r for r in backend.list_reservations()
+                  if r.slice_uuid == suid]
+        cm = get("ConfigMap", "default", "ctl-pod")["data"]
+        granted = cm["CUDA_VISIBLE_DEVICES"]
+        check(granted == res.device_uuids[0] and len(res.device_uuids) == 1
+              and "," not in granted, f"controller: ConfigMap grants "
+              f"{granted}, reservation {res}")
+        evs = wait(lambda: (lambda e: e if {REASON_ADMITTED, REASON_PLACED,
+                                            REASON_UNGATED} <= set(e)
+                            else None)(events(ctl, "ctl-pod")),
+                   "Admitted, Placed and Ungated")
+        pod = get("Pod", "default", "ctl-pod")
+        check(pod["metadata"]["finalizers"] == [FINALIZER],
+              f"controller: finalizers {pod['metadata']['finalizers']}")
+        out["grant"] = {"profile": a.profile, "box": a.box,
+                        "parts": list(a.parts), "uuid": granted,
+                        "events": evs}
+        log(f"controller (c): ctl-pod ({request}) placed {a.profile} at "
+            f"{a.box} (part gpu0, first-fit) in {AGENT_NODE}'s CR "
+            f"{out['create_to_record_ms']:.1f} ms after its create, its "
+            f"ConfigMap at {out['create_to_configmap_ms']:.1f} ms "
+            f"(CUDA_VISIBLE_DEVICES={granted}), the gate removed at "
+            f"{out['time_to_grant_ms']:.1f} ms (time to grant) on {card}; "
+            f"the controller's journal for it: {evs}")
+
+        # (d) the scheduler's part, and the workload
+        resname = f"{POD_RESOURCE_PREFIX}ctl-pod"
+        node = kube.get("Node", "", AGENT_NODE)["status"]
+        check(node["capacity"].get(resname) == "1"
+              and node["allocatable"].get(resname) == "1",
+              f"controller: the Node's {resname}: {node}")
+
+        def bind(obj):
+            obj["spec"]["nodeName"] = AGENT_NODE
+            obj["status"]["phase"] = "Running"
+            return obj
+
+        update_with_retry(kube, "Pod", "default", "ctl-pod", bind)
+        w, same, lp = granted_workload(out, work, cm, granted, served,
+                                       "controller")
+        log(f"controller (d): bound to {AGENT_NODE} ({resname}=1 on the "
+            f"Node); the workload on the ConfigMap's env: torch sees "
+            f"{w['count']} device, uuid {w['uuid']}; first burst "
+            f"{w['tok_s']:.1f} tok/s, second {w['warm_tok_s']:.1f} on "
+            f"{card}; tokens equal to the serve phase's {same}, largest "
+            f"logprob difference {lp:.3g}; launches on the card's trace "
+            f"{w['counts']}; the process {out['workload_s']:.1f} s")
+
+        # (e) a pod that cannot fit waits
+        kube.create("Pod", pod_manifest("ctl-wait", blocker))
+        wait(lambda: REASON_NO_CAPACITY in events(ctl, "ctl-wait"),
+             "NoCapacity for ctl-wait", poll=0.05)
+        check(record("ctl-wait") is None and gates("ctl-wait"),
+              "controller: ctl-wait waits gated, without a record")
+        log(f"controller (e): ctl-wait ({blocker}) NoCapacity, gated, no "
+            "record")
+
+        # (f) teardown by deletion, and the waiting pod's grant
+        t0 = time.perf_counter()
+        kube.delete("Pod", "default", "ctl-pod")
+        t = first_times({
+            "deleted": lambda: (lambda r: r is None or r.status
+                                == AllocationStatus.DELETED)(
+                record("ctl-pod")),
+            "erased": lambda: record("ctl-pod") is None,
+            "pod_gone": lambda: get("Pod", "default", "ctl-pod") is None,
+            "configmap_gone": lambda: get("ConfigMap", "default",
+                                          "ctl-pod") is None,
+            "waiting_granted": lambda: gates("ctl-wait") == []},
+            "the teardown and the waiting pod's grant", t0)
+        out["delete_to_erased_ms"] = (t["erased"] - CONTROLLER_GRACE_S) * 1e3
+        out["delete_to_pod_gone_ms"] = (t["pod_gone"]
+                                        - CONTROLLER_GRACE_S) * 1e3
+        out["delete_to_waiting_grant_ms"] = t["waiting_granted"] * 1e3
+        node = kube.get("Node", "", AGENT_NODE)["status"]
+        check(resname not in node["capacity"],
+              f"controller: the Node's {resname} is removed: {node}")
+        check(t["deleted"] >= CONTROLLER_GRACE_S,
+              f"controller: torn down {t['deleted']:.3f} s after the "
+              f"delete, inside the grace of {CONTROLLER_GRACE_S} s")
+        check(not [r for r in backend.list_reservations()
+                   if r.slice_uuid == suid],
+              "controller: ctl-pod's reservation released")
+        b = wait(lambda: (lambda r: r if r and r.status
+                          == AllocationStatus.UNGATED else None)(
+            record("ctl-wait")), "ctl-wait's record ungated")
+        log(f"controller (f): ctl-pod deleted: record deleted "
+            f"{t['deleted'] * 1e3:.1f} ms and erased "
+            f"{t['erased'] * 1e3:.1f} ms after the delete (grace "
+            f"{CONTROLLER_GRACE_S} s), pod gone at "
+            f"{t['pod_gone'] * 1e3:.1f} ms, ConfigMap, Node resource and "
+            f"reservation gone; ctl-wait granted {b.profile} at {b.box} "
+            f"{out['delete_to_waiting_grant_ms']:.1f} ms after the delete")
+
+        # (g) a controller killed at controller.ungate, and its successor
+        code = ctl.stop()
+        check(code == 0, f"controller: SIGTERM exit {code}: {ctl.tail()}")
+        armed = controller(2, crash_at="controller.ungate")
+        wait(lambda: holds_lease(armed) and http_get(
+            f"{armed.url}/readyz")[0] == 200, "the armed controller's Lease")
+        kube.delete("Pod", "default", "ctl-wait")
+        wait(lambda: record("ctl-wait") is None
+             and get("Pod", "default", "ctl-wait") is None,
+             "ctl-wait torn down")
+        kube.create("Pod", pod_manifest("ctl-crash", request))
+        code = armed.proc.wait(timeout=AGENT_WAIT_S)
+        t_dead = time.perf_counter()
+        check(code == 17, f"controller: the armed controller exit {code} "
+              f"(want 17): {armed.tail()}")
+        c = record("ctl-crash")
+        check(gates("ctl-crash") == [] and c is not None
+              and c.status == AllocationStatus.CREATED,
+              f"controller: the crash left gates {gates('ctl-crash')}, "
+              f"record {c and c.status}")
+        succ = controller(3)
+        wait(lambda: holds_lease(succ), "the successor's Lease", poll=0.005)
+        out["failover_s"] = time.perf_counter() - t_dead
+        out["successor_start_to_lease_s"] = time.perf_counter() - succ.t0
+        c2 = wait(lambda: (lambda r: r if r and r.status
+                           == AllocationStatus.UNGATED else None)(
+            record("ctl-crash")), "ctl-crash's record ungated")
+        reserved = backend.list_reservations()
+        check(c2.attempt_epoch == c.attempt_epoch and c2.box == c.box
+              and len(reserved) == 1
+              and reserved[0].slice_uuid == slice_uuid_for(c.alloc_id),
+              f"controller: the successor re-placed or re-reserved: "
+              f"{c2.to_dict()}, {reserved}")
+        evs = wait(lambda: (lambda e: e if REASON_UNGATED in e else None)(
+            events(succ, "ctl-crash")), "the successor's Ungated")
+        check(REASON_ADMITTED not in evs and REASON_PLACED not in evs,
+              f"controller: the successor placed ctl-crash again: {evs}")
+        out["recovery"] = {"record": c2.status.value, "box": c2.box,
+                           "reservations": len(reserved), "events": evs}
+        log(f"controller (g): armed at controller.ungate, the controller "
+            f"exited 17 with ctl-crash's gate removed and its record "
+            f"created; the successor took the Lease "
+            f"{out['failover_s']:.2f} s after the death "
+            f"({out['successor_start_to_lease_s']:.2f} s after its own "
+            f"start) and brought the record to ungated at {c2.box}, one "
+            f"reservation in the registry; its journal for ctl-crash: {evs}")
+        kube.delete("Pod", "default", "ctl-crash")
+        wait(lambda: record("ctl-crash") is None
+             and get("Pod", "default", "ctl-crash") is None,
+             "ctl-crash torn down")
+        left = {r.device_uuids for r in backend.instances()}
+        check(not backend.list_reservations() and left == before_inst
+              and not kube.list("ConfigMap")
+              and not cr().spec.allocations,
+              f"controller: left behind reservations "
+              f"{backend.list_reservations()}, MIG instances {left}, "
+              f"ConfigMaps {kube.list('ConfigMap')}, records "
+              f"{list(cr().spec.allocations)}")
+        for p in (succ, agent):
+            code = p.stop()
+            check(code == 0, f"controller: SIGTERM exit {code}: {p.tail()}")
+        out["numbers"] = {
+            "card": card,
+            "time_to_grant_ms": out["time_to_grant_ms"],
+            "create_to_record_ms": out["create_to_record_ms"],
+            "create_to_configmap_ms": out["create_to_configmap_ms"],
+            "delete_to_erased_ms": out["delete_to_erased_ms"],
+            "delete_to_pod_gone_ms": out["delete_to_pod_gone_ms"],
+            "delete_to_waiting_grant_ms": out["delete_to_waiting_grant_ms"],
+            "failover_s": out["failover_s"],
+            "first_burst_tok_s": w["tok_s"],
+            "second_burst_tok_s": w["warm_tok_s"]}
+        log("controller: " + json.dumps(out["numbers"]))
+    finally:
+        # a failed step still stops what the phase started and gives
+        # back what it reserved
+        for p in procs:
+            p.stop()
+        if backend is not None:
+            for r in backend.list_reservations():
+                backend.release(r.slice_uuid)
+            backend.close()
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"controller: {out['seconds']:.1f} s")
     return out
 
 
@@ -6919,6 +7368,9 @@ def main() -> int:
     t0 = time.perf_counter()
     agent = phase_agent(torch, card, served)
     mark("agent", t0)
+    t0 = time.perf_counter()
+    controller = phase_controller(torch, card, served)
+    mark("controller", t0)
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
@@ -6989,6 +7441,10 @@ def main() -> int:
         # the workload on the grant the node agent made (the agent
         # phase's child), from the card's trace
         k["agent_launches"] = agent["workload"]["counts"][k["name"]]
+        # the workload on the grant the controller made (the controller
+        # phase's child), from the card's trace
+        k["controller_launches"] = controller["workload"]["counts"][
+            k["name"]]
         # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
         tp = tp_serve["shard_kernels"].get(k["name"])
         if tp is not None:
@@ -7044,6 +7500,7 @@ def main() -> int:
     log(json.dumps({"card": card, "parallel_rest": parallel_rest}))
     log(json.dumps({"card": card, "slice": slice_}))
     log(json.dumps({"card": card, "agent": agent}))
+    log(json.dumps({"card": card, "controller": controller}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

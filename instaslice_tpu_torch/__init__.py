@@ -16,6 +16,22 @@ from __future__ import annotations
 
 import torch
 
+# the gate, finalizer and resource names, re-exported as the reference
+# re-exports them (``instaslice_tpu/__init__.py``); NVIDIA's whole-GPU
+# resource stands where its TPU one does
+from instaslice_tpu_torch.api.constants import (  # noqa: F401,E402
+    API_VERSION,
+    FINALIZER,
+    GATE_NAME,
+    GPU_RESOURCE,
+    GROUP,
+    KIND,
+    LEGACY_GATE_NAME,
+    PLURAL,
+    POD_RESOURCE_PREFIX,
+    VERSION,
+)
+
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a :class:`torch.device`; raises for a CUDA device

@@ -1,5 +1,5 @@
-"""Constants and the ``TpuSlice`` CR data model of the port, copied from
-``instaslice_tpu/api`` (its ``crd.py`` comes with the controller)."""
+"""Constants, the ``TpuSlice`` CR data model and its CRD manifest of the
+port, copied from ``instaslice_tpu/api``."""
 
 from instaslice_tpu_torch.api.types import (  # noqa: F401
     AllocationDetails,
@@ -12,3 +12,4 @@ from instaslice_tpu_torch.api.types import (  # noqa: F401
     TpuSliceStatus,
     slice_uuid_for,
 )
+from instaslice_tpu_torch.api.crd import crd_manifest  # noqa: F401,E402

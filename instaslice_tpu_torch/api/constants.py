@@ -1,14 +1,16 @@
 """The flight-recorder ``reason`` catalog of the serving plane, of
-allocations, of the device plugin, of the node agent and of the kube
-layer, the ``TpuSlice`` resource's names, the label the handoff
-ConfigMap carries, and the resources and annotations of the device
-plugin, the agent and the leader lease.
+allocations, of the controller and its repacker, of the device plugin,
+of the node agent and of the kube layer, the ``TpuSlice`` resource's
+names, the scheduling gate and finalizer, the label the handoff
+ConfigMap carries, and the resources and annotations of the pods, the
+device plugin, the agent and the leader lease.
 
-A copy of the serving, allocation, chip-health, agent and kube reasons
-of ``instaslice_tpu/api/constants.py`` (the ones the scheduler, the
-profiler, the journal, ``api/types.py``, ``deviceplugin/server.py``,
-``agent/`` and ``kube/`` of the port emit) and of its ``GROUP``,
-``VERSION``, ``API_VERSION``, ``KIND``, ``PLURAL``,
+A copy of the serving, allocation, controller, repacker, recovery,
+chip-health, agent and kube reasons of ``instaslice_tpu/api/constants.py``
+(the ones the scheduler, the profiler, the journal, ``api/types.py``,
+``controller/``, ``deviceplugin/server.py``, ``agent/`` and ``kube/`` of
+the port emit) and of its ``GROUP``, ``VERSION``, ``API_VERSION``,
+``KIND``, ``PLURAL``, ``GATE_NAME``, ``LEGACY_GATE_NAME``, ``FINALIZER``,
 ``POD_RESOURCE_PREFIX``, ``POD_UID_LABEL`` and annotations, with the
 reference's values: the port imports nothing of the JAX package. Its ``TPU_RESOURCE`` and
 ``TPU_PROFILE_RESOURCE_PREFIX`` become NVIDIA's resource names, the
@@ -24,6 +26,13 @@ VERSION = "v1alpha1"
 API_VERSION = f"{GROUP}/{VERSION}"
 KIND = "TpuSlice"
 PLURAL = "tpuslices"
+
+#: Scheduling gate and finalizer of the pods the controller grants
+GATE_NAME = f"{GROUP}/accelerator"
+FINALIZER = f"{GROUP}/accelerator"
+#: The gate InstaSlice's own webhook sets, its spelling included: the
+#: controller admits and ungates pods that carry it
+LEGACY_GATE_NAME = "org.instaslice/accelarator"
 
 #: Per-pod extended resource the node agent advertises on its Node (the
 #: pod's handoff name follows the prefix): what pins a granted pod to
@@ -41,6 +50,20 @@ GPU_RESOURCE = "nvidia.com/gpu"
 #: Per-profile MIG resources (``nvidia.com/mig-3g.40gb``) advertised by
 #: the slice device-plugin manager and requested in pod limits
 MIG_RESOURCE_PREFIX = "nvidia.com/mig-"
+
+#: Pod annotations: the requested profile, a multi-host pod group and
+#: its size, a stable handoff name, the degraded-slice marker and the
+#: opt-in to eviction on it, the controller's error, the repacker's
+#: opt-out, and the blocked request a pod was submitted for
+PROFILE_ANNOTATION = f"{GROUP}/profile"
+GROUP_ANNOTATION = f"{GROUP}/group"
+GROUP_SIZE_ANNOTATION = f"{GROUP}/group-size"
+HANDOFF_ANNOTATION = f"{GROUP}/handoff-name"
+UNHEALTHY_ANNOTATION = f"{GROUP}/slice-unhealthy"
+RESTART_ON_FAILURE_ANNOTATION = f"{GROUP}/restart-on-failure"
+ERROR_ANNOTATION = f"{GROUP}/error"
+REPACK_OPTOUT_ANNOTATION = f"{GROUP}/no-repack"
+CAUSED_BY_ANNOTATION = f"{GROUP}/caused-by"
 
 #: Device-plugin allocate-response annotations (surfaced on the pod by
 #: the kubelet)
@@ -63,6 +86,31 @@ TRANSITION_REASONS = {
     "failed": REASON_SLICE_FAILED,
     "deleted": REASON_SLICE_DELETED,
 }
+
+# controller decisions (pod-scoped; mirrored as Kubernetes Events)
+REASON_ADMITTED = "Admitted"
+REASON_PLACED = "Placed"
+REASON_NO_CAPACITY = "NoCapacity"
+REASON_REJECTED = "Rejected"
+REASON_RETRYING = "Retrying"
+REASON_UNGATED = "Ungated"
+REASON_DEGRADED = "SliceDegraded"
+REASON_HEALED = "SliceHealed"
+REASON_HEALTH_EVICTED = "HealthEvicted"
+
+# repacker (controller/defrag.py): one migration is one drain, teardown
+# and re-grant epoch under its own trace id
+REASON_REPACK_PLANNED = "RepackPlanned"
+REASON_REPACK_MIGRATING = "RepackMigrating"
+REASON_REPACK_DONE = "RepackDone"
+REASON_REPACK_FAILED = "RepackFailed"
+
+# recovery: a restarted controller adopting what a dead one left, the
+# repacker's watchdog rolling back a stuck migration, and the
+# controller's rolling back an allocation stuck in ``creating``
+REASON_CRASH_RECOVERED = "CrashRecovered"
+REASON_MIGRATION_ABORTED = "MigrationAborted"
+REASON_GRANT_DEADLINE = "GrantDeadlineExceeded"
 
 # serving data plane
 REASON_DRAIN_BEGIN = "DrainBegin"
@@ -119,6 +167,12 @@ REASON_WRITE_FENCED = "WriteFenced"
 #: every reason the port's journal accepts without a warning
 EVENT_REASONS = frozenset({
     *TRANSITION_REASONS.values(),
+    REASON_ADMITTED, REASON_PLACED, REASON_NO_CAPACITY, REASON_REJECTED,
+    REASON_RETRYING, REASON_UNGATED, REASON_DEGRADED, REASON_HEALED,
+    REASON_HEALTH_EVICTED,
+    REASON_REPACK_PLANNED, REASON_REPACK_MIGRATING, REASON_REPACK_DONE,
+    REASON_REPACK_FAILED,
+    REASON_CRASH_RECOVERED, REASON_MIGRATION_ABORTED, REASON_GRANT_DEADLINE,
     REASON_DRAIN_BEGIN, REASON_DRAIN_END, REASON_SHED, REASON_DRAINED,
     REASON_PREEMPTED, REASON_RESUMED, REASON_SLO_MISSED,
     REASON_COMPILE_OBSERVED,

@@ -1,10 +1,18 @@
 """Runtime wiring for the port's CLI entry points (a copy of
-``run_agent`` and ``run_deviceplugin``, ``instaslice_tpu/cli/runtime.py:22-37``;
-the controller is not ported yet)."""
+``instaslice_tpu/cli/runtime.py``)."""
 
 from __future__ import annotations
 
 import sys
+
+
+def run_controller(args) -> int:
+    try:
+        from instaslice_tpu_torch.controller.runner import ControllerRunner
+    except ImportError as e:
+        print(f"controller unavailable: {e}", file=sys.stderr)
+        return 1
+    return ControllerRunner.from_args(args).run()
 
 
 def run_agent(args) -> int:
