@@ -178,11 +178,11 @@ phase's seed and batch, losses and params bit-equal to the meshless step
 on the same weights, B5/B6/B7 16 launches a step, step ms and peak GiB
 beside the meshless step's; then two processes on the one card over gloo
 on CUDA tensors (spawned after the parent frees its cached memory, the
-kernels already built), the 871M widths at 4 layers, batch 8 x 1024:
+kernels already built), the 871M widths at 2 layers, batch 8 x 1024:
 (dp 1, tp 2), the same with the two ranks' ``wo`` shards swapped (the
 control, which must miss the bound), and (dp 2, tp 1) with ZeRO-1, each 3
 steps against the one-process step on the same weights within
-``PAR_TOL``, B5-B7 4 launches per rank a step, each ZeRO-1 moment holding
+``PAR_TOL``, B5-B7 2 launches per rank a step, each ZeRO-1 moment holding
 numel / 2; the phase logs its seconds and the groups' backend. No run
 is a scaling number;
 tp_serve (last): tensor-parallel serving with the driver/follower op
@@ -206,10 +206,10 @@ per rank its decode ms a step and tok/s at batch 8, its peak GiB while
 building and serving, and the phase's seconds;
 parallel_rest (last): the rest of the parallel layer, two processes
 sharing the card over gloo on CUDA tensors each time (no scaling
-number): (a) the MoE training configuration at 4 layers (8 experts, 4 a
-rank) in float32 at tp 2, 3 steps against the one-process step within
-``REST_MOE_TOL``, the swapped-experts control outside it, B5 24 and B6/B7
-12 per rank; (b) its int8 engine at tp 2 on 8 prompts: greedy tokens
+number): (a) the MoE training configuration at ``REST_LAYERS`` (2)
+layers (8 experts, 4 a rank) in float32 at tp 2, 3 steps against the
+one-process step within ``REST_MOE_TOL``, the swapped-experts control
+outside it, B5 12 and B6/B7 6 per rank; (b) its int8 engine at tp 2 on 8 prompts: greedy tokens
 equal on both ranks and their first ``TP_GREEDY`` equal the meshless
 engine's, B4 4 a layer and B3 once a forward per rank; (c) the 7B int8
 server at tp 2 with 4 stacked adapters (``--from-env --lora`` x 4):
@@ -217,10 +217,10 @@ the lora phase's 8 completions over HTTP from rank 0, rank 1 following,
 greedy tokens against the lora phase's meshless server, B1-B3 on both
 ranks; (d) ``--ring --sp 2`` through the training CLI under
 ``torch.distributed.run`` (two ranks on one card: gloo) at
-the 871M widths, 4 layers, rows of 2048 tokens, against the same flags
+the 871M widths, 2 layers, rows of 2048 tokens, against the same flags
 in one process (the ring runs no kernel); (e) GPipe at pipe 2, 4
-micro-batches, the 871M widths at 4 layers, 3 steps against the
-one-process step, B5-B7 10 a step per stage; the phase logs its seconds.
+micro-batches, the 871M widths at 2 layers, 3 steps against the
+one-process step, B5-B7 5 a step per stage; the phase logs its seconds.
 slice: the slice/device layer on the card, from discovery to a
 granted device that serves and back (``phase_slice``): the NVML
 backend's ctypes struct layouts against the toolkit's ``nvml.h``
@@ -252,7 +252,7 @@ no reservation and no MIG instance of the phase's is left. The registry
 is a temporary directory of the phase's own; MIG mode is read, never
 changed.
 
-agent (last): the node agent on the card (``phase_agent``): the port's
+agent: the node agent on the card (``phase_agent``): the port's
 ``kube/httptest`` serves a ``FakeKube`` on 127.0.0.1 behind a bearer
 token and a JSON kubeconfig; the agent in a fresh process
 (``agent_child``: ``tpuslice-gpu-agent``'s parser and runner over the
@@ -272,6 +272,25 @@ unrecorded, and a restarted agent reaps that orphan (``OrphanReaped``
 on its ``/v1/debug/events``). Boot to CR, realize and teardown
 latency and the first burst's tok/s are printed beside the card.
 
+controller: InstaSlice's pod loop by the port's controller and agent
+processes over HTTP (``phase_controller``): a gated sample pod placed,
+realized and ungated; while it is granted, ``tpuslice-gpu status
+--json`` and ``describe pod --json`` read the live apiserver (one node
+of the card's generation, the slice ungated and realized 1/1, the
+timeline's Admitted, Placed and Ungated in order); the workload on its
+ConfigMap's env; a waiting pod, teardown after the grace, a controller
+killed at ``controller.ungate`` and its successor.
+
+ctl (last): the operator CLIs (``phase_ctl``): ``tpuslice-gpu
+serve-bench`` in process at the 871M configuration's full widths and
+depth, batch 8, max_len 1024, prefill 128, ``--quantize`` (B1, B2, B3)
+then ``--spec`` (B2, B3, no B1), each JSON line with the reference's
+keys and ``backend`` ``cuda``, the launches on the card's trace equal to
+what the engine's counters imply for the steps it ran; the controller
+phase's ``status``/``describe`` ms; ``python -m
+instaslice_tpu_torch.cli.demo --transport http`` in a fresh process
+(rc 0, its last line, the grant seconds on the fake backend).
+
 Then the ``kernels`` JSON line (launches, from the card's trace on the
 serving paths and from the wrappers on the training ones: B1-B3 from the
 serve phase, B4 from the moe phase's engine (its times at that path's 2048 x 2048,
@@ -287,7 +306,9 @@ from the parallel phase's world-size-1 mesh step and
 ``tp_serve_launches`` per rank of the tp 2 server,
 ``parallel_rest_launches`` per rank or stage of the parallel_rest
 phase's runs, ``slice_launches`` from the slice phase's workload,
-``agent_launches`` from the agent phase's workload), the graph
+``agent_launches`` and ``controller_launches`` from the agent and
+controller phases' workloads, ``ctl_launches`` from the ctl phase's
+``--quantize`` and ``--spec`` runs), the graph
 phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
@@ -4277,8 +4298,9 @@ PAR_RUNS = (("tp2", 2, False, False), ("tp2_swapped_wo", 2, False, True),
             ("dp2_zero1", 1, True, False))
 #: their depth: gloo moves every collective through host memory, so this
 #: run puts B5-B7 and the tensor-parallel code on the card at the per-rank
-#: shapes; it times nothing
-PAR_LAYERS = 4
+#: shapes; it times nothing (4 until the ctl phase came, cut to 2 to pay
+#: for it: the depth of the CPU cut that set PAR_TOL)
+PAR_LAYERS = 2
 #: the two-process runs against the one-process step on the same weights
 #: (bf16 compute over fp32 masters, 3 AdamW steps at lr 3e-4, clip 1.0):
 #: the largest relative loss error over the steps and the worst leaf's
@@ -4427,7 +4449,7 @@ def parallel_two_process(torch, dev_type: str = "cuda",
     before): (dp 1, tp 2), the same with the two ranks' wo shards swapped
     (the control), and (dp 2, tp 1) with ZeRO-1, each 3 steps against the
     one-process step on the same weights, within :data:`PAR_TOL`; B5-B7
-    4 launches per rank per layer-step; each ZeRO-1 moment numel / 2."""
+    one launch per rank per layer-step; each ZeRO-1 moment numel / 2."""
     import multiprocessing as mp
     import shutil
     import socket
@@ -4462,7 +4484,7 @@ def parallel_two_process(torch, dev_type: str = "cuda",
     check(codes == [0, 0], f"parallel children exit codes {codes}")
     ranks = [json.loads((out / f"rank{r}.json").read_text())
              for r in range(2)]
-    shutil.rmtree(out)          # the reference's params: ~1 GiB at 4 layers
+    shutil.rmtree(out)          # the reference's params: ~0.7 GiB at 2 layers
     runs = {}
     for name, tp, zero1, swap in PAR_RUNS:
         r0, r1 = ranks[0][name], ranks[1][name]
@@ -4584,7 +4606,7 @@ def parallel_ws1(torch, ops) -> dict:
 def phase_parallel(torch, ops) -> dict:
     """The parallel layer on one card: world size 1 on NCCL at the full
     871M (:func:`parallel_ws1`), then two processes over gloo on CUDA
-    tensors at 4 layers (:func:`parallel_two_process`). No scaling
+    tensors at 2 layers (:func:`parallel_two_process`). No scaling
     number: one card."""
     t0 = time.perf_counter()
     out = {"ws1": parallel_ws1(torch, ops)}
@@ -5147,9 +5169,11 @@ def phase_tp_serve(torch, ops, cfg) -> dict:
 
 # ------------------------------------------------------------ parallel_rest
 
-#: the parallel_rest phase's training runs: the 871M widths at this depth,
-#: a (REST_B, REST_S) batch of seed 17, 3 AdamW steps at lr 3e-4, clip 1.0
-REST_LAYERS = 4
+#: the parallel_rest phase's training runs: the 871M widths at this depth
+#: (4 until the ctl phase came, cut to pay for it: the fewest layers GPipe
+#: at pipe 2 can split), a (REST_B, REST_S) batch of seed 17, 3 AdamW
+#: steps at lr 3e-4, clip 1.0
+REST_LAYERS = 2
 REST_B, REST_S = 8, 1024
 #: GPipe at pipe 2 against the one-process step on the same weights (bf16
 #: over fp32 masters): the dense tp 2 bound of the parallel phase
@@ -5174,7 +5198,8 @@ REST_MOE_NEW = 16
 #: flags in one process, whose attention is B5-B7 and not the ring: the
 #: losses within REST_TOL["loss"]
 REST_RING_FLAGS = ("--synthetic 200000 --seq-len 2047 --global-batch 2 "
-                   "--steps 2 --n-layers 4 --log-every 1 --ring")
+                   f"--steps 2 --n-layers {REST_LAYERS} --log-every 1 "
+                   "--ring")
 
 
 def rest_tokens(torch, cfg, dev):
@@ -7087,6 +7112,10 @@ def phase_controller(torch, card: str, served: list) -> dict:
             f"{out['time_to_grant_ms']:.1f} ms (time to grant) on {card}; "
             f"the controller's journal for it: {evs}")
 
+        # (c2) the operator CLI against the live apiserver
+        out["ctl"] = ctl_status_describe(
+            work / "kubeconfig.json", ns, gen, a, "ctl-pod")
+
         # (d) the scheduler's part, and the workload
         resname = f"{POD_RESOURCE_PREFIX}ctl-pod"
         node = kube.get("Node", "", AGENT_NODE)["status"]
@@ -7246,6 +7275,229 @@ def phase_controller(torch, card: str, served: list) -> dict:
     return out
 
 
+# -------------------------------------------------------------------- ctl
+
+#: the keys of the reference's ``serve-bench`` JSON line
+#: (``instaslice_tpu/cli/tpuslicectl.py:49-67``; ``spec_tokens_per_round``
+#: with ``--spec`` only). The port's line must have exactly these
+CTL_BENCH_KEYS = ("metric", "unit", "backend", "batch", "quantized",
+                  "speculative", "model", "value")
+#: ``tpuslice-gpu serve-bench`` at the 871M configuration's full widths
+#: and depth (``instaslice_tpu/bench_tpu.py:341-352``, MHA: 16 KV heads),
+#: batch 8, the engine's max_len and prefill of the serving phases; the
+#: reference's default of 30 timed steps (or rounds)
+CTL_BENCH_FLAGS = ("serve-bench --vocab 32000 --d-model 2048 --n-heads 16 "
+                   "--n-kv-heads 16 --n-layers 16 --d-ff 8192 --batch 8 "
+                   "--max-len 1024 --prefill-len 128")
+#: the 871M's decode forward: B1 once a layer, B2 six times a layer (wq,
+#: wk, wv, wo, w_in, w_out), B3 once (the unembedding)
+CTL_LAYERS = 16
+
+
+def ctl_cli(argv: list) -> tuple:
+    """``tpuslice-gpu`` in this process: (exit code, stdout, ms)."""
+    import contextlib
+    import io
+
+    from instaslice_tpu_torch.cli import tpuslicectl
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tpuslicectl.main(argv)
+    return rc, buf.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def ctl_status_describe(kubeconfig: Path, ns: str, gen: str, alloc,
+                        pod: str) -> dict:
+    """The controller phase's (c2): ``tpuslice-gpu status --json`` and
+    ``describe pod --json`` against the phase's live apiserver while
+    ``pod`` is granted (``alloc`` its ungated record): one node of the
+    card's generation, one slice (the record's profile and box,
+    ``ungated``, realized 1/1, the pod), and a timeline holding
+    ``Admitted``, ``Placed`` and ``Ungated`` in that order."""
+    from instaslice_tpu_torch.api.constants import (
+        REASON_ADMITTED,
+        REASON_PLACED,
+        REASON_UNGATED,
+    )
+
+    rc, text, st_ms = ctl_cli(["status", "--kubeconfig", str(kubeconfig),
+                               "--namespace", ns, "--json"])
+    check(rc == 0, f"controller: status exit {rc}: {text}")
+    st = json.loads(text)
+    check([(n["node"], n["generation"]) for n in st["nodes"]]
+          == [(AGENT_NODE, gen)], f"controller: status nodes {st['nodes']}")
+    check(len(st["slices"]) == 1, f"controller: status slices {st}")
+    sl = st["slices"][0]
+    got = (sl["profile"], sl["box"], sl["status"],
+           f"{len(sl['realizedOn'])}/{sl['parts']}", sl["pods"])
+    want = (alloc.profile, alloc.box, "ungated", "1/1", [pod])
+    check(got == want, f"controller: status slice {got}, want {want}")
+    rc, text, de_ms = ctl_cli(["describe", "pod", pod, "--kubeconfig",
+                               str(kubeconfig), "--operator-namespace", ns,
+                               "--json"])
+    check(rc == 0, f"controller: describe exit {rc}: {text}")
+    info = json.loads(text)
+    reasons = [t["reason"] for t in info["timeline"]]
+    order = [reasons.index(r) if r in reasons else -1
+             for r in (REASON_ADMITTED, REASON_PLACED, REASON_UNGATED)]
+    check(min(order) >= 0 and order == sorted(order)
+          and info["allocation"]["id"] == alloc.alloc_id,
+          f"controller: describe timeline {reasons}, allocation "
+          f"{info['allocation']}")
+    log(f"controller (c2): tpuslice-gpu status --json {st_ms:.1f} ms: "
+        f"{AGENT_NODE} ({gen}), slice {sl['profile']} at {sl['box']} "
+        f"{sl['status']}, realized {got[3]}, pods {sl['pods']}; describe "
+        f"pod {pod} --json {de_ms:.1f} ms: timeline {reasons}")
+    return {"status_ms": st_ms, "describe_ms": de_ms, "slice": sl,
+            "timeline": reasons}
+
+
+def ctl_bench(torch, ops, extra: str) -> dict:
+    """``tpuslice-gpu serve-bench`` (:data:`CTL_BENCH_FLAGS` plus
+    ``extra``) in this process, its launches from the card's trace over
+    the whole command, and the engine it built (recorded as the command
+    makes it) for the counts the engine's code implies."""
+    from instaslice_tpu_torch import serving
+
+    made = []
+    base = serving.ServingEngine
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    serving.ServingEngine = Recorded
+    t0 = time.perf_counter()
+    try:
+        ops.reset_launch_counts()
+        with Traced(torch, ops) as tr:
+            rc, text, _ = ctl_cli((CTL_BENCH_FLAGS + " " + extra).split())
+    finally:
+        serving.ServingEngine = base
+    secs = time.perf_counter() - t0
+    check(rc == 0 and len(made) == 1,
+          f"ctl: serve-bench {extra} exit {rc}, {len(made)} engine(s)")
+    line = json.loads(text.strip().splitlines()[-1])
+    keys = set(CTL_BENCH_KEYS) | ({"spec_tokens_per_round"}
+                                  if "--spec" in extra else set())
+    check(set(line) == keys and line["backend"] == "cuda"
+          and line["value"] > 0, f"ctl: serve-bench {extra} line {line}")
+    eng = made[0]
+    out = {"line": line, "counts": tr.counts, "seconds": secs,
+           "decode_steps": eng.decode_steps,
+           "prefill_chunks": eng.prefill_dispatches,
+           "graphs": sorted(str(k) for k in eng._graphs),
+           "replays": {str(k): n for k, n in eng.graph_replays.items()}}
+    del eng, made
+    free_memory(torch)
+    return out
+
+
+def phase_ctl(torch, ops, controller: dict) -> dict:
+    """The operator CLIs on the card: (a) ``tpuslice-gpu serve-bench`` at
+    the 871M configuration (:data:`CTL_BENCH_FLAGS`), first
+    ``--quantize`` (int8 weights and KV: B1, B2 and B3 on every decode
+    forward, B2 and B3 on every prefill chunk), then ``--spec`` (the bf16
+    target with its int8 self-draft at spec_k 4: B2 and B3 on every draft
+    forward, no B1): each JSON line with the reference's keys, backend
+    ``cuda``, tok/s above 0, and the launches on the card's trace equal
+    to what the engine's code runs for the steps it ran; (b) the
+    controller phase's ``status`` and ``describe`` readings; (c) ``python
+    -m instaslice_tpu_torch.cli.demo --transport http`` in a fresh
+    process: exit 0 and its last line ``{"demo": "ok", ...}``, its
+    grant on the fake GPU backend (host work, no device)."""
+    import os
+
+    t_phase = time.perf_counter()
+    L, out = CTL_LAYERS, {}
+    # (a) --quantize. A decode block replays its step's captured graph
+    # once a step (decode_steps counts them), and each capture first runs
+    # the step once for real (its warm-up): decode forwards F = steps +
+    # captures; each admission of a 3-token prompt is one 128-row chunk
+    # (prefill_chunks P). B1 = L * F, B2 = 6 * L * (F + P), B3 = F + P
+    q = ctl_bench(torch, ops, "--quantize")
+    caps = [g for g in q["graphs"] if "decode_block" in g]
+    F = q["decode_steps"] + len(caps)
+    P = q["prefill_chunks"]
+    want = {"quant_decode_attention": L * F,
+            "quant_matmul_stacked": 6 * L * (F + P),
+            "quant_matmul_t": F + P, "quant_matmul": 0,
+            **{k: 0 for k in FLASH}}
+    # throughput(30): 8 admissions, a warm block and a timed block of
+    # min(30, (1024 - 2 - 3) // 2) = 30 steps, one attend bucket (256)
+    check(q["decode_steps"] == 60 and P == 8 and len(caps) == 1,
+          f"ctl: --quantize ran {q['decode_steps']} decode steps, {P} "
+          f"chunks, graphs {q['graphs']} (want 60, 8, one)")
+    check(q["counts"] == want, f"ctl: --quantize launches {q['counts']}, "
+          f"want {want} (B1 = {L} x {F}, B2 = {6 * L} x ({F} + {P}), "
+          f"B3 = {F} + {P})")
+    log(f"ctl (a) serve-bench --quantize on the card: "
+        f"{q['line']['value']} tok/s at batch 8; {q['decode_steps']} "
+        f"decode steps + {len(caps)} capture warm-up, {P} prefill chunks; "
+        f"launches (trace) {q['counts']} = B1 {L} x {F}, B2 {6 * L} x "
+        f"({F} + {P}), B3 {F} + {P}; {q['seconds']:.1f} s")
+    # (a) --spec. A round of depth k runs k + 1 draft forwards (int8: B2,
+    # B3) and one bf16 verify forward (no kernel); each captured round
+    # key ran once for real before its capture, and each admission runs
+    # one draft chunk: D = P + sum over round keys of (replays + 1)(k + 1)
+    # (a key's capture is followed by its first replay). B2 = 6 L D,
+    # B3 = D, B1 none (no cache is int8)
+    sp = ctl_bench(torch, ops, "--spec")
+    rounds = {}
+    for key, n in sp["replays"].items():
+        if "spec_round" in key:
+            k = int(re.search(r"'spec_round', (\d+)", key).group(1))
+            rounds[key] = (n, k)
+    D = sp["prefill_chunks"] + sum((n + 1) * (k + 1)
+                                   for n, k in rounds.values())
+    want = {"quant_decode_attention": 0,
+            "quant_matmul_stacked": 6 * L * D, "quant_matmul_t": D,
+            "quant_matmul": 0, **{k: 0 for k in FLASH}}
+    per = sp["line"]["spec_tokens_per_round"]
+    check(len(rounds) == len([g for g in sp["graphs"] if "spec_round" in g])
+          and sum(n for n, _ in rounds.values()) == 31,
+          f"ctl: --spec rounds {rounds}, graphs {sp['graphs']} (want 31 "
+          "replays: one warm round and 30 timed)")
+    check(sp["counts"] == want, f"ctl: --spec launches {sp['counts']}, "
+          f"want {want} (D = {D} draft forwards)")
+    check(1.0 <= per <= 5.0, f"ctl: --spec tokens per round {per} "
+          "outside [1, 5]")
+    log(f"ctl (a) serve-bench --spec on the card: {sp['line']['value']} "
+        f"tok/s at batch 8, {per} tokens per round; rounds by key "
+        f"(replays, k) {list(rounds.values())}; {D} draft forwards; "
+        f"launches (trace) {sp['counts']} = B2 {6 * L} x {D}, B3 {D}; "
+        f"{sp['seconds']:.1f} s")
+    out["serve_bench"] = {"quantize": q, "spec": sp}
+    # (b)
+    out["status_describe"] = controller["ctl"]
+    # (c)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "instaslice_tpu_torch.cli.demo",
+         "--transport", "http"], cwd=HERE, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(HERE)))
+    demo_s = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    last = json.loads(lines[-1]) if lines else {}
+    check(res.returncode == 0 and last.get("demo") == "ok"
+          and set(last) == {"demo", "grant_seconds"}
+          and any("CUDA_VISIBLE_DEVICES=" in x for x in lines),
+          f"ctl: demo exit {res.returncode}: {res.stdout[-2000:]} "
+          f"{res.stderr[-2000:]}")
+    out["demo"] = {"grant_seconds": last["grant_seconds"],
+                   "process_s": demo_s}
+    log(f"ctl (c) demo --transport http in a fresh process: grant "
+        f"{last['grant_seconds']} s on the fake GPU backend (host work, "
+        f"no device), the process {demo_s:.1f} s")
+    out["counts"] = {"quantize": q["counts"], "spec": sp["counts"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"ctl: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7371,6 +7623,9 @@ def main() -> int:
     t0 = time.perf_counter()
     controller = phase_controller(torch, card, served)
     mark("controller", t0)
+    t0 = time.perf_counter()
+    ctl = phase_ctl(torch, ops, controller)
+    mark("ctl", t0)
     timings["total"] = time.perf_counter() - t_all
 
     # launches: each kernel's count from the main path that runs it (the
@@ -7445,6 +7700,10 @@ def main() -> int:
         # phase's child), from the card's trace
         k["controller_launches"] = controller["workload"]["counts"][
             k["name"]]
+        # tpuslice-gpu serve-bench at the 871M (the ctl phase), from the
+        # card's trace: --quantize, then --spec
+        k["ctl_launches"] = {run: c[k["name"]]
+                             for run, c in ctl["counts"].items()}
         # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
         tp = tp_serve["shard_kernels"].get(k["name"])
         if tp is not None:
@@ -7501,6 +7760,7 @@ def main() -> int:
     log(json.dumps({"card": card, "slice": slice_}))
     log(json.dumps({"card": card, "agent": agent}))
     log(json.dumps({"card": card, "controller": controller}))
+    log(json.dumps({"card": card, "ctl": ctl}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ chip-health, agent and kube reasons of ``instaslice_tpu/api/constants.py``
 ``controller/``, ``deviceplugin/server.py``, ``agent/`` and ``kube/`` of
 the port emit) and of its ``GROUP``, ``VERSION``, ``API_VERSION``,
 ``KIND``, ``PLURAL``, ``GATE_NAME``, ``LEGACY_GATE_NAME``, ``FINALIZER``,
-``POD_RESOURCE_PREFIX``, ``POD_UID_LABEL`` and annotations, with the
+``POD_RESOURCE_PREFIX``, ``POD_UID_LABEL`` and annotations (the sim
+kubelet's ``DEVICE_PATHS_ANNOTATION`` and
+``KUBELET_ENV_CHIPS_ANNOTATION`` among them), with the
 reference's values: the port imports nothing of the JAX package. Its ``TPU_RESOURCE`` and
 ``TPU_PROFILE_RESOURCE_PREFIX`` become NVIDIA's resource names, the
 ones InstaSlice's pods request (``samples/test-pod.yaml``) and
@@ -66,9 +68,13 @@ REPACK_OPTOUT_ANNOTATION = f"{GROUP}/no-repack"
 CAUSED_BY_ANNOTATION = f"{GROUP}/caused-by"
 
 #: Device-plugin allocate-response annotations (surfaced on the pod by
-#: the kubelet)
+#: the kubelet / the sim's kubelet emulator): the chips, the slice's
+#: reservation handles, the granted device nodes and the chips of the
+#: env the plugin injected
 CHIPS_ANNOTATION = f"{GROUP}/chips"
 SLICE_DEVICE_ANNOTATION = f"{GROUP}/slice-device"
+DEVICE_PATHS_ANNOTATION = f"{GROUP}/device-paths"
+KUBELET_ENV_CHIPS_ANNOTATION = f"{GROUP}/kubelet-env-chips"
 
 # allocation lifecycle (api/types.py AllocationDetails.set_status): one
 # reason per status an allocation enters

@@ -17,7 +17,10 @@ contain "nvidia": ``nvidia.com/mig-3g.40gb`` is a MIG profile by the
 (:func:`~instaslice_tpu_torch.topology.mig.parse_mig_profile` on the
 H100 80GB's catalog; each GPU group reads it against its own,
 :func:`~instaslice_tpu_torch.controller.gpugrid.group_profile`). A malformed or unknown
-MIG name raises, where InstaSlice's returns "".
+MIG name raises, where InstaSlice's returns "". The profile annotation
+also takes a GPU grid's names (``3g.40gb``, ``gpu``:
+:func:`~instaslice_tpu_torch.controller.gpugrid.parse_profile`), as the
+sim's pods carry them.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from instaslice_tpu_torch.api.constants import (  # noqa: F401 (re-exports)
     RESTART_ON_FAILURE_ANNOTATION,
     UNHEALTHY_ANNOTATION,
 )
+from instaslice_tpu_torch.controller.gpugrid import parse_profile
 from instaslice_tpu_torch.topology.mig import parse_mig_profile
 from instaslice_tpu_torch.topology.profiles import TopologyProfile, parse_profile_name
 
@@ -74,7 +78,8 @@ def is_pod_gated(pod: dict) -> bool:
 def extract_profile(pod: dict) -> Optional[TopologyProfile]:
     """Profile from (in priority order):
 
-    1. annotation ``tpu.instaslice.dev/profile: v5e-2x2``
+    1. annotation ``tpu.instaslice.dev/profile: v5e-2x2`` (or a GPU
+       grid's ``3g.40gb``, ``gpu``)
     2. a resource limit key like ``google.com/tpu-v5e-2x2``, or one that
        contains "nvidia": ``nvidia.com/mig-3g.40gb``, ``nvidia.com/gpu``
 
@@ -84,7 +89,7 @@ def extract_profile(pod: dict) -> Optional[TopologyProfile]:
     meta = pod.get("metadata", {})
     ann = (meta.get("annotations") or {}).get(PROFILE_ANNOTATION)
     if ann:
-        return parse_profile_name(ann)
+        return parse_profile(ann)
     for ctr in pod.get("spec", {}).get("containers", []) or []:
         limits = (ctr.get("resources") or {}).get("limits") or {}
         for key in limits:

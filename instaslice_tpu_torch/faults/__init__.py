@@ -15,8 +15,10 @@ failures in every verb, disconnects mid-watch) and
 :class:`FaultyBackend` (device errors, delays, chip failures in front of
 a :class:`~instaslice_tpu_torch.device.backend.DeviceBackend`, whose
 ``reserve`` takes the port's ``profile`` and ``start``). The port
-imports nothing of the JAX package; the network nemesis
-(``faults/netchaos.py``) stays with the reference.
+imports nothing of the JAX package. The network nemesis (partitions,
+latency, watch dup/reorder, throttling) is the copy in
+``faults/netchaos.py``, re-exported here as the reference re-exports
+it.
 
 Plans are built in tests or parsed from ``TPUSLICE_FAULT_PLAN``::
 
@@ -43,6 +45,19 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from instaslice_tpu_torch.kube.client import ApiError, KubeClient, WatchEvent
 from instaslice_tpu_torch.utils.lockcheck import named_lock
+
+# Network nemesis layer (partitions, latency, watch dup/reorder,
+# throttling) lives in ``faults/netchaos.py``; this module stays the one
+# fault facade.
+from instaslice_tpu_torch.faults.netchaos import (  # noqa: F401  (re-exports)
+    NemesisKubeClient,
+    NemesisPlan,
+    NemesisRule,
+    PartitionError,
+    get_nemesis,
+    reset_nemesis,
+    set_nemesis,
+)
 
 
 class FaultError(Exception):

@@ -40,9 +40,10 @@ the "cold mid-run compile polluted p95" class of bug self-announces
 instead of requiring archaeology (docs/OBSERVABILITY.md "Profiling").
 
 A copy of ``instaslice_tpu/obs/profiler.py`` (the port imports nothing
-of the JAX package), trimmed to what the port's server uses: left out
-are the Chrome trace export (``chrome_trace``, read by the reference's
-CLI), ``reset_profiler`` and ``Profiler.disarm``/``clear``. The compile watch listens on the port's kernel
+of the JAX package), trimmed to what the port's server and its
+``tpuslice-gpu profile`` use (the Chrome trace export,
+:func:`chrome_trace`, included): left out are ``reset_profiler`` and
+``Profiler.disarm``/``clear``. The compile watch listens on the port's kernel
 builds (``instaslice_tpu_torch.ops.build``) where the reference listens
 on ``jax.monitoring``: an nvcc build, library load or graph capture
 after the warm window is the port's mid-traffic compile.
@@ -463,6 +464,117 @@ def debug_profile_payload(qs: Dict[str, list],
         "recentEvents": p.events(n),
         "compiles": p.events(n, kind="compile"),
     }
+
+
+# ------------------------------------------------- chrome trace export
+
+
+def chrome_trace(rounds: Optional[List[dict]] = None,
+                 events: Optional[List[dict]] = None,
+                 spans: Optional[List[dict]] = None) -> dict:
+    """Interleave round records, timeline events, and tracer spans into
+    Chrome trace-event JSON ({"traceEvents": [...]}) — loadable in
+    Perfetto / ``chrome://tracing``. Inputs are payload-shaped dicts
+    (``RoundRecord.to_dict`` / profiler event / ``Span.to_dict``) so
+    the CLI can build a trace from HTTP payloads without touching the
+    live rings. One pid per component (scheduler / engine / each span
+    name prefix), one tid per lane (rounds, segments, event kind,
+    per-slot span lanes); ``ts``/``dur`` are microseconds from the
+    earliest input timestamp."""
+    rounds = rounds or []
+    events = events or []
+    spans = spans or []
+    out: List[dict] = []
+    pids: Dict[str, int] = {}
+    tids: Dict[Tuple[int, str], int] = {}
+
+    def pid(name: str) -> int:
+        if name not in pids:
+            pids[name] = len(pids) + 1
+            out.append({"ph": "M", "name": "process_name", "ts": 0,
+                        "pid": pids[name],
+                        "args": {"name": name}})
+        return pids[name]
+
+    def tid(p: int, name: str) -> int:
+        key = (p, name)
+        if key not in tids:
+            tids[key] = sum(1 for k in tids if k[0] == p) + 1
+            out.append({"ph": "M", "name": "thread_name", "ts": 0,
+                        "pid": p, "tid": tids[key],
+                        "args": {"name": name}})
+        return tids[key]
+
+    starts = (
+        [float(r.get("ts") or 0.0) for r in rounds]
+        + [float(e.get("ts") or 0.0) for e in events]
+        + [float(s.get("start") or 0.0) for s in spans]
+    )
+    base = min([s for s in starts if s > 0], default=0.0)
+
+    def us(t: float) -> float:
+        return round(max(0.0, (t - base)) * 1e6, 1)
+
+    for r in rounds:
+        p = pid("scheduler")
+        t0 = us(float(r.get("ts") or base))
+        meta = {k: str(v) for k, v in (r.get("meta") or {}).items()}
+        out.append({
+            "ph": "X", "cat": "round",
+            "name": "round/%s" % (r.get("phase") or "decode"),
+            "pid": p, "tid": tid(p, "rounds"), "ts": t0,
+            "dur": round(float(r.get("wallMs") or 0.0) * 1e3, 1),
+            "args": dict(meta, idx=str(r.get("idx", ""))),
+        })
+        seg_tid = tid(p, "segments")
+        for seg in (r.get("segs") or []):
+            name, start_ms, dur_ms = seg[0], float(seg[1]), float(seg[2])
+            out.append({
+                "ph": "X", "cat": "segment", "name": name,
+                "pid": p, "tid": seg_tid,
+                "ts": round(t0 + start_ms * 1e3, 1),
+                "dur": round(dur_ms * 1e3, 1),
+            })
+    for e in events:
+        p = pid("engine")
+        t = tid(p, str(e.get("kind") or "event"))
+        dur_ms = float(e.get("durMs") or 0.0)
+        ev = {
+            "cat": str(e.get("kind") or "event"),
+            "name": str(e.get("name") or ""),
+            "pid": p, "tid": t,
+            "args": dict(e.get("attrs") or {}),
+        }
+        if dur_ms > 0:
+            # the event is stamped at its END: shift back by dur
+            ev["ph"] = "X"
+            ev["dur"] = round(dur_ms * 1e3, 1)
+            ev["ts"] = round(
+                max(0.0, us(float(e.get("ts") or base))
+                    - dur_ms * 1e3), 1)
+        else:
+            ev["ph"] = "i"
+            ev["s"] = "t"
+            ev["ts"] = us(float(e.get("ts") or base))
+        out.append(ev)
+    for s in spans:
+        name = str(s.get("name") or "span")
+        comp = name.split(".", 1)[0] or "span"
+        p = pid(comp)
+        attrs = dict(s.get("attrs") or {})
+        lane = attrs.get("slot")
+        t = tid(p, "slot:%s" % lane if lane is not None else "spans")
+        for key in ("traceId", "spanId", "parentId"):
+            if s.get(key):
+                attrs[key] = s[key]
+        out.append({
+            "ph": "X", "cat": "span", "name": name,
+            "pid": p, "tid": t,
+            "ts": us(float(s.get("start") or base)),
+            "dur": round(float(s.get("durationMs") or 0.0) * 1e3, 1),
+            "args": attrs,
+        })
+    return {"traceEvents": out, "displayTimeUnit": "ms"}
 
 
 # ------------------------------------------------------- waterfall

@@ -65,9 +65,9 @@ leaves the followers in collectives it never joins: such a rank is
 lost, as a failed chip's is. The warm-ups
 (``warm_prefill_buckets``, ``warm_spec_programs``) issue forwards, so
 every rank runs them before the driver/follower split
-(``api_server.build_engine``). Not copied: the reference's
-network-nemesis hook in ``_bcast`` (``faults/netchaos.py``, which needs
-the kube client the port does not have; ROADMAP queue A).
+(``api_server.build_engine``). ``_bcast`` consults the network
+nemesis (``faults/netchaos.py``) on each follower's edge, as the
+reference's does: a partitioned follower is dropped like a dead one.
 """
 
 from __future__ import annotations
@@ -153,12 +153,22 @@ class DistributedEngine:
         a loud log instead of raising into the scheduler thread: its
         rank's collectives then fail the driver's next forward, and the
         local server must keep serving/failing requests rather than
-        silently dying."""
+        silently dying. Each send consults the network nemesis on the
+        ``opstream>follower:<addr>`` edge."""
+        from instaslice_tpu_torch.faults.netchaos import get_nemesis
+
         line = (json.dumps(op) + "\n").encode()
         dead = []
+        nemesis = get_nemesis()
         for pair in self._conns:
             conn, addr = pair
             try:
+                if nemesis is not None:
+                    # PartitionError is an OSError: a partitioned
+                    # follower takes the same drop path as a dead one
+                    nemesis.before_request("opstream", f"follower:{addr}")
+                    nemesis.throttle_sleep(
+                        "opstream", f"follower:{addr}", len(line))
                 conn.sendall(line)
             except OSError as e:
                 # addr captured at accept time: a reset socket raises

@@ -201,9 +201,19 @@ CONTROLLER = {
 }
 
 
+#: the simulator, the network nemesis and the operator CLIs: both checks
+#: below must reach them too
+OPERATOR_CLI = {
+    "instaslice_tpu_torch.sim",
+    "instaslice_tpu_torch.faults.netchaos",
+    "instaslice_tpu_torch.cli.demo",
+    "instaslice_tpu_torch.cli.tpuslicectl",
+}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN | \
-        AGENT_LAYER | CONTROLLER <= set(_port_modules())
+        AGENT_LAYER | CONTROLLER | OPERATOR_CLI <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -236,7 +246,7 @@ def test_port_sources_never_name_jax_or_the_jax_package():
     scanned = {".".join(f.relative_to(REPO).with_suffix("").parts)
                .removesuffix(".__init__") for f in files}
     assert SERVING_PLANE | PARALLEL | DEVICE_LAYER | DEVICE_PLUGIN | \
-        AGENT_LAYER | CONTROLLER <= scanned
+        AGENT_LAYER | CONTROLLER | OPERATOR_CLI <= scanned
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
     assert len(files) > 10 and not hits, hits
