@@ -87,9 +87,16 @@ without a result line:
    of its migration terminal goes to B's ``/v1/sessions/import`` and a
    ``{"resume": rid}`` completion finishes it on B, with the tokens and
    logprobs of the same request unmigrated on A; blob size, drain,
-   import and resume-to-first-token times against the cold TTFT; at
-   engine level B's first decode logits after importing a parked session
-   equal A's continuation bit for bit; no KV block leaks;
+   import and resume-to-first-token times against the cold TTFT; then
+   the fleet step: the port's router in front of A and B (a routed
+   greedy completion equal to the same request direct, the TTFT the
+   router adds, prefix affinity to the replica holding a prompt's
+   granules, a replica removed with ``migrate`` under a live stream that
+   stays one stream, token-identical, with no 503) and the port's
+   loadgen through it, its B1-B3 launches from the card's trace against
+   the engines' forwards; at engine level B's first decode logits after
+   importing a parked session equal A's continuation bit for bit; no KV
+   block leaks;
 5. train kernels: the flash-attention forward (B5) and backward (B6 dq,
    B7 dk/dv) against their plain versions in bf16 at (B*H 128, S 1024,
    hd 128) causal, at S 1025 (the training CLI's row width) and
@@ -308,7 +315,8 @@ from the parallel phase's world-size-1 mesh step and
 phase's runs, ``slice_launches`` from the slice phase's workload,
 ``agent_launches`` and ``controller_launches`` from the agent and
 controller phases' workloads, ``ctl_launches`` from the ctl phase's
-``--quantize`` and ``--spec`` runs), the graph
+``--quantize`` and ``--spec`` runs, ``fleet_launches`` from the migrate
+phase's fleet step), the graph
 phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
@@ -1145,9 +1153,8 @@ def device_busy(torch, run, n_steps: int, kn: str = "quant_matmul_stacked"):
 
     from instaslice_tpu_torch import ops
 
-    torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    prof.__enter__()
+    prof = start_trace(torch, profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     try:
         run()
     except BaseException:
@@ -1671,9 +1678,8 @@ class Traced:
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
 
-        self.torch.cuda.synchronize()
-        self.prof = profile(activities=[ProfilerActivity.CUDA])
-        self.prof.__enter__()
+        self.prof = start_trace(self.torch,
+                                profile(activities=[ProfilerActivity.CUDA]))
         return self
 
     def __exit__(self, *exc):
@@ -1689,35 +1695,78 @@ class Traced:
 
 
 #: seconds the host waits, after the card has run a traced window's work
-#: and its marker, before stopping the trace
+#: and its end marker, before stopping the trace
 TRACE_SETTLE_S = 0.25
+#: the lead-in of a traced window: this many short marker kernels
+#: (``torch.cuda._sleep`` of TRACE_LEAD_CYCLES clock cycles, launch-bound:
+#: ~20 ms of the host's time in all); the end marker spins
+#: TRACE_END_CYCLES (~1 ms on the H100), and a spin record longer than
+#: TRACE_END_NS is the end marker
+TRACE_LEAD = 4096
+TRACE_LEAD_CYCLES = 100
+TRACE_END_CYCLES = 2_000_000
+TRACE_END_NS = 250_000
+
+
+def start_trace(torch, prof):
+    """Start ``prof`` (CUDA activity on) for a window that
+    :func:`stop_trace` ends. The profiler drops, as out of its range, a
+    window's first device records, however long the host waits before
+    them: on the H100 a count that grows with the process's age (~1 a
+    record every 13 s of it in ``ops/trace_probe.py``; 1 to 82 over a
+    run of this script), with rare spikes of hundreds (385 in the probe,
+    527 in this script), whatever the records' spacing; a window's later
+    records and other streams' were never dropped. A window whose first records held a
+    counted kernel once read its launches wrong. So ``TRACE_LEAD`` short
+    marker kernels run and are waited for before the window's work
+    begins; :func:`stop_trace` needs one of them in the trace, and then
+    no record of the work was dropped at the start. Returns ``prof``."""
+    torch.cuda.synchronize()
+    prof.__enter__()
+    for _ in range(TRACE_LEAD):
+        torch.cuda._sleep(TRACE_LEAD_CYCLES)
+    torch.cuda.synchronize()
+    return prof
 
 
 def stop_trace(torch, prof):
-    """Stop ``prof`` (entered, CUDA activity on) and count its device
+    """Stop ``prof`` (started by :func:`start_trace`) and count its device
     kernels by name, from the raw trace events (the profiler's own event
     tree, which ``key_averages`` builds, costs ~0.1 ms an event on the
-    host). CUPTI hands a kernel's record over after the kernel ends: a
-    trace stopped right after a synchronize lost the window's last
-    kernels on the H100 (the last 7 layers of an eager 7B step). So a
-    marker kernel (``torch.cuda._sleep``'s spin kernel) runs after the
-    work, the host waits ``TRACE_SETTLE_S`` before stopping, and the
-    trace must hold the marker."""
+    host), the markers taken out. CUPTI hands a kernel's record over
+    after the kernel ends: a trace stopped right after a synchronize lost
+    the window's last kernels on the H100 (the last 7 layers of an eager
+    7B step). So a long end marker runs after the work, the host waits
+    ``TRACE_SETTLE_S`` before stopping, and the trace must hold that
+    marker once and one marker of the lead-in: nothing of the work was
+    dropped at either edge. Lead-in markers the profiler dropped are
+    logged."""
     from collections import Counter
 
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
-    torch.cuda._sleep(1000)
+    torch.cuda._sleep(TRACE_END_CYCLES)
     torch.cuda.synchronize()
     time.sleep(TRACE_SETTLE_S)
     prof.__exit__(None, None, None)
-    names = Counter(e.name() for e in prof.profiler.kineto_results.events()
-                    if e.device_type() == DeviceType.CUDA)
-    marker = [n for n in names if "spin_kernel" in n]
-    check(len(marker) == 1 and names.pop(marker[0]) == 1,
-          f"the trace lost the marker after its window's work: "
-          f"{len(names)} kernel names, none the marker")
+    names, lead, end = Counter(), 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if "spin_kernel" not in e.name():
+            names[e.name()] += 1
+        elif e.duration_ns() > TRACE_END_NS:
+            end += 1
+        else:
+            lead += 1
+    check(end == 1 and lead >= 1,
+          f"the trace lost a marker at its window's edges: {lead} of the "
+          f"{TRACE_LEAD} lead-in markers, {end} end markers of 1; "
+          f"{sum(names.values())} other records")
+    if lead < TRACE_LEAD:
+        log(f"trace: the profiler dropped {TRACE_LEAD - lead} of the "
+            f"{TRACE_LEAD} lead-in markers")
     return names
 
 
@@ -2355,6 +2404,262 @@ MIG_AT = 8
 MIG_LOGPROB_TOL = 1e-3
 
 
+#: the fleet step (in the migrate phase): the router's added TTFT is the
+#: median over this many prompts of FLEET_PLEN tokens (one whole granule
+#: of the servers' 128-token prefill, which the radix cache keeps, and
+#: one more), FLEET_NEW new tokens each (greedy, logprobs, streamed),
+#: routed and then direct on the replica the router chose, each with both
+#: radix caches emptied
+FLEET_TTFT_N = 5
+FLEET_PLEN = 129
+FLEET_NEW = 4
+#: the migration through the router: a prompt of this many tokens and
+#: this many new ones (the blob, and so the export, grows with the
+#: session's length)
+FLEET_MIG_PLEN = 64
+FLEET_MIG_NEW = 32
+#: the prefix-affinity prompt: the last TTFT prompt's first
+#: FLEET_SHARED tokens (its granule), then FLEET_TAIL fresh ones
+FLEET_SHARED = 128
+FLEET_TAIL = 64
+#: the port's loadgen against the router: requests, concurrency, prompt
+#: length, max_tokens, seed; streamed
+FLEET_LOADGEN = (16, 8, 128, 32, 0)
+#: the reference loadgen's report keys for a streamed run with no
+#: tenants, adapters, prefix pool, trace or nemesis and no errors
+#: (``instaslice_tpu/serving/loadgen.py:523-627``); the port's must match
+FLEET_LOADGEN_KEYS = (
+    "metric", "value", "unit", "requests", "concurrency", "ok", "errors",
+    "outcomes", "status_counts", "p95_latency", "p99_latency",
+    "mean_latency", "client_tokens_per_sec", "client_tokens", "stream",
+    "trace_id_prefix", "ttft_p50", "ttft_p95", "ttft_p99", "ttft_mean",
+    "tpot_p50", "tpot_p95", "tpot_p99")
+
+
+def served_by(srvs, before: list) -> int:
+    """Index of the one server whose ``tokens_generated`` moved since
+    ``before`` (each server's reading then)."""
+    moved = [i for i, (s, n) in enumerate(zip(srvs, before))
+             if s.scheduler.stats()["tokens_generated"] != n]
+    check(len(moved) == 1, f"fleet: {len(moved)} servers served one "
+          "request")
+    return moved[0]
+
+
+def generated(srvs) -> list:
+    return [s.scheduler.stats()["tokens_generated"] for s in srvs]
+
+
+def radix_cold(srvs, engs) -> None:
+    """Empty every server's radix cache, on its scheduler thread."""
+    for s, e in zip(srvs, engs):
+        s.scheduler.control(lambda e=e: e.radix.reclaim(e.kv.total_blocks))
+        check(e.radix.pool_blocks() == 0, "fleet: a radix cache emptied")
+
+
+def fleet_step(torch, ops, srvs, engs, L: int, V: int) -> dict:
+    """The port's fleet router (``serving/router.py``) in front of the
+    migrate phase's two 7B int8 servers, and the port's loadgen through
+    it. (a) A greedy completion with logprobs routed, then the same
+    request direct on the replica the router chose, both radix caches
+    emptied before each: tokens equal, logprobs within MIG_LOGPROB_TOL,
+    the router's added TTFT the median of FLEET_TTFT_N; (b) a prompt
+    sharing the last one's granules goes to the replica that holds them
+    (``routed["prefix"]`` up by one, a radix hit there); (c) a streamed
+    request through the router, its replica removed with ``migrate`` once
+    MIG_AT tokens have streamed: one stream, no 503, its tokens those of
+    the same request unmigrated, ``migrations["resumed"]`` up by one;
+    (d) ``loadgen.run`` against the router (FLEET_LOADGEN): no errors,
+    the reference's report keys, B1-B3 on the card's trace equal to what
+    both engines' forwards imply (only this run is traced)."""
+    import statistics
+    import threading
+
+    from instaslice_tpu_torch.serving import loadgen
+    from instaslice_tpu_torch.serving.router import Router
+
+    t_step = time.perf_counter()
+    urls = [s.url for s in srvs]
+    gen = torch.Generator().manual_seed(47)
+    out = {}
+    # eject_factor=0 turns off the gray-failure sweep: the two servers
+    # share one card and one host, so one answers its polls slowly while
+    # the other prefills, and the sweep would drain it with migrate in
+    # the middle of a step that holds every export it makes
+    router = Router(urls, poll_interval=0.1, eject_factor=0).start()
+    fls, parts = [], {}
+    try:
+        # (a)
+        t_part = time.perf_counter()
+        added, worst = [], 0.0
+        for _ in range(FLEET_TTFT_N):
+            prompt = torch.randint(1, V, (FLEET_PLEN,),
+                                   generator=gen).tolist()
+            body = {"prompt": prompt, "max_tokens": FLEET_NEW,
+                    "temperature": 0.0, "logprobs": True, "stream": True}
+            radix_cold(srvs, engs)
+            before = generated(srvs)
+            t_send = time.perf_counter()
+            routed = http_stream(router.url + "/v1/completions", body)
+            t_routed = routed["t_first"] - t_send
+            i = served_by(srvs, before)
+            radix_cold(srvs, engs)
+            t_send = time.perf_counter()
+            direct = http_stream(urls[i] + "/v1/completions", body)
+            t_direct = direct["t_first"] - t_send
+            check(routed["token_ids"] == direct["token_ids"]
+                  and len(routed["token_ids"]) == FLEET_NEW,
+                  f"fleet (a): routed tokens {routed['token_ids']} != "
+                  f"direct {direct['token_ids']}")
+            lp = max(abs(x - y) for x, y in
+                     zip(routed["logprobs"], direct["logprobs"]))
+            check(lp <= MIG_LOGPROB_TOL, f"fleet (a): logprobs differ by {lp}")
+            worst = max(worst, lp)
+            added.append((t_routed - t_direct) * 1e3)
+        out["ttft_added_ms"] = statistics.median(added)
+        out["ttft_added_all_ms"] = added
+        out["logprob_diff"] = worst
+        log(f"fleet (a): {FLEET_TTFT_N} greedy completions of {FLEET_PLEN} "
+            f"tokens routed equal the same request direct (logprobs within "
+            f"{worst:.3g}); TTFT added by the router, median "
+            f"{out['ttft_added_ms']:.2f} ms of {[round(a, 2) for a in added]}")
+        parts["a"] = time.perf_counter() - t_part
+        # (b) the direct request left the prompt in replica i's radix
+        t_part = time.perf_counter()
+        router.poll_now()
+        shared = prompt[:FLEET_SHARED] + torch.randint(
+            1, V, (FLEET_TAIL,), generator=gen).tolist()
+        hits0 = [s.scheduler.stats()["radix"]["hits"] for s in srvs]
+        prefix0 = router.routed.get("prefix", 0)
+        before = generated(srvs)
+        http_stream(router.url + "/v1/completions",
+                    dict(body, prompt=shared))
+        j = served_by(srvs, before)
+        hits = [s.scheduler.stats()["radix"]["hits"] for s in srvs]
+        check(j == i and router.routed.get("prefix", 0) == prefix0 + 1
+              and hits[j] == hits0[j] + 1,
+              f"fleet (b): the shared prompt went to replica {j} (its "
+              f"prefix holder {i}), routed {router.routed}, radix hits "
+              f"{hits0} -> {hits}")
+        out["prefix"] = {"replica": j, "routed": dict(router.routed)}
+        log(f"fleet (b): a prompt sharing {FLEET_SHARED} tokens went to "
+            f"replica {j}, which holds them: policy prefix, a radix hit")
+        parts["b"] = time.perf_counter() - t_part
+        # (c)
+        t_part = time.perf_counter()
+        prompt = torch.randint(1, V, (FLEET_MIG_PLEN,),
+                               generator=gen).tolist()
+        body = {"prompt": prompt, "max_tokens": FLEET_MIG_NEW,
+                "temperature": 0.0, "logprobs": True, "stream": True}
+        resumed0 = router.migrations.get("resumed", 0)
+        progress, res = {"n": 0}, {}
+
+        def stream():
+            try:
+                res.update(http_stream(router.url + "/v1/completions",
+                                       body, progress=progress))
+            except Exception as e:  # noqa: BLE001 - reported below
+                res["error"] = repr(e)
+
+        radix_cold(srvs, engs)
+        th = threading.Thread(target=stream)
+        th.start()
+        deadline = time.monotonic() + 120
+        while progress["n"] < MIG_AT and time.monotonic() < deadline \
+                and th.is_alive():
+            time.sleep(0.005)
+        (k,) = [n for n, s in enumerate(srvs)
+                if s.scheduler.stats()["live_slots"]]
+        t0 = time.perf_counter()
+        removed = router.remove_replica(urls[k], migrate=True)
+        out["remove_ms"] = (time.perf_counter() - t0) * 1e3
+        th.join(timeout=120)
+        check("error" not in res and res.get("session") is None
+              and res.get("finish_reason") == "max_new_tokens",
+              f"fleet (c): the client's stream {res.get('error')}, "
+              f"finish {res.get('finish_reason')}")
+        check(removed["removed"] and removed["migrated"] == 1,
+              f"fleet (c): remove_replica {removed}")
+        check(router.migrations.get("resumed", 0) == resumed0 + 1,
+              f"fleet (c): router migrations {router.migrations}")
+        undrain(urls[k])
+        radix_cold(srvs, engs)
+        ref = http_stream(urls[k] + "/v1/completions", body)
+        check(res["token_ids"] == ref["token_ids"]
+              and len(ref["token_ids"]) == FLEET_MIG_NEW,
+              f"fleet (c): migrated tokens {res['token_ids']} != "
+              f"unmigrated {ref['token_ids']}")
+        lp = max(abs(x - y) for x, y in
+                 zip(res["logprobs"], ref["logprobs"]))
+        check(lp <= MIG_LOGPROB_TOL, f"fleet (c): logprobs differ by {lp}")
+        out["migration"] = {"replica": k, "removed": removed,
+                            "logprob_diff": lp,
+                            "migrations": dict(router.migrations)}
+        log(f"fleet (c): replica {k} removed with migrate after "
+            f"{MIG_AT}+ tokens ({out['remove_ms']:.1f} ms): one stream, no "
+            f"503, {FLEET_MIG_NEW} tokens equal the unmigrated run "
+            f"(logprobs within {lp:.3g}); router migrations "
+            f"{router.migrations}")
+        router.add_replica(urls[k])
+        parts["c"] = time.perf_counter() - t_part
+        # (d) the main path, traced
+        t_part = time.perf_counter()
+        n_req, conc, plen, new, seed = FLEET_LOADGEN
+        fls = [ForwardLog(e) for e in engs]
+        steps0 = [e.decode_steps for e in engs]
+        for fl in fls:
+            fl.start()
+        t0 = time.perf_counter()
+        with Traced(torch, ops) as tr:
+            t_in = time.perf_counter()
+            rep = loadgen.run(router.url, n_req, conc, plen, new, V, True,
+                              300.0, seed=seed)
+            t_out = time.perf_counter()
+        wall = tr.t_end - t0
+        for fl in fls:
+            fl.stop()
+        check(rep["errors"] == 0 and rep["ok"] == n_req,
+              f"fleet (d): loadgen {rep}")
+        check(set(rep) == set(FLEET_LOADGEN_KEYS),
+              f"fleet (d): report keys {sorted(rep)} != the reference's")
+        steps = sum(e.decode_steps - s0 for e, s0 in zip(engs, steps0))
+        rows = [b * t for fl in fls for b, t in fl.target]
+        kfw = sum(r <= 256 for r in rows)
+        check(sum(len(fl.attends) for fl in fls) == steps > 0,
+              "fleet (d): every decode step replayed a graph captured "
+              "before the run")
+        want = {**dict.fromkeys(ops.KERNEL_WRAPPERS, 0),
+                "quant_decode_attention": L * steps,
+                "quant_matmul_stacked": 6 * L * kfw,
+                "quant_matmul_t": kfw}
+        check(tr.counts == want, f"fleet (d): launches {tr.counts}, want "
+              f"{want} (B1 = {L} x {steps} decode steps, B2 = {6 * L} x "
+              f"{kfw} forwards of <= 256 rows, B3 = {kfw})")
+        out["loadgen"] = rep
+        out["counts"] = tr.counts
+        out["decode_steps"], out["kernel_forwards"] = steps, kfw
+        out["loadgen_wall_s"] = wall
+        out["loadgen_s"] = t_out - t_in
+        log(f"fleet (d): loadgen through the router, {n_req} requests at "
+            f"concurrency {conc}, prompt {plen}, {new} tokens, streamed: "
+            f"{rep['client_tokens_per_sec']} tok/s, TTFT p50 "
+            f"{rep['ttft_p50']} s p99 {rep['ttft_p99']} s, no errors "
+            f"({t_out - t_in:.2f} s, {wall:.2f} s with the trace's start); "
+            f"routed {router.routed}; launches "
+            f"(trace) {tr.counts} = B1 {L} x {steps}, B2 {6 * L} x {kfw}, "
+            f"B3 {kfw}")
+        parts["d"] = time.perf_counter() - t_part
+    finally:
+        for fl in fls:
+            fl.close()
+        router.stop()
+    out["seconds"] = time.perf_counter() - t_step
+    out["seconds_by_part"] = parts
+    log(f"fleet: {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return out
+
+
 def phase_migrate(torch, ops) -> dict:
     """Session migration between two port servers at the 7B int8
     configuration (``SERVE_FLAGS``), in process on port 0: a streamed
@@ -2453,6 +2758,7 @@ def phase_migrate(torch, ops) -> dict:
               and stats[1]["sessions"]["migrated_in"] == 1,
               "migrate: the session ledgers")
         out["sessions"] = [st["sessions"] for st in stats]
+        out["fleet"] = fleet_step(torch, ops, srvs, engs, args.n_layers, V)
     finally:
         for s in srvs:
             s.stop()
@@ -4065,7 +4371,7 @@ def moe_engine(torch, ops, cfg, qp) -> dict:
           "and logprobs)")
     check(ops.launch_counts() == counts, f"moe engine: the eager route's "
           f"wrappers count what the graph route's trace holds: "
-          f"{ops.launch_counts()}")
+          f"{ops.launch_counts()} against {counts}")
     check(len(results) == 8 and all(len(r.tokens) == max_new
                                      for r in results), "moe engine tokens")
     check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
@@ -7704,6 +8010,10 @@ def main() -> int:
         # card's trace: --quantize, then --spec
         k["ctl_launches"] = {run: c[k["name"]]
                              for run, c in ctl["counts"].items()}
+        # the port's loadgen through the port's router in front of the
+        # migrate phase's two servers (its fleet step), from the card's
+        # trace
+        k["fleet_launches"] = migrate["fleet"]["counts"][k["name"]]
         # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
         tp = tp_serve["shard_kernels"].get(k["name"])
         if tp is not None:

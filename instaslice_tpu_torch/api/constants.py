@@ -170,6 +170,11 @@ REASON_DEGRADED_ENTERED = "DegradedModeEntered"
 REASON_DEGRADED_EXITED = "DegradedModeExited"
 REASON_WRITE_FENCED = "WriteFenced"
 
+# the router's gray-failure ejection of a slow-but-alive replica (latency
+# EWMA past threshold) and its re-admission once the EWMA recovers
+REASON_REPLICA_EJECTED = "ReplicaEjected"
+REASON_REPLICA_READMITTED = "ReplicaReadmitted"
+
 #: every reason the port's journal accepts without a warning
 EVENT_REASONS = frozenset({
     *TRANSITION_REASONS.values(),
@@ -189,6 +194,7 @@ EVENT_REASONS = frozenset({
     REASON_BREAKER_OPEN, REASON_BACKOFF, REASON_WATCH_RECONNECT,
     REASON_APISERVER_UNREACHABLE, REASON_DEGRADED_ENTERED,
     REASON_DEGRADED_EXITED, REASON_WRITE_FENCED,
+    REASON_REPLICA_EJECTED, REASON_REPLICA_READMITTED,
 })
 
 #: Leader lease: its duration in ms, stamped for the standby electors

@@ -1,14 +1,14 @@
 """Prometheus metrics of the port's serving plane and node agent.
 
 A copy of ``OperatorMetrics`` (the node agent's), ``ServingMetrics``,
-``EventMetrics``, ``render``, ``observe_with_exemplar`` and
-``start_metrics_server`` from ``instaslice_tpu/metrics/metrics.py``
-(the router and fleet holders stay with the reference): the port
-imports nothing of the JAX package. A session exported off the server
-counts under the requests counter's ``migrated`` outcome; the router's
-migration counter (``RouterMetrics.migrations``) stays with the
-reference's router, which drives the port's servers from its own
-process. Without ``prometheus_client`` every metric is a no-op.
+``RouterMetrics`` (the fleet router's), ``EventMetrics``, ``render``,
+``observe_with_exemplar`` and ``start_metrics_server`` from
+``instaslice_tpu/metrics/metrics.py`` (the fleet telemetry holder stays
+with the reference): the port imports nothing of the JAX package. A
+session exported off the server counts under the requests counter's
+``migrated`` outcome; the router counts the move under
+``RouterMetrics.migrations``. Without ``prometheus_client`` every
+metric is a no-op.
 """
 
 from __future__ import annotations
@@ -469,6 +469,77 @@ class ServingMetrics:
             ["segment"],
             buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
                      0.01, 0.025, 0.05, 0.1, 0.25, 1),
+            registry=self.registry,
+        )
+
+
+class RouterMetrics:
+    """Metrics for the fleet serving router (``serving/router.py``) — the
+    operator-side view of N replicas serving as one endpoint."""
+
+    def __init__(self, registry: Optional["CollectorRegistry"] = None):
+        if not _PROM:
+            _warn_no_prom()
+            self.requests = _NoopMetric()
+            self.routed = _NoopMetric()
+            self.migrations = _NoopMetric()
+            self.replicas = _NoopMetric()
+            self.breaker_opens = _NoopMetric()
+            self.replica_ejections = _NoopMetric()
+            self.replica_latency = _NoopMetric()
+            self.registry = None
+            return
+        self.registry = registry or CollectorRegistry()
+        # outcome ∈ ok | ok-migrated (survived ≥1 live migration) |
+        # shed | unavailable | upstream-error | transport-error |
+        # no-replica | client-gone
+        self.requests = Counter(
+            "tpuslice_router_requests_total",
+            "Proxied completion requests by outcome",
+            ["outcome"],
+            registry=self.registry,
+        )
+        # policy ∈ session | prefix | least-loaded — which routing rule
+        # picked the replica (docs/SERVING.md "Fleet router & session
+        # migration"); a healthy prefix-heavy workload routes mostly
+        # "prefix", which is exactly the TTFT win
+        self.routed = Counter(
+            "tpuslice_router_routed_total",
+            "Routing decisions by policy rule",
+            ["policy"],
+            registry=self.registry,
+        )
+        # outcome ∈ resumed (imported + resumed, zero re-prefill) |
+        # fallback (re-prefilled on a peer) | lost (terminal 502)
+        self.migrations = Counter(
+            "tpuslice_router_migrations_total",
+            "Live KV session migrations by outcome",
+            ["outcome"],
+            registry=self.registry,
+        )
+        self.replicas = Gauge(
+            "tpuslice_router_replicas",
+            "Engine replicas registered with the router",
+            registry=self.registry,
+        )
+        self.breaker_opens = Counter(
+            "tpuslice_router_breaker_open_total",
+            "Per-replica circuit breaker open events",
+            registry=self.registry,
+        )
+        # gray-failure ejections (docs/RECOVERY.md "Partitions & gray
+        # failures"): replicas pulled from routing on latency EWMA
+        # alone — the breaker never fires for these
+        self.replica_ejections = Counter(
+            "tpuslice_router_replica_ejections_total",
+            "Gray-failure replica ejections (latency EWMA past "
+            "threshold at 100% success)",
+            registry=self.registry,
+        )
+        self.replica_latency = Gauge(
+            "tpuslice_router_replica_latency_ewma_seconds",
+            "Per-replica stats-poll latency EWMA p95 estimate",
+            ["replica"],
             registry=self.registry,
         )
 

@@ -54,9 +54,54 @@ def _until(fn, timeout=20.0):
 # ------------------------------------------------ lifecycle vs reference
 
 
+def _awaiting_placement(journal, seq0):
+    """True while some pod's last Admitted/Placed record is Admitted: the
+    controller has taken the pod and not yet recorded where it put it."""
+    last = {}
+    for e in journal.events(since_seq=seq0):
+        if e.reason in ("Admitted", "Placed"):
+            last[e.object_ref] = e.reason
+    return "Admitted" in last.values()
+
+
+def _reserve_after_placed(backend, journal, seq0):
+    """The controller records Placed only when its CR write has returned,
+    while the agent reacts to the write as soon as its watch delivers it.
+    A refused reserve records SliceRealizeFailed with no request in
+    between, so under load it can land first. Each reserve on this node's
+    device therefore waits until the placement it realizes is recorded,
+    which fixes the two components' order in the journal on both sims."""
+    reserve = backend.reserve
+
+    def gated(*args, **kwargs):
+        _until(lambda: not _awaiting_placement(journal, seq0), 10.0)
+        return reserve(*args, **kwargs)
+
+    backend.reserve = gated
+
+
+def _deleting(c, pod):
+    """The pod's deletionTimestamp while the pod is still there."""
+    from instaslice_tpu.kube.client import NotFound as RefNotFound
+    from instaslice_tpu_torch.kube.client import NotFound
+
+    try:
+        return c.pod(pod)["metadata"].get("deletionTimestamp")
+    except (NotFound, RefNotFound):
+        return None
+
+
+def _cut_off(plan):
+    """The partition has refused the controller at least once."""
+    return any(r["link"] == "controller>apiserver" and r["fired"]
+               for r in plan.stats())
+
+
 def lifecycle(sim_cls, journal, plan, generation, profile, landed):
     """The script. ``landed(sim, pod)`` names the node a pod's slice is
-    on. Returns {pod: (phases, journal reasons)} and the script's facts."""
+    on. Returns {pod: (phases, journal reasons)} and the script's facts.
+    Each sample waits on the state it reads, not on the clock, so the
+    run holds while other processes load the machine."""
     seq0 = max([e.seq for e in journal.events()], default=0)
     phases = {}
     facts = []
@@ -65,8 +110,10 @@ def lifecycle(sim_cls, journal, plan, generation, profile, landed):
         phases.setdefault(pod, []).append(phase)
 
     with sim_cls(n_nodes=2, generation=generation, transport="http",
-                 deletion_grace_seconds=0.5, policy="first-fit",
+                 deletion_grace_seconds=2.0, policy="first-fit",
                  nemesis=plan) as c:
+        for backend in c.backends.values():
+            _reserve_after_placed(backend, journal, seq0)
         # grant
         note("p1", c.submit("p1", profile)["status"]["phase"])
         note("p1", "Running" if c.wait_phase("p1", "Running", 20) else "?")
@@ -74,7 +121,7 @@ def lifecycle(sim_cls, journal, plan, generation, profile, landed):
         # delete: the pod stays through the grace, then goes
         c.delete_pod("p1")
         note("p1", c.pod_phase("p1"))
-        time.sleep(0.2)
+        _until(lambda: _deleting(c, "p1"))
         note("p1", c.pod_phase("p1"))
         note("p1", "Gone" if c.wait_gone("p1", 20) else "?")
         facts.append(("erased", _until(lambda: not c.allocations())))
@@ -95,7 +142,7 @@ def lifecycle(sim_cls, journal, plan, generation, profile, landed):
         # the controller cut off the apiserver, then healed
         plan.partition("controller", "apiserver")
         note("p5", c.submit("p5", profile)["status"]["phase"])
-        time.sleep(1.0)
+        _until(lambda: _cut_off(plan))
         note("p5", c.pod_phase("p5"))
         plan.heal()
         note("p5", "Running" if c.wait_phase("p5", "Running", 30) else "?")
