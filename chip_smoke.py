@@ -94,7 +94,11 @@ without a result line:
    granules, a replica removed with ``migrate`` under a live stream that
    stays one stream, token-identical, with no 503) and the port's
    loadgen through it, its B1-B3 launches from the card's trace against
-   the engines' forwards; at engine level B's first decode logits after
+   the engines' forwards, and the telemetry step: the port's fleet
+   aggregator over the router and both servers, its rollup's change over
+   the loadgen run equal to the client's report exactly, a routed request
+   stitched across router and server, ``/v1/fleet``, ``/metrics`` and
+   ``tpuslice-gpu fleet``; at engine level B's first decode logits after
    importing a parked session equal A's continuation bit for bit; no KV
    block leaks;
 5. train kernels: the flash-attention forward (B5) and backward (B6 dq,
@@ -155,20 +159,21 @@ base rows bit-equal, adapter rows' decode logits and served logprobs
 within the stated bounds of their lone runs and, the control, 5x the
 bound away from the base rows; decode tok/s and device ms per step with
 and without adapters (``serving_lora_overhead_pct``);
-window (after lora's serving half): the serving configuration with
-Mistral 7B's sliding window (``--window 4096 --max-len 8192``) from the
-server's CLI wiring: six short streamed completions, then, once they
+window (after lora's serving half): the serving configuration's widths
+at ``WINDOW_LAYERS`` layers with Mistral 7B's sliding window (``--window
+4096 --max-len 8192``) from the server's CLI wiring: six short streamed completions, then, once they
 decode, two of 4400 and 4200 prompt tokens decoded past the window; B1
 on exactly the decode steps whose 256-position bucket is at most 4095
 wide, the band on the others, B2/B3 on every forward of at most 256
 rows, no leaked KV blocks; decode tok/s and device ms per step inside the
 window (B1) and past it (the band); a long row's decode logits against
-the windowed full forward (bf16 at full depth, and a float32 2-layer cut
+the windowed full forward (bf16 at the server's depth, and a float32 2-layer cut
 with a float32 and with the int8 KV cache), the control without the
 window gated on the float32 cut;
-int4: the serving configuration with ``--quantize-bits 4`` (group-wise
-int4 weights, int8 KV cache): 8 concurrent completions over HTTP with B1
-32 times a decode step and no B2/B3, the card's int4 unpacking equal to
+int4: the serving configuration's widths at ``INT4_LAYERS`` layers with
+``--quantize-bits 4`` (group-wise int4 weights, int8 KV cache): 8
+concurrent completions over HTTP with B1 once a layer each decode step
+and no B2/B3, the card's int4 unpacking equal to
 the CPU's, a burst's decode logits against the same engine over the
 dequantized bf16 weights, the weights' GiB as int4, int8 and bf16, decode
 tok/s and device ms per step;
@@ -984,6 +989,11 @@ def phase_engine(torch, cfg, qp, ops) -> dict:
 GRAPH_PLENS = (240, 200, 129, 100, 64, 33, 17, 5)
 #: its decode blocks: 8 steps in bucket 256, then 8 and 16 in bucket 512
 GRAPH_BLOCKS = (8, 8, 16)
+#: decode steps of each timed turn (after a warm block as long) of the
+#: routes' tok/s; 64 until the eager turns took 24 s of the phase on a
+#: slow host (the eager 7B decodes at 78-150 tok/s), cut to pay for the
+#: traced windows' longer settle
+GRAPH_TPUT_STEPS = 16
 
 
 def phase_graph(torch, cfg, qp, ops) -> dict:
@@ -1019,11 +1029,12 @@ def phase_graph(torch, cfg, qp, ops) -> dict:
                .tolist() for n in GRAPH_PLENS]
     L, n = cfg.n_layers, sum(GRAPH_BLOCKS)
 
-    def run(eng, shift: int = 0):
+    def run(eng, shift: int = 0, traced: bool = True):
         """The prompts admitted (every length ``shift`` further on), then
         GRAPH_BLOCKS: per slot (tokens, logprobs), the launches on the
-        card's trace and by the wrappers, the decode steps dispatched and
-        the graphs captured meanwhile."""
+        card's trace (None where not ``traced``: the runs whose launches
+        no check reads) and by the wrappers, the decode steps dispatched
+        and the graphs captured meanwhile."""
         for s in list(eng.slots):
             eng.evict_slot(s)
         eng.radix.reclaim(eng.kv.total_blocks)
@@ -1032,12 +1043,17 @@ def phase_graph(torch, cfg, qp, ops) -> dict:
         eng.lengths.add_(shift)
         ops.reset_launch_counts()
         steps0, graphs0 = eng.decode_steps, len(eng._graphs)
-        with Traced(torch, ops) as tr:
-            t0 = time.perf_counter()
+        counts = None
+        if traced:
+            with Traced(torch, ops) as tr:
+                t0 = time.perf_counter()
+                for b in GRAPH_BLOCKS:
+                    eng.decode_block(b)
+            run.seconds, counts = tr.t_end - t0, tr.counts
+        else:
             for b in GRAPH_BLOCKS:
                 eng.decode_block(b)
-        run.seconds = tr.t_end - t0
-        return (slot_runs(eng), tr.counts, ops.launch_counts(),
+        return (slot_runs(eng), counts, ops.launch_counts(),
                 eng.decode_steps - steps0, len(eng._graphs) - graphs0)
 
     def implied(steps: int) -> dict:
@@ -1067,7 +1083,7 @@ def phase_graph(torch, cfg, qp, ops) -> dict:
           f"graph: B1 = layers x steps, B2 = 6 x layers x steps, B3 = "
           f"steps on the trace under replay (warm-ups included): "
           f"{g_counts}")
-    ctrl = run(e_eng, shift=1)[0]
+    ctrl = run(e_eng, shift=1, traced=False)[0]
     lp_ctrl = max(abs(a - b) for (_, la), (_, lb) in zip(ctrl, g_out)
                   for a, b in zip(la, lb))
     check(ctrl != g_out and lp_ctrl > 0.0, "graph: the control (lengths "
@@ -1082,7 +1098,7 @@ def phase_graph(torch, cfg, qp, ops) -> dict:
     # ---- sampled: fresh draws per replay, and the eager route's draws
     for e in (g_eng, e_eng):
         e.temperature = 0.8
-    samp = [run(e)[0] for e in (g_eng, e_eng)]
+    samp = [run(e, traced=False)[0] for e in (g_eng, e_eng)]
     check(samp[0] == samp[1], "graph: sampled blocks equal the eager "
           "route's draws from the same generator state")
     saved = g_eng._save_state()
@@ -1106,7 +1122,7 @@ def phase_graph(torch, cfg, qp, ops) -> dict:
     tok_s = {"graphs": [], "eager": []}
     for name, e in (("eager", e_eng), ("graphs", g_eng), ("graphs", g_eng),
                     ("eager", e_eng)):
-        tok_s[name].append(e.throughput(n_steps=64))
+        tok_s[name].append(e.throughput(n_steps=GRAPH_TPUT_STEPS))
         for s in list(e.slots):
             e.evict_slot(s)
     busy = {}
@@ -1695,8 +1711,17 @@ class Traced:
 
 
 #: seconds the host waits, after the card has run a traced window's work
-#: and its end marker, before stopping the trace
-TRACE_SETTLE_S = 0.25
+#: and its end marker, before stopping the trace. The profiler drops, as
+#: out of its range, a device record whose time lies past the host's stop,
+#: and the device's times stray from the host's clock: by up to 173 ms
+#: later within 49 windows of ``ops/trace_probe.py --edges`` on the H100,
+#: and past 0.25 s in two windows of this script, which lost the end
+#: marker so
+TRACE_SETTLE_S = 1.0
+#: the end marker's margin in each window stopped in this process: the
+#: host's stop less the end of the marker's record, in ms (about
+#: TRACE_SETTLE_S where the two clocks agree)
+TRACE_END_MARGINS_MS: list = []
 #: the lead-in of a traced window: this many short marker kernels
 #: (``torch.cuda._sleep`` of TRACE_LEAD_CYCLES clock cycles, launch-bound:
 #: ~20 ms of the host's time in all); the end marker spins
@@ -1737,10 +1762,12 @@ def stop_trace(torch, prof):
     after the kernel ends: a trace stopped right after a synchronize lost
     the window's last kernels on the H100 (the last 7 layers of an eager
     7B step). So a long end marker runs after the work, the host waits
-    ``TRACE_SETTLE_S`` before stopping, and the trace must hold that
-    marker once and one marker of the lead-in: nothing of the work was
-    dropped at either edge. Lead-in markers the profiler dropped are
-    logged."""
+    ``TRACE_SETTLE_S`` before stopping (the profiler also drops a record
+    whose device time strays past the stop), and the trace must hold
+    that marker once and one marker of the lead-in: nothing of the work
+    was dropped at either edge. Lead-in markers the profiler dropped are
+    logged, and the end marker's margin kept
+    (``TRACE_END_MARGINS_MS``)."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -1749,25 +1776,39 @@ def stop_trace(torch, prof):
     torch.cuda._sleep(TRACE_END_CYCLES)
     torch.cuda.synchronize()
     time.sleep(TRACE_SETTLE_S)
+    t_stop = time.time_ns()
     prof.__exit__(None, None, None)
-    names, lead, end = Counter(), 0, 0
+    names, lead, ends = Counter(), 0, []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
             continue
         if "spin_kernel" not in e.name():
             names[e.name()] += 1
         elif e.duration_ns() > TRACE_END_NS:
-            end += 1
+            ends.append((t_stop - e.start_ns() - e.duration_ns()) / 1e6)
         else:
             lead += 1
-    check(end == 1 and lead >= 1,
+    check(len(ends) == 1 and lead >= 1,
           f"the trace lost a marker at its window's edges: {lead} of the "
-          f"{TRACE_LEAD} lead-in markers, {end} end markers of 1; "
-          f"{sum(names.values())} other records")
+          f"{TRACE_LEAD} lead-in markers, {len(ends)} end markers of 1; "
+          f"{sum(names.values())} other records; the end marker's margin "
+          f"in the earlier windows {trace_margins()}")
+    TRACE_END_MARGINS_MS.append(ends[0])
     if lead < TRACE_LEAD:
         log(f"trace: the profiler dropped {TRACE_LEAD - lead} of the "
             f"{TRACE_LEAD} lead-in markers")
     return names
+
+
+def trace_margins() -> str:
+    """The end marker's margins so far (``TRACE_END_MARGINS_MS``) in
+    brief."""
+    m = sorted(TRACE_END_MARGINS_MS)
+    if not m:
+        return "(none yet)"
+    return (f"over {len(m)} windows: min {m[0]:.1f} ms, median "
+            f"{m[len(m) // 2]:.1f} ms, max {m[-1]:.1f} ms of a "
+            f"{TRACE_SETTLE_S * 1e3:.0f} ms settle")
 
 
 def eager_twin(eng, **kw):
@@ -2436,6 +2477,198 @@ FLEET_LOADGEN_KEYS = (
     "tpot_p50", "tpot_p95", "tpot_p99")
 
 
+#: the telemetry step (inside the fleet step): the most seconds it may
+#: take, its polls, scrapes, traced request and HTTP plane together, and
+#: the seconds the aggregator's pinned clock moves at each poll
+TELEMETRY_BUDGET_S = 10.0
+TELEMETRY_TICK_S = 5.0
+
+
+def replica_tokens(urls) -> list:
+    """Each replica's own ``tpuslice_serve_tokens_total``, scraped from
+    its ``/metrics`` and read by the port's exposition parser."""
+    import urllib.request
+
+    from instaslice_tpu_torch.obs.telemetry import metric_sum, parse_exposition
+
+    out = []
+    for u in urls:
+        with urllib.request.urlopen(u + "/metrics", timeout=60) as r:
+            out.append(metric_sum(parse_exposition(r.read().decode()),
+                                  "tpuslice_serve_tokens_total"))
+    return out
+
+
+class FleetTelemetry:
+    """The port's fleet telemetry (``obs/telemetry.py``) over the fleet
+    step's router and its replicas: a ``FleetAggregator`` that discovers
+    the replicas from the router's ``/v1/stats``, its clock pinned and
+    moved TELEMETRY_TICK_S at each poll, no loop thread (``sample`` calls
+    ``poll`` directly), behind a ``TelemetryServer``. ``seconds`` sums the
+    host time of the step's own work, ``poll_ms`` each ``poll``'s."""
+
+    def __init__(self, router_url: str, urls: list):
+        import importlib.util
+
+        from instaslice_tpu_torch.metrics.metrics import FleetMetrics
+        from instaslice_tpu_torch.obs.journal import Journal
+        from instaslice_tpu_torch.obs.telemetry import (
+            FleetAggregator,
+            TelemetryServer,
+        )
+
+        t0 = time.perf_counter()
+        spec = importlib.util.find_spec("prometheus_client")
+        self.prometheus = spec is not None
+        log(f"telemetry: importlib.util.find_spec('prometheus_client') = "
+            f"{spec}")
+        self.urls, self.clock, self.poll_ms = urls, [time.time()], []
+        self.agg = FleetAggregator(router_url=router_url,
+                                   metrics=FleetMetrics(), journal=Journal(),
+                                   clock=lambda: self.clock[0])
+        self.server = TelemetryServer(self.agg).start()
+        self.seconds = time.perf_counter() - t0
+
+    def sample(self) -> tuple:
+        """One ``poll`` (the rollup) and each replica's own token counter
+        read right after it."""
+        t0 = time.perf_counter()
+        self.clock[0] += TELEMETRY_TICK_S
+        fleet = self.agg.poll()
+        self.poll_ms.append((time.perf_counter() - t0) * 1e3)
+        toks = replica_tokens(self.urls)
+        self.seconds += time.perf_counter() - t0
+        return fleet, toks
+
+    def reconcile(self, before: tuple, after: tuple, rep: dict) -> dict:
+        """(a) The rollup's change over the loadgen run against the
+        client's report, exactly: tokens and ok requests; each replica's
+        own token counter moved and the two add up to the client's
+        tokens (so a rollup missing either replica's scrape misses); the
+        KV totals those of both servers' ``/v1/stats``; no scrape
+        failed."""
+        t0 = time.perf_counter()
+        (f0, tok0), (f1, tok1) = before, after
+        d_tokens = f1["tokens"] - f0["tokens"]
+        d_ok = f1["ok_requests"] - f0["ok_requests"]
+        own = [b - a for a, b in zip(tok0, tok1)]
+        check(d_tokens == rep["client_tokens"],
+              f"telemetry (a): the rollup's tokens moved {d_tokens}, the "
+              f"client received {rep['client_tokens']}")
+        check(d_ok == rep["ok"], f"telemetry (a): the rollup's ok requests "
+              f"moved {d_ok}, the client's ok {rep['ok']}")
+        check(len(own) == 2 and min(own) > 0
+              and sum(own) == rep["client_tokens"],
+              f"telemetry (a): each replica's own tokens moved {own}, the "
+              f"client received {rep['client_tokens']}")
+        stats = [http_json(u + "/v1/stats") for u in self.urls]
+        free = sum(int(s["kv"]["free"]) for s in stats)
+        total = free + sum(int(s["kv"]["used"]) for s in stats)
+        check(f1["kv"]["free"] == free and f1["kv"]["total"] == total,
+              f"telemetry (a): the rollup's KV {f1['kv']}, both servers' "
+              f"/v1/stats free {free} of {total}")
+        check(sorted(f1["replicas"]) == sorted(self.urls)
+              and all(r["ok"] for r in f1["replicas"].values()),
+              f"telemetry (a): replicas discovered {f1['replicas']}")
+        check(f0["scrapes"]["error"] == f1["scrapes"]["error"] == 0,
+              f"telemetry (a): scrapes {f0['scrapes']}, {f1['scrapes']}")
+        self.seconds += time.perf_counter() - t0
+        out = {"tokens": d_tokens, "ok_requests": d_ok,
+               "replica_tokens": own, "kv": f1["kv"],
+               "scrapes": f1["scrapes"]}
+        log(f"telemetry (a): over the loadgen run the rollup moved "
+            f"{d_tokens} tokens and {d_ok} ok requests, the client's "
+            f"exactly; the replicas' own counters {own}; KV {f1['kv']} "
+            f"equals both servers' /v1/stats; scrapes {f1['scrapes']}")
+        return out
+
+    def stitch(self, router_url: str, prompt: list, n_new: int) -> dict:
+        """(b) One greedy request through the router under a fresh
+        ``X-Trace-Id`` (the loadgen's ``_one_request``), then a poll: the
+        stitched timeline holds the router's and the server's spans. The
+        router records ``router.route`` in the trace without naming a
+        parent (as the reference's does) and the server roots its spans at
+        ``serve.request``: the router's span opens the timeline, starting
+        before every server span, and each server span's parents lead to
+        that root within the trace."""
+        from instaslice_tpu_torch.obs.telemetry import span_component
+        from instaslice_tpu_torch.serving.loadgen import _one_request
+        from instaslice_tpu_torch.utils.trace import new_trace_id
+
+        t0 = time.perf_counter()
+        tid = new_trace_id()
+        _, _, toks, err, code = _one_request(
+            router_url, prompt, n_new, stream=False, timeout=120.0,
+            trace_id=tid)
+        check(err is None and toks > 0,
+              f"telemetry (b): the traced request: {err} ({code}), {toks} "
+              "tokens")
+        self.seconds += time.perf_counter() - t0
+        self.sample()
+        t0 = time.perf_counter()
+        tl = self.agg.stitcher.timeline(tid)
+        spans = tl["spans"]
+        by_id = {s["spanId"]: s for s in spans}
+        serve = [s for s in spans if span_component(s["name"]) == "serve"]
+        roots = [s for s in serve if s["name"] == "serve.request"]
+
+        def root_of(s):
+            while s.get("parentId") in by_id:
+                s = by_id[s["parentId"]]
+            return s
+
+        check({"router", "serve"} <= set(tl["components"]),
+              f"telemetry (b): components {tl['components']}")
+        check(spans[0]["name"] == "router.route" and len(roots) == 1
+              and all(spans[0]["start"] <= s["start"] for s in serve)
+              and all(root_of(s) is roots[0] for s in serve),
+              f"telemetry (b): the router's span does not open the "
+              f"timeline of the server's: "
+              f"{[(s['name'], s['start'], s.get('parentId')) for s in spans]}")
+        self.seconds += time.perf_counter() - t0
+        out = {"trace_id": tid, "components": tl["components"],
+               "spans": [s["name"] for s in spans]}
+        log(f"telemetry (b): trace {tid} stitched: components "
+            f"{tl['components']}, spans {out['spans']}")
+        return out
+
+    def plane(self) -> dict:
+        """(c) The HTTP plane against the aggregator: ``/v1/fleet``'s
+        tokens, ``/metrics``' ``tpuslice_fleet_tokens_total``, and
+        ``tpuslice-gpu fleet --url`` run in process."""
+        import contextlib
+        import io
+        import urllib.request
+
+        from instaslice_tpu_torch.cli import tpuslicectl
+        from instaslice_tpu_torch.obs.telemetry import parse_exposition
+
+        t0 = time.perf_counter()
+        url = self.server.url
+        tokens = self.agg.fleet()["tokens"]
+        served = http_json(url + "/v1/fleet")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            samples = parse_exposition(r.read().decode())
+        exposed = [v for (n, _), v in samples.items()
+                   if n == "tpuslice_fleet_tokens_total"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tpuslicectl.main(["fleet", "--url", url])
+        ctl = json.loads(buf.getvalue())
+        check(served["tokens"] == tokens and exposed == [tokens]
+              and rc == 0 and ctl["tokens"] == tokens,
+              f"telemetry (c): the aggregator's tokens {tokens}, /v1/fleet "
+              f"{served['tokens']}, /metrics {exposed}, tpuslice-gpu fleet "
+              f"rc {rc} {ctl.get('tokens')}")
+        self.seconds += time.perf_counter() - t0
+        log(f"telemetry (c): /v1/fleet, /metrics and tpuslice-gpu fleet "
+            f"read the aggregator's {tokens} tokens")
+        return {"tokens": tokens}
+
+    def stop(self) -> None:
+        self.server.stop()
+
+
 def served_by(srvs, before: list) -> int:
     """Index of the one server whose ``tokens_generated`` moved since
     ``before`` (each server's reading then)."""
@@ -2471,7 +2704,11 @@ def fleet_step(torch, ops, srvs, engs, L: int, V: int) -> dict:
     the same request unmigrated, ``migrations["resumed"]`` up by one;
     (d) ``loadgen.run`` against the router (FLEET_LOADGEN): no errors,
     the reference's report keys, B1-B3 on the card's trace equal to what
-    both engines' forwards imply (only this run is traced)."""
+    both engines' forwards imply (only this run is traced); (e) the
+    telemetry step (``FleetTelemetry``): one poll just before (d) and one
+    after its trace has stopped, reconciled exactly with the loadgen's
+    report; a traced request stitched across the router and the server;
+    the HTTP plane; its seconds within TELEMETRY_BUDGET_S."""
     import statistics
     import threading
 
@@ -2487,7 +2724,7 @@ def fleet_step(torch, ops, srvs, engs, L: int, V: int) -> dict:
     # the other prefills, and the sweep would drain it with migrate in
     # the middle of a step that holds every export it makes
     router = Router(urls, poll_interval=0.1, eject_factor=0).start()
-    fls, parts = [], {}
+    fls, parts, tel = [], {}, None
     try:
         # (a)
         t_part = time.perf_counter()
@@ -2602,6 +2839,9 @@ def fleet_step(torch, ops, srvs, engs, L: int, V: int) -> dict:
             f"{router.migrations}")
         router.add_replica(urls[k])
         parts["c"] = time.perf_counter() - t_part
+        # (e) begins: the telemetry step's first poll, outside (d)'s trace
+        tel = FleetTelemetry(router.url, urls)
+        before = tel.sample()
         # (d) the main path, traced
         t_part = time.perf_counter()
         n_req, conc, plen, new, seed = FLEET_LOADGEN
@@ -2649,7 +2889,27 @@ def fleet_step(torch, ops, srvs, engs, L: int, V: int) -> dict:
             f"(trace) {tr.counts} = B1 {L} x {steps}, B2 {6 * L} x {kfw}, "
             f"B3 {kfw}")
         parts["d"] = time.perf_counter() - t_part
+        # (e) the telemetry step, its second poll after (d)'s trace stopped
+        after = tel.sample()
+        tele = {"reconcile": tel.reconcile(before, after, rep)}
+        prompt = torch.randint(1, V, (FLEET_PLEN,), generator=gen).tolist()
+        tele["stitch"] = tel.stitch(router.url, prompt, FLEET_NEW)
+        tele["plane"] = tel.plane()
+        tele.update(seconds=tel.seconds, poll_ms=tel.poll_ms,
+                    poll_ms_median=statistics.median(tel.poll_ms),
+                    prometheus_client=tel.prometheus)
+        out["telemetry"] = tele
+        parts["e"] = tel.seconds
+        check(tel.seconds <= TELEMETRY_BUDGET_S,
+              f"telemetry: the step took {tel.seconds:.2f} s, over its "
+              f"budget of {TELEMETRY_BUDGET_S} s")
+        log(f"telemetry: the step {tel.seconds:.2f} s, poll() median "
+            f"{tele['poll_ms_median']:.1f} ms of "
+            f"{[round(x, 1) for x in tel.poll_ms]}, prometheus_client "
+            f"{'present' if tel.prometheus else 'absent'}")
     finally:
+        if tel is not None:
+            tel.stop()
         for fl in fls:
             fl.close()
         router.stop()
@@ -3408,6 +3668,13 @@ def phase_lora_train(torch, ops, train: dict) -> dict:
 WINDOW = 4096
 WINDOW_SERVE_FLAGS = (SERVE_FLAGS.replace("--max-len 1024", "--max-len 8192")
                       + f" --window {WINDOW}")
+#: the window server's depth: the 7B's widths at this many of its 32
+#: layers. The phase was the smoke's longest traced, host-bound one (79.9
+#: s at 32 layers on the H100); its work (the prefill of two long
+#: prompts, four times over, the full forwards, the eager decode) scales
+#: with the depth, its checks and controls hold at any depth, and its
+#: launch expectations follow it
+WINDOW_LAYERS = 2
 #: prompt lengths: two whose decode runs past the window, six short ones
 #: (sent first, so that decode steps inside the window run before the
 #: long rows are admitted)
@@ -3416,7 +3683,7 @@ WINDOW_SHORT = (600, 400, 300, 200, 129, 64)
 WINDOW_NEW = 16
 #: a long row's decode logits against ``TpuLM.apply`` over the same tokens
 #: and weights with the same window: relative L2 at most this. bf16 at
-#: full depth: the engine reads an int8 KV cache and projects through B2,
+#: the 7B's widths: the engine reads an int8 KV cache and projects through B2,
 #: the full forward keeps K/V exact and projects through bf16 matmuls
 #: (1.5e-2 measured on a d1024 32-layer cut on the CPU); a float32 2-layer
 #: cut with a float32 KV cache: sums in another order only (6e-7 there);
@@ -3433,6 +3700,12 @@ WINDOW_CONTROL = 5
 #: weights over the int8 KV cache, the repo's capacity recipe
 #: (``docs/SERVING.md:821``: ``--quantize --quantize-bits 4``)
 INT4_SERVE_FLAGS = SERVE_FLAGS + " --quantize-bits 4"
+#: the int4 server's depth: the 7B's widths at this many of its 32 layers
+#: (as WINDOW_LAYERS). Its decode is device-bound on the plain int4
+#: dequantization (134 ms a step at 32 layers), its work scales with the
+#: depth, its checks hold at any depth and its launch expectations follow
+#: it; cut to pay for the traced windows' longer settle
+INT4_LAYERS = 2
 INT4_NEW = 16
 #: the int4 engine's decode logits against the same engine over the
 #: ``weight()``-dequantized bf16 weights: both run the same bf16 weights
@@ -3585,10 +3858,11 @@ def staggered_burst(url, short, long_):
     return results, errors
 
 
-def phase_window(torch, ops) -> dict:
-    """The windowed 7B int8 server (``WINDOW_SERVE_FLAGS``), built by the
-    port's own CLI wiring and driven over HTTP: six short streamed
-    completions, then, once they decode, two past the window. B1 runs on
+def phase_window(torch, ops, n_layers: int = WINDOW_LAYERS) -> dict:
+    """The windowed 7B int8 server (``WINDOW_SERVE_FLAGS`` at ``n_layers``
+    layers), built by the port's own CLI wiring and driven over HTTP: six
+    short streamed completions, then, once they decode, two past the
+    window. B1 runs on
     the decode steps whose 256-position bucket is at most ``window - 1``
     wide, the band on the others; B2/B3 on every forward of at most 256
     rows. Then, the server stopped: decode tok/s and device ms per step
@@ -3601,7 +3875,8 @@ def phase_window(torch, ops) -> dict:
     from instaslice_tpu_torch.serving import api_server
 
     t0 = time.perf_counter()
-    args = api_server.build_parser().parse_args(WINDOW_SERVE_FLAGS.split())
+    args = api_server.build_parser().parse_args(
+        WINDOW_SERVE_FLAGS.split() + ["--n-layers", str(n_layers)])
     eng = api_server.build_engine(args)
     srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
     setup_s = time.perf_counter() - t0
@@ -3728,11 +4003,11 @@ def phase_window(torch, ops) -> dict:
     return out
 
 
-def phase_int4(torch, ops) -> dict:
-    """The int4 7B server (``INT4_SERVE_FLAGS``: group-wise int4 weights,
-    int8 KV cache) from the same seeded weights, by the port's own CLI
-    wiring: 8 concurrent greedy completions over HTTP, B1 32 times a decode
-    step and no B2/B3 (int4 weights dequantize into ``torch.matmul``); the
+def phase_int4(torch, ops, n_layers: int = INT4_LAYERS) -> dict:
+    """The int4 7B server (``INT4_SERVE_FLAGS`` at ``n_layers`` layers:
+    group-wise int4 weights, int8 KV cache) from seeded weights, by the
+    port's own CLI wiring: 8 concurrent greedy completions over HTTP, B1
+    once a layer each decode step and no B2/B3 (int4 weights dequantize into ``torch.matmul``); the
     card's unpacking against the CPU's on the same bytes; the decode
     logits of a burst against the same engine over the ``weight()``-
     dequantized bf16 weights; the weights' GiB as int4, int8 and bf16;
@@ -3747,7 +4022,8 @@ def phase_int4(torch, ops) -> dict:
     from instaslice_tpu_torch.serving import ServingEngine, api_server
 
     t0 = time.perf_counter()
-    args = api_server.build_parser().parse_args(INT4_SERVE_FLAGS.split())
+    args = api_server.build_parser().parse_args(
+        INT4_SERVE_FLAGS.split() + ["--n-layers", str(n_layers)])
     eng = api_server.build_engine(args)
     srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
     setup_s = time.perf_counter() - t0
@@ -3862,7 +4138,7 @@ def phase_int4(torch, ops) -> dict:
     tput = decode_tput(torch, eng, [[1, 2, 3]] * 8, n=8)
     check(tput["counts"]["quant_decode_attention"] == L * tput["steps"]
           and tput["counts"]["quant_matmul_stacked"] == 0,
-          "int4: decode block launches B1 32 times a step, no B2")
+          f"int4: decode block launches B1 {L} times a step, no B2")
     eager = decode_tput(torch, twin, [[1, 2, 3]] * 8, n=8)
     del twin
     log(f"int4: decode at batch 8 {tput['tok_s']:.1f} tok/s, "
@@ -4388,8 +4664,8 @@ def moe_engine(torch, ops, cfg, qp) -> dict:
           and counts["quant_decode_attention"] == 0,
           "B1 and B2 are gated off for MoE")
     check(all(counts[n] == 0 for n in FLASH), "B5-B7 are not on this path")
-    tok_s = eng.throughput(n_steps=32)
-    eager_tok_s = twin.throughput(n_steps=32)
+    tok_s = eng.throughput(n_steps=16)
+    eager_tok_s = twin.throughput(n_steps=16)
     del twin
     for _ in range(8 - len(eng.slots)):
         eng.add_request([1, 2, 3])
@@ -7933,6 +8209,7 @@ def main() -> int:
     ctl = phase_ctl(torch, ops, controller)
     mark("ctl", t0)
     timings["total"] = time.perf_counter() - t_all
+    log(f"trace: the end marker's margin {trace_margins()}")
 
     # launches: each kernel's count from the main path that runs it (the
     # server's completions for B1-B4, the 871M train steps for B5-B7);
@@ -8043,6 +8320,10 @@ def main() -> int:
     log(json.dumps({"card": card, "spec": {k: v for k, v in spec.items()
                                            if k != "kernels"}}))
     log(json.dumps({"card": card, "migrate": migrate}))
+    tele = migrate["fleet"]["telemetry"]
+    log(json.dumps({"card": card, "telemetry": {
+        key: tele[key] for key in ("seconds", "poll_ms_median",
+                                   "prometheus_client")}}))
     log(json.dumps({"card": card, "lora": {"serve": lora_serve,
                                            "train": lora_train}}))
     log(json.dumps({"card": card, "window": window, "int4": int4,

@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import torch
 
+#: the project's version, the reference's (``instaslice_tpu/__init__.py``)
+__version__ = "0.1.0"
+
 # the gate, finalizer and resource names, re-exported as the reference
 # re-exports them (``instaslice_tpu/__init__.py``); NVIDIA's whole-GPU
 # resource stands where its TPU one does

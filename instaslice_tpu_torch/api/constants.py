@@ -6,10 +6,11 @@ ConfigMap carries, and the resources and annotations of the pods, the
 device plugin, the agent and the leader lease.
 
 A copy of the serving, allocation, controller, repacker, recovery,
-chip-health, agent and kube reasons of ``instaslice_tpu/api/constants.py``
-(the ones the scheduler, the profiler, the journal, ``api/types.py``,
-``controller/``, ``deviceplugin/server.py``, ``agent/`` and ``kube/`` of
-the port emit) and of its ``GROUP``, ``VERSION``, ``API_VERSION``,
+chip-health, agent, kube, router and telemetry reasons of
+``instaslice_tpu/api/constants.py`` (the ones the scheduler, the
+profiler, the journal, ``api/types.py``, ``controller/``,
+``deviceplugin/server.py``, ``agent/``, ``kube/``, the router and
+``obs/telemetry.py`` of the port emit) and of its ``GROUP``, ``VERSION``, ``API_VERSION``,
 ``KIND``, ``PLURAL``, ``GATE_NAME``, ``LEGACY_GATE_NAME``, ``FINALIZER``,
 ``POD_RESOURCE_PREFIX``, ``POD_UID_LABEL`` and annotations (the sim
 kubelet's ``DEVICE_PATHS_ANNOTATION`` and
@@ -175,6 +176,13 @@ REASON_WRITE_FENCED = "WriteFenced"
 REASON_REPLICA_EJECTED = "ReplicaEjected"
 REASON_REPLICA_READMITTED = "ReplicaReadmitted"
 
+# fleet telemetry plane (obs/telemetry.py): multi-window SLO burn-rate
+# monitor over federated attainment rollups. High fires when BOTH
+# windows of a pair burn error budget faster than the pair's threshold;
+# Cleared fires on the first evaluation after every pair recovers.
+REASON_SLO_BURN_HIGH = "SLOBurnRateHigh"
+REASON_SLO_BURN_CLEARED = "SLOBurnRateCleared"
+
 #: every reason the port's journal accepts without a warning
 EVENT_REASONS = frozenset({
     *TRANSITION_REASONS.values(),
@@ -188,6 +196,7 @@ EVENT_REASONS = frozenset({
     REASON_PREEMPTED, REASON_RESUMED, REASON_SLO_MISSED,
     REASON_COMPILE_OBSERVED,
     REASON_SESSION_EXPORTED, REASON_SESSION_IMPORTED,
+    REASON_SLO_BURN_HIGH, REASON_SLO_BURN_CLEARED,
     REASON_CHIP_UNHEALTHY, REASON_CHIP_HEALED,
     REASON_REALIZED, REASON_REALIZE_FAILED, REASON_TORN_DOWN,
     REASON_ORPHAN_REAPED,

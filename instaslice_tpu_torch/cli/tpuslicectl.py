@@ -383,7 +383,7 @@ def _events_cmd(p, args) -> int:
 
 def _fleet_cmd(args) -> int:
     """``fleet``: one-shot (or ``--follow``) view of a
-    ``tpuslice-telemetry`` aggregator. Rollup mode prints the
+    ``tpuslice-gpu-telemetry`` aggregator. Rollup mode prints the
     ``/v1/fleet`` snapshot as one JSON object per poll; ``--trace``
     mode prints the stitched cross-process timeline for one trace id
     (``/v1/fleet/trace``)."""
@@ -807,13 +807,13 @@ def main(argv=None) -> int:
 
     fl = sub.add_parser(
         "fleet",
-        help="fleet telemetry snapshot from a tpuslice-telemetry "
+        help="fleet telemetry snapshot from a tpuslice-gpu-telemetry "
         "aggregator's GET /v1/fleet (goodput, per-class SLO "
         "attainment, burn-rate state, chip-hours); --follow polls, "
         "--trace renders one stitched cross-process timeline",
     )
     fl.add_argument("--url", required=True,
-                    help="aggregator base URL (tpuslice-telemetry)")
+                    help="aggregator base URL (tpuslice-gpu-telemetry)")
     fl.add_argument("--trace", default="",
                     help="print the stitched timeline for this trace "
                     "id instead of the rollup snapshot")

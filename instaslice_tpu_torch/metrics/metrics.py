@@ -1,12 +1,13 @@
-"""Prometheus metrics of the port's serving plane and node agent.
+"""Prometheus metrics of the port's serving plane, node agent, router and
+fleet telemetry.
 
 A copy of ``OperatorMetrics`` (the node agent's), ``ServingMetrics``,
-``RouterMetrics`` (the fleet router's), ``EventMetrics``, ``render``,
+``RouterMetrics`` (the fleet router's), ``FleetMetrics`` (the fleet
+telemetry aggregator's), ``EventMetrics``, ``render``,
 ``observe_with_exemplar`` and ``start_metrics_server`` from
-``instaslice_tpu/metrics/metrics.py`` (the fleet telemetry holder stays
-with the reference): the port imports nothing of the JAX package. A
-session exported off the server counts under the requests counter's
-``migrated`` outcome; the router counts the move under
+``instaslice_tpu/metrics/metrics.py``: the port imports nothing of the
+JAX package. A session exported off the server counts under the
+requests counter's ``migrated`` outcome; the router counts the move under
 ``RouterMetrics.migrations``. Without ``prometheus_client`` every
 metric is a no-op.
 """
@@ -540,6 +541,97 @@ class RouterMetrics:
             "tpuslice_router_replica_latency_ewma_seconds",
             "Per-replica stats-poll latency EWMA p95 estimate",
             ["replica"],
+            registry=self.registry,
+        )
+
+
+class FleetMetrics:
+    """Metrics for the fleet telemetry aggregator (obs/telemetry.py) —
+    rollups computed FROM every other plane's scraped registries, on
+    the aggregator's own registry (docs/OBSERVABILITY.md "Fleet
+    telemetry")."""
+
+    def __init__(self, registry: Optional["CollectorRegistry"] = None):
+        if not _PROM:
+            _warn_no_prom()
+            self.goodput = _NoopMetric()
+            self.requests = _NoopMetric()
+            self.tokens = _NoopMetric()
+            self.attainment = _NoopMetric()
+            self.burn_rate = _NoopMetric()
+            self.burning = _NoopMetric()
+            self.kv_free_fraction = _NoopMetric()
+            self.chip_seconds = _NoopMetric()
+            self.chips_live = _NoopMetric()
+            self.chip_hours_per_mreq = _NoopMetric()
+            self.scrapes = _NoopMetric()
+            self.registry = None
+            return
+        self.registry = registry or CollectorRegistry()
+        self.goodput = Gauge(
+            "tpuslice_fleet_goodput_tokens_per_sec",
+            "Fleet-wide generated tokens/sec over the last scrape "
+            "interval",
+            registry=self.registry,
+        )
+        self.requests = Gauge(
+            "tpuslice_fleet_requests_total",
+            "Fleet-wide served completion requests by outcome "
+            "(summed across replica registries)",
+            ["outcome"],
+            registry=self.registry,
+        )
+        self.tokens = Gauge(
+            "tpuslice_fleet_tokens_total",
+            "Fleet-wide generated tokens (summed across replica "
+            "registries)",
+            registry=self.registry,
+        )
+        self.attainment = Gauge(
+            "tpuslice_fleet_slo_attainment",
+            "Per-tenant-class TTFT SLO attainment (1 - missed/served)",
+            ["tenant_class"],
+            registry=self.registry,
+        )
+        self.burn_rate = Gauge(
+            "tpuslice_fleet_slo_burn_rate",
+            "Error-budget burn rate per evaluation window",
+            ["tenant_class", "window"],
+            registry=self.registry,
+        )
+        self.burning = Gauge(
+            "tpuslice_fleet_slo_burning",
+            "1 while a burn-rate alert is active for the class",
+            ["tenant_class"],
+            registry=self.registry,
+        )
+        self.kv_free_fraction = Gauge(
+            "tpuslice_fleet_kv_free_fraction",
+            "Fleet KV pressure: free blocks / total blocks across "
+            "replicas",
+            registry=self.registry,
+        )
+        self.chip_seconds = Gauge(
+            "tpuslice_fleet_chip_seconds_total",
+            "Chip-seconds integrated from allocation lifecycle events "
+            "(ungated→deleted × chips; live allocations accrue to now)",
+            registry=self.registry,
+        )
+        self.chips_live = Gauge(
+            "tpuslice_fleet_chips_live",
+            "Chips currently held by ungated allocations",
+            registry=self.registry,
+        )
+        self.chip_hours_per_mreq = Gauge(
+            "tpuslice_fleet_chip_hours_per_million_requests",
+            "Chip-hours per million served-ok requests (the macro-bench "
+            "headline; 0 until the first ok request)",
+            registry=self.registry,
+        )
+        self.scrapes = Counter(
+            "tpuslice_fleet_scrapes_total",
+            "Aggregator scrape cycles by outcome",
+            ["outcome"],
             registry=self.registry,
         )
 

@@ -10,34 +10,37 @@ emitting ``component``, a ``reason`` constant from
 object reference, a human message, and the ``trace_id`` linking it into
 the request's trace.
 
-Events land in two places:
+Events land in three places:
 
 - a bounded in-memory ring (queryable from tests and the serving
   plane's ``GET /v1/debug/events``, :func:`debug_events_payload`);
+- an optional JSONL sink (``TPUSLICE_EVENT_FILE``, rotated by size past
+  ``TPUSLICE_EVENT_FILE_MAX_MB`` into ``TPUSLICE_EVENT_FILE_KEEP``
+  generations) validated by ``tools/validate_events.py``;
 - ``tpuslice_events_total{component,reason}`` counters (+ a
   last-event-timestamp gauge) on :class:`~instaslice_tpu_torch.metrics.
   metrics.EventMetrics`.
+
+Pod-scoped decisions of the node agent are additionally mirrored as
+Kubernetes ``Event`` objects via :func:`emit_pod_event`, so ``kubectl
+describe pod`` explains why a pod is still gated without any project
+tooling installed.
 
 Emission is thread-safe via the lockcheck factory and must never hurt
 the serving plane: an unknown reason logs one warning (it still
 records) — the journal observes the serving loop, it never wedges it.
 
 A copy of ``instaslice_tpu/obs/journal.py`` (the port imports nothing
-of the JAX package), trimmed to what the port's server uses:
-:class:`Journal` (``emit``, ``events``, ``counts``), :func:`get_journal`
-and :func:`debug_events_payload`, the Kubernetes Event mirror of the
-node agent's pod-scoped decisions (:func:`emit_pod_event`) and the
-runner-attached metrics holders (:func:`attach_metrics`/
-:func:`detach_metrics`). Left out: the JSONL sink
-(``TPUSLICE_EVENT_FILE`` and its rotation), ``Event.from_dict``,
-``Journal.tail``/``clear``/``close`` and ``reset_journal``.
+of the JAX package).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import logging
+import os
 import time
 import uuid
 from collections import deque
@@ -77,7 +80,7 @@ class Event:
     reason: str                    # constant from api/constants.py
     object_ref: str = ""           # "Pod/<ns>/<name>" | "alloc/<id>" | ...
     message: str = ""
-    trace_id: str = ""             # links into the request's trace
+    trace_id: str = ""             # links into the span trace
     attrs: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def to_dict(self) -> dict:
@@ -97,22 +100,77 @@ class Event:
             d["attrs"] = self.attrs
         return d
 
-class Journal:
-    """Bounded ring of events + metrics counters.
+    @staticmethod
+    def from_dict(d: dict) -> "Event":
+        return Event(
+            seq=int(d.get("seq", 0)),
+            ts=float(d.get("ts", 0.0)),
+            component=d.get("component", ""),
+            reason=d.get("reason", ""),
+            object_ref=d.get("objectRef", ""),
+            message=d.get("message", ""),
+            trace_id=d.get("traceId", ""),
+            attrs={k: str(v) for k, v in (d.get("attrs") or {}).items()},
+        )
 
-    ``clock`` is injectable (tests pin timestamps). ``metrics`` is any
-    holder with ``events``/``last_event_ts`` (an
-    :class:`~instaslice_tpu_torch.metrics.metrics.EventMetrics`); one with
-    its own registry is created lazily when omitted."""
+
+class Journal:
+    """Bounded ring of events + optional JSONL sink + metrics counters.
+
+    ``clock`` is injectable (tests pin timestamps); ``event_file``
+    defaults from ``TPUSLICE_EVENT_FILE``. ``metrics`` is any holder
+    with ``events``/``last_event_ts`` (an
+    :class:`~instaslice_tpu_torch.metrics.metrics.EventMetrics`); one with its
+    own registry is created lazily when omitted."""
 
     def __init__(self, capacity: int = 4096,
+                 event_file: Optional[str] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 metrics=None) -> None:
+                 metrics=None, max_mb: Optional[float] = None,
+                 keep: Optional[int] = None) -> None:
         self._lock = named_lock("journal.ring")
         self._events: deque = deque(maxlen=capacity)
         self._counts: Dict[str, int] = {}
         self._seq = 0
         self.clock: Callable[[], float] = clock or time.time
+        self._file = None
+        # file writes get their own lock (same split as utils/trace.py):
+        # a slow disk must not serialize every reconcile thread behind
+        # the hot ring lock, and close() can never yank the handle
+        # between the check and the write
+        self._file_lock = named_lock("journal.file")
+        path = event_file or os.environ.get("TPUSLICE_EVENT_FILE")
+        self._path = path or None
+        # size-based sink rotation: past max_mb the sink shifts to
+        # <path>.1 … <path>.N and reopens fresh (0 = unbounded, the
+        # pre-rotation behavior; keep bounds the shifted generations)
+        if max_mb is None:
+            try:
+                max_mb = float(
+                    os.environ.get("TPUSLICE_EVENT_FILE_MAX_MB", "0")
+                )
+            except ValueError:
+                max_mb = 0.0
+        if keep is None:
+            try:
+                keep = int(
+                    os.environ.get("TPUSLICE_EVENT_FILE_KEEP", "3")
+                )
+            except ValueError:
+                keep = 3
+        self._max_bytes = int(max_mb * 1024 * 1024) if max_mb > 0 else 0
+        self._keep = max(1, keep)
+        if path:
+            try:
+                self._file = open(path, "a", buffering=1)
+            except OSError as e:
+                # best-effort by contract: a bad sink path degrades to
+                # ring-only recording — it must never turn every
+                # reconcile/request into an exception
+                log.warning(
+                    "cannot open TPUSLICE_EVENT_FILE %s (%s); events "
+                    "record to the in-memory ring only", path, e,
+                )
         if metrics is None:
             from instaslice_tpu_torch.metrics.metrics import EventMetrics
 
@@ -142,10 +200,54 @@ class Journal:
             )
             self._events.append(ev)
             self._counts[reason] = self._counts.get(reason, 0) + 1
+            sink = self._file
         for m in [self.metrics] + attached_metrics():
             m.events.labels(component=component, reason=reason).inc()
             m.last_event_ts.labels(component=component).set(ev.ts)
+        if sink is not None:
+            line = json.dumps(ev.to_dict()) + "\n"
+            with self._file_lock:
+                if self._file is not None:
+                    try:
+                        self._file.write(line)
+                        if (self._max_bytes
+                                and self._file.tell() >= self._max_bytes):
+                            self._rotate_locked()
+                    except OSError as e:
+                        # disk full / EROFS mid-run: drop the sink, keep
+                        # the ring — and keep the control plane alive
+                        log.warning(
+                            "event sink write failed (%s); disabling "
+                            "the JSONL sink", e,
+                        )
+                        self._file = None
         return ev
+
+    def _rotate_locked(self) -> None:
+        """Shift the sink one generation (``_file_lock`` held): the live
+        file becomes ``<path>.1``, prior generations shift up, anything
+        past ``keep`` is dropped, and a fresh live file opens. A
+        rotation failure degrades to ring-only recording — the exact
+        sink-write-failure contract, because a sink that cannot rotate
+        would otherwise grow without the bound the operator asked for."""
+        try:
+            self._file.close()
+        except OSError:
+            pass
+        self._file = None
+        try:
+            for i in range(self._keep, 0, -1):
+                src = self._path if i == 1 else f"{self._path}.{i - 1}"
+                dst = f"{self._path}.{i}"
+                if os.path.exists(src):
+                    os.replace(src, dst)
+            self._file = open(self._path, "a", buffering=1)
+        except OSError as e:
+            log.warning(
+                "event sink rotation failed (%s); disabling the JSONL "
+                "sink", e,
+            )
+            self._file = None
 
     # ------------------------------------------------------------ querying
 
@@ -168,10 +270,30 @@ class Journal:
             out = [e for e in out if e.seq > since_seq]
         return out
 
+    def tail(self, n: int = 50) -> List[Event]:
+        with self._lock:
+            return list(self._events)[-n:]
+
     def counts(self) -> Dict[str, int]:
         """Per-reason totals since construction (not ring-bounded)."""
         with self._lock:
             return dict(self._counts)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self._counts.clear()
+
+    def close(self) -> None:
+        """Close the JSONL sink. Idempotent; a write racing close is
+        dropped under the file lock, never an exception."""
+        with self._file_lock:
+            f, self._file = self._file, None
+        if f is not None:
+            try:
+                f.close()
+            except OSError:
+                pass
 
 
 #: Runner-attached metrics holders, MODULE-level so they follow the
@@ -213,7 +335,8 @@ _default_lock = named_lock("journal.default")
 
 
 def get_journal() -> Journal:
-    """Process-wide default journal (created lazily)."""
+    """Process-wide default journal (created lazily — re-reads
+    ``TPUSLICE_EVENT_FILE`` at creation)."""
     global _default
     with _default_lock:
         if _default is None:
@@ -221,7 +344,15 @@ def get_journal() -> Journal:
         return _default
 
 
-# ------------------------------------------------------- debug endpoint
+def reset_journal(journal: Optional[Journal] = None) -> None:
+    """Swap the process-wide default (test isolation / env rebinding —
+    the exact contract of ``trace.reset_tracer``). The old default's
+    file handle is closed."""
+    global _default
+    with _default_lock:
+        old, _default = _default, journal
+    if old is not None:
+        old.close()
 
 
 # --------------------------------------------------- kubernetes mirroring
@@ -293,7 +424,8 @@ def emit_pod_event(client, namespace: str, pod_name: str, *, reason: str,
 
 def debug_events_payload(qs: Dict[str, List[str]],
                          journal: Optional[Journal] = None) -> dict:
-    """The ``GET /v1/debug/events`` handler body (serving/api_server.py).
+    """The shared ``GET /v1/debug/events`` handler body (serving plane
+    in serving/api_server.py, operator probe plane in utils/probes.py).
     ``qs`` is a ``urllib.parse.parse_qs`` dict; supported filters:
     ``reason``, ``object``, ``trace_id``, ``component``, ``since_seq``;
     ``n`` bounds the returned tail (default 100). Raises ValueError on

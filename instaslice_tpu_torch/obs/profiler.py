@@ -40,10 +40,7 @@ the "cold mid-run compile polluted p95" class of bug self-announces
 instead of requiring archaeology (docs/OBSERVABILITY.md "Profiling").
 
 A copy of ``instaslice_tpu/obs/profiler.py`` (the port imports nothing
-of the JAX package), trimmed to what the port's server and its
-``tpuslice-gpu profile`` use (the Chrome trace export,
-:func:`chrome_trace`, included): left out are ``reset_profiler`` and
-``Profiler.disarm``/``clear``. The compile watch listens on the port's kernel
+of the JAX package). The compile watch listens on the port's kernel
 builds (``instaslice_tpu_torch.ops.build``) where the reference listens
 on ``jax.monitoring``: an nvcc build, library load or graph capture
 after the warm window is the port's mid-traffic compile.
@@ -345,6 +342,9 @@ class Profiler:
     def arm(self) -> None:
         self.armed = True
 
+    def disarm(self) -> None:
+        self.armed = False
+
     # -------------------------------------------------------- recording
 
     def round_timer(self):
@@ -415,6 +415,12 @@ class Profiler:
             by.setdefault("round", []).append(rec.wall_ms)
         return summarize_durations(by)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._rounds.clear()
+            self._events.clear()
+
+
 _default: Optional[Profiler] = None
 _default_lock = named_lock("profile.default")
 
@@ -427,6 +433,14 @@ def get_profiler() -> Profiler:
         if _default is None:
             _default = Profiler()
         return _default
+
+
+def reset_profiler(profiler: Optional[Profiler] = None) -> None:
+    """Swap the process-wide default (test isolation — mirrors
+    ``reset_tracer``/``reset_journal``)."""
+    global _default
+    with _default_lock:
+        _default = profiler
 
 
 # ---------------------------------------------------- debug endpoint

@@ -1,40 +1,42 @@
 """Runtime lock-order race detector behind a named-lock factory.
 
-Every lock of the port's server is created through :func:`named_lock`,
-which returns a thin instrumented wrapper whose fast path is a single
-module-flag check; armed (``TPUSLICE_LOCKCHECK=1`` in the environment
-of the process) it additionally records, per thread, the stack of
-locks currently held and, globally:
+Every lock in the project is created through :func:`named_lock` /
+:func:`named_rlock` / :func:`named_condition` (enforced by
+``tools/slicelint.py``'s ``raw-lock`` rule — direct
+``threading.Lock()`` construction outside this module fails ``make
+lint``). The factories return thin instrumented wrappers whose fast
+path is a single module-flag check; armed (``TPUSLICE_LOCKCHECK=1``,
+or :func:`arm` from a test) they additionally record, per thread, the
+stack of locks currently held and, globally:
 
 - the **acquisition-order graph**: an edge ``A -> B`` means some thread
   acquired ``B`` while holding ``A``. The moment an edge closes a cycle
   (``A -> B`` recorded while ``B -> ... -> A`` already exists), the
   cycle is reported — an ABBA deadlock that has not happened *yet* but
-  will, on the right interleaving (lock-order checking in the
-  witness/lockdep tradition).
+  will, on the right interleaving. This is lock-order checking in the
+  witness/lockdep tradition: it needs only one benign interleaving of
+  each path to prove the hazard, so a chaos run doubles as a race
+  detector (``make chaos`` with ``TPUSLICE_LOCKCHECK=1``; the conftest
+  fails the session if any cycle was seen).
 - **hold times** per lock name (count/total/max), so a lock held across
   a blocking call shows up in :func:`report` even before it deadlocks
   anything.
-
-All of it is read on ``GET /v1/debug/locks`` (:func:`debug_locks_payload`).
 
 Graph nodes are lock *names*, not instances: the per-request
 ``serve.pending`` locks aggregate into one node, which is exactly the
 granularity an ordering discipline is written against. Name locks
 ``<package>.<what>`` (e.g. ``kube.breaker``, ``trace.ring``).
 
+``Condition.wait`` releases the underlying lock for the wait's
+duration; the wrapper mirrors that in the held-set, so waiting under a
+condition can never fabricate a false ordering edge.
+
 The detector's own state is guarded by a RAW ``threading.Lock`` — it
 cannot instrument itself, and that lock is a leaf (no other lock is
 ever taken under it).
 
 A copy of ``instaslice_tpu/utils/lockcheck.py`` (the port imports
-nothing of the JAX package), trimmed to what the port's server uses:
-:func:`named_lock`, :func:`debug_locks_payload`,
-:func:`named_condition` (the device plugin's health condition) and the
-re-entrant :func:`named_rlock` (the fake apiserver's store). Left
-out: arming from code (``arm``/``disarm``/``armed``),
-the test-isolation helpers (``reset``/``snapshot``/``restore``) and the
-session gate (``assert_clean``, ``LockOrderError``).
+nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -74,6 +76,75 @@ _tls = threading.local()
 #: surface — a momentarily stale view is fine). Guarded by _state_lock
 #: for membership only; dead threads are pruned on read.
 _thread_stacks: Dict[threading.Thread, list] = {}
+
+
+class LockOrderError(AssertionError):
+    """Raised by :func:`assert_clean` when any lock-order cycle was
+    observed (the wrapped report rides in ``.report``)."""
+
+    def __init__(self, message: str, report_dict: dict) -> None:
+        super().__init__(message)
+        self.report = report_dict
+
+
+def arm() -> None:
+    """Turn detection on (tests; equivalent to TPUSLICE_LOCKCHECK=1)."""
+    global _armed
+    _armed = True
+
+
+def disarm() -> None:
+    global _armed
+    _armed = False
+
+
+def armed() -> bool:
+    return _armed
+
+
+def reset() -> None:
+    """Drop all recorded edges/cycles/holds (test isolation)."""
+    with _state_lock:
+        _edges.clear()
+        _cycles.clear()
+        _holds.clear()
+        del _long_holds[:]
+
+
+def snapshot() -> dict:
+    """Opaque copy of the detector's global state, for :func:`restore`.
+
+    Tests that must :func:`reset` for isolation (test_lockcheck.py's
+    deliberate cycles) stash the session's REAL findings first and merge
+    them back after — otherwise an armed full-suite run
+    (``TPUSLICE_LOCKCHECK=1``) would have its genuine project-lock
+    cycles erased before the conftest session gate reads them."""
+    with _state_lock:
+        return {
+            "edges": {k: list(v) for k, v in _edges.items()},
+            "cycles": [dict(c) for c in _cycles],
+            "holds": {k: list(v) for k, v in _holds.items()},
+            "long_holds": list(_long_holds),
+        }
+
+
+def restore(snap: dict) -> None:
+    """Merge a :func:`snapshot` back into the current state (edge and
+    hold counts add; cycles and long-hold incidents append)."""
+    with _state_lock:
+        for key, (thread, count) in snap["edges"].items():
+            rec = _edges.get(key)
+            if rec is None:
+                _edges[key] = [thread, count]
+            else:
+                rec[1] += count
+        _cycles.extend(dict(c) for c in snap["cycles"])
+        for name, (count, total, mx) in snap["holds"].items():
+            rec = _holds.setdefault(name, [0, 0.0, 0.0])
+            rec[0] += count
+            rec[1] += total
+            rec[2] = max(rec[2], mx)
+        _long_holds.extend(snap["long_holds"])
 
 
 def report() -> dict:
@@ -141,6 +212,21 @@ def debug_locks_payload(qs: Optional[dict] = None) -> dict:
     return payload
 
 
+def assert_clean() -> None:
+    """Raise :class:`LockOrderError` if any ABBA cycle was observed.
+    The chaos tier calls this at session end, turning every chaos seed
+    into a lock-order regression test."""
+    rep = report()
+    if rep["cycles"]:
+        chains = "; ".join(
+            " -> ".join(c["chain"]) for c in rep["cycles"]
+        )
+        raise LockOrderError(
+            f"lock-order cycles detected: {chains} "
+            "(see .report for edges/threads)", rep,
+        )
+
+
 # ------------------------------------------------------------ internals
 
 
@@ -161,7 +247,7 @@ def _find(st: list, key: int) -> Optional[list]:
     return None
 
 
-def _before_acquire(name: str, key: int, reentrant: bool = False) -> None:
+def _before_acquire(name: str, key: int, reentrant: bool = True) -> None:
     """Record ordering edges held-lock -> name; detect cycles the moment
     an edge closes one. Re-entry (same instance already held) records
     nothing for an RLock — its second acquire imposes no new order — but
@@ -240,11 +326,16 @@ def _on_release(name: str, key: int) -> None:
     st = _held()
     entry = _find(st, key)
     if entry is None:
-        return
+        return  # armed mid-hold (arm() raced an acquire) — tolerate
     entry[3] -= 1
     if entry[3] > 0:
         return
     st.remove(entry)
+    if not _armed:
+        # disarmed between acquire and release: drop the stale entry
+        # (a leftover would fabricate self-deadlocks/edges on re-arm)
+        # but record no stats for a hold that spanned the disarm
+        return
     held_for = time.monotonic() - entry[2]
     me = threading.current_thread().name
     with _state_lock:
@@ -281,7 +372,9 @@ class _InstrumentedLock:
         return ok
 
     def release(self) -> None:
-        if _armed:
+        # also run disarmed IF this thread has entries: a disarm between
+        # acquire and release must still pop the held-stack entry
+        if _armed or getattr(_tls, "stack", None):
             _on_release(self.name, id(self))
         self._inner.release()
 
@@ -297,15 +390,6 @@ class _InstrumentedLock:
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"<{type(self).__name__} {self.name!r} {self._inner!r}>"
-
-
-# ------------------------------------------------------------- factory
-
-
-def named_lock(name: str) -> _InstrumentedLock:
-    """A ``threading.Lock`` analog carrying ``name`` in the detector's
-    acquisition graph."""
-    return _InstrumentedLock(name)
 
 
 class _InstrumentedRLock(_InstrumentedLock):
@@ -324,13 +408,8 @@ class _InstrumentedRLock(_InstrumentedLock):
         return True
 
 
-def named_rlock(name: str) -> _InstrumentedRLock:
-    """Re-entrant variant; re-entry records no ordering edges."""
-    return _InstrumentedRLock(name)
-
-
 class _InstrumentedCondition(threading.Condition):
-    """``threading.Condition`` over its usual raw lock, with the
+    """``threading.Condition`` over its usual raw (R)Lock, with the
     enter/exit/wait surface instrumented at the condition level. The
     held-set entry is *suspended* across ``wait()`` — the lock really is
     released for the wait's duration, and modeling it as held would
@@ -347,6 +426,8 @@ class _InstrumentedCondition(threading.Condition):
         self.acquire = self._acquire_instrumented
         self.release = self._release_instrumented
 
+    # with-statement / explicit acquire-release ------------------------
+
     def _acquire_instrumented(self, *args, **kwargs) -> bool:
         if _armed:
             _before_acquire(self.name, id(self))
@@ -356,7 +437,7 @@ class _InstrumentedCondition(threading.Condition):
         return ok
 
     def _release_instrumented(self) -> None:
-        if _armed:
+        if _armed or getattr(_tls, "stack", None):
             _on_release(self.name, id(self))
         self._lock.release()
 
@@ -366,6 +447,8 @@ class _InstrumentedCondition(threading.Condition):
 
     def __exit__(self, *exc) -> None:
         self._release_instrumented()
+
+    # wait --------------------------------------------------------------
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         suspended = None
@@ -383,6 +466,20 @@ class _InstrumentedCondition(threading.Condition):
                 _held().append(suspended)
 
     # wait_for() delegates to wait(); notify/notify_all need no hooks
+
+
+# ------------------------------------------------------------- factory
+
+
+def named_lock(name: str) -> _InstrumentedLock:
+    """A ``threading.Lock`` analog carrying ``name`` in the detector's
+    acquisition graph."""
+    return _InstrumentedLock(name)
+
+
+def named_rlock(name: str) -> _InstrumentedRLock:
+    """Re-entrant variant; re-entry records no ordering edges."""
+    return _InstrumentedRLock(name)
 
 
 def named_condition(name: str, lock=None) -> _InstrumentedCondition:

@@ -5,7 +5,8 @@ OpenTelemetry/pprof anywhere in its go.mod). This module closes that gap
 without external deps: every reconcile, device-layer operation, kube API
 request, and serving-engine dispatch becomes a span in a thread-safe
 in-memory ring (inspectable in tests, from the CLI, and over
-``GET /v1/debug/trace``). Spans are cheap enough to
+``GET /v1/debug/trace``), optionally streamed as JSON lines to
+``TPUSLICE_TRACE_FILE`` for offline analysis. Spans are cheap enough to
 leave on in production — a monotonic clock read and a deque append per
 span.
 
@@ -21,9 +22,7 @@ that trace regardless of the ambient context (the cross-process
 propagation hook); ``parent_id=`` links it under a specific span.
 
 A copy of ``instaslice_tpu/utils/trace.py`` (the port imports nothing of
-the JAX package), trimmed to what the port's server uses. Left out: the
-JSON-lines sink (``TPUSLICE_TRACE_FILE``), ``current_span``,
-``Tracer.clear``/``close`` and ``reset_tracer``.
+the JAX package).
 """
 
 from __future__ import annotations
@@ -31,7 +30,10 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import json
+import os
 import re
+import threading
 import time
 import uuid
 from collections import deque
@@ -94,13 +96,28 @@ _CURRENT: contextvars.ContextVar[Optional[Span]] = contextvars.ContextVar(
 )
 
 
+def current_span() -> Optional[Span]:
+    return _CURRENT.get()
+
+
 class Tracer:
     """Per-process tracer: bounded ring of finished spans + counters."""
 
-    def __init__(self, capacity: int = 4096) -> None:
+    def __init__(self, capacity: int = 4096,
+                 trace_file: Optional[str] = None) -> None:
         self._lock = named_lock("trace.ring")
         self._spans: deque = deque(maxlen=capacity)
         self._counts: Dict[str, int] = {}
+        self._file = None
+        # file writes get their own lock so a slow disk can't serialize
+        # every reconcile thread behind the hot span-record lock; the
+        # handle check AND the write both happen under it, so close()
+        # can never yank the handle between them (and a write landing
+        # after close is silently dropped, never an exception)
+        self._file_lock = named_lock("trace.file")
+        path = trace_file or os.environ.get("TPUSLICE_TRACE_FILE")
+        if path:
+            self._file = open(path, "a", buffering=1)
 
     @contextlib.contextmanager
     def span(self, name: str, trace_id: Optional[str] = None,
@@ -180,6 +197,12 @@ class Tracer:
         with self._lock:
             self._spans.append(rec)
             self._counts[rec.name] = self._counts.get(rec.name, 0) + 1
+            sink = self._file
+        if sink is not None:
+            line = json.dumps(rec.to_dict()) + "\n"
+            with self._file_lock:
+                if self._file is not None:
+                    self._file.write(line)
 
     # ------------------------------------------------------------ querying
 
@@ -221,6 +244,25 @@ class Tracer:
             by, counts={n: counts.get(n) for n in by}
         )
 
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counts.clear()
+
+    def close(self) -> None:
+        """Close the trace-file handle. Idempotent, and safe against
+        concurrent span completion: the span path re-checks the handle
+        under the same lock, so a write racing close is dropped rather
+        than hitting a closed file."""
+        with self._file_lock:
+            f, self._file = self._file, None
+        if f is not None:
+            try:
+                f.close()
+            except OSError:
+                pass
+
+
 def summarize_durations(
     by_name: Dict[str, List[float]],
     counts: Optional[Dict[str, Optional[int]]] = None,
@@ -246,7 +288,9 @@ def summarize_durations(
 def debug_trace_payload(qs: Dict[str, list],
                         tracer: Optional["Tracer"] = None) -> dict:
     """Build the ``GET /v1/debug/trace`` response payload from parsed
-    query-string lists (serving/api_server.py). With no ``trace_id`` filter: per-span-name
+    query-string lists — shared by the serving api_server, the router,
+    and the operator probe servers so the debug surface cannot drift
+    between planes. With no ``trace_id`` filter: per-span-name
     summaries, the slowest root spans, and the most recent spans
     (``n`` bounds both lists, default 20). With ``?trace_id=X``: every
     ring span of that trace in start order. Raises :class:`ValueError`
@@ -291,3 +335,17 @@ def get_tracer() -> Tracer:
         if _default is None:
             _default = Tracer()
         return _default
+
+
+def reset_tracer(tracer: Optional[Tracer] = None) -> None:
+    """Swap the process-wide default tracer (test isolation: a test that
+    sets ``TPUSLICE_TRACE_FILE`` needs the default re-created so the env
+    var is re-read, and the OLD default's file handle closed — otherwise
+    every later test appends to the first test's temp file). The old
+    default is closed; ``tracer=None`` lets the next :func:`get_tracer`
+    lazily build a fresh one."""
+    global _default
+    with _default_lock:
+        old, _default = _default, tracer
+    if old is not None:
+        old.close()

@@ -211,11 +211,12 @@ OPERATOR_CLI = {
 }
 
 
-#: the fleet router and the load generator: both checks below must reach
-#: them too
+#: the fleet router, the load generator and the fleet telemetry plane:
+#: both checks below must reach them too
 FLEET_TOOLS = {
     "instaslice_tpu_torch.serving.router",
     "instaslice_tpu_torch.serving.loadgen",
+    "instaslice_tpu_torch.obs.telemetry",
 }
 
 
