@@ -182,6 +182,18 @@ bench:  ## Headline benchmark: slice-grant p50 latency (one JSON line)
 verify-manifests:  ## Fail if checked-in CRD yaml drifted from the code
 	$(PY) tools/gen_manifests.py --check
 
+.PHONY: gpu-manifests
+gpu-manifests:  ## Render the PyTorch/CUDA port's deploy plane (instaslice_tpu_torch/deploy/config + samples) from instaslice_tpu_torch.deploy.manifests
+	$(PY) -m instaslice_tpu_torch.deploy.gen_manifests
+
+.PHONY: gpu-verify-manifests
+gpu-verify-manifests:  ## Fail if the port's checked-in deploy tree drifted from the code
+	$(PY) -m instaslice_tpu_torch.deploy.gen_manifests --check
+
+.PHONY: gpu-test-deploy
+gpu-test-deploy:  ## The port's deploy-plane validation without a cluster: apply the rendered tree over HTTP to the port's fake apiserver, cross-check references and GPU-node needs, lint the port's Dockerfiles against pyproject scripts
+	$(PY) -m instaslice_tpu_torch.deploy.check
+
 # ----------------------------------------------------------------- images
 
 .PHONY: docker-build
@@ -189,6 +201,12 @@ docker-build:  ## Controller, agent, and device-plugin images
 	docker build -f Dockerfile.controller -t $(IMG_PREFIX)-controller:$(TAG) .
 	docker build -f Dockerfile.agent -t $(IMG_PREFIX)-agent:$(TAG) .
 	docker build -f Dockerfile.deviceplugin -t $(IMG_PREFIX)-deviceplugin:$(TAG) .
+
+.PHONY: gpu-docker-build
+gpu-docker-build:  ## The PyTorch/CUDA port's controller, agent and device-plugin images (no PyTorch in any)
+	docker build -f instaslice_tpu_torch/deploy/Dockerfile.controller -t $(IMG_PREFIX)-gpu-controller:$(TAG) .
+	docker build -f instaslice_tpu_torch/deploy/Dockerfile.agent -t $(IMG_PREFIX)-gpu-agent:$(TAG) .
+	docker build -f instaslice_tpu_torch/deploy/Dockerfile.deviceplugin -t $(IMG_PREFIX)-gpu-deviceplugin:$(TAG) .
 
 .PHONY: build-images
 build-images:  ## Build the images with whatever builder exists; without one, execute the Dockerfiles' build steps on the host and log the proof (deploy/docker-build.log)

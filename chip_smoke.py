@@ -234,7 +234,11 @@ in one process (the ring runs no kernel); (e) GPipe at pipe 2, 4
 micro-batches, the 871M widths at 2 layers, 3 steps against the
 one-process step, B5-B7 5 a step per stage; the phase logs its seconds.
 slice: the slice/device layer on the card, from discovery to a
-granted device that serves and back (``phase_slice``): the NVML
+granted device that serves and back (``phase_slice``), its backend and
+plugin from the port's rendered device-plugin DaemonSet
+(``deploy/manifests.py``: the command through ``[project.scripts]``,
+its args through the CLI's parser, its host paths mapped to the
+phase's directories): the NVML
 backend's ctypes struct layouts against the toolkit's ``nvml.h``
 (``device/nvml_layout.c``); ``select_backend("auto")`` is the NVML
 backend; its inventory (name, UUID, memory, power limit beside
@@ -285,7 +289,12 @@ on its ``/v1/debug/events``). Boot to CR, realize and teardown
 latency and the first burst's tok/s are printed beside the card.
 
 controller: InstaSlice's pod loop by the port's controller and agent
-processes over HTTP (``phase_controller``): a gated sample pod placed,
+processes over HTTP (``phase_controller``), each started from the port's
+rendered Deployment and DaemonSet (their commands through
+``[project.scripts]``, their args and env as rendered, the registry
+mapped by ``TPUSLICE_REGISTRY_DIR``, the JSON kubeconfig by
+``KUBECONFIG``), the seconds from each spawn to its probes answering 200
+logged: the port's sample pod (``deploy/samples/test-pod.yaml``) placed,
 realized and ungated; while it is granted, ``tpuslice-gpu status
 --json`` and ``describe pod --json`` read the live apiserver (one node
 of the card's generation, the slice ungated and realized 1/1, the
@@ -6504,10 +6513,11 @@ class SmokeKubelet:
         self._server.stop(grace=0.5)
 
 
-def plugin_exchange(backend, res, gpu: int) -> dict:
+def plugin_exchange(backend, res, gpu: int, pdir: str) -> dict:
     """The device plugin on the card's reservation, driven as the
     kubelet drives it, through the port's wire only: the slice manager
-    over ``backend``, registered with a kubelet of the port's wire; on
+    over ``backend``, its sockets in ``pdir`` (the kubelet's directory
+    as the phase maps it), registered with a kubelet of the port's wire; on
     one connection the options, the first ListAndWatch update (exactly
     ``slice-<uuid>``, Healthy), GPU ``gpu`` marked unhealthy and healed
     (each update within 1 s), GetPreferredAllocation, Allocate; the
@@ -6515,8 +6525,6 @@ def plugin_exchange(backend, res, gpu: int) -> dict:
     plugin's socket removed: a second Register within the poll period).
     Returns the readings and Allocate's container response."""
     import os
-    import shutil
-    import tempfile
 
     from instaslice_tpu_torch.deviceplugin.server import (
         SlicePluginManager,
@@ -6532,8 +6540,6 @@ def plugin_exchange(backend, res, gpu: int) -> dict:
         StatusCode,
     )
 
-    # a short directory: unix socket paths stop at 107 characters
-    pdir = tempfile.mkdtemp(prefix="dp", dir="/tmp")
     kubelet = SmokeKubelet(pdir)
     mgr = None
     out = {}
@@ -6604,7 +6610,6 @@ def plugin_exchange(backend, res, gpu: int) -> dict:
         if mgr is not None:
             mgr.stop()
         kubelet.stop()
-        shutil.rmtree(pdir, ignore_errors=True)
     out["allocate"] = {"envs": dict(cresp.envs),
                        "devices": [d.host_path for d in cresp.devices],
                        "annotations": dict(cresp.annotations)}
@@ -6695,7 +6700,21 @@ def phase_slice(torch, card: str, served: list) -> dict:
     two-worker grant on the device (:func:`dcn_smoke_on_card`); (e) the
     release: no reservation left, and no MIG instance of ours. The
     registry lives in a temporary directory of the phase's own; nothing
-    changes MIG mode or touches an instance the phase did not make."""
+    changes MIG mode or touches an instance the phase did not make.
+
+    The plugin is the port's rendered device-plugin DaemonSet
+    (:func:`manifest_container`): its command resolved through
+    ``pyproject.toml``'s ``[project.scripts]`` to
+    ``deviceplugin_main``, whose parser reads the DaemonSet's args
+    (``--backend=auto``); the backend is the one ``--backend`` names, over
+    the registry host path mapped to the phase's directory, and the
+    plugin's sockets go where the parsed ``--plugin-dir`` (the CLI's
+    default, the DaemonSet's mount of the kubelet's directory) is mapped,
+    a short directory of the phase's own under ``/tmp``. It runs in this
+    process, as the slice manager that advertises reservations (the
+    CLI's own loop serves whole GPUs), so that the phase can mark a GPU
+    unhealthy and heal it."""
+    import importlib
     import os
     import shutil
     import tempfile
@@ -6708,16 +6727,35 @@ def phase_slice(torch, card: str, served: list) -> dict:
     )
     from instaslice_tpu_torch.device import NvmlBackend, NvmlError
     from instaslice_tpu_torch.device import select_backend
+    from instaslice_tpu_torch.device.nvml import DEFAULT_REGISTRY
+    from instaslice_tpu_torch.deviceplugin.server import DEFAULT_PLUGIN_DIR
     from instaslice_tpu_torch.topology import Occupancy, get_policy, mig
 
     t_phase = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix="slice-"))
+    # a short directory: unix socket paths stop at 107 characters
+    pdir = tempfile.mkdtemp(prefix="dp", dir="/tmp")
     out = {}
     backend = res = None
     try:
-        # (a) discovery
+        # (a) the device plugin's DaemonSet, and discovery
+        dp_m = manifest_container("deviceplugin", {
+            DEFAULT_REGISTRY: str(work / "reg"), DEFAULT_PLUGIN_DIR: pdir,
+            "/dev": "/dev"})
+        dp_args = importlib.import_module(
+            dp_m["module"]).build_parser().parse_args(dp_m["args"])
+        check(dp_args.plugin_dir in dp_m["paths"]
+              and DEFAULT_REGISTRY in dp_m["paths"],
+              f"slice: the DaemonSet mounts {sorted(dp_m['paths'])}, the "
+              f"plugin reads {dp_args.plugin_dir} and {DEFAULT_REGISTRY}")
+        out["plugin_manifest"] = {k: dp_m[k] for k in (
+            "workload", "command", "target", "args", "env", "paths")}
+        log(f"slice (a): {dp_m['workload']}: {dp_m['command'][0]} -> "
+            f"{dp_m['target']} {' '.join(dp_m['args'])}; env {dp_m['env']}; "
+            f"host paths {dp_m['paths']}")
         out["layout"] = nvml_layout_check(work)
-        backend = select_backend("auto", registry_dir=str(work / "reg"))
+        backend = select_backend(
+            dp_args.backend, registry_dir=dp_m["paths"][DEFAULT_REGISTRY])
         check(isinstance(backend, NvmlBackend),
               f"slice: auto gave {type(backend).__name__}")
         inv = backend.discover()
@@ -6734,7 +6772,8 @@ def phase_slice(torch, card: str, served: list) -> dict:
             "mig": [g.mig_current, g.mig_pending],
             "profiles": list(g.profiles), "profiles_error": g.profiles_error,
             "catalog_diff": diff, "mig_devices": list(g.mig_devices)}
-        log(f"slice (a): select_backend('auto') -> {type(backend).__name__}"
+        log(f"slice (a): select_backend({dp_args.backend!r}) -> "
+            f"{type(backend).__name__}"
             f"; nvml.h layouts equal ctypes'; {inv.chip_count} GPU(s), "
             f"GPU 0 {g.name} {g.uuid}, {g.memory_bytes / 2 ** 30:.2f} GiB, "
             f"power limit {g.power_limit_w:.2f} W (nvidia-smi: {card}); MIG "
@@ -6803,7 +6842,8 @@ def phase_slice(torch, card: str, served: list) -> dict:
               "slice: a second reserve of the device is refused")
         # (c2) the device plugin, driven as the kubelet drives it
         t0 = time.perf_counter()
-        dp = plugin_exchange(backend, res, gpu)
+        dp = plugin_exchange(backend, res, gpu,
+                             dp_m["paths"][dp_args.plugin_dir])
         dp["seconds"] = time.perf_counter() - t0
         out["plugin"] = dp
         log(f"slice (c2): the plugin registered {dp['registration']} in "
@@ -6919,6 +6959,7 @@ def phase_slice(torch, card: str, served: list) -> dict:
         if backend is not None:
             backend.close()
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(pdir, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"slice: {out['seconds']:.1f} s")
     return out
@@ -7001,42 +7042,154 @@ def wait_until(fn, what: str, timeout: float = AGENT_WAIT_S,
         time.sleep(poll)
 
 
+def manifest_container(component: str, mounts: dict,
+                       values: dict | None = None) -> dict:
+    """The port's rendered workload ``component`` (``controller``,
+    ``agent`` or ``deviceplugin``: ``deploy/manifests.py`` after
+    ``config/default``'s patches, read as dicts, no YAML) as a process
+    here: its container's command resolved through ``pyproject.toml``'s
+    ``[project.scripts]`` to ``module:function``, its env (``NODE_NAME``
+    from the downward API as the phase's node), and each host path it
+    mounts mapped through ``mounts`` (host path -> a directory of the
+    phase's own; ``/dev`` is the host's). Where the code reads a mounted
+    path by itself, the package's override (``device/nvml.REGISTRY_ENV``,
+    ``TPUSLICE_REGISTRY_DIR``, for the registry) names the phase's
+    directory in the env; ``paths`` maps each mount path for a caller
+    that hands it on. Its args are the manifest's, with two kinds of
+    value mapped as the host paths are: each bind address
+    (``--metrics-bind-address=``, ``--health-probe-bind-address=``) to
+    a free port on 127.0.0.1, so that nothing binds a fixed port or
+    every interface of this host (``binds``: the manifest's value ->
+    the phase's), and each flag of ``values`` (which the manifest must
+    carry) to the value given there. Nothing is written under ``/run``
+    or ``/var/lib``. The sidecar (kube-rbac-proxy, not the port's) is not
+    run."""
+    import socket
+    import tomllib
+
+    from instaslice_tpu_torch.deploy.manifests import PREFIX, workload
+    from instaslice_tpu_torch.device.nvml import (
+        DEFAULT_REGISTRY,
+        REGISTRY_ENV,
+    )
+
+    doc = workload(component)
+    spec = doc["spec"]["template"]["spec"]
+    (ctr,) = [c for c in spec["containers"]
+              if c["image"].startswith(PREFIX)]
+    with open(HERE / "pyproject.toml", "rb") as f:
+        target = tomllib.load(f)["project"]["scripts"][ctr["command"][0]]
+    module, func = target.split(":")
+    env = {}
+    for e in ctr.get("env", []):
+        if "value" in e:
+            env[e["name"]] = e["value"]
+        else:
+            check(e["valueFrom"]["fieldRef"]["fieldPath"] == "spec.nodeName",
+                  f"manifest: {component} env {e}")
+            env[e["name"]] = AGENT_NODE
+    hosts = {v["name"]: v["hostPath"]["path"] for v in spec.get("volumes", [])}
+    paths = {}
+    for m in ctr.get("volumeMounts", []):
+        host = hosts[m["name"]]
+        check(host in mounts, f"manifest: no directory for {component}'s "
+              f"host path {host}")
+        paths[m["mountPath"]] = mounts[host]
+        if m["mountPath"] == DEFAULT_REGISTRY:
+            env[REGISTRY_ENV] = mounts[host]
+    values = dict(values or {})
+    args, binds, probe_port = [], {}, 0
+    for a in ctr.get("args", []):
+        flag, eq, val = a.partition("=")
+        if flag in ("--metrics-bind-address", "--health-probe-bind-address"):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            binds[val] = f"127.0.0.1:{port}"
+            if flag == "--health-probe-bind-address":
+                probe_port = port
+            a = f"{flag}=127.0.0.1:{port}"
+        elif eq and flag in values:
+            a = f"{flag}={values.pop(flag)}"
+        args.append(a)
+    check(not values, f"manifest: {component} carries no "
+          f"{sorted(values)}")
+    return {"workload": f"{doc['kind']}/{doc['metadata']['name']}",
+            "command": ctr["command"], "target": target, "module": module,
+            "function": func, "args": args, "binds": binds,
+            "env": env, "paths": paths, "probe_port": probe_port}
+
+
 class AgentProcess:
-    """One run of :func:`agent_child` (or, with ``child="controller"``,
-    of :func:`controller_child`) in a fresh process, its output in
-    ``log``."""
+    """One run of :func:`agent_child`, or with ``manifest`` of the port's
+    rendered workload of that name (:func:`manifest_container`: its
+    console script's function on its args, its env, its host paths in
+    ``work``), in a fresh process, its output in ``log``. A manifest's
+    process reads the phase's JSON kubeconfig (``KUBECONFIG``, standing in
+    for the in-cluster service account: the child's env has no
+    ``KUBERNETES_SERVICE_HOST``), runs the controller's
+    ``--deletion-grace-seconds`` at ``CONTROLLER_GRACE_S``, and answers
+    its probes on the free port its probe bind address was mapped to."""
 
     def __init__(self, work: Path, n: int, crash_at: str = "",
-                 child: str = "agent") -> None:
+                 manifest: str = "") -> None:
         import os
         import socket
 
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        self.url = f"http://127.0.0.1:{port}"
         env = dict(os.environ)
         env.pop("TPUSLICE_CRASH_AT", None)
         if crash_at:
             env.update(TPUSLICE_CRASH_AT=crash_at, TPUSLICE_CRASH_HARD="1")
-        self.log = work / f"{child}{n}.log"
         kubeconfig = str(work / "kubeconfig.json")
-        call = (f"agent_child({kubeconfig!r}, {str(work / 'reg')!r}, "
-                f"'127.0.0.1:{port}')" if child == "agent" else
-                f"controller_child({kubeconfig!r}, '127.0.0.1:{port}')")
+        if manifest:
+            from instaslice_tpu_torch.device.nvml import DEFAULT_REGISTRY
+
+            m = manifest_container(
+                manifest, {DEFAULT_REGISTRY: str(work / "reg"),
+                           "/dev": "/dev"},
+                {"--deletion-grace-seconds": str(CONTROLLER_GRACE_S)}
+                if manifest == "controller" else None)
+            for k in ("KUBERNETES_SERVICE_HOST", "KUBERNETES_SERVICE_PORT"):
+                env.pop(k, None)
+            env.update(m["env"], KUBECONFIG=kubeconfig)
+            self.manifest = m
+            port = m["probe_port"]
+            code = (f"import sys; sys.path.insert(0, {str(HERE)!r}); "
+                    f"from {m['module']} import {m['function']}; "
+                    f"sys.exit({m['function']}(sys.argv[1:]))")
+            argv = [sys.executable, "-c", code, *m["args"]]
+            name = manifest
+        else:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            call = (f"agent_child({kubeconfig!r}, {str(work / 'reg')!r}, "
+                    f"'127.0.0.1:{port}')")
+            argv = [sys.executable, "-c", "import sys; sys.path.insert(0, "
+                    f"{str(HERE)!r}); import chip_smoke; sys.exit(chip_smoke."
+                    f"{call})"]
+            name = "agent"
+        self.url = f"http://127.0.0.1:{port}"
+        self.log = work / f"{name}{n}.log"
         self.t0 = time.perf_counter()
         with open(self.log, "w") as out:
-            self.proc = subprocess.Popen(
-                [sys.executable, "-c", "import sys; sys.path.insert(0, "
-                 f"{str(HERE)!r}); import chip_smoke; sys.exit(chip_smoke."
-                 f"{call})"],
-                env=env, cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+            self.proc = subprocess.Popen(argv, env=env, cwd=HERE, stdout=out,
+                                         stderr=subprocess.STDOUT)
 
     def tail(self) -> str:
         return self.log.read_text()[-3000:]
 
     def alive(self) -> bool:
         return self.proc.poll() is None
+
+    def probes_up(self, phase: str) -> bool:
+        """True once ``/healthz`` and ``/readyz`` both answer 200; fails
+        the phase if the process has exited."""
+        if not self.alive():
+            check(False, f"{phase}: {self.log.stem} exited "
+                  f"({self.proc.returncode}): {self.tail()}")
+        return all(http_get(f"{self.url}/{x}")[0] == 200
+                   for x in ("healthz", "readyz"))
 
     def stop(self) -> int:
         """SIGTERM, as the kubelet stops a pod; the exit code."""
@@ -7427,27 +7580,11 @@ def phase_agent(torch, card: str, served: list) -> dict:
     return out
 
 
-#: the deletion grace the controller phase's controller runs with (the
-#: CLI's default is 30 s)
+#: the deletion grace the controller phase's controller runs with, in
+#: place of the Deployment's ``--deletion-grace-seconds=30``
 CONTROLLER_GRACE_S = 1.0
 #: how often the controller phase polls the apiserver for a step's effect
 CONTROLLER_POLL_S = 0.002
-
-
-def controller_child(kubeconfig: str, probe: str) -> int:
-    """The controller as ``tpuslice-gpu-controller`` runs it:
-    ``controller_main.main`` -> ``run_controller`` ->
-    ``ControllerRunner.from_args`` over the port's HTTP client, leader
-    elected on its Lease, with a deletion grace of ``CONTROLLER_GRACE_S``
-    and its probes on ``probe``. ``TPUSLICE_CRASH_AT`` in the
-    environment arms its crash points."""
-    from instaslice_tpu_torch.cli import controller_main
-
-    return controller_main.main([
-        "--kubeconfig", kubeconfig, "--leader-elect",
-        "--deletion-grace-seconds", str(CONTROLLER_GRACE_S),
-        "--health-probe-bind-address", probe,
-        "--metrics-bind-address", "127.0.0.1:0"])
 
 
 def first_times(conds: dict, what: str, t0: float,
@@ -7470,34 +7607,51 @@ def first_times(conds: dict, what: str, t0: float,
 def phase_controller(torch, card: str, served: list) -> dict:
     """InstaSlice's whole pod loop on the card, the port's controller and
     node agent each in a process of its own over HTTP, the agent over
-    NVML: (a) the port's ``kube/httptest`` serves a ``FakeKube`` on
+    NVML, each started from the port's deploy plane as a cluster would
+    start it: (a) the port's ``kube/httptest`` serves a ``FakeKube`` on
     127.0.0.1 behind a bearer token, with a JSON kubeconfig, a ``Node``
-    and the ``TpuSlice`` CRD; (b) the agent (:func:`agent_child`)
-    publishes the node's CR, and the controller (:func:`controller_child`,
-    ``tpuslice-gpu-controller --leader-elect``) takes the Lease; both
-    probes answer 200; (c) a gated pod built as InstaSlice's sample pod
-    (the gate, the finalizer, ``nvidia.com/mig-3g.40gb: 1`` where MIG is
-    on, else ``nvidia.com/gpu: 1``, the per-pod resource, ``envFrom`` its
-    ConfigMap) is placed first-fit on ``gpu0`` in the node's CR, realized
-    and ungated by the two processes alone, with ``Admitted``,
-    ``Placed`` and ``Ungated`` in the controller's journal; (d) the smoke,
-    as the scheduler, finds the pod's resource on the Node and binds the
-    pod, and the workload (:func:`granted_workload`) serves the serve
-    phase's tokens on the ConfigMap's env; (e) a second pod that cannot
-    fit beside it (``nvidia.com/gpu`` with MIG off, ``7g.80gb`` with MIG
-    on) waits with ``NoCapacity`` and no record; (f) the first pod
-    deleted is torn down after the grace (record deleted, then erased by
-    the agent; ConfigMap, Node resource, reservation and pod gone) and the
-    waiting pod is granted; (g) the controller is replaced by one armed to
-    crash hard at ``controller.ungate``; the second pod deleted, a third
-    is placed and realized, and the armed controller dies with its gate
-    removed and its record ``created``; a new controller takes the Lease
-    once the dead one's expires and brings the record to ``ungated``
-    without a second placement or reservation (its journal: ``Ungated``
-    for the pod, no ``Admitted`` or ``Placed``). The third pod deleted,
-    nothing of the phase's is left: no reservation, MIG instance,
-    ConfigMap or record. The phase reads MIG mode and never sets it; the
-    device plugin stays out of this chain."""
+    and the ``TpuSlice`` CRD; (b) the agent DaemonSet's and the manager
+    Deployment's containers (``deploy/manifests.py`` rendered with
+    ``config/default``'s patches, read as dicts:
+    :func:`manifest_container`) run as processes: each command resolved
+    through ``pyproject.toml``'s ``[project.scripts]``
+    (``tpuslice-gpu-agent --backend=auto --metrics-bind-address=:8084
+    --health-probe-bind-address=:8085`` with ``NODE_NAME`` and NVIDIA's
+    runtime env; ``tpuslice-gpu-controller --leader-elect
+    --metrics-bind-address=127.0.0.1:8080
+    --health-probe-bind-address=:8081 --deletion-grace-seconds=30``),
+    the registry's host path mapped to the phase's directory
+    (``TPUSLICE_REGISTRY_DIR``), each bind address to a free port on
+    127.0.0.1 and the grace to ``CONTROLLER_GRACE_S`` (values of flags
+    the manifests carry, the mapping logged), the JSON kubeconfig in
+    place of the in-cluster service account (``KUBECONFIG``): no flag the
+    manifests do not carry. The agent publishes the node's CR and the controller takes the
+    Lease; the seconds from each spawn to both probes answering 200 are
+    logged; (c) a gated pod, the port's ``deploy/samples/test-pod.yaml``
+    renamed, its MIG request replaced by ``nvidia.com/mig-3g.40gb: 1``
+    where MIG is on, else ``nvidia.com/gpu: 1`` (the gate, the finalizer,
+    the per-pod resource and ``envFrom`` its ConfigMap kept), is placed
+    first-fit on ``gpu0`` in the node's CR, realized and ungated by the
+    two processes alone, with ``Admitted``, ``Placed`` and ``Ungated`` in
+    the controller's journal; (d) the smoke, as the scheduler, finds the
+    pod's resource on the Node and binds the pod, and the workload
+    (:func:`granted_workload`, in place of the sample's container)
+    serves the serve phase's tokens on the ConfigMap's env; (e) a second
+    pod that cannot fit beside it (``nvidia.com/gpu`` with MIG off,
+    ``7g.80gb`` with MIG on) waits with ``NoCapacity`` and no record; (f)
+    the first pod deleted is torn down after the grace (record deleted,
+    then erased by the agent; ConfigMap, Node resource, reservation and
+    pod gone) and the waiting pod is granted; (g) the controller is
+    replaced by one armed to crash hard at ``controller.ungate``; the
+    second pod deleted, a third is placed and realized, and the armed
+    controller dies with its gate removed and its record ``created``; a
+    new controller takes the Lease once the dead one's expires and brings
+    the record to ``ungated`` without a second placement or reservation
+    (its journal: ``Ungated`` for the pod, no ``Admitted`` or
+    ``Placed``). The third pod deleted, nothing of the phase's is left:
+    no reservation, MIG instance, ConfigMap or record. The phase reads MIG
+    mode and never sets it; the device plugin stays out of this chain."""
+    import copy
     import shutil
     import tempfile
 
@@ -7569,28 +7723,36 @@ def phase_controller(torch, card: str, served: list) -> dict:
         return (lease_holder() or "").endswith(f"-{proc.proc.pid}")
 
     def controller(n, crash_at=""):
-        p = AgentProcess(work, n, crash_at=crash_at, child="controller")
+        p = AgentProcess(work, n, crash_at=crash_at, manifest="controller")
         procs.append(p)
         return p
 
     def wait(fn, what, poll=0.01):
         return wait_until(fn, what, poll=poll, phase="controller")
 
-    def pod_manifest(name, request):
-        """InstaSlice's sample pod (``samples/test-pod.yaml``) with the
-        port's gate, finalizer and resources."""
-        return {
-            "apiVersion": "v1", "kind": "Pod",
-            "metadata": {"name": name, "namespace": "default",
-                         "finalizers": [FINALIZER]},
-            "spec": {
-                "schedulingGates": [{"name": GATE_NAME}],
-                "containers": [{
-                    "name": "server",
-                    "resources": {"limits": {
-                        request: "1", f"{POD_RESOURCE_PREFIX}{name}": "1"}},
-                    "envFrom": [{"configMapRef": {"name": name}}]}]},
-            "status": {"phase": "Pending"}}
+    def sample_pod(name, request):
+        """The port's sample pod (``deploy/samples/test-pod.yaml``, read
+        as dicts) as ``name``, asking for ``request``: its per-pod
+        resource and ``envFrom`` renamed with it, its MIG request
+        replaced by ``request``, the status the apiserver adds."""
+        from instaslice_tpu_torch.deploy.manifests import samples
+
+        (pod,) = copy.deepcopy(samples()["test-pod.yaml"][1])
+        old = pod["metadata"]["name"]
+        pod["metadata"].update(name=name, namespace="default")
+        (ctr,) = pod["spec"]["containers"]
+        limits = ctr["resources"]["limits"]
+        check(limits.pop(f"{POD_RESOURCE_PREFIX}{old}") == "1"
+              and [k for k in limits if k.startswith(MIG_RESOURCE_PREFIX)]
+              and ctr["envFrom"] == [{"configMapRef": {"name": old}}]
+              and pod["spec"]["schedulingGates"] == [{"name": GATE_NAME}]
+              and pod["metadata"]["finalizers"] == [FINALIZER],
+              f"controller: the sample pod {pod}")
+        ctr["resources"]["limits"] = {
+            request: "1", f"{POD_RESOURCE_PREFIX}{name}": "1"}
+        ctr["envFrom"] = [{"configMapRef": {"name": name}}]
+        pod["status"] = {"phase": "Pending"}
+        return pod
 
     try:
         # (a) the apiserver, its kubeconfig, the Node and the CRD
@@ -7622,27 +7784,36 @@ def phase_controller(torch, card: str, served: list) -> dict:
             f"{request}, the waiting one for {blocker}")
 
         # (b) the agent and the controller, each in a fresh process
-        agent = AgentProcess(work, 0)
+        agent = AgentProcess(work, 0, manifest="agent")
         procs.append(agent)
         ctl = controller(1)
-        ts = wait(lambda: cr() or (not agent.alive() and check(
-            False, f"controller: the agent exited: {agent.tail()}")),
-            "the agent's CR")
-        wait(lambda: holds_lease(ctl) or (not ctl.alive() and check(
-            False, f"controller: the controller exited: {ctl.tail()}")),
-            "the controller's Lease")
-        out["boot_to_lease_s"] = time.perf_counter() - ctl.t0
         for p in (agent, ctl):
-            wait(lambda p=p: all(http_get(f"{p.url}/{x}")[0] == 200
-                                 for x in ("healthz", "readyz")),
-                 "/healthz and /readyz 200", poll=0.05)
+            m = p.manifest
+            log(f"controller (b): {m['workload']}: {m['command'][0]} -> "
+                f"{m['target']} {' '.join(m['args'])}; env "
+                f"{m['env']}; host paths {m['paths']}; binds {m['binds']}")
+        t = first_times({
+            "agent_probe": lambda: agent.probes_up("controller"),
+            "controller_probe": lambda: ctl.probes_up("controller"),
+            "cr": lambda: cr() is not None,
+            "lease": lambda: holds_lease(ctl)},
+            "the agent's CR, the controller's Lease and both probes",
+            agent.t0)
+        ts = cr()
+        lag = ctl.t0 - agent.t0
+        out["probe_s"] = {"agent": t["agent_probe"],
+                          "controller": t["controller_probe"] - lag}
+        out["boot_to_cr_s"] = t["cr"]
+        out["boot_to_lease_s"] = t["lease"] - lag
         check(ts.spec.generation == gen and ts.spec.torus_group == AGENT_NODE,
               f"controller: CR {ts.spec.generation} {ts.spec.torus_group}")
         log(f"controller (b): the agent's CR {ns}/{AGENT_NODE} ({gen}, "
-            f"chips {ts.spec.chips}); the controller (pid "
-            f"{ctl.proc.pid}) holds Lease {LEASE_NAME} "
-            f"{out['boot_to_lease_s']:.2f} s after its start; both "
-            "processes' /healthz and /readyz 200")
+            f"chips {ts.spec.chips}) {out['boot_to_cr_s']:.2f} s after its "
+            f"spawn; the controller (pid {ctl.proc.pid}) holds Lease "
+            f"{LEASE_NAME} {out['boot_to_lease_s']:.2f} s after its spawn; "
+            f"spawn to /healthz and /readyz 200: agent "
+            f"{out['probe_s']['agent']:.3f} s, controller "
+            f"{out['probe_s']['controller']:.3f} s, on {card}")
 
         # (c) a gated pod, granted by the two processes alone
         group = mig.gpu_group(len(ts.spec.chips), gen, group_id=AGENT_NODE)
@@ -7653,7 +7824,7 @@ def phase_controller(torch, card: str, served: list) -> dict:
         pl = get_policy("first-fit").choose(group, want, occ)
         check(pl is not None, f"controller: no free {want.name}")
         t0 = time.perf_counter()
-        kube.create("Pod", pod_manifest("ctl-pod", request))
+        kube.create("Pod", sample_pod("ctl-pod", request))
         t = first_times({
             "record": lambda: record("ctl-pod") is not None,
             "configmap": lambda: get("ConfigMap", "default", "ctl-pod"),
@@ -7722,7 +7893,7 @@ def phase_controller(torch, card: str, served: list) -> dict:
             f"{w['counts']}; the process {out['workload_s']:.1f} s")
 
         # (e) a pod that cannot fit waits
-        kube.create("Pod", pod_manifest("ctl-wait", blocker))
+        kube.create("Pod", sample_pod("ctl-wait", blocker))
         wait(lambda: REASON_NO_CAPACITY in events(ctl, "ctl-wait"),
              "NoCapacity for ctl-wait", poll=0.05)
         check(record("ctl-wait") is None and gates("ctl-wait"),
@@ -7771,13 +7942,15 @@ def phase_controller(torch, card: str, served: list) -> dict:
         code = ctl.stop()
         check(code == 0, f"controller: SIGTERM exit {code}: {ctl.tail()}")
         armed = controller(2, crash_at="controller.ungate")
-        wait(lambda: holds_lease(armed) and http_get(
-            f"{armed.url}/readyz")[0] == 200, "the armed controller's Lease")
+        t = first_times({"probe": lambda: armed.probes_up("controller"),
+                         "lease": lambda: holds_lease(armed)},
+                        "the armed controller's Lease and probes", armed.t0)
+        out["probe_s"]["armed_controller"] = t["probe"]
         kube.delete("Pod", "default", "ctl-wait")
         wait(lambda: record("ctl-wait") is None
              and get("Pod", "default", "ctl-wait") is None,
              "ctl-wait torn down")
-        kube.create("Pod", pod_manifest("ctl-crash", request))
+        kube.create("Pod", sample_pod("ctl-crash", request))
         code = armed.proc.wait(timeout=AGENT_WAIT_S)
         t_dead = time.perf_counter()
         check(code == 17, f"controller: the armed controller exit {code} "
@@ -7788,9 +7961,12 @@ def phase_controller(torch, card: str, served: list) -> dict:
               f"controller: the crash left gates {gates('ctl-crash')}, "
               f"record {c and c.status}")
         succ = controller(3)
-        wait(lambda: holds_lease(succ), "the successor's Lease", poll=0.005)
-        out["failover_s"] = time.perf_counter() - t_dead
-        out["successor_start_to_lease_s"] = time.perf_counter() - succ.t0
+        t = first_times({"lease": lambda: holds_lease(succ),
+                         "probe": lambda: succ.probes_up("controller")},
+                        "the successor's Lease and probes", succ.t0)
+        out["failover_s"] = succ.t0 + t["lease"] - t_dead
+        out["successor_start_to_lease_s"] = t["lease"]
+        out["probe_s"]["successor"] = t["probe"]
         c2 = wait(lambda: (lambda r: r if r and r.status
                            == AllocationStatus.UNGATED else None)(
             record("ctl-crash")), "ctl-crash's record ungated")
@@ -7812,7 +7988,10 @@ def phase_controller(torch, card: str, served: list) -> dict:
             f"{out['failover_s']:.2f} s after the death "
             f"({out['successor_start_to_lease_s']:.2f} s after its own "
             f"start) and brought the record to ungated at {c2.box}, one "
-            f"reservation in the registry; its journal for ctl-crash: {evs}")
+            f"reservation in the registry; its journal for ctl-crash: {evs}; "
+            f"spawn to /healthz and /readyz 200: armed "
+            f"{out['probe_s']['armed_controller']:.3f} s, successor "
+            f"{out['probe_s']['successor']:.3f} s")
         kube.delete("Pod", "default", "ctl-crash")
         wait(lambda: record("ctl-crash") is None
              and get("Pod", "default", "ctl-crash") is None,
@@ -7837,6 +8016,7 @@ def phase_controller(torch, card: str, served: list) -> dict:
             "delete_to_pod_gone_ms": out["delete_to_pod_gone_ms"],
             "delete_to_waiting_grant_ms": out["delete_to_waiting_grant_ms"],
             "failover_s": out["failover_s"],
+            "spawn_to_probe_s": out["probe_s"],
             "first_burst_tok_s": w["tok_s"],
             "second_burst_tok_s": w["warm_tok_s"]}
         log("controller: " + json.dumps(out["numbers"]))

@@ -10,11 +10,16 @@ Every TPU kernel on the ported path is a hand-written CUDA kernel under
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no card the default raises instead of dropping to the CPU.
+
+Importing the package loads neither torch nor numpy: the control plane
+(the controller, the node agent, the device plugin, the telemetry
+aggregator and the operator CLI) runs without them, as the reference's
+runs without JAX, so its images carry no PyTorch. The data plane (the
+models, the engine, the server, the ops) imports torch itself, and
+:func:`resolve_device` imports it when it is called.
 """
 
 from __future__ import annotations
-
-import torch
 
 #: the project's version, the reference's (``instaslice_tpu/__init__.py``)
 __version__ = "0.1.0"
@@ -36,9 +41,11 @@ from instaslice_tpu_torch.api.constants import (  # noqa: F401,E402
 )
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":
     """``device`` as a :class:`torch.device`; raises for a CUDA device
     when no card is present (never a silent fall back to the CPU)."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

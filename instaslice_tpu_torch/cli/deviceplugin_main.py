@@ -13,6 +13,7 @@ import argparse
 import sys
 
 from instaslice_tpu_torch.api.constants import GPU_RESOURCE
+from instaslice_tpu_torch.deviceplugin.server import DEFAULT_PLUGIN_DIR
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -20,7 +21,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="tpuslice-gpu-deviceplugin",
         description=f"kubelet device plugin advertising {GPU_RESOURCE}",
     )
-    p.add_argument("--plugin-dir", default="/var/lib/kubelet/device-plugins")
+    p.add_argument("--plugin-dir", default=DEFAULT_PLUGIN_DIR)
     p.add_argument("--backend", default="auto")
     p.add_argument("--resource", default=GPU_RESOURCE)
     return p

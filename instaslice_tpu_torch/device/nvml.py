@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import logging
+import os
 from typing import Dict, List, Optional
 
 from instaslice_tpu_torch.device.backend import (
@@ -62,8 +63,12 @@ from instaslice_tpu_torch.topology.mig import (
 log = logging.getLogger("instaslice_tpu_torch.device")
 
 LIBRARY = "libnvidia-ml.so.1"
-#: where the registry lives unless the caller names a directory
+#: where the registry lives unless the caller names a directory (the
+#: host path the agent's and the device plugin's DaemonSets mount)
 DEFAULT_REGISTRY = "/run/tpuslice-gpu"
+#: names another registry directory, for a process run outside the
+#: DaemonSet's container (a caller's ``registry_dir`` comes first)
+REGISTRY_ENV = "TPUSLICE_REGISTRY_DIR"
 
 #: nvmlReturn_t values by name (nvml.h)
 NVML_ERRORS = {
@@ -260,7 +265,9 @@ class NvmlBackend(DeviceBackend):
         self._lib.nvmlErrorString.argtypes = [ctypes.c_int]
         self._lib.nvmlErrorString.restype = ctypes.c_char_p
         self._call("nvmlInit_v2")
-        self._registry = Registry(registry_dir or DEFAULT_REGISTRY)
+        self._registry = Registry(registry_dir
+                                  or os.environ.get(REGISTRY_ENV)
+                                  or DEFAULT_REGISTRY)
         self.generation = self._read_generation()
 
     def close(self) -> None:
