@@ -190,6 +190,36 @@ gpu-manifests:  ## Render the PyTorch/CUDA port's deploy plane (instaslice_tpu_t
 gpu-verify-manifests:  ## Fail if the port's checked-in deploy tree drifted from the code
 	$(PY) -m instaslice_tpu_torch.deploy.gen_manifests --check
 
+.PHONY: gpu-lint
+gpu-lint:  ## The PyTorch/CUDA port's slicelint (instaslice_tpu_torch/analysis/slicelint.py, the reference's rules over the port): zero tolerance
+	$(PY) -m instaslice_tpu_torch.analysis.slicelint
+
+.PHONY: gpu-check
+gpu-check: gpu-lint  ## The port's two static gates: slicelint + slicecheck (guarded-by, balanced pairs, torch dispatch hygiene incl. unbudgeted-graph) — zero tolerance
+	$(PY) -m instaslice_tpu_torch.analysis.slicecheck
+
+.PHONY: gpu-trace-check
+gpu-trace-check:  ## The port's trace gate on the CPU: its sim grants a 1g.10gb slice on an H100 node + a loadgen burst on its server with TPUSLICE_TRACE_FILE set, then validate the JSONL and the propagation contract
+	@f=$$(mktemp -u /tmp/tpuslice-gpu-trace-check.XXXXXX.jsonl); \
+	  echo "gpu-trace-check: $$f"; \
+	  timeout -k 10 300 $(PY) -m instaslice_tpu_torch.analysis.validate_trace \
+	    --drive --device cpu $$f && rm -f $$f
+
+.PHONY: gpu-events-check
+gpu-events-check:  ## The port's flight-recorder gate on the CPU: a clean grant + an injected-fault retry in its sim, describe pod, a drain cycle on its server with TPUSLICE_EVENT_FILE set; chains strict, reason catalog
+	@f=$$(mktemp -u /tmp/tpuslice-gpu-events-check.XXXXXX.jsonl); \
+	  echo "gpu-events-check: $$f"; \
+	  timeout -k 10 300 $(PY) -m instaslice_tpu_torch.analysis.validate_events \
+	    --drive --device cpu $$f && rm -f $$f
+
+.PHONY: gpu-telemetry-smoke
+gpu-telemetry-smoke:  ## The port's fleet-telemetry gate on the CPU: 2 replicas behind its router + its aggregator on a pinned clock, clean and under a delay-only fault plan (exact rollups, burn High/Clear, a >=3-component caused-by timeline, zero hung)
+	timeout -k 10 300 $(PY) -m instaslice_tpu_torch.analysis.telemetry_smoke --device cpu
+
+.PHONY: gpu-profile-smoke
+gpu-profile-smoke:  ## The port's profiler gate on the CPU: armed tok/s >= 0.95x unprofiled, ring == round counter == profile_rounds, Chrome trace with a dispatch segment, a waterfall, no compile past warm-up
+	timeout -k 10 300 $(PY) -m instaslice_tpu_torch.analysis.profile_smoke --device cpu
+
 .PHONY: gpu-test-deploy
 gpu-test-deploy:  ## The port's deploy-plane validation without a cluster: apply the rendered tree over HTTP to the port's fake apiserver, cross-check references and GPU-node needs, lint the port's Dockerfiles against pyproject scripts
 	$(PY) -m instaslice_tpu_torch.deploy.check

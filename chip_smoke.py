@@ -534,6 +534,38 @@ def phase_build(build) -> None:
               "waits on every product)")
 
 
+def phase_gates() -> dict:
+    """The port's two static gates (``instaslice_tpu_torch/analysis/
+    slicelint.py`` and ``slicecheck.py``) over this checkout's package, as
+    the port's images run them before ``pip install``: each a ``python
+    -m`` process from the repository root, the two at once. Each must exit
+    0 with no finding."""
+    t0 = time.perf_counter()
+    procs = {g: subprocess.Popen(
+        [sys.executable, "-m", f"instaslice_tpu_torch.analysis.{g}"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for g in ("slicelint", "slicecheck")}
+    out = {}
+    try:
+        for g, p in procs.items():
+            text, _ = p.communicate(timeout=300)
+            out[g] = {"rc": p.returncode,
+                      "seconds": time.perf_counter() - t0}
+            check(p.returncode == 0 and not text.strip(),
+                  f"gates: {g} exit {p.returncode}: {text[-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"gates: slicelint ({out['slicelint']['seconds']:.2f} s) and "
+        f"slicecheck ({out['slicecheck']['seconds']:.2f} s) over "
+        f"instaslice_tpu_torch, run at once: 0 findings each; the step "
+        f"{out['seconds']:.2f} s")
+    return out
+
+
 def _err(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
@@ -1408,11 +1440,15 @@ def phase_serve(torch, ops) -> dict:
     comparison can fail."""
     from collections import Counter
 
+    from instaslice_tpu_torch.obs.profiler import Profiler, reset_profiler
     from instaslice_tpu_torch.serving import api_server
 
     t0 = time.perf_counter()
     args = api_server.build_parser().parse_args(SERVE_FLAGS.split())
     eng = api_server.build_engine(args)
+    # a fresh process profiler, disarmed, for the server to pick up: the
+    # profile gate's ring counts this server's rounds only
+    reset_profiler(Profiler(armed=False))
     srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
     setup_s = time.perf_counter() - t0
     url = srv.url
@@ -1543,8 +1579,10 @@ def phase_serve(torch, ops) -> dict:
         route = st["engine"]["attention_route"]
         check(route == "B1", f"decode attention route {route!r}")
         within_budget(st["engine"]["decode_graphs"], "serve")
+        profile = profile_gate(srv, eng, V)
     finally:
         srv.stop()
+        reset_profiler()
 
     # the server is stopped: the engine is the main thread's now. Every
     # served prompt again, the radix cache emptied first (the prompts
@@ -1607,6 +1645,7 @@ def phase_serve(torch, ops) -> dict:
         "hit_cold_logprob_diff": lp_diff, "served_logprob_diff": served_lp,
         "chunk_rel_l2": errs,
         "radix": st["radix"], "kv": st["kv"], "engine": st["engine"],
+        "profile": profile,
         "served": [{"token_ids": r["token_ids"], "logprobs": r["logprobs"]}
                    for r in results],
     }
@@ -1617,6 +1656,87 @@ def phase_serve(torch, ops) -> dict:
         f"hit over HTTP TTFT {hit['ttft_ms']:.1f} ms, whole 16-token "
         f"request {hit['ms']:.1f} ms; on the engine, 16-token request hit "
         f"{hit_eng['ms']:.1f} ms vs cold {cold['ms']:.1f} ms")
+    return out
+
+
+#: the profile gate on the serve phase's server: the port's loadgen
+#: (requests, concurrency, prompt length, new tokens; streamed), a warm-up
+#: of the same shape, then these arms in this order: four pairs of one
+#: arm a side, mirrored (off on, on off, ...). The gate reads each pair's
+#: armed over unprofiled tok/s and holds the median of the four: the
+#: host's speed moves in steps (arms of one run of the card 13% apart,
+#: in two runs of four arms), and a step falls between the two arms of
+#: one pair at most as a rule, which the median leaves out
+PROFILE_LOADGEN = dict(requests=16, concurrency=8, prompt_len=64,
+                       max_tokens=48, stream=True, timeout=300.0)
+PROFILE_ARMS = ("off", "on", "on", "off", "off", "on", "on", "off")
+
+
+def profile_gate(srv, eng, V: int) -> dict:
+    """The port's profile gate (``analysis/profile_smoke.py``) at full
+    width, on the serve phase's 7B int8 server and engine (graph route):
+    a warm-up burst, then the arms of PROFILE_ARMS, the profiler disarmed
+    and armed in turns. Each armed arm: the ring's rounds equal the
+    scheduler's round counter, no ``CompileObserved`` and
+    ``engine.compiled_programs()`` unchanged over it (no graph captured
+    past warm-up). Then the exports: the ``profile_rounds`` metric equals
+    the ring, no ring growth while idle, the Chrome trace valid with a
+    ``dispatch`` segment, a waterfall stitched, the HTTP surface. The
+    median over the pairs of arms of armed over unprofiled tok/s (the
+    client's tokens per second over each arm's wall) must be at least
+    OVERHEAD_FLOOR; the ratio of the two sides' medians is reported."""
+    import statistics
+
+    from instaslice_tpu_torch.analysis import profile_smoke as ps
+    from instaslice_tpu_torch.serving.engine import GRAPH_FORMS
+
+    t0 = time.perf_counter()
+    prof = srv.scheduler.profiler
+    check(not prof.armed and prof.rounds_recorded == 0,
+          "profile: the server's profiler starts disarmed and empty")
+    kw = dict(PROFILE_LOADGEN, vocab=V)
+    ps.run_arm(srv.url, 30, kw)
+    ps.quiesce(srv.scheduler, timeout=120.0)
+    arms = []
+    for i, arm in enumerate(PROFILE_ARMS):
+        run = ps.profiled_arm if arm == "on" else ps.unprofiled_arm
+        r = run(srv, prof, 31 + i, kw)
+        arms.append({"arm": arm, "tok_s": r["tok_s"],
+                     "rounds": r.get("rounds", 0)})
+    ex = ps.exports(srv, prof)
+    side = {a: [x["tok_s"] for x in arms if x["arm"] == a]
+            for a in ("off", "on")}
+    tps = {a: statistics.median(v) for a, v in side.items()}
+    # each side's arms, (largest - smallest) / median: the noise the
+    # margin over the floor has to hold
+    spread = {a: (max(v) - min(v)) / tps[a] for a, v in side.items()}
+    pairs = []
+    for x, y in zip(arms[::2], arms[1::2]):
+        on, off = (x, y) if x["arm"] == "on" else (y, x)
+        pairs.append(on["tok_s"] / off["tok_s"])
+    ratio = statistics.median(pairs)
+    out = {"arms": arms, "median_tok_s": tps, "pair_ratios": pairs,
+           "ratio": ratio, "ratio_of_medians": tps["on"] / tps["off"],
+           "spread": spread, "floor": ps.OVERHEAD_FLOOR, "exports": ex,
+           "graphs": sum(n for k, n in eng.compiled_programs().items()
+                         if k in GRAPH_FORMS),
+           "seconds": time.perf_counter() - t0}
+    log(f"profile: the 7B int8 server, {kw['requests']} requests at "
+        f"concurrency {kw['concurrency']}, prompt {kw['prompt_len']}, "
+        f"{kw['max_tokens']} tokens an arm: "
+        + ", ".join(f"{a['arm']} {a['tok_s']} tok/s" for a in arms)
+        + f"; pairs on / off {[round(r, 4) for r in pairs]}, their "
+        f"median {ratio:.4f} (floor {ps.OVERHEAD_FLOOR}); medians on "
+        f"{tps['on']} / off {tps['off']} = "
+        f"{out['ratio_of_medians']:.4f}; spread of the arms off "
+        f"{spread['off']:.4f}, on {spread['on']:.4f}; rounds recorded "
+        f"{[a['rounds'] for a in arms if a['arm'] == 'on']} = the "
+        f"scheduler's, no compile past warm-up, {ex['trace_events']} "
+        f"Chrome trace events, waterfall {ex['waterfall_outcome']}; the "
+        f"step {out['seconds']:.2f} s")
+    check(ratio >= ps.OVERHEAD_FLOOR,
+          f"profile: the armed arms kept {ratio:.4f} of the unprofiled "
+          f"tok/s (median over the pairs), under {ps.OVERHEAD_FLOOR}")
     return out
 
 
@@ -2929,7 +3049,7 @@ def fleet_step(torch, ops, srvs, engs, L: int, V: int) -> dict:
     return out
 
 
-def phase_migrate(torch, ops) -> dict:
+def phase_migrate(torch, ops, sinks: Path) -> dict:
     """Session migration between two port servers at the 7B int8
     configuration (``SERVE_FLAGS``), in process on port 0: a streamed
     completion starts on A, A drains with ``{"migrate": true}``, the
@@ -2938,170 +3058,193 @@ def phase_migrate(torch, ops) -> dict:
     logprobs against the same request unmigrated on A; then, the servers
     stopped, B's first decode logits after importing a parked session
     against A's own continuation from the same parked state, bit for bit;
-    no KV block leaks on either."""
+    no KV block leaks on either.
+    This process's tracer and journal (its two servers', its router's and
+    its engines') write ``sinks/fleet.trace.jsonl`` and
+    ``sinks/fleet.events.jsonl`` over the phase, listed in ``out["sinks"]``
+    for :func:`phase_obs`. The files are one pair for the three: the
+    servers and the router run in this process, so that the card's trace
+    of it counts their launches, and the tracer and the journal are the
+    process's."""
     import threading
 
+    from instaslice_tpu_torch.obs.journal import Journal, reset_journal
     from instaslice_tpu_torch.serving import api_server
+    from instaslice_tpu_torch.utils.trace import Tracer, reset_tracer
 
-    args = api_server.build_parser().parse_args(SERVE_FLAGS.split())
-    t0 = time.perf_counter()
-    engs = [api_server.build_engine(args) for _ in range(2)]
-    srvs = [api_server.ApiServer(e, host=args.host, port=args.port).start()
-            for e in engs]
-    log(f"migrate: two 7B int8 servers up in {time.perf_counter() - t0:.1f}"
-        " s")
-    a_url, b_url = (s.url for s in srvs)
-    V = args.vocab_size
-    gen = torch.Generator().manual_seed(43)
-    prompt = torch.randint(1, V, (MIG_PLEN,), generator=gen).tolist()
-    body = {"prompt": prompt, "max_tokens": MIG_NEW, "temperature": 0.0,
-            "logprobs": True, "stream": True}
-    out = {}
+    files = {"trace": {"fleet": str(sinks / "fleet.trace.jsonl")},
+             "event": {"fleet": str(sinks / "fleet.events.jsonl")}}
+    reset_tracer(Tracer(trace_file=files["trace"]["fleet"]))
+    reset_journal(Journal(event_file=files["event"]["fleet"]))
     try:
-        for url in (a_url, b_url):
-            wait_ready(url)
-        # cold TTFT of the prompt (on B; its radix cache then holds the
-        # prompt, which a resume never reads)
-        t_send = time.perf_counter()
-        cold = http_stream(b_url + "/v1/completions",
-                           dict(body, max_tokens=2))
-        out["cold_ttft_ms"] = (cold["t_first"] - t_send) * 1e3
-        # the migrated stream
-        progress, res = {"n": 0}, {}
-
-        def stream():
-            try:
-                res.update(http_stream(a_url + "/v1/completions", body,
-                                       progress=progress))
-            except Exception as e:  # noqa: BLE001 - reported below
-                res["error"] = repr(e)
-
-        th = threading.Thread(target=stream)
-        th.start()
-        deadline = time.monotonic() + 300
-        while progress["n"] < MIG_AT and time.monotonic() < deadline \
-                and th.is_alive():
-            time.sleep(0.005)
-        t_drain = time.perf_counter()
-        drained = http_json(a_url + "/v1/drain",
-                            {"budget": 30, "migrate": True})
-        t_drained = time.perf_counter()
-        th.join(timeout=300)
-        check("error" not in res, f"migrate: stream {res.get('error')}")
-        check(drained["migrated"] == 1, f"migrate: drain {drained}")
-        blob = res["session"]
-        check(blob is not None, "migrate: the stream ended in a migration "
-              "terminal")
-        wire = json.dumps({"session": blob})
-        out["blob_mb"] = len(wire) / 1e6
-        out["drain_ms"] = (t_drained - t_drain) * 1e3
-        out["drain_to_terminal_ms"] = (res["t_session"] - t_drain) * 1e3
+        args = api_server.build_parser().parse_args(SERVE_FLAGS.split())
         t0 = time.perf_counter()
-        imp = http_json(b_url + "/v1/sessions/import", {"session": blob})
-        out["import_ms"] = (time.perf_counter() - t0) * 1e3
-        t_send = time.perf_counter()
-        resumed = http_stream(b_url + "/v1/completions",
-                              {"resume": imp["rid"], "stream": True})
-        out["resume_first_token_ms"] = (resumed["t_first"] - t_send) * 1e3
-        toks = res["token_ids"] + resumed["token_ids"]
-        lps = res["logprobs"] + resumed["logprobs"]
-        # the same request unmigrated on A
-        undrain(a_url)
-        ref = http_stream(a_url + "/v1/completions", body)
-        out["split"] = [len(res["token_ids"]), len(resumed["token_ids"])]
-        check(toks == ref["token_ids"] and len(toks) == MIG_NEW,
-              f"migrate: stitched tokens {toks} != unmigrated "
-              f"{ref['token_ids']}")
-        lp = max(abs(x - y) for x, y in zip(lps, ref["logprobs"]))
-        out["logprob_diff"] = lp
-        check(lp <= MIG_LOGPROB_TOL, f"migrate: logprobs differ by {lp}")
-        stats = [http_json(u + "/v1/stats") for u in (a_url, b_url)]
-        for name, st in zip("AB", stats):
-            check(st["live_slots"] == 0 and st["parked"] == 0
-                  and st["sessions"]["imports_pending"] == 0,
-                  f"migrate: server {name} quiesced")
-            check(st["kv"]["used"] == st["radix"]["blocks"],
-                  f"migrate: server {name} leaked KV blocks: {st['kv']}")
-        check(stats[0]["sessions"]["exported"] == 1
-              and stats[1]["sessions"]["imported"] == 1
-              and stats[1]["sessions"]["migrated_in"] == 1,
-              "migrate: the session ledgers")
-        out["sessions"] = [st["sessions"] for st in stats]
-        out["fleet"] = fleet_step(torch, ops, srvs, engs, args.n_layers, V)
+        engs = [api_server.build_engine(args) for _ in range(2)]
+        srvs = [api_server.ApiServer(e, host=args.host,
+                                     port=args.port).start() for e in engs]
+        log("migrate: two 7B int8 servers up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        a_url, b_url = (s.url for s in srvs)
+        V = args.vocab_size
+        gen = torch.Generator().manual_seed(43)
+        prompt = torch.randint(1, V, (MIG_PLEN,), generator=gen).tolist()
+        body = {"prompt": prompt, "max_tokens": MIG_NEW, "temperature": 0.0,
+                "logprobs": True, "stream": True}
+        out = {}
+        try:
+            for url in (a_url, b_url):
+                wait_ready(url)
+            # cold TTFT of the prompt (on B; its radix cache then holds the
+            # prompt, which a resume never reads)
+            t_send = time.perf_counter()
+            cold = http_stream(b_url + "/v1/completions",
+                               dict(body, max_tokens=2))
+            out["cold_ttft_ms"] = (cold["t_first"] - t_send) * 1e3
+            # the migrated stream
+            progress, res = {"n": 0}, {}
+
+            def stream():
+                try:
+                    res.update(http_stream(a_url + "/v1/completions", body,
+                                           progress=progress))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    res["error"] = repr(e)
+
+            th = threading.Thread(target=stream)
+            th.start()
+            deadline = time.monotonic() + 300
+            while progress["n"] < MIG_AT and time.monotonic() < deadline \
+                    and th.is_alive():
+                time.sleep(0.005)
+            t_drain = time.perf_counter()
+            drained = http_json(a_url + "/v1/drain",
+                                {"budget": 30, "migrate": True})
+            t_drained = time.perf_counter()
+            th.join(timeout=300)
+            check("error" not in res, f"migrate: stream {res.get('error')}")
+            check(drained["migrated"] == 1, f"migrate: drain {drained}")
+            blob = res["session"]
+            check(blob is not None, "migrate: the stream ended in a migration "
+                  "terminal")
+            wire = json.dumps({"session": blob})
+            out["blob_mb"] = len(wire) / 1e6
+            out["drain_ms"] = (t_drained - t_drain) * 1e3
+            out["drain_to_terminal_ms"] = (res["t_session"] - t_drain) * 1e3
+            t0 = time.perf_counter()
+            imp = http_json(b_url + "/v1/sessions/import", {"session": blob})
+            out["import_ms"] = (time.perf_counter() - t0) * 1e3
+            t_send = time.perf_counter()
+            resumed = http_stream(b_url + "/v1/completions",
+                                  {"resume": imp["rid"], "stream": True})
+            out["resume_first_token_ms"] = (resumed["t_first"] - t_send) * 1e3
+            toks = res["token_ids"] + resumed["token_ids"]
+            lps = res["logprobs"] + resumed["logprobs"]
+            # the same request unmigrated on A
+            undrain(a_url)
+            ref = http_stream(a_url + "/v1/completions", body)
+            out["split"] = [len(res["token_ids"]), len(resumed["token_ids"])]
+            check(toks == ref["token_ids"] and len(toks) == MIG_NEW,
+                  f"migrate: stitched tokens {toks} != unmigrated "
+                  f"{ref['token_ids']}")
+            lp = max(abs(x - y) for x, y in zip(lps, ref["logprobs"]))
+            out["logprob_diff"] = lp
+            check(lp <= MIG_LOGPROB_TOL, f"migrate: logprobs differ by {lp}")
+            stats = [http_json(u + "/v1/stats") for u in (a_url, b_url)]
+            for name, st in zip("AB", stats):
+                check(st["live_slots"] == 0 and st["parked"] == 0
+                      and st["sessions"]["imports_pending"] == 0,
+                      f"migrate: server {name} quiesced")
+                check(st["kv"]["used"] == st["radix"]["blocks"],
+                      f"migrate: server {name} leaked KV blocks: {st['kv']}")
+            check(stats[0]["sessions"]["exported"] == 1
+                  and stats[1]["sessions"]["imported"] == 1
+                  and stats[1]["sessions"]["migrated_in"] == 1,
+                  "migrate: the session ledgers")
+            out["sessions"] = [st["sessions"] for st in stats]
+            out["fleet"] = fleet_step(torch, ops, srvs, engs, args.n_layers,
+                                      V)
+        finally:
+            for s in srvs:
+                s.stop()
+        log(f"migrate: over HTTP, {out['split'][0]} tokens on A then "
+            f"{out['split'][1]} on B equal the unmigrated run (logprobs "
+            f"within {out['logprob_diff']:.3g}); blob {out['blob_mb']:.1f} MB "
+            f"of JSON; drain POST {out['drain_ms']:.1f} ms, drain to "
+            "migration terminal at the client "
+            f"{out['drain_to_terminal_ms']:.1f} ms, import POST "
+            f"{out['import_ms']:.1f} ms, resume to first token "
+            f"{out['resume_first_token_ms']:.1f} ms vs cold TTFT "
+            f"{out['cold_ttft_ms']:.1f} ms")
+
+        # ---- engine level, the servers stopped: A's continuation from a
+        # parked state against B's after importing it, on both routes (A and
+        # B replay graphs; their eager twins over the same weights run the
+        # same steps, and their first decode logits are read)
+        eng_a, eng_b = engs
+        twins = [eager_twin(e) for e in engs]
+        for e in engs:
+            e.radix.reclaim(e.kv.total_blocks)
+        prompt2 = torch.randint(1, V, (600,), generator=gen).tolist()
+        logits, conts = {}, {}
+        for route, (a, b) in (("graph", engs), ("eager", twins)):
+            rid = a.add_request(prompt2)
+            a.decode_block(7)
+            a.preempt_slot(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob = a.export_session(rid)
+            t1 = time.perf_counter()
+            wire = json.dumps(blob)
+            t2 = time.perf_counter()
+            blob2 = json.loads(wire)
+            t3 = time.perf_counter()
+            rid_b = b.import_session(blob2)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            if route == "graph":
+                stripe = blob["stripe"]
+                length = blob["length"]
+                out["engine"] = {
+                    "length": length, "stripe_shape": stripe["k"]["shape"],
+                    "wire_mb": len(wire) / 1e6, "export_ms": (t1 - t0) * 1e3,
+                    "json_encode_ms": (t2 - t1) * 1e3,
+                    "json_decode_ms": (t3 - t2) * 1e3,
+                    "import_ms": (t4 - t3) * 1e3}
+            for name, e, r in (("a", a, rid), ("b", b, rid_b)):
+                rec = StepLogits(e) if route == "eager" else None
+                slot = e.resume_request(r)
+                check(slot == 0, "migrate: the session resumes into slot 0")
+                e.decode_block(4)
+                if rec is not None:
+                    rec.close()
+                    logits[name] = rec.steps[0][0]
+                conts[route + "_" + name] = (
+                    e.slots[0].generated[-4:], e.slots[0].logprobs[-4:])
+        check(bool(torch.equal(logits["a"], logits["b"])),
+              "migrate: B's first decode logits after import equal A's "
+              "continuation bit for bit")
+        check(all(c == conts["eager_a"] for c in conts.values()),
+              "migrate: the next 4 tokens and logprobs after the import "
+              "equal A's continuation, on the graph route as on the eager: "
+              f"{conts}")
+        for name, e in zip(("A", "B", "A's twin", "B's twin"), engs + twins):
+            for s in list(e.slots):
+                e.evict_slot(s)
+            e.radix.reclaim(e.kv.total_blocks)
+            check(e.kv.used_blocks() == 0 and not e.parked,
+                  f"migrate: engine {name} leaked KV blocks")
+        log(f"migrate: engine level, a {length}-token session (stripe "
+            f"{stripe['k']['shape']} int8 + fp32 scales): {out['engine']}; "
+            "B's first decode logits equal A's continuation bit for bit "
+            "(eager), the next 4 tokens and logprobs equal on both routes")
+        del engs, eng_a, eng_b, srvs, twins
+        free_memory(torch)
     finally:
-        for s in srvs:
-            s.stop()
-    log(f"migrate: over HTTP, {out['split'][0]} tokens on A then "
-        f"{out['split'][1]} on B equal the unmigrated run (logprobs within "
-        f"{out['logprob_diff']:.3g}); blob {out['blob_mb']:.1f} MB of JSON; "
-        f"drain POST {out['drain_ms']:.1f} ms, drain to migration terminal "
-        f"at the client {out['drain_to_terminal_ms']:.1f} ms, import POST "
-        f"{out['import_ms']:.1f} ms, resume to first token "
-        f"{out['resume_first_token_ms']:.1f} ms vs cold TTFT "
-        f"{out['cold_ttft_ms']:.1f} ms")
-
-    # ---- engine level, the servers stopped: A's continuation from a
-    # parked state against B's after importing it, on both routes (A and
-    # B replay graphs; their eager twins over the same weights run the
-    # same steps, and their first decode logits are read)
-    eng_a, eng_b = engs
-    twins = [eager_twin(e) for e in engs]
-    for e in engs:
-        e.radix.reclaim(e.kv.total_blocks)
-    prompt2 = torch.randint(1, V, (600,), generator=gen).tolist()
-    logits, conts = {}, {}
-    for route, (a, b) in (("graph", engs), ("eager", twins)):
-        rid = a.add_request(prompt2)
-        a.decode_block(7)
-        a.preempt_slot(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        blob = a.export_session(rid)
-        t1 = time.perf_counter()
-        wire = json.dumps(blob)
-        t2 = time.perf_counter()
-        blob2 = json.loads(wire)
-        t3 = time.perf_counter()
-        rid_b = b.import_session(blob2)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        if route == "graph":
-            stripe = blob["stripe"]
-            length = blob["length"]
-            out["engine"] = {
-                "length": length, "stripe_shape": stripe["k"]["shape"],
-                "wire_mb": len(wire) / 1e6, "export_ms": (t1 - t0) * 1e3,
-                "json_encode_ms": (t2 - t1) * 1e3,
-                "json_decode_ms": (t3 - t2) * 1e3,
-                "import_ms": (t4 - t3) * 1e3}
-        for name, e, r in (("a", a, rid), ("b", b, rid_b)):
-            rec = StepLogits(e) if route == "eager" else None
-            slot = e.resume_request(r)
-            check(slot == 0, "migrate: the session resumes into slot 0")
-            e.decode_block(4)
-            if rec is not None:
-                rec.close()
-                logits[name] = rec.steps[0][0]
-            conts[route + "_" + name] = (
-                e.slots[0].generated[-4:], e.slots[0].logprobs[-4:])
-    check(bool(torch.equal(logits["a"], logits["b"])),
-          "migrate: B's first decode logits after import equal A's "
-          "continuation bit for bit")
-    check(all(c == conts["eager_a"] for c in conts.values()),
-          f"migrate: the next 4 tokens and logprobs after the import equal "
-          f"A's continuation, on the graph route as on the eager: {conts}")
-    for name, e in zip(("A", "B", "A's twin", "B's twin"), engs + twins):
-        for s in list(e.slots):
-            e.evict_slot(s)
-        e.radix.reclaim(e.kv.total_blocks)
-        check(e.kv.used_blocks() == 0 and not e.parked,
-              f"migrate: engine {name} leaked KV blocks")
-    log(f"migrate: engine level, a {length}-token session (stripe "
-        f"{stripe['k']['shape']} int8 + fp32 scales): {out['engine']}; B's "
-        "first decode logits equal A's continuation bit for bit (eager), "
-        "the next 4 tokens and logprobs equal on both routes")
-    del engs, eng_a, eng_b, srvs, twins
-    free_memory(torch)
+        # closes both files; the next phase's tracer and journal are
+        # made afresh from the environment
+        reset_tracer()
+        reset_journal()
+    out["sinks"] = files
     return out
 
 
@@ -7129,15 +7272,23 @@ class AgentProcess:
     for the in-cluster service account: the child's env has no
     ``KUBERNETES_SERVICE_HOST``), runs the controller's
     ``--deletion-grace-seconds`` at ``CONTROLLER_GRACE_S``, and answers
-    its probes on the free port its probe bind address was mapped to."""
+    its probes on the free port its probe bind address was mapped to.
+    With ``sinks`` the process writes its journal to
+    ``sinks/<name><n>.events.jsonl`` (``TPUSLICE_EVENT_FILE``) and its
+    spans to ``sinks/<name><n>.trace.jsonl`` (``TPUSLICE_TRACE_FILE``),
+    the latter unless it is armed to crash: a hard crash inside a span
+    never writes that span, so the children it wrote before would stand
+    in the file as orphans by design."""
 
     def __init__(self, work: Path, n: int, crash_at: str = "",
-                 manifest: str = "") -> None:
+                 manifest: str = "", sinks: Path | None = None) -> None:
         import os
         import socket
 
         env = dict(os.environ)
-        env.pop("TPUSLICE_CRASH_AT", None)
+        for k in ("TPUSLICE_CRASH_AT", "TPUSLICE_TRACE_FILE",
+                  "TPUSLICE_EVENT_FILE"):
+            env.pop(k, None)
         if crash_at:
             env.update(TPUSLICE_CRASH_AT=crash_at, TPUSLICE_CRASH_HARD="1")
         kubeconfig = str(work / "kubeconfig.json")
@@ -7169,6 +7320,13 @@ class AgentProcess:
                     f"{str(HERE)!r}); import chip_smoke; sys.exit(chip_smoke."
                     f"{call})"]
             name = "agent"
+        self.trace_file = self.event_file = None
+        if sinks is not None:
+            self.event_file = sinks / f"{name}{n}.events.jsonl"
+            env["TPUSLICE_EVENT_FILE"] = str(self.event_file)
+            if not crash_at:
+                self.trace_file = sinks / f"{name}{n}.trace.jsonl"
+                env["TPUSLICE_TRACE_FILE"] = str(self.trace_file)
         self.url = f"http://127.0.0.1:{port}"
         self.log = work / f"{name}{n}.log"
         self.t0 = time.perf_counter()
@@ -7604,7 +7762,7 @@ def first_times(conds: dict, what: str, t0: float,
     return got
 
 
-def phase_controller(torch, card: str, served: list) -> dict:
+def phase_controller(torch, card: str, served: list, sinks: Path) -> dict:
     """InstaSlice's whole pod loop on the card, the port's controller and
     node agent each in a process of its own over HTTP, the agent over
     NVML, each started from the port's deploy plane as a cluster would
@@ -7650,7 +7808,10 @@ def phase_controller(torch, card: str, served: list) -> dict:
     (its journal: ``Ungated`` for the pod, no ``Admitted`` or
     ``Placed``). The third pod deleted, nothing of the phase's is left:
     no reservation, MIG instance, ConfigMap or record. The phase reads MIG
-    mode and never sets it; the device plugin stays out of this chain."""
+    mode and never sets it; the device plugin stays out of this chain.
+    Each process writes its trace and event files in ``sinks``
+    (:class:`AgentProcess`), listed in ``out["sinks"]`` for
+    :func:`phase_obs`."""
     import copy
     import shutil
     import tempfile
@@ -7723,7 +7884,8 @@ def phase_controller(torch, card: str, served: list) -> dict:
         return (lease_holder() or "").endswith(f"-{proc.proc.pid}")
 
     def controller(n, crash_at=""):
-        p = AgentProcess(work, n, crash_at=crash_at, manifest="controller")
+        p = AgentProcess(work, n, crash_at=crash_at, manifest="controller",
+                         sinks=sinks)
         procs.append(p)
         return p
 
@@ -7784,7 +7946,7 @@ def phase_controller(torch, card: str, served: list) -> dict:
             f"{request}, the waiting one for {blocker}")
 
         # (b) the agent and the controller, each in a fresh process
-        agent = AgentProcess(work, 0, manifest="agent")
+        agent = AgentProcess(work, 0, manifest="agent", sinks=sinks)
         procs.append(agent)
         ctl = controller(1)
         for p in (agent, ctl):
@@ -8007,6 +8169,10 @@ def phase_controller(torch, card: str, served: list) -> dict:
         for p in (succ, agent):
             code = p.stop()
             check(code == 0, f"controller: SIGTERM exit {code}: {p.tail()}")
+        out["sinks"] = {
+            kind: {p.log.stem: str(getattr(p, f"{kind}_file"))
+                   for p in procs if getattr(p, f"{kind}_file")}
+            for kind in ("trace", "event")}
         out["numbers"] = {
             "card": card,
             "time_to_grant_ms": out["time_to_grant_ms"],
@@ -8034,6 +8200,125 @@ def phase_controller(torch, card: str, served: list) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"controller: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------- trace and event files
+
+def phase_obs(migrate_sinks: dict, controller_sinks: dict,
+              work: Path) -> dict:
+    """The port's validators (``analysis/validate_trace.py``,
+    ``validate_events.py``) on the files the migrate phase (its two 7B
+    int8 servers, its router and its engines: one process) and the
+    controller phase (the node agent and each controller, a process each)
+    wrote. (a) Each trace file alone passes ``validate`` (no process's
+    span names a parent in another's file); (b) ``--fleet``: the store of
+    every trace file merged has no orphan, the propagation contract holds
+    over it (``check_propagation``: a trace links ``controller.allocate``,
+    ``device.reserve`` and ``controller.ungate``; every ``serve.request``
+    root has children), and a grant's trace crosses a controller's file
+    and the agent's; (c) each event file alone passes ``read_events``
+    (parse, fields, the reason catalog, unique ``seq``), and the
+    allocation chains of all of them merged by time pass ``check_chains``
+    strictly (a grant's chain is written by the controller and the agent
+    in turn); the fleet file holds the migrate phase's drain; (d) the
+    control: a copy of the agent's trace file with one span's parent
+    renamed is refused alone and in the merged store."""
+    from collections import Counter
+
+    from instaslice_tpu_torch.analysis import validate_events as ve
+    from instaslice_tpu_torch.analysis import validate_trace as vt
+    from instaslice_tpu_torch.api.constants import (
+        REASON_DRAIN_BEGIN,
+        REASON_DRAIN_END,
+        TRANSITION_REASONS,
+    )
+
+    t0 = time.perf_counter()
+    traces = {**migrate_sinks["trace"], **controller_sinks["trace"]}
+    events = {**migrate_sinks["event"], **controller_sinks["event"]}
+    check(any(n.startswith("agent") for n in traces)
+          and any(n.startswith("controller") for n in traces)
+          and "fleet" in traces, f"obs: trace files {sorted(traces)}")
+    out = {"trace_files": {}, "event_files": {}}
+    spans, by_file = [], {}
+    # (a)
+    for name, path in traces.items():
+        rep = vt.validate(path)
+        check(not rep["errors"] and rep["spans"] > 0,
+              f"obs (a): {name}'s trace file: {rep['spans']} spans, "
+              f"errors {rep['errors'][:5]}")
+        out["trace_files"][name] = {"spans": rep["spans"],
+                                    "traces": rep["traces"]}
+        by_file[name] = rep["_spans"]
+        spans += rep["_spans"]
+    # (b)
+    fleet = vt.check_fleet(list(traces.values()))
+    merged = {"_spans": spans, "errors": []}
+    vt.check_propagation(merged)
+    check(fleet["orphans"] == 0 and fleet["spans_ingested"] == len(spans)
+          and not merged["errors"],
+          f"obs (b): --fleet over {len(traces)} files: {fleet}, "
+          f"propagation {merged['errors'][:5]}")
+    allocated = {s["traceId"] for n, ss in by_file.items()
+                 if n.startswith("controller") for s in ss
+                 if s["name"] == "controller.allocate"}
+    reserved = {s["traceId"] for n, ss in by_file.items()
+                if n.startswith("agent") for s in ss
+                if s["name"] == "device.reserve"}
+    crossing = sorted(allocated & reserved)
+    check(crossing, f"obs (b): no grant trace crosses a controller's file "
+          f"and the agent's: allocate {sorted(allocated)}, reserve "
+          f"{sorted(reserved)}")
+    out["fleet"] = {k: fleet[k] for k in ("files", "spans_ingested",
+                                          "traces", "orphans")}
+    out["grant_traces_across_files"] = len(crossing)
+    # (c)
+    merged_ev = []
+    for i, (name, path) in enumerate(events.items()):
+        got, errors = ve.read_events(path)
+        check(got and not errors, f"obs (c): {name}'s event file: "
+              f"{len(got)} events, errors {errors[:5]}")
+        out["event_files"][name] = dict(Counter(e["reason"] for e in got))
+        merged_ev += [((e["ts"], i, e["seq"]), e) for e in got]
+    # seq counts per process: the merged journal is ordered by time and
+    # numbered anew (check_chains orders an allocation's events by seq)
+    merged_ev = [dict(e, seq=n) for n, (_, e) in enumerate(
+        sorted(merged_ev, key=lambda x: x[0]), 1)]
+    chains = ve.check_chains(merged_ev, strict=True)
+    ungated = {e["objectRef"] for e in merged_ev
+               if e["reason"] == TRANSITION_REASONS["ungated"]}
+    check(not chains and len(ungated) >= 3,
+          f"obs (c): merged chains strict: {chains[:5]}; grants "
+          f"{sorted(ungated)}")
+    drains = out["event_files"]["fleet"]
+    check(drains.get(REASON_DRAIN_BEGIN) and drains.get(REASON_DRAIN_END),
+          f"obs (c): the fleet file's drain: {drains}")
+    out["granted_chains"] = len(ungated)
+    # (d)
+    agent = next(n for n in traces if n.startswith("agent"))
+    recs = [json.loads(line) for line in open(traces[agent])
+            if line.strip()]
+    child = next(r for r in recs if r.get("parentId"))
+    child["parentId"] = "f" * 16
+    bad = work / f"{agent}.orphan.trace.jsonl"
+    bad.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    alone = vt.validate(str(bad))["errors"]
+    refused = vt.check_fleet([str(bad) if p == traces[agent] else p
+                              for p in traces.values()])
+    check(any(e.startswith("orphan span ") for e in alone)
+          and refused["orphans"] == 1,
+          f"obs (d): the corrupted copy passed: alone {alone[:3]}, "
+          f"merged {refused['orphans']} orphans")
+    out["control"] = {"alone": len(alone), "merged_orphans":
+                      refused["orphans"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"obs: trace files {out['trace_files']}; --fleet {out['fleet']}, "
+        f"{len(crossing)} grant trace(s) across a controller's file and "
+        f"the agent's; event files {out['event_files']}; merged chains "
+        f"strict over {out['granted_chains']} grants; the control (one "
+        f"orphan parent in a copy of {agent}'s trace file) refused alone "
+        f"and merged; the step {out['seconds']:.2f} s")
     return out
 
 
@@ -8301,6 +8586,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build(build)
     mark("build", t0)
+    t0 = time.perf_counter()
+    gates = phase_gates()
+    mark("gates", t0)
+    import shutil
+    import tempfile
+
+    sinks = Path(tempfile.mkdtemp(prefix="smoke-obs-"))
 
     t0 = time.perf_counter()
     cfg = ModelConfig(vocab_size=32000, d_model=4096, n_heads=32,
@@ -8333,7 +8625,7 @@ def main() -> int:
     spec = phase_spec(torch, ops)
     mark("spec", t0)
     t0 = time.perf_counter()
-    migrate = phase_migrate(torch, ops)
+    migrate = phase_migrate(torch, ops, sinks)
     mark("migrate", t0)
     t0 = time.perf_counter()
     lora_serve = phase_lora_serve(torch, ops)
@@ -8383,8 +8675,12 @@ def main() -> int:
     agent = phase_agent(torch, card, served)
     mark("agent", t0)
     t0 = time.perf_counter()
-    controller = phase_controller(torch, card, served)
+    controller = phase_controller(torch, card, served, sinks)
     mark("controller", t0)
+    t0 = time.perf_counter()
+    obs = phase_obs(migrate.pop("sinks"), controller.pop("sinks"), sinks)
+    shutil.rmtree(sinks, ignore_errors=True)
+    mark("obs", t0)
     t0 = time.perf_counter()
     ctl = phase_ctl(torch, ops, controller)
     mark("ctl", t0)
@@ -8532,6 +8828,8 @@ def main() -> int:
     log(json.dumps({"card": card, "agent": agent}))
     log(json.dumps({"card": card, "controller": controller}))
     log(json.dumps({"card": card, "ctl": ctl}))
+    log(json.dumps({"card": card, "gates": gates, "obs": obs,
+                    "profile": serve["profile"]}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,9 @@ GPU_RESOURCE = "nvidia.com/gpu"
 #: Per-profile MIG resources (``nvidia.com/mig-3g.40gb``) advertised by
 #: the slice device-plugin manager and requested in pod limits
 MIG_RESOURCE_PREFIX = "nvidia.com/mig-"
+#: NVIDIA's node label (GPU feature discovery) of a node with GPUs, which
+#: the port's node workloads select
+GPU_NODE_LABEL = f"{GPU_RESOURCE}.present"
 
 #: Pod annotations: the requested profile, a multi-host pod group and
 #: its size, a stable handoff name, the degraded-slice marker and the

@@ -260,7 +260,9 @@ def check_build_plane(docs: List[dict]) -> None:
                 check(m.group(1) in ours,
                       f"{df.name}: entrypoint {m.group(1)} is a port "
                       "console script")
-        check(not re.search(r"^\s*RUN\b.*\btorch\b", text, re.M),
+        # a RUN's continuation lines are one command with it
+        runs = text.replace("\\\n", " ")
+        check(not re.search(r"^\s*RUN\b.*\btorch\b", runs, re.M),
               f"{df.name}: installs no torch")
     for doc in docs:
         for tpl in iter_pod_specs(doc):

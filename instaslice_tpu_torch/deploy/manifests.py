@@ -54,6 +54,7 @@ from typing import Dict, List, Tuple
 from instaslice_tpu_torch.api.constants import (
     FINALIZER,
     GATE_NAME,
+    GPU_NODE_LABEL,
     GPU_RESOURCE,
     GROUP,
     MIG_RESOURCE_PREFIX,
@@ -72,8 +73,6 @@ IMAGE_TAG = "latest"
 SERVICE_ACCOUNT = f"{PREFIX}-controller-manager"
 #: the components, each an image built by ``deploy/Dockerfile.<name>``
 COMPONENTS = ("controller", "agent", "deviceplugin")
-#: NVIDIA's node label (GPU feature discovery) of a node with GPUs
-GPU_NODE_LABEL = "nvidia.com/gpu.present"
 #: the image of the metrics sidecar, the reference's
 RBAC_PROXY_IMAGE = "gcr.io/kubebuilder/kube-rbac-proxy:v0.16.0"
 
@@ -409,7 +408,7 @@ def tree() -> Dict[str, File]:
         "manager/manager.yaml": (
             "The operator's workloads on H100 nodes: the controller "
             "Deployment, the node agent and device plugin DaemonSets on "
-            "nodes labelled nvidia.com/gpu.present.",
+            f"nodes labelled {GPU_NODE_LABEL}.",
             [namespace(), manager_deployment(), agent_daemonset(),
              deviceplugin_daemonset()]),
         "manager/metrics_service.yaml": (

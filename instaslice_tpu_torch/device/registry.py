@@ -25,7 +25,6 @@ import fcntl
 import json
 import os
 import re
-import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -37,6 +36,7 @@ from instaslice_tpu_torch.device.backend import (
     SliceNotFound,
 )
 from instaslice_tpu_torch.topology.mig import parse_mig_profile
+from instaslice_tpu_torch.utils.lockcheck import named_lock
 
 _UUID_RE = re.compile(r"^[A-Za-z0-9_.-]{1,129}$")
 _SUFFIX = ".res"
@@ -105,7 +105,7 @@ class Registry:
         # flock excludes other open file descriptions (other processes
         # and other threads' opens alike); the mutex keeps this
         # process's threads from interleaving around it
-        self._mu = threading.Lock()
+        self._mu = named_lock("device.registry")
 
     @contextlib.contextmanager
     def locked(self) -> Iterator[None]:
@@ -244,7 +244,7 @@ class MemoryRegistry(Registry):
     keeps no files (the fake's default): nothing survives the process."""
 
     def __init__(self) -> None:
-        self._mu = threading.Lock()
+        self._mu = named_lock("device.registry.memory")
         self._records: Dict[str, Reservation] = {}
         self._inventory: Dict[int, str] = {}
 

@@ -44,6 +44,7 @@ from instaslice_tpu_torch.deviceplugin.hpack import (
     Header,
     HpackError,
 )
+from instaslice_tpu_torch.utils.guards import guarded_by, requires, unguarded
 from instaslice_tpu_torch.utils.lockcheck import named_condition, named_lock
 
 log = logging.getLogger("instaslice_tpu_torch.deviceplugin.h2")
@@ -128,6 +129,18 @@ class Connection:
     (a server's) is called from the reader thread with each stream the
     peer opens, its request headers read: it must not block."""
 
+    streams: guarded_by("h2.state")
+    last_peer_id: guarded_by("h2.state")
+    peer_initial_window: guarded_by("h2.state")
+    peer_max_frame: guarded_by("h2.state")
+    # flags set once under the state condition; a lock-free read is a
+    # snapshot that open_stream() re-reads under the condition before it
+    # acts, and a write racing a teardown fails on the closed socket
+    closed: guarded_by("h2.state", reads="racy")
+    goaway: guarded_by("h2.state", reads="racy")
+    _block: unguarded("the reader thread's own: only _on_frame and "
+                      "_end_block, on _read_loop's thread, touch it")
+
     def __init__(self, sock: socket.socket, *, client: bool,
                  on_stream: Optional[Callable] = None,
                  name: str = "h2") -> None:
@@ -171,8 +184,9 @@ class Connection:
         with self._cv:
             if self.closed:
                 return
+            last = self.last_peer_id
         try:
-            self._write(frame(GOAWAY, 0, 0, self.last_peer_id.to_bytes(
+            self._write(frame(GOAWAY, 0, 0, last.to_bytes(
                 4, "big") + code.to_bytes(4, "big") + msg.encode()[:256]))
         except ConnectionClosed:
             pass
@@ -222,7 +236,8 @@ class Connection:
         MAX_FRAME_SIZE (callers hold the write lock: the encoder's state
         and the frames' order go together)."""
         block = self.encoder.encode(headers)
-        n = self.peer_max_frame
+        with self._cv:
+            n = self.peer_max_frame
         parts = [block[i:i + n] for i in range(0, len(block), n)] or [b""]
         out = []
         for i, part in enumerate(parts):
@@ -502,6 +517,7 @@ class Connection:
         if pad and not flags & END_STREAM:
             self._window_update(sid, pad)
 
+    @requires("h2.state")
     def _remote_end(self, s: Stream) -> None:
         s.remote_closed = True
         if s.local_closed:

@@ -73,6 +73,7 @@ from instaslice_tpu_torch.deviceplugin.wire import (
 from instaslice_tpu_torch.obs.journal import get_journal
 from instaslice_tpu_torch.topology.grid import Shape, id_to_coord
 from instaslice_tpu_torch.topology.mig import WHOLE_GPU, parse_mig_profile
+from instaslice_tpu_torch.utils.guards import guarded_by, requires
 from instaslice_tpu_torch.utils.lockcheck import named_condition, named_lock
 
 log = logging.getLogger("instaslice_tpu_torch.deviceplugin")
@@ -320,6 +321,10 @@ class GpuDevicePluginServicer:
 class GpuDevicePlugin:
     """Plugin lifecycle: serve, register, watch health, re-register."""
 
+    registered_count: guarded_by("deviceplugin.state")
+    _server: guarded_by("deviceplugin.state")
+    _health_seq: guarded_by("deviceplugin.health")
+
     def __init__(
         self,
         backend: DeviceBackend,
@@ -365,6 +370,10 @@ class GpuDevicePlugin:
         #: the single source of truth behind the ``running`` property
         self._stop_evt = threading.Event()
         self._stop_evt.set()  # not running until start()
+        #: the registration count and the live gRPC server: the owner's
+        #: thread and the kubelet watcher (its re-registration) both
+        #: start and stop the plugin
+        self._state_lock = named_lock("deviceplugin.state")
         self.registered_count = 0
         self.metrics_allocations = 0
         self._unhealthy: Set[int] = set()
@@ -486,8 +495,12 @@ class GpuDevicePlugin:
         with self._health_cv:
             if seen is None:
                 seen = self._health_seq
-            self._health_cv.wait_for(lambda: self._health_seq != seen,
+            self._health_cv.wait_for(lambda: self._health_moved(seen),
                                      timeout)
+
+    @requires("deviceplugin.health")
+    def _health_moved(self, seen: int) -> bool:
+        return self._health_seq != seen
 
     def notify_health(self) -> None:
         with self._health_cv:
@@ -505,13 +518,27 @@ class GpuDevicePlugin:
         return os.path.join(self.plugin_dir, KUBELET_SOCKET)
 
     def start(self) -> None:
+        with self._state_lock:
+            self._stop_evt.clear()  # running = True
+        self._serve()
+
+    def _serve(self) -> None:
+        """Serve, register and watch the kubelet. The watcher's restart
+        comes here without start(): a stop() by the owner in the
+        meantime is final, so a server that comes up after it is shut
+        again and the restart gives up."""
         os.makedirs(self.plugin_dir, exist_ok=True)
         server = Server(name="tpuslice-dp")
         server.add_handlers(device_plugin_handler(
             GpuDevicePluginServicer(self)))
-        self._stop_evt.clear()  # running = True
         server.start(self.socket_path)
-        self._server = server
+        with self._state_lock:
+            stopped = self._stop_evt.is_set()
+            if not stopped:
+                self._server = server
+        if stopped:
+            self._shut(server)
+            raise DeviceError("plugin stopped while it started")
         log.info(
             "device plugin serving %s at %s (%d GPUs, %s)",
             self.resource_name, self.socket_path,
@@ -536,7 +563,8 @@ class GpuDevicePlugin:
                             endpoint=self.socket_name,
                             resource_name=self.resource_name,
                         )
-                    self.registered_count += 1
+                    with self._state_lock:
+                        self.registered_count += 1
                     log.info(
                         "registered %s with kubelet (endpoint %s)",
                         self.resource_name, self.socket_name,
@@ -565,8 +593,8 @@ class GpuDevicePlugin:
                             "re-registering")
                 try:
                     self.stop(keep_running_flag=True)
-                    self.start()
-                    return  # start() spawned a fresh watcher
+                    self._serve()
+                    return  # _serve() spawned a fresh watcher
                 except (DeviceError, OSError) as e:
                     log.error("re-registration failed (will retry): %s", e)
                     if self._stop_evt.wait(self.health_poll_seconds):
@@ -587,12 +615,20 @@ class GpuDevicePlugin:
         return not self._stop_evt.is_set()
 
     def stop(self, keep_running_flag: bool = False) -> None:
-        if not keep_running_flag:
-            self._stop_evt.set()
+        """Stop serving. The flag and the swap of the server are one
+        step under ``deviceplugin.state``, so a restart by the watcher
+        either hands its server over to be shut here or sees the flag
+        and shuts it itself."""
+        with self._state_lock:
+            if not keep_running_flag:
+                self._stop_evt.set()
+            server, self._server = self._server, None
         self.notify_health()  # unblock ListAndWatch streams
-        if self._server is not None:
-            self._server.stop(grace=1.0)
-            self._server = None
+        self._shut(server)
+
+    def _shut(self, server: Optional[Server]) -> None:
+        if server is not None:
+            server.stop(grace=1.0)
         if os.path.exists(self.socket_path):
             try:
                 os.unlink(self.socket_path)
@@ -614,6 +650,8 @@ class SlicePluginManager:
     per-profile resources, which InstaSlice kicks through a node label,
     ``instaslice_daemonset.go:474-497``.)
     """
+
+    plugins: guarded_by("deviceplugin.manager")
 
     def __init__(
         self,

@@ -47,6 +47,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from instaslice_tpu_torch.deviceplugin import h2
 from instaslice_tpu_torch.deviceplugin import proto as pb
+from instaslice_tpu_torch.utils.guards import guarded_by
 from instaslice_tpu_torch.utils.lockcheck import named_lock
 
 log = logging.getLogger("instaslice_tpu_torch.deviceplugin.wire")
@@ -269,6 +270,11 @@ class Server:
     socket; each connection has its reader thread, each call its
     handler thread."""
 
+    _methods: guarded_by("grpc.server")
+    _conns: guarded_by("grpc.server")
+    _calls: guarded_by("grpc.server")
+    _listener: guarded_by("grpc.server")
+
     def __init__(self, name: str = "grpc") -> None:
         self.name = name
         self._methods: Dict[str, RpcMethod] = {}
@@ -281,11 +287,14 @@ class Server:
         self.path = ""
 
     def add_handlers(self, methods: Dict[str, RpcMethod]) -> None:
-        self._methods.update(methods)
+        with self._lock:
+            self._methods.update(methods)
 
     @property
     def running(self) -> bool:
-        return self._listener is not None and not self._stop.is_set()
+        with self._lock:
+            listening = self._listener is not None
+        return listening and not self._stop.is_set()
 
     def start(self, path: str) -> "Server":
         """Listen on the unix socket ``path`` (made anew)."""
@@ -301,17 +310,18 @@ class Server:
         # a short accept timeout bounds stop(): where shutdown() does not
         # wake a blocked accept(), the loop sees the stop flag within it
         sock.settimeout(ACCEPT_POLL)
-        self._listener, self.path = sock, path
+        with self._lock:
+            self._listener, self.path = sock, path
         self._accept = threading.Thread(
-            target=self._accept_loop, name=f"{self.name}-accept",
-            daemon=True)
+            target=self._accept_loop, args=(sock,),
+            name=f"{self.name}-accept", daemon=True)
         self._accept.start()
         return self
 
-    def _accept_loop(self) -> None:
+    def _accept_loop(self, listener: socket.socket) -> None:
         while not self._stop.is_set():
             try:
-                sock, _ = self._listener.accept()
+                sock, _ = listener.accept()
             except socket.timeout:
                 continue
             except OSError:
@@ -341,13 +351,15 @@ class Server:
         ``grace`` seconds to end; then every connection gets GOAWAY and
         is closed."""
         self._stop.set()
-        if self._listener is not None:
+        with self._lock:
+            listener = self._listener
+        if listener is not None:
             try:
                 # wakes a blocked accept() at once (close alone does not)
-                self._listener.shutdown(socket.SHUT_RDWR)
+                listener.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
-            self._listener.close()
+            listener.close()
         if self._accept is not None:
             self._accept.join(grace + h2.POLL)
         deadline = time.monotonic() + grace
@@ -373,7 +385,8 @@ class Server:
                 conn.send_headers(stream, [(":status", "415")], True)
                 return
             timeout = decode_timeout(headers.get("grpc-timeout", ""))
-            method = self._methods.get(headers.get(":path", ""))
+            with self._lock:
+                method = self._methods.get(headers.get(":path", ""))
             if method is None:
                 raise _Abort(StatusCode.UNIMPLEMENTED,
                              f"Method not found: {headers.get(':path')}")

@@ -189,7 +189,7 @@ class Prefetcher:
             while not self._stop.is_set():
                 try:
                     item = (step, fetch(step))
-                except BaseException as e:
+                except BaseException as e:  # slicelint: disable=broad-except
                     # not swallowed: stored, re-raised on next()
                     self._exc = e
                     self._q.put(None)

@@ -154,6 +154,7 @@ class CompileWatch:
         try:
             return dict(self._engine.compiled_programs())
         except Exception:  # noqa: BLE001  # slicelint: disable=broad-except
+            # an engine that cannot say what it compiled: nothing to watch
             return {}
 
     def mark_traffic(self) -> None:

@@ -1469,50 +1469,56 @@ class ServingEngine:
             raise RuntimeError(
                 f"kv block pool cannot hold the inbound session: {e}"
             ) from None
+        # until the payload has passed, the table is released on every
+        # way out (a malformed payload, a state the generator refuses):
+        # repeated bad imports must not shrink the pool
+        passed = False
         try:
-            stripe = self._stripe_from_wire(blob["stripe"], self.cache,
-                                            length)
-            draft_stripe = None
-            if self.draft_cache is not None:
-                draft_stripe = self._stripe_from_wire(
-                    blob["draft_stripe"], self.draft_cache, length)
-            req = _Slot(
-                0,  # rid assigned below, after nothing can fail
-                [int(t) for t in blob["prompt"]],
-                [int(t) for t in blob["generated"]],
-                stop=[[int(x) for x in s] for s in blob["stop"]],
-                stop_scanned=int(blob["stop_scanned"]),
-                logprobs=[float(x) for x in blob["logprobs"]],
-            )
-            if not req.generated:
-                raise ValueError("no generated token to resume from")
-            # a missing key is the base model, as _validate_session_blob
-            # reads the same field
-            adapter = int(blob.get("adapter", 0))
-            # parsed HERE: a truncated state must fail before
-            # registration, like every other malformed field
-            rng_state = None
-            trng = blob.get("torch_rng")
-            if trng is not None and trng.get("device") == self.device.type:
-                rng_state = wire_to_array(trng["state"])
-                if rng_state.dtype != torch.uint8:
-                    raise ValueError(f"torch_rng state dtype "
-                                     f"{rng_state.dtype}")
-        except Exception as e:  # noqa: BLE001 - re-raised as ValueError
-            # the blob passed the signature checks but its payload is
-            # missing/corrupt: the allocated table was never registered,
-            # so release it HERE; repeated malformed imports must not
-            # shrink the pool
-            self.kv.release(table)
-            raise ValueError(
-                f"malformed session blob payload: {e!r}") from None
-        if rng_state is not None:
             try:
-                self._gen.set_state(rng_state)
-            except RuntimeError as e:
-                self.kv.release(table)
+                stripe = self._stripe_from_wire(blob["stripe"], self.cache,
+                                                length)
+                draft_stripe = None
+                if self.draft_cache is not None:
+                    draft_stripe = self._stripe_from_wire(
+                        blob["draft_stripe"], self.draft_cache, length)
+                req = _Slot(
+                    0,  # rid assigned below, after nothing can fail
+                    [int(t) for t in blob["prompt"]],
+                    [int(t) for t in blob["generated"]],
+                    stop=[[int(x) for x in s] for s in blob["stop"]],
+                    stop_scanned=int(blob["stop_scanned"]),
+                    logprobs=[float(x) for x in blob["logprobs"]],
+                )
+                if not req.generated:
+                    raise ValueError("no generated token to resume from")
+                # a missing key is the base model, as
+                # _validate_session_blob reads the same field
+                adapter = int(blob.get("adapter", 0))
+                # parsed HERE: a truncated state must fail before
+                # registration, like every other malformed field
+                rng_state = None
+                trng = blob.get("torch_rng")
+                if trng is not None and \
+                        trng.get("device") == self.device.type:
+                    rng_state = wire_to_array(trng["state"])
+                    if rng_state.dtype != torch.uint8:
+                        raise ValueError(f"torch_rng state dtype "
+                                         f"{rng_state.dtype}")
+            except Exception as e:  # noqa: BLE001 - re-raised as ValueError
+                # the blob passed the signature checks but its payload is
+                # missing/corrupt
                 raise ValueError(
                     f"malformed session blob payload: {e!r}") from None
+            if rng_state is not None:
+                try:
+                    self._gen.set_state(rng_state)
+                except RuntimeError as e:
+                    raise ValueError(
+                        f"malformed session blob payload: {e!r}") from None
+            passed = True
+        finally:
+            if not passed:
+                self.kv.release(table)
         rid = self._next_id
         self._next_id += 1
         req.request_id = rid

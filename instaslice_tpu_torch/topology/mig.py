@@ -148,17 +148,23 @@ def parse_mig_profile(name: str, gen_name: str = H100_80GB) -> MigProfile:
     ``gpu`` or ``nvidia.com/gpu`` -> :data:`WHOLE_GPU`. Raises ValueError
     for a name the rule does not match or the catalog does not hold
     (InstaSlice's ``extractProfileName`` returns "" there)."""
+    # here, not at the top: api/ imports topology/
+    from instaslice_tpu_torch.api.constants import (
+        GPU_RESOURCE,
+        MIG_RESOURCE_PREFIX,
+    )
+
     catalog = mig_catalog(gen_name)
     if catalog is None:
         raise ValueError(f"generation {gen_name!r} has no MIG catalog")
     stripped = name.strip()
-    if stripped in (WHOLE_GPU, "nvidia.com/gpu"):
+    if stripped in (WHOLE_GPU, GPU_RESOURCE):
         return whole_gpu(gen_name)
     m = _MIG_NAME_RE.search(stripped)
     if not m:
         raise ValueError(
             f"malformed MIG profile name {name!r} (want e.g. "
-            "'nvidia.com/mig-1g.10gb')")
+            f"'{MIG_RESOURCE_PREFIX}1g.10gb')")
     for p in catalog:
         if p.mig_name == m.group(1):
             return p

@@ -1,4 +1,5 @@
-"""Static guarded-by annotations for ``tools/slicecheck.py``.
+"""Static guarded-by annotations for the port's slicecheck
+(``instaslice_tpu_torch/analysis/slicecheck.py``).
 
 The lockcheck factories (utils/lockcheck.py) give every lock a stable
 dotted name; these markers tie *fields* to those names so the static

@@ -151,6 +151,41 @@ class TestRegistration:
             assert DevicePluginClient(ch).options().\
                 get_preferred_allocation_available
 
+    # ``add_handlers`` runs before the running flag was cleared in a
+    # restart that went through start(), ``start`` before the new server
+    # is stored: an owner's stop() at either point must be final
+    @pytest.mark.parametrize("hooked", ["add_handlers", "start"])
+    def test_owner_stop_during_restart_is_final(
+        self, plugin, kubelet, monkeypatch, hooked
+    ):
+        assert kubelet.event.wait(5)
+        kubelet.event.clear()
+        entered, release = threading.Event(), threading.Event()
+        original = getattr(Server, hooked)
+
+        def slowed(server, *args, **kwargs):
+            if threading.current_thread().name == "tpuslice-dp-watch":
+                entered.set()
+                release.wait(5)
+            return original(server, *args, **kwargs)
+
+        monkeypatch.setattr(Server, hooked, slowed)
+        os.unlink(plugin.socket_path)  # kubelet restart: the watcher acts
+        assert entered.wait(5), "the watcher did not restart the plugin"
+        watcher = plugin._watch_thread
+        plugin.stop()
+        release.set()
+        watcher.join(5)
+        assert not watcher.is_alive()
+        assert not plugin.running
+        assert plugin._server is None
+        assert not os.path.exists(plugin.socket_path)
+        fresh = plugin._watch_thread
+        if fresh is not watcher:
+            fresh.join(5)
+            assert not fresh.is_alive()
+        assert not kubelet.event.wait(0.3), "re-registered after stop()"
+
 
 class TestListAndWatch:
     def test_initial_inventory(self, plugin, client):
