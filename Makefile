@@ -220,6 +220,28 @@ gpu-telemetry-smoke:  ## The port's fleet-telemetry gate on the CPU: 2 replicas 
 gpu-profile-smoke:  ## The port's profiler gate on the CPU: armed tok/s >= 0.95x unprofiled, ring == round counter == profile_rounds, Chrome trace with a dispatch segment, a waterfall, no compile past warm-up
 	timeout -k 10 300 $(PY) -m instaslice_tpu_torch.analysis.profile_smoke --device cpu
 
+.PHONY: gpu-chaos-crash-smoke
+gpu-chaos-crash-smoke:  ## The port's crash gate on the CPU (<60 s): a controller killed mid-fan-out and an agent mid-realize on its sim's H100 nodes, a serving replica killed mid-stream under its router; every pod granted, zero double allocations, zero orphaned slices, chains legal across restarts, zero hung
+	timeout -k 10 300 $(PY) -m instaslice_tpu_torch.analysis.chaos_smoke --crash --device cpu
+
+.PHONY: gpu-chaos-partition-smoke
+gpu-chaos-partition-smoke:  ## The port's partition gate on the CPU (<60 s): the controller cut from the apiserver and healed, an agent in static mode across a cut, a gray replica ejected on latency EWMA and re-admitted, then the loadgen's nemesis arm; check_nemesis and strict chains clean, zero hung
+	timeout -k 10 300 $(PY) -m instaslice_tpu_torch.analysis.chaos_smoke --partition --device cpu
+
+.PHONY: gpu-chaos
+gpu-chaos:  ## The port's chaos tiers across 3 seeds under TPUSLICE_LOCKCHECK=1 (a lock-order cycle fails a module): randomized ops on its sim, serving faults, the crash tier (kill loop over every crash site, watchdogs) and the partition tier
+	@set -e; for seed in 1 2 3; do \
+	  echo "=== gpu-chaos seed $$seed ==="; \
+	  CHAOS_SEED=$$seed CHAOS_DURATION=$${CHAOS_DURATION:-8} \
+	  TPUSLICE_LOCKCHECK=1 \
+	  PYTEST_FAULTHANDLER_SESSION_TIMEOUT=330 \
+	  JAX_PLATFORMS=cpu \
+	  timeout -k 10 360 $(PY) -m pytest \
+	    tests/test_torch_chaos.py tests/test_torch_serving_chaos.py \
+	    tests/test_torch_crash_chaos.py tests/test_torch_partition_chaos.py \
+	    -q -p no:cacheprovider; \
+	done
+
 .PHONY: gpu-test-deploy
 gpu-test-deploy:  ## The port's deploy-plane validation without a cluster: apply the rendered tree over HTTP to the port's fake apiserver, cross-check references and GPU-node needs, lint the port's Dockerfiles against pyproject scripts
 	$(PY) -m instaslice_tpu_torch.deploy.check

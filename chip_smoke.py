@@ -98,9 +98,22 @@ without a result line:
    aggregator over the router and both servers, its rollup's change over
    the loadgen run equal to the client's report exactly, a routed request
    stitched across router and server, ``/v1/fleet``, ``/metrics`` and
-   ``tpuslice-gpu fleet``; at engine level B's first decode logits after
-   importing a parked session equal A's continuation bit for bit; no KV
-   block leaks;
+   ``tpuslice-gpu fleet``; the chaos step's gray arm: a second router
+   with the gray sweep on over A and B, 0.5 s of latency on its hop to A
+   from its first poll: A ejected on its latency EWMA, a loadgen run
+   around it all ``ok``, A idle, A re-admitted after the heal, the
+   loadgen's nemesis arm with none hung, ``check_nemesis`` clean on the
+   phase's event file, B never ejected; at engine level B's first decode
+   logits after importing a parked session equal A's continuation bit
+   for bit; no KV block leaks;
+   kill (the chaos step's kill arm): three 7B int8 replicas, each a
+   process of its own with its own trace and event files, behind the
+   port's router in this process; the port's loadgen streams through it,
+   the victim is SIGKILLed once it holds a live slot, the third replica
+   added and the victim removed: outcomes summing to the requests, none
+   hung, the rest classified; the survivor and the fresh replica
+   quiesced with no KV leak, a routed request's tokens equal direct,
+   B1-B3 from each one's own card trace equal to its forwards;
 5. train kernels: the flash-attention forward (B5) and backward (B6 dq,
    B7 dk/dv) against their plain versions in bf16 at (B*H 128, S 1024,
    hd 128) causal, at S 1025 (the training CLI's row width) and
@@ -131,21 +144,23 @@ without a result line:
    launches a step;
    step ms, tokens/s, MFU over the active parameters, peak memory, device
    time by class; then remat "full", and no remat (an out-of-memory is
-   recorded as a reading), not profiled; (c) its 2-layer fp32 cut, CPU against card,
+   recorded as a reading), not profiled; (c) its 1-layer fp32 cut at batch
+   2 x 128 (2 layers at 2 x 256 before the chaos step), CPU against card,
    within the train cut's bounds; (d) ``quantize_params`` of its bf16
    weights served by ``ServingEngine`` (batch 8, max_len 1024, prefill
    128) on 8 prompts: B4 4 per layer and B3 once per forward, B1 and B2
    none (gated off for MoE, as in the reference), decode tok/s and device
-   ms a step, and a 2-layer int8 cut of its cache forward in fp32, CPU
+   ms a step, and a 1-layer int8 cut of its cache forward in fp32, CPU
    against card, with equal greedy tokens; (e) B4 against its plain
    version at (M, 2048) x (2048, 2048), M = 1 ... 256, timed at M = 8;
 7. CLI: ``instaslice_tpu_torch.cli.train_main`` on a synthetic corpus at
    the 871M defaults, 3 steps at ``--seq-len 1024`` (rows of 1025
    tokens: the ragged path), its JSON line checked;
-8. train cut: the 871M configuration cut to 2 layers in fp32 at batch 2 x
-   256: loss, grads, and the params and each leaf's update after 3 AdamW
-   steps (clip, warmup) on the CPU (plain versions) and on the card
-   (kernels), within the stated tolerances.
+8. train cut: the 871M configuration cut to 1 layer in fp32 at batch 2 x
+   128 (2 layers at 2 x 256 before the chaos step): loss, grads, and the
+   params and each leaf's update after 3 AdamW steps (clip, warmup) on
+   the CPU (plain versions) and on the card (kernels), within the stated
+   tolerances.
 
 lora (after migrate, serving half): multi-LoRA at the 7B int8
 configuration: 4 adapters of rank 8 on (wq, wv) (the reference's
@@ -282,7 +297,13 @@ the part key, the Node's per-pod resource, the reservation listed by
 another process; the 7B int8 server in a fresh process on the
 ConfigMap's env serves the serve phase's tokens with B1-B3 on the
 card's trace; two health sweeps leave ``unhealthyChips`` empty; the
-allocation flipped to ``deleted`` is torn down to nothing; an agent
+agent, holding the grant, restarted under ``TPUSLICE_NEMESIS_PLAN`` with
+a cut from the apiserver 2.5 s into its run for 4 s (the chaos step's
+partition arm): ``DegradedModeEntered`` once, another process lists the
+reservation unchanged during the cut, ``DegradedModeExited`` after it,
+the CR's prepared equal to the device's, MIG untouched; the allocation
+flipped to ``deleted`` is torn down to nothing, and a pod submitted after
+the heal is granted and torn down; an agent
 armed to crash at ``agent.realize`` dies with its reservation
 unrecorded, and a restarted agent reaps that orphan (``OrphanReaped``
 on its ``/v1/debug/events``). Boot to CR, realize and teardown
@@ -330,7 +351,9 @@ phase's runs, ``slice_launches`` from the slice phase's workload,
 ``agent_launches`` and ``controller_launches`` from the agent and
 controller phases' workloads, ``ctl_launches`` from the ctl phase's
 ``--quantize`` and ``--spec`` runs, ``fleet_launches`` from the migrate
-phase's fleet step), the graph
+phase's fleet step, ``kill_launches`` from the kill phase's survivor and
+fresh replica), the chaos step's JSON line (each arm's numbers and the
+step's seconds), the graph
 phase's JSON line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port
 beside this script, it exits non-zero and prints no result.
@@ -1242,19 +1265,20 @@ def device_busy(torch, run, n_steps: int, kn: str = "quant_matmul_stacked"):
             "launches": launches}
 
 
-def phase_cut(torch, cfg, qp, what: str = "cut") -> dict:
-    """2 layers of the same weights: CPU plain versions vs card kernels,
-    one prefill and 4 greedy decode steps (the CPU's tokens fed to
-    both)."""
+def phase_cut(torch, cfg, qp, what: str = "cut", n_layers: int = 2) -> dict:
+    """``n_layers`` layers of the same weights: CPU plain versions vs
+    card kernels, one prefill and 4 greedy decode steps (the CPU's tokens
+    fed to both)."""
     from instaslice_tpu_torch.models.lm import apply_with_cache, init_cache
     from instaslice_tpu_torch.models.quant import QuantizedTensor
 
-    cut = dataclasses.replace(cfg, n_layers=2)
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
 
     def take(leaf, dev):
         if isinstance(leaf, QuantizedTensor):
-            return QuantizedTensor(leaf.q[:2].to(dev), leaf.s[:2].to(dev))
-        return leaf[:2].to(dev)
+            return QuantizedTensor(leaf.q[:n_layers].to(dev),
+                                   leaf.s[:n_layers].to(dev))
+        return leaf[:n_layers].to(dev)
 
     trees = {}
     for dev in ("cpu", "cuda"):
@@ -1290,7 +1314,7 @@ def phase_cut(torch, cfg, qp, what: str = "cut") -> dict:
               f"greedy tokens {got_tok.tolist()} != {want_tok.tolist()}")
         lens = lens + toks.shape[1]
         toks = want_tok[:, None]
-    log(f"{what}: 2 layers, prefill 16 + 4 decode steps: max logit error "
+    log(f"{what}: {n_layers} layers, prefill 16 + 4 decode steps: max logit error "
         f"{worst:.2e} of max|logit|, greedy tokens equal")
     return {"max_rel_err": worst}
 
@@ -3049,6 +3073,68 @@ def fleet_step(torch, ops, srvs, engs, L: int, V: int) -> dict:
     return out
 
 
+#: the chaos step's gray arm (in the migrate phase, after the fleet step,
+#: on its two servers): the seed of its nemesis plan and of the loadgen's
+#: nemesis arm; the router's knobs, the latency on its hop to A and the
+#: loadgen runs are the reference smoke's (``analysis/chaos_smoke.py``
+#: ``GRAY_ROUTER``, ``GRAY_DELAY_S``, ``GRAY_LOADGEN``)
+GRAY_SEED = 1234
+#: the longest the gray arm waits for A's ejection (A is seasoned by 6
+#: polls of GRAY_DELAY_S first)
+GRAY_WAIT_S = 60.0
+
+
+def gray_arm(srvs, event_file: str) -> dict:
+    """A replica that answers every request but slower, on the card: the
+    port's gray arm (``analysis/chaos_smoke.py`` ``gray_replica``) over
+    the migrate phase's two 7B int8 servers (A, B): a second router with
+    the gray sweep on, ``set_nemesis`` putting ``GRAY_DELAY_S`` on its
+    hop to A from its first poll. A is ejected on its latency EWMA alone
+    (``ReplicaEjected``); a loadgen run around it is all ``ok``, none
+    hung, A's engine generating nothing meanwhile; the heal, and A is
+    re-admitted (``ReplicaReadmitted``); the loadgen's nemesis arm then
+    hangs nothing; ``check_nemesis`` is clean on the phase's event file.
+    The two servers share one card and one host: both replicas'
+    ``lat_p95`` are logged at each poll the arm waits on, and B ejected
+    at any time fails the phase (never retried). No migration and no
+    prefill burst runs inside it: each request is 4 tokens of prompt and
+    4 new."""
+    from types import SimpleNamespace
+
+    from instaslice_tpu_torch import faults
+    from instaslice_tpu_torch.analysis import chaos_smoke as cs
+    from instaslice_tpu_torch.analysis import validate_events as ve
+    from instaslice_tpu_torch.obs import journal
+    from instaslice_tpu_torch.serving import loadgen
+    from instaslice_tpu_torch.serving.router import Router
+
+    def events():
+        got, errors = ve.read_events(event_file)
+        check(not errors, f"chaos (a): the phase's event file: {errors[:5]}")
+        return got
+
+    serving = SimpleNamespace(faults=faults, journal=journal,
+                              loadgen=loadgen, Router=Router)
+    r = cs.gray_replica(serving, ve, GRAY_SEED, eject_timeout=GRAY_WAIT_S,
+                        servers=srvs, events=events)
+    found = cs.findings_of(r)
+    for p in r["polls"]:
+        log(f"chaos (a) poll: {p[0]} at {p[1]} s: p95 A {p[2]} ms, B "
+            f"{p[3]} ms, A ejected {p[4]}")
+    check(not found, f"chaos (a): {found}")
+    out = {k: r[k] for k in ("eject_s", "readmit_s", "ejections",
+                             "around_outcomes", "nemesis_arm", "seconds")}
+    out["polls"] = len(r["polls"])
+    log(f"chaos (a): A ejected {r['eject_s']:.2f} s after the router's "
+        f"first poll ({cs.GRAY_DELAY_S} s on its hop to A), B never; the "
+        f"loadgen around it {r['around_outcomes']}, A's engine idle; "
+        f"re-admitted {r['readmit_s']:.2f} s after the heal; the loadgen's "
+        f"nemesis arm {r['nemesis_arm']}; check_nemesis clean over the "
+        f"phase's event file; {out['polls']} polls; "
+        f"{r['seconds']:.1f} s")
+    return out
+
+
 def phase_migrate(torch, ops, sinks: Path) -> dict:
     """Session migration between two port servers at the 7B int8
     configuration (``SERVE_FLAGS``), in process on port 0: a streamed
@@ -3163,6 +3249,7 @@ def phase_migrate(torch, ops, sinks: Path) -> dict:
             out["sessions"] = [st["sessions"] for st in stats]
             out["fleet"] = fleet_step(torch, ops, srvs, engs, args.n_layers,
                                       V)
+            out["gray"] = gray_arm(srvs, files["event"]["fleet"])
         finally:
             for s in srvs:
                 s.stop()
@@ -3245,6 +3332,321 @@ def phase_migrate(torch, ops, sinks: Path) -> dict:
         reset_tracer()
         reset_journal()
     out["sinks"] = files
+    return out
+
+
+# ------------------------------------------------------------- kill phase
+
+#: the chaos step's kill arm: the port's loadgen through the port's router
+#: over two 7B int8 replicas (``SERVE_FLAGS``), each a process of its own:
+#: requests, concurrency, prompt length, new tokens, seed (greedy,
+#: streamed). The victim is SIGKILLed once its ``/v1/stats`` shows a live
+#: slot; a third replica, started with the others, joins after the kill
+KILL_LOADGEN = (24, 4, 64, 24, 0)
+#: the longest a replica process may take to build, warm and listen
+REPLICA_START_S = 400.0
+REPLICAS = ("victim", "survivor", "fresh")
+
+
+def replica_child(out: str, flags: str, after: tuple = ()) -> int:
+    """One replica of the kill arm in a process of its own: the server
+    from its CLI wiring (``flags``), its spans and events in the files
+    ``TPUSLICE_TRACE_FILE`` and ``TPUSLICE_EVENT_FILE`` name. The three
+    start together, but each builds its weights only once the files
+    ``after`` (earlier replicas' ``out/built``) exist, and frees the bf16
+    weights' cached memory before writing its own: three 7B bf16 inits
+    at once (~15 GiB each before quantizing) did not fit beside one
+    another on the card, two do. It warms
+    the decode graphs the arm's traffic takes with one request of its
+    shape, then opens a traced window (``Traced``, a ``ForwardLog``) and
+    writes ``out/ready.json`` (URL, pid, build and warm seconds); it
+    serves until SIGTERM, closes the window and writes
+    ``out/result.json``: B1-B3 from the card's trace of this process,
+    what its forwards imply (as the fleet step counts them), and its
+    ledger at the stop (live and parked slots, KV blocks used against
+    the radix cache's). A SIGKILL writes nothing past ``ready.json``."""
+    import os
+    import signal
+    import threading
+
+    import torch
+
+    from instaslice_tpu_torch import ops
+    from instaslice_tpu_torch.serving import api_server
+
+    out_dir = Path(out)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    t_turn = time.perf_counter()
+    while not all(Path(a).exists() for a in after):
+        check(time.perf_counter() - t_turn < REPLICA_START_S,
+              f"replica: {after} never appeared")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    args = api_server.build_parser().parse_args(flags.split())
+    eng = api_server.build_engine(args)
+    torch.cuda.empty_cache()
+    (out_dir / "built").write_text("")
+    srv = api_server.ApiServer(eng, host=args.host, port=args.port).start()
+    res = {"pid": os.getpid(), "url": srv.url, "turn_s": t0 - t_turn,
+           "build_s": time.perf_counter() - t0}
+    fl = None
+    try:
+        wait_ready(srv.url)
+        _, _, plen, new, _ = KILL_LOADGEN
+        t1 = time.perf_counter()
+        warm = http_stream(srv.url + "/v1/completions", {
+            "prompt": list(range(1, plen + 1)), "max_tokens": new,
+            "temperature": 0.0, "stream": True})
+        check(len(warm["token_ids"]) == new, "replica: the warm request")
+        res["warm_s"] = time.perf_counter() - t1
+        fl = ForwardLog(eng)
+        steps0 = eng.decode_steps
+        fl.start()
+        with Traced(torch, ops) as tr:
+            (out_dir / "ready.json").write_text(json.dumps(res))
+            while not stop.wait(0.2):
+                pass
+        fl.stop()
+        steps = eng.decode_steps - steps0
+        kfw = sum(b * t <= 256 for b, t in fl.target)
+        L = args.n_layers
+        st = srv.scheduler.stats()
+        res.update(
+            counts=tr.counts, decode_steps=steps, kernel_forwards=kfw,
+            graph_steps=len(fl.attends),
+            want={**dict.fromkeys(ops.KERNEL_WRAPPERS, 0),
+                  "quant_decode_attention": L * steps,
+                  "quant_matmul_stacked": 6 * L * kfw,
+                  "quant_matmul_t": kfw},
+            ledger={"live_slots": st["live_slots"], "parked": st["parked"],
+                    "kv_used": st["kv"]["used"],
+                    "radix_blocks": st["radix"]["blocks"],
+                    "tokens_generated": st["tokens_generated"]})
+    finally:
+        if fl is not None:
+            fl.close()
+        srv.stop()
+        (out_dir / "result.json").write_text(json.dumps(res))
+    return 0
+
+
+def torn_lines(path: str) -> tuple:
+    """(lines, the numbers of those that do not parse) of a JSONL file."""
+    bad, n = [], 0
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            if line.strip():
+                try:
+                    json.loads(line)
+                except ValueError:
+                    bad.append(n)
+    return n, bad
+
+
+def phase_kill(torch, sinks: Path) -> dict:
+    """The chaos step's kill arm on the card: a 7B int8 replica SIGKILLed
+    mid-stream under the port's router. Three replicas
+    (:func:`replica_child`), each a process with its own trace and event
+    files, start together (the victim's and the survivor's weights built
+    at once, the fresh replica's after them); the router (in this process, its own file
+    pair) fronts the victim and the survivor, and the port's loadgen
+    streams ``KILL_LOADGEN`` through it. Once the victim holds a live
+    slot it is SIGKILLed (a power cut: no drain, no terminal), the third
+    replica is added (``add_replica``) and the victim removed
+    (``remove_replica``). The outcomes sum to the requests, none hung, at
+    least one ``ok``, every other one a classified crash signature; the
+    victim exits -9; the survivor and the fresh replica end quiesced with
+    no KV leak, a greedy request through the router has the tokens of the
+    same request sent direct to each, and each counts B1-B3 on the
+    card's trace of its own process equal to its forwards at a clean
+    stop (SIGTERM, exit 0). The victim's cut-off files must parse but
+    for a torn last line. Returns the files for :func:`phase_obs` (the
+    router's, the survivor's and the fresh replica's: the C11 check)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from instaslice_tpu_torch.analysis.chaos_smoke import kill_ledger
+    from instaslice_tpu_torch.obs.journal import Journal, reset_journal
+    from instaslice_tpu_torch.serving import api_server, loadgen
+    from instaslice_tpu_torch.serving.router import Router
+    from instaslice_tpu_torch.utils.trace import Tracer, reset_tracer
+
+    t_phase = time.perf_counter()
+    free_memory(torch)
+    V = api_server.build_parser().parse_args(SERVE_FLAGS.split()).vocab_size
+    names = ("router",) + REPLICAS
+    files = {kind: {f"chaos_{n}": str(sinks / f"chaos_{n}.{kind}.jsonl")
+                    for n in names} for kind in ("trace", "event")}
+    reset_tracer(Tracer(trace_file=files["trace"]["chaos_router"]))
+    reset_journal(Journal(event_file=files["event"]["chaos_router"]))
+    work = Path(tempfile.mkdtemp(prefix="kill-"))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPUSLICE_")}
+    procs, logs, router, out = {}, {}, None, {}
+    try:
+        for n in REPLICAS:
+            # the fresh replica builds once the other two have
+            after = tuple(str(work / m / "built") for m in REPLICAS[:2]) \
+                if n == "fresh" else ()
+            (work / n).mkdir()
+            logs[n] = open(work / f"{n}.log", "w")
+            procs[n] = subprocess.Popen(
+                [sys.executable, "-c", "import sys; sys.path.insert(0, "
+                 f"{str(HERE)!r}); import chip_smoke; sys.exit(chip_smoke."
+                 f"replica_child({str(work / n)!r}, {SERVE_FLAGS!r}, "
+                 f"{after!r}))"],
+                env=dict(env,
+                         TPUSLICE_TRACE_FILE=files["trace"][f"chaos_{n}"],
+                         TPUSLICE_EVENT_FILE=files["event"][f"chaos_{n}"]),
+                cwd=HERE, stdout=logs[n], stderr=subprocess.STDOUT)
+
+        def tail(n: str) -> str:
+            return (work / f"{n}.log").read_text()[-3000:]
+
+        def all_ready():
+            for n, p in procs.items():
+                check(p.poll() is None, f"chaos (b): replica {n} exited "
+                      f"({p.returncode}) before it listened: {tail(n)}")
+            return all((work / n / "ready.json").exists() for n in REPLICAS)
+
+        wait_until(all_ready, "three replicas listening",
+                   timeout=REPLICA_START_S, poll=0.2, phase="chaos (b)")
+        ready = {n: json.loads((work / n / "ready.json").read_text())
+                 for n in REPLICAS}
+        out["start_s"] = time.perf_counter() - t_phase
+        out["build_s"] = {n: r["build_s"] for n, r in ready.items()}
+        out["turn_s"] = {n: r["turn_s"] for n, r in ready.items()}
+        out["warm_s"] = {n: r["warm_s"] for n, r in ready.items()}
+        urls = {n: r["url"].rstrip("/") for n, r in ready.items()}
+        # eject_factor=0: the kill is this arm's fault, not a gray one
+        router = Router([urls["victim"], urls["survivor"]],
+                        poll_interval=0.1, stale_after=1.0,
+                        migrate_timeout=3.0, eject_factor=0).start()
+        wait_until(lambda: all(r.stats for r in router.replicas()),
+                   "the router's first polls", poll=0.05, phase="chaos (b)")
+        n_req, conc, plen, new, seed = KILL_LOADGEN
+        report, fresh_first = {}, {}
+        th = threading.Thread(target=lambda: report.update(loadgen.run(
+            router.url, n_req, conc, plen, new, V, True, 300.0,
+            seed=seed)))
+        th.start()
+        wait_until(lambda: http_json(urls["victim"] + "/v1/stats",
+                                     timeout=10)["live_slots"] > 0,
+                   "a live slot on the victim", poll=0.01,
+                   phase="chaos (b)")
+        t_kill = time.perf_counter()
+        procs["victim"].send_signal(signal.SIGKILL)
+        out["victim_exit"] = procs["victim"].wait(timeout=60)
+        gen0 = http_json(urls["fresh"] + "/v1/stats")["tokens_generated"]
+        router.add_replica(urls["fresh"])
+        t_add = time.perf_counter()
+
+        def first_token():
+            while th.is_alive() and "s" not in fresh_first:
+                if http_json(urls["fresh"] + "/v1/stats")[
+                        "tokens_generated"] > gen0:
+                    fresh_first["s"] = time.perf_counter() - t_add
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=first_token)
+        watcher.start()
+        router.remove_replica(urls["victim"])
+        out["kill_to_removed_ms"] = (time.perf_counter() - t_kill) * 1e3
+        th.join(timeout=300)
+        watcher.join(timeout=10)
+        check(report and not th.is_alive(), "chaos (b): the loadgen never "
+              "finished")
+        oc = report["outcomes"]
+        out["outcomes"] = {k: v for k, v in oc.items() if v}
+        out["fresh_first_token_s"] = fresh_first.get("s")
+        check(out["victim_exit"] == -signal.SIGKILL,
+              f"chaos (b): the victim exited {out['victim_exit']}")
+        found = kill_ledger(oc, n_req)
+        check(not found, f"chaos (b): outcomes {oc}: {found}")
+        # a greedy request through the router, and direct to each replica
+        gen = torch.Generator().manual_seed(53)
+        body = {"prompt": torch.randint(1, V, (plen,),
+                                        generator=gen).tolist(),
+                "max_tokens": 8, "temperature": 0.0, "stream": True}
+        routed = http_stream(router.url + "/v1/completions", body)
+        direct = {n: http_stream(urls[n] + "/v1/completions", body)
+                  for n in ("survivor", "fresh")}
+        check(len(routed["token_ids"]) == 8 and all(
+            d["token_ids"] == routed["token_ids"] for d in direct.values()),
+            f"chaos (b): routed tokens {routed['token_ids']}, direct "
+            f"{ {n: d['token_ids'] for n, d in direct.items()} }")
+        router.stop()
+        router = None
+        for n in ("survivor", "fresh"):
+            wait_until(lambda n=n: (lambda st: st["live_slots"] == 0
+                                    and st["parked"] == 0)(
+                http_json(urls[n] + "/v1/stats")),
+                f"{n} quiesced", poll=0.05, phase="chaos (b)")
+            procs[n].send_signal(signal.SIGTERM)
+        results = {}
+        for n in ("survivor", "fresh"):
+            code = procs[n].wait(timeout=120)
+            check(code == 0 and (work / n / "result.json").exists(),
+                  f"chaos (b): replica {n} stopped with {code}: {tail(n)}")
+            r = json.loads((work / n / "result.json").read_text())
+            led = r["ledger"]
+            check(led["live_slots"] == 0 and led["parked"] == 0
+                  and led["kv_used"] == led["radix_blocks"],
+                  f"chaos (b): {n}'s ledger at the stop: {led}")
+            check(r["counts"] == r["want"] and r["graph_steps"]
+                  == r["decode_steps"] > 0 and all(
+                      r["counts"][k] > 0 for k in (
+                          "quant_decode_attention", "quant_matmul_stacked",
+                          "quant_matmul_t")),
+                  f"chaos (b): {n}'s launches on its card trace "
+                  f"{r['counts']}, its forwards imply {r['want']} "
+                  f"({r['decode_steps']} decode steps, "
+                  f"{r['graph_steps']} replayed)")
+            results[n] = r
+        out["counts"] = {n: r["counts"] for n, r in results.items()}
+        out["ledger"] = {n: r["ledger"] for n, r in results.items()}
+        out["torn"] = {}
+        for kind in ("trace", "event"):
+            path = files[kind]["chaos_victim"]
+            n_lines, bad = torn_lines(path) if os.path.exists(path) \
+                else (0, [])
+            check(all(b == n_lines for b in bad),
+                  f"chaos (b): the victim's {kind} file has unparseable "
+                  f"lines {bad} of {n_lines} (only its last may be torn)")
+            out["torn"][kind] = {"lines": n_lines, "torn": len(bad)}
+    finally:
+        if router is not None:
+            router.stop()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+        reset_tracer()
+        reset_journal()
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"chaos (b): three 7B int8 replicas up in {out['start_s']:.1f} s "
+        f"(build s {out['build_s']}, warm s {out['warm_s']}); the victim "
+        f"SIGKILLed with a live slot mid-stream, exit "
+        f"{out['victim_exit']}; kill to remove_replica "
+        f"{out['kill_to_removed_ms']:.1f} ms; the fresh replica's first "
+        f"token {out['fresh_first_token_s']} s after joining; outcomes "
+        f"{out['outcomes']}; routed tokens equal direct; survivor and "
+        f"fresh quiesced, no KV leak, launches on their own card traces "
+        f"{out['counts']} equal their forwards; the victim's files "
+        f"{out['torn']}; {out['seconds']:.1f} s")
+    # the victim's files are cut off (parsed above); a replica that
+    # journaled nothing writes no event file
+    out["sinks"] = {kind: {k: v for k, v in fs.items()
+                           if k != "chaos_victim" and os.path.exists(v)
+                           and os.path.getsize(v)}
+                    for kind, fs in files.items()}
     return out
 
 
@@ -4877,12 +5279,18 @@ def moe_b4(torch, qm, wq, L: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "gb_per_s": gbs(nbytes, ms)}
 
 
+#: the moe phase's CPU-against-card training cut: layers and row length;
+#: the layers of its int8 cache-forward cut
+MOE_CUT_LAYERS, MOE_CUT_ROWS = 1, 128
+MOE_INT8_CUT_LAYERS = 1
+
+
 def phase_moe(torch, ops) -> dict:
     """(a) ``bench_moe``'s dense/MoE forward pair; (b) the MoE main path:
     the MoE configuration through ``make_train_step`` at batch 8 x 1024
     under remat "dots", then "full", then no remat (an OOM is recorded,
-    not fatal); (c) a 2-layer fp32 cut of it, CPU against card; (d) the
-    MoE int8 engine and a 2-layer int8 cut of its cache forward (fp32
+    not fatal); (c) a 1-layer fp32 cut of it, CPU against card; (d) the
+    MoE int8 engine and a 1-layer int8 cut of its cache forward (fp32
     compute, so that no top-2 choice is decided by bf16 rounding), CPU
     against card; (e) B4 at the path's shape."""
     from instaslice_tpu_torch.models.lm import init_params
@@ -4917,9 +5325,12 @@ def phase_moe(torch, ops) -> dict:
         log(f"moe train remat none: out of memory (measured): {msg}")
         out["train_sweep"]["none"] = {"oom": msg}
     lap("train_none")
+    # 1 layer at rows of 128 (2 at 256 until the chaos step came, cut to
+    # pay for it): the CPU's fp32 experts are most of the part's seconds
     out["train_cut"] = phase_train_cut(
-        torch, moe_config(torch, n_layers=2, dtype=torch.float32,
-                          param_dtype=None), "moe train cut")
+        torch, moe_config(torch, n_layers=MOE_CUT_LAYERS,
+                          dtype=torch.float32, param_dtype=None),
+        "moe train cut", rows=MOE_CUT_ROWS)
     lap("train_cut")
     cfg = moe_config(torch, param_dtype=None, remat=False)
     qp = quantize_params(init_params(cfg, 0, device="cuda"))
@@ -4930,9 +5341,12 @@ def phase_moe(torch, ops) -> dict:
                        cfg.n_layers)
     del qp
     lap("b4")
-    cut = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    # 1 layer (2 until the chaos step came, cut to pay for it)
+    cut = dataclasses.replace(cfg, n_layers=MOE_INT8_CUT_LAYERS,
+                              dtype=torch.float32)
     out["cut"] = phase_cut(torch, cut, quantize_params(
-        init_params(cut, 0, device="cpu")), "moe int8 cut")
+        init_params(cut, 0, device="cpu")), "moe int8 cut",
+        n_layers=MOE_INT8_CUT_LAYERS)
     lap("int8_cut")
     log(f"moe: seconds by part {secs}")
     out["seconds"] = secs
@@ -4969,11 +5383,18 @@ def phase_cli(torch, ops) -> dict:
     return {"line": line, "counts": counts}
 
 
-def phase_train_cut(torch, cfg=None, what: str = "train cut") -> dict:
+#: the CPU-against-card training cut of the 871M (the ``train_cut``
+#: phase): layers and row length (2 at rows of 256 until the chaos step
+#: came, cut to pay for it: the CPU's fp32 step is most of its seconds)
+TRAIN_CUT_LAYERS, TRAIN_CUT_ROWS = 1, 128
+
+
+def phase_train_cut(torch, cfg=None, what: str = "train cut",
+                    rows: int = 256) -> dict:
     """2 layers of the 871M configuration (or ``cfg``) in fp32 at batch
-    2 x 256: loss and grads at the initial weights, then params after 3
-    AdamW steps (clip 1.0, warmup 2, decay 3), CPU plain versions vs card
-    kernels."""
+    2 x ``rows``: loss and grads at the initial weights, then params
+    after 3 AdamW steps (clip 1.0, warmup 2, decay 3), CPU plain versions
+    vs card kernels."""
     from instaslice_tpu_torch.models.lm import TpuLM, init_params
     from instaslice_tpu_torch.models.train import (
         leaves,
@@ -4988,7 +5409,7 @@ def phase_train_cut(torch, cfg=None, what: str = "train cut") -> dict:
     model = TpuLM(cfg)
     params = init_params(cfg, 3, device="cpu")
     gen = torch.Generator().manual_seed(19)
-    batches = [torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+    batches = [torch.randint(0, cfg.vocab_size, (2, rows), generator=gen)
                for _ in range(3)]
     res = {}
     for dev in ("cpu", "cuda"):
@@ -5930,7 +6351,8 @@ REST_MOE_NEW = 16
 #: REST_LAYERS layers, rows of 2048 tokens, 2 rows, 2 steps; the
 #: two-rank run (--sp 2, gloo, both ranks on the card) against the same
 #: flags in one process, whose attention is B5-B7 and not the ring: the
-#: losses within REST_TOL["loss"]
+#: losses within REST_TOL["loss"]. Rows of 1024 took as long on the H100
+#: (33.5 s against 30.9: the three processes' start is the part's time)
 REST_RING_FLAGS = ("--synthetic 200000 --seq-len 2047 --global-batch 2 "
                    f"--steps 2 --n-layers {REST_LAYERS} --log-every 1 "
                    "--ring")
@@ -7116,6 +7538,13 @@ AGENT_WAIT_S = 120.0
 #: the bearer token the phase's apiserver takes
 AGENT_TOKEN = "agent-smoke-token"
 AGENT_NODE = "smoke-node"
+#: the agent phase's partition step: the agent restarted under
+#: ``TPUSLICE_NEMESIS_PLAN``, cut from the apiserver this many seconds after
+#: its start (its boot, which needs the apiserver, done by then) for this
+#: many, with this seed
+AGENT_CUT_AT_S = 2.5
+AGENT_CUT_S = 4.0
+AGENT_CUT_SEED = 1234
 _AGENT_PROBE = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -7133,18 +7562,29 @@ def agent_child(kubeconfig: str, registry: str, probe: str) -> int:
     the NVML backend on the phase's own registry directory (the CLI has
     no flag for it, as the reference's has none) and a health sweep every
     ``AGENT_HEALTH_S``. ``TPUSLICE_CRASH_AT`` in the environment arms its
-    crash points."""
+    crash points; ``TPUSLICE_NEMESIS_PLAN`` puts its kube client behind
+    the network nemesis as the sim puts each component's (identity
+    ``agent-<node>``), the plan's schedule counted from here."""
     from instaslice_tpu_torch.agent.runner import AgentRunner
     from instaslice_tpu_torch.cli import agent_main
     from instaslice_tpu_torch.device import select_backend
+    from instaslice_tpu_torch.faults.netchaos import (
+        NemesisKubeClient,
+        get_nemesis,
+    )
     from instaslice_tpu_torch.kube.real import build_client
 
     args = agent_main.build_parser().parse_args([
         "--node-name", AGENT_NODE, "--backend", "nvml",
         "--kubeconfig", kubeconfig, "--health-probe-bind-address", probe,
         "--metrics-bind-address", "127.0.0.1:0"])
+    client = build_client(args.kubeconfig)
+    plan = get_nemesis()
+    if plan is not None:
+        client = NemesisKubeClient(client, plan.start(),
+                                   f"agent-{args.node_name}")
     runner = AgentRunner(
-        build_client(args.kubeconfig),
+        client,
         select_backend(args.backend, registry_dir=registry),
         node_name=args.node_name, namespace=args.namespace,
         metrics_bind_address=args.metrics_bind_address,
@@ -7278,19 +7718,23 @@ class AgentProcess:
     spans to ``sinks/<name><n>.trace.jsonl`` (``TPUSLICE_TRACE_FILE``),
     the latter unless it is armed to crash: a hard crash inside a span
     never writes that span, so the children it wrote before would stand
-    in the file as orphans by design."""
+    in the file as orphans by design. ``nemesis``: the process's
+    ``TPUSLICE_NEMESIS_PLAN`` (:func:`agent_child` honours it)."""
 
     def __init__(self, work: Path, n: int, crash_at: str = "",
-                 manifest: str = "", sinks: Path | None = None) -> None:
+                 manifest: str = "", sinks: Path | None = None,
+                 nemesis: str = "") -> None:
         import os
         import socket
 
         env = dict(os.environ)
         for k in ("TPUSLICE_CRASH_AT", "TPUSLICE_TRACE_FILE",
-                  "TPUSLICE_EVENT_FILE"):
+                  "TPUSLICE_EVENT_FILE", "TPUSLICE_NEMESIS_PLAN"):
             env.pop(k, None)
         if crash_at:
             env.update(TPUSLICE_CRASH_AT=crash_at, TPUSLICE_CRASH_HARD="1")
+        if nemesis:
+            env["TPUSLICE_NEMESIS_PLAN"] = nemesis
         kubeconfig = str(work / "kubeconfig.json")
         if manifest:
             from instaslice_tpu_torch.device.nvml import DEFAULT_REGISTRY
@@ -7437,9 +7881,16 @@ def phase_agent(torch, card: str, served: list) -> dict:
     the workload (:func:`slice_child`) in a fresh process on the
     ConfigMap's env, as ``envFrom`` gives it: one device, the granted
     UUID, the serve phase's tokens, B1-B3 on the card's trace; (e) two
-    health sweeps leave ``status.unhealthyChips`` at ``[]``; (g) the
+    health sweeps leave ``status.unhealthyChips`` at ``[]``; (h) the
+    agent, holding the grant, restarted under ``TPUSLICE_NEMESIS_PLAN``
+    (``AGENT_CUT_AT_S`` into its run, for ``AGENT_CUT_S``):
+    ``DegradedModeEntered`` once on its ``/v1/debug/events``, another
+    process listing the reservation unchanged during the cut,
+    ``DegradedModeExited`` after it, the CR's ``prepared`` equal to the
+    device's reservations, MIG instances unchanged; (g) the
     allocation flipped to ``deleted`` is torn down: reservation,
-    ConfigMap, Node resource and record gone; (f), after (g) so that it
+    ConfigMap, Node resource and record gone, and then (h) ends with a
+    pod submitted after the heal granted and torn down; (f), after (g) so that it
     runs on a card of one GPU with MIG off too, an agent armed to crash
     hard at ``agent.realize`` dies on a second allocation with its
     reservation made and unrecorded; that allocation removed from the
@@ -7451,6 +7902,8 @@ def phase_agent(torch, card: str, served: list) -> dict:
 
     from instaslice_tpu_torch.api.constants import (
         POD_RESOURCE_PREFIX,
+        REASON_DEGRADED_ENTERED,
+        REASON_DEGRADED_EXITED,
         REASON_ORPHAN_REAPED,
     )
     from instaslice_tpu_torch.api.types import (
@@ -7645,6 +8098,63 @@ def phase_agent(torch, card: str, served: list) -> dict:
         log(f"agent (e): {n_sweeps} health sweeps, unhealthyChips "
             f"{ts.status.unhealthy_chips}")
 
+        # (h) static mode: the agent, holding the grant, restarted under a
+        # partition from the apiserver; then the heal
+        t_cut = time.perf_counter()
+        code = a.stop()
+        check(code == 0, f"agent: SIGTERM exit {code}: {a.tail()}")
+        held = [[r.slice_uuid, r.profile, list(r.device_uuids)]
+                for r in backend.list_reservations()]
+        inst = {r.device_uuids for r in backend.instances()}
+        plan = (f"seed={AGENT_CUT_SEED};agent-{AGENT_NODE}>apiserver:"
+                f"kind=partition,start={AGENT_CUT_AT_S},"
+                f"duration={AGENT_CUT_S}")
+        a = AgentProcess(work, 3, nemesis=plan)
+        agents.append(a)
+        wait_until(lambda: a.probes_up("agent (h)"),
+                   "the cut agent's probes", poll=0.05)
+
+        def events(reason):
+            code, body = http_get(f"{a.url}/v1/debug/events?reason={reason}")
+            return body["events"] if code == 200 else None
+
+        wait_until(lambda: events(REASON_DEGRADED_ENTERED),
+                   "DegradedModeEntered", poll=0.05)
+        t_entered = time.perf_counter() - a.t0
+        probe = subprocess.run(
+            [sys.executable, "-c", _AGENT_PROBE, str(HERE),
+             str(work / "reg")], capture_output=True, text=True,
+            timeout=300, cwd=HERE)
+        check(probe.returncode == 0, f"agent: probe failed {probe.stderr}")
+        seen = json.loads(probe.stdout.strip().splitlines()[-1])
+        check(not events(REASON_DEGRADED_EXITED),
+              "agent (h): the probe ran inside the cut")
+        check(seen == held, f"agent (h): during the cut another process "
+              f"lists {seen}, {held} before it")
+        wait_until(lambda: events(REASON_DEGRADED_EXITED),
+                   "DegradedModeExited", poll=0.05)
+        t_exited = time.perf_counter() - a.t0
+        entered = events(REASON_DEGRADED_ENTERED)
+        check(len(entered) == 1, f"agent (h): DegradedModeEntered "
+              f"{len(entered)} times")
+        ts = cr()
+        dev = sorted(r.slice_uuid for r in backend.list_reservations())
+        check(sorted(ts.spec.prepared) == dev == [suid]
+              and key in ts.spec.allocations[alloc.alloc_id].realized_on,
+              f"agent (h): after the heal the CR's prepared "
+              f"{sorted(ts.spec.prepared)}, the device's {dev}")
+        left = {r.device_uuids for r in backend.instances()}
+        check(left == inst, f"agent (h): MIG instances {inst} -> {left}")
+        out["partition"] = {
+            "entered_s": t_entered, "exited_s": t_exited,
+            "cut": [AGENT_CUT_AT_S, AGENT_CUT_S], "listed": seen,
+            "entered": len(entered)}
+        log(f"agent (h): restarted under {plan!r}: DegradedModeEntered "
+            f"once, {t_entered:.2f} s after its start; during the cut "
+            f"another process lists {seen} unchanged; DegradedModeExited "
+            f"{t_exited:.2f} s after its start; the CR's prepared equals "
+            f"the device's {dev}; MIG instances unchanged")
+
         # (g) teardown
         t0 = time.perf_counter()
         write(lambda t: t.spec.allocations[alloc.alloc_id].set_status(
@@ -7665,6 +8175,27 @@ def phase_agent(torch, card: str, served: list) -> dict:
         log(f"agent (g): deleted -> record erased in "
             f"{out['teardown_ms']:.1f} ms; ConfigMap, Node resource, "
             f"reservation gone; MIG instances {sorted(left)}")
+        # (h) ends: a pod submitted after the heal is granted (after (g):
+        # a card of one GPU with MIG off has no room beside the first)
+        pod3 = PodRef("agent-pod3-uid", "agent-pod3", "default")
+        alloc3 = AllocationDetails.from_placement(pl, [pod3])
+        write(lambda t: t.spec.allocations.__setitem__(alloc3.alloc_id,
+                                                       alloc3))
+        wait_until(lambda: key in cr().spec.allocations[
+            alloc3.alloc_id].realized_on, "the post-heal grant")
+        check([r.slice_uuid for r in backend.list_reservations()]
+              == [slice_uuid_for(alloc3.alloc_id)],
+              "agent (h): the post-heal pod's reservation")
+        write(lambda t: t.spec.allocations[alloc3.alloc_id].set_status(
+            AllocationStatus.DELETED))
+        wait_until(lambda: alloc3.alloc_id not in cr().spec.allocations,
+                   "the post-heal grant's erased record")
+        check(not backend.list_reservations()
+              and {r.device_uuids for r in backend.instances()}
+              == before_inst, "agent (h): the post-heal grant torn down")
+        out["partition"]["seconds"] = time.perf_counter() - t_cut
+        log(f"agent (h): a pod submitted after the heal granted and torn "
+            f"down; the step {out['partition']['seconds']:.1f} s")
         code = a.stop()
         check(code == 0, f"agent: SIGTERM exit {code}: {a.tail()}")
 
@@ -8205,19 +8736,23 @@ def phase_controller(torch, card: str, served: list, sinks: Path) -> dict:
 
 # ---------------------------------------------------- trace and event files
 
-def phase_obs(migrate_sinks: dict, controller_sinks: dict,
-              work: Path) -> dict:
+def phase_obs(migrate_sinks: dict, kill_sinks: dict,
+              controller_sinks: dict, work: Path) -> dict:
     """The port's validators (``analysis/validate_trace.py``,
     ``validate_events.py``) on the files the migrate phase (its two 7B
-    int8 servers, its router and its engines: one process) and the
-    controller phase (the node agent and each controller, a process each)
-    wrote. (a) Each trace file alone passes ``validate`` (no process's
-    span names a parent in another's file); (b) ``--fleet``: the store of
-    every trace file merged has no orphan, the propagation contract holds
-    over it (``check_propagation``: a trace links ``controller.allocate``,
+    int8 servers, its router and its engines: one process), the kill
+    phase (its router in this process, the survivor and the fresh
+    replica each a process of its own) and the controller phase (the
+    node agent and each controller, a process each) wrote. (a) Each trace
+    file alone passes ``validate`` (no process's span names a parent in
+    another's file); (b) ``--fleet``: the store of every trace file
+    merged has no orphan, the propagation contract holds over it
+    (``check_propagation``: a trace links ``controller.allocate``,
     ``device.reserve`` and ``controller.ungate``; every ``serve.request``
-    root has children), and a grant's trace crosses a controller's file
-    and the agent's; (c) each event file alone passes ``read_events``
+    root has children), a grant's trace crosses a controller's file and
+    the agent's, and a request's trace crosses the kill phase's router
+    file (``router.route``) and a replica process's (``serve.request``);
+    (c) each event file alone passes ``read_events``
     (parse, fields, the reason catalog, unique ``seq``), and the
     allocation chains of all of them merged by time pass ``check_chains``
     strictly (a grant's chain is written by the controller and the agent
@@ -8235,11 +8770,14 @@ def phase_obs(migrate_sinks: dict, controller_sinks: dict,
     )
 
     t0 = time.perf_counter()
-    traces = {**migrate_sinks["trace"], **controller_sinks["trace"]}
-    events = {**migrate_sinks["event"], **controller_sinks["event"]}
+    traces = {**migrate_sinks["trace"], **kill_sinks["trace"],
+              **controller_sinks["trace"]}
+    events = {**migrate_sinks["event"], **kill_sinks["event"],
+              **controller_sinks["event"]}
     check(any(n.startswith("agent") for n in traces)
           and any(n.startswith("controller") for n in traces)
-          and "fleet" in traces, f"obs: trace files {sorted(traces)}")
+          and {"fleet", "chaos_router", "chaos_survivor", "chaos_fresh"}
+          <= set(traces), f"obs: trace files {sorted(traces)}")
     out = {"trace_files": {}, "event_files": {}}
     spans, by_file = [], {}
     # (a)
@@ -8270,9 +8808,18 @@ def phase_obs(migrate_sinks: dict, controller_sinks: dict,
     check(crossing, f"obs (b): no grant trace crosses a controller's file "
           f"and the agent's: allocate {sorted(allocated)}, reserve "
           f"{sorted(reserved)}")
+    routed = {s["traceId"] for s in by_file["chaos_router"]
+              if s["name"] == "router.route"}
+    served = {s["traceId"] for n in ("chaos_survivor", "chaos_fresh")
+              for s in by_file[n] if s["name"] == "serve.request"}
+    serving = sorted(routed & served)
+    check(serving, f"obs (b): no serving trace crosses the router's file "
+          f"and a replica process's: {len(routed)} routed, {len(served)} "
+          f"served")
     out["fleet"] = {k: fleet[k] for k in ("files", "spans_ingested",
                                           "traces", "orphans")}
     out["grant_traces_across_files"] = len(crossing)
+    out["serving_traces_across_files"] = len(serving)
     # (c)
     merged_ev = []
     for i, (name, path) in enumerate(events.items()):
@@ -8315,7 +8862,8 @@ def phase_obs(migrate_sinks: dict, controller_sinks: dict,
     out["seconds"] = time.perf_counter() - t0
     log(f"obs: trace files {out['trace_files']}; --fleet {out['fleet']}, "
         f"{len(crossing)} grant trace(s) across a controller's file and "
-        f"the agent's; event files {out['event_files']}; merged chains "
+        f"the agent's, {len(serving)} serving trace(s) across the kill "
+        f"phase's router file and a replica's; event files {out['event_files']}; merged chains "
         f"strict over {out['granted_chains']} grants; the control (one "
         f"orphan parent in a copy of {agent}'s trace file) refused alone "
         f"and merged; the step {out['seconds']:.2f} s")
@@ -8628,6 +9176,9 @@ def main() -> int:
     migrate = phase_migrate(torch, ops, sinks)
     mark("migrate", t0)
     t0 = time.perf_counter()
+    kill = phase_kill(torch, sinks)
+    mark("kill", t0)
+    t0 = time.perf_counter()
     lora_serve = phase_lora_serve(torch, ops)
     mark("lora_serve", t0)
     t0 = time.perf_counter()
@@ -8653,7 +9204,9 @@ def main() -> int:
     cli = phase_cli(torch, ops)
     mark("cli", t0)
     t0 = time.perf_counter()
-    cut = phase_train_cut(torch)
+    cut = phase_train_cut(torch, train_config(
+        torch, n_layers=TRAIN_CUT_LAYERS, dtype=torch.float32,
+        param_dtype=None), rows=TRAIN_CUT_ROWS)
     mark("train_cut", t0)
     t0 = time.perf_counter()
     lora_train = phase_lora_train(torch, ops, train)
@@ -8678,7 +9231,8 @@ def main() -> int:
     controller = phase_controller(torch, card, served, sinks)
     mark("controller", t0)
     t0 = time.perf_counter()
-    obs = phase_obs(migrate.pop("sinks"), controller.pop("sinks"), sinks)
+    obs = phase_obs(migrate.pop("sinks"), kill.pop("sinks"),
+                    controller.pop("sinks"), sinks)
     shutil.rmtree(sinks, ignore_errors=True)
     mark("obs", t0)
     t0 = time.perf_counter()
@@ -8767,6 +9321,10 @@ def main() -> int:
         # migrate phase's two servers (its fleet step), from the card's
         # trace
         k["fleet_launches"] = migrate["fleet"]["counts"][k["name"]]
+        # the chaos step's kill arm: the survivor's and the fresh
+        # replica's own processes, from each one's card trace
+        k["kill_launches"] = {n: c[k["name"]]
+                              for n, c in kill["counts"].items()}
         # B1-B3 at the shapes of a tp 2 rank's shards (tp_shard_kernels)
         tp = tp_serve["shard_kernels"].get(k["name"])
         if tp is not None:
@@ -8828,6 +9386,19 @@ def main() -> int:
     log(json.dumps({"card": card, "agent": agent}))
     log(json.dumps({"card": card, "controller": controller}))
     log(json.dumps({"card": card, "ctl": ctl}))
+    # the chaos step: the migrate phase's gray arm, the kill phase, the
+    # agent phase's partition step
+    gray, part = migrate["gray"], agent["partition"]
+    log(json.dumps({"card": card, "chaos": {
+        "seconds": gray["seconds"] + kill["seconds"] + part["seconds"],
+        "gray": {k: gray[k] for k in (
+            "eject_s", "readmit_s", "around_outcomes", "nemesis_arm",
+            "ejections", "seconds")},
+        "kill": {k: kill[k] for k in (
+            "outcomes", "victim_exit", "kill_to_removed_ms",
+            "fresh_first_token_s", "build_s", "turn_s", "warm_s",
+            "start_s", "torn", "ledger", "seconds")},
+        "partition": part}}))
     log(json.dumps({"card": card, "gates": gates, "obs": obs,
                     "profile": serve["profile"]}))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)

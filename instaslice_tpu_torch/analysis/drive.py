@@ -12,7 +12,7 @@ PROFILE = "1g.10gb"
 
 
 def tiny_engine(device: str, d_model: int = 32, d_ff: int = 64,
-                max_batch: int = 4, seed: int = 0):
+                max_batch: int = 4, seed: int = 0, max_len: int = 64):
     """The engine on ``device`` (``"cuda"`` raises without a card)."""
     import torch
 
@@ -28,7 +28,7 @@ def tiny_engine(device: str, d_model: int = 32, d_ff: int = 64,
     cfg = ModelConfig(vocab_size=64, d_model=d_model, n_heads=2, n_layers=2,
                       d_ff=d_ff, dtype=torch.float32, remat=False)
     return ServingEngine(TpuLM(cfg), init_params(cfg, seed, device=dev),
-                         device=dev, max_batch=max_batch, max_len=64,
+                         device=dev, max_batch=max_batch, max_len=max_len,
                          prefill_len=8)
 
 

@@ -27,6 +27,12 @@ mesh of (1, 1, 2); each rank writes what the test compares to
   ``DistributedEngine`` that recovers from a chip failure injected into
   the driver mid-decode; with ``control`` the driver recovers alone
   (``recover()`` kept off the op stream). Each rank's digest and slots.
+- ``nemesis``: meshless engines on both ranks (no collective to hang
+  on); rank 0 drives a request over the op stream, then a seeded
+  nemesis partitions its ``opstream>follower:<addr>`` edge (with
+  ``control``, it partitions no edge) and it drives on: the follower's
+  connection count before and after, and the driver's tokens; rank 1
+  follows until its stream ends, the ops it applied.
 
 It imports the port and torch only, never JAX.
 """
@@ -319,7 +325,37 @@ def run_recover(case, mesh, rank: int) -> dict:
         DriverRecoversAlone if case.get("control") else DistributedEngine)
 
 
-RUN = {"forward": run_forward, "refusals": run_refusals,
+def nemesis_script(case):
+    """The op-stream partition, driven on rank 0 (see ``nemesis``)."""
+    from instaslice_tpu_torch.faults.netchaos import NemesisPlan, set_nemesis
+
+    def drive(deng) -> dict:
+        deng.add_request([3, 5, 7])
+        deng.decode_block(2)
+        before = len(deng._conns)
+        plan = NemesisPlan(case["seed"])
+        if not case.get("control"):
+            plan.partition("opstream", f"follower:{deng._conns[0][1]}")
+        set_nemesis(plan)
+        try:
+            deng.add_request([4, 6])
+            after = len(deng._conns)
+            deng.decode_block(3)
+        finally:
+            set_nemesis(None)
+        return {"before": before, "after": after,
+                "tokens": [list(s.generated)
+                           for _, s in sorted(deng.slots.items())],
+                "stats": plan.stats()}
+
+    return drive
+
+
+def run_nemesis(case, mesh, rank: int) -> dict:
+    return over_op_stream(case, None, rank, nemesis_script(case))
+
+
+RUN = {"forward": run_forward, "nemesis": run_nemesis, "refusals": run_refusals,
        "oplog": run_oplog, "session": run_session,
        "oplog_lora": run_oplog_lora, "recover": run_recover}
 
